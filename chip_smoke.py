@@ -4,25 +4,39 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``pyfem_gpu_testflight_tpu_torch/
 csrc``, holds each against its plain PyTorch version on the card, then
-drives the main path — the 2D plane-stress GMG-PCG solve at 1025x513
-nodes (1,051,650 dof) — through the package's public entry points, and
+drives the port's two main paths through the package's public entry
+points — the 2D plane-stress GMG-PCG solve at 1025x513 nodes (1,051,650
+dof) and the 3D hex8 GMG-PCG solve at 65^3 nodes (823,875 dof) — and
 checks the answers against float64 references.  Exits nonzero on any
 failure; on success the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
-The line before it lists each kernel's launches on the main path, its
-error against the plain version and both times.
+The line before it lists each kernel's launches on its main path (the
+counts are zeroed just before that path's solve and read just after),
+its error against the plain version, its time, the plain version's
+time, its bound and, where one PyTorch call computes the same function,
+that call's time.
 
 Phases:
 1. device: require CUDA, print the card's name and power limit;
-2. build the kernels (nvcc, sm_90a) and time it;
-3. kernel vs plain at the main path's shapes (K1 at 1025x513 and 65x33,
-   K2 in the four V-cycle variants and niter=8), with times;
-4. the bench configuration (p=0, rho=1, Chebyshev-node nu=2, bf16
+2. build the kernels (one nvcc per source, in parallel) and time it;
+3. 2D kernels vs plain (K1 at 1025x513 and 65x33, K2 in the four
+   V-cycle variants and niter=8), with times and the CSR matvec time;
+3a. 3D kernels vs plain (K3 at 65^3 and 9x7x5 for nd=3 and nd=1, K4 in
+   every mode on f32 and bf16 planes, K5 presmooth+resid and postsmooth
+   on bf16 and nu=4), with times and the CSR matvec time;
+4. the 2D bench configuration (p=0, rho=1, Chebyshev-node nu=2, bf16
    smoother copy, flexible PCG, rtol 1e-6): iterations, launch counts,
-   float64 true residual, single-shot and chained solve times;
+   float64 true residual, single-shot and chained solve times, and where
+   the time goes (CUDA-event phase times, device busy share from
+   ``torch.profiler``);
+4a. the 3D bench configuration (``bench.py --config 3d``: 65^3, p=0,
+   rho=1, Chebyshev-node nu=2, bf16 smoother copy, flexible PCG, rtol
+   1e-6, coarsest 3^3 solved densely), the same measures;
 5. ``LinearElasticity.solve(method="gmg")`` at 1025x513 (rho=0.6 and a
    seeded random rho, p=3);
-6. at 257x129, p^T u against scipy's sparse direct solve.
+5a. the same entry on hex8 at 65^3;
+6. at 257x129, p^T u against scipy's sparse direct solve;
+6a. at 17^3 (p=3, seeded rho), the same against scipy.
 
 Float32 accuracy: the operator is ill-conditioned enough that a float32
 solve stalls at the float32 rounding floor of its operator, about
@@ -30,10 +44,15 @@ u32 * || |A| |x| || / ||b|| in relative residual (u32 = 2^-24; measured
 at 0.8-0.9 of that on CPU up to 257x129).  The float32 solves are held
 to that floor.  The 1e-5 float64 targets are held by the same kernels
 under a float64 outer PCG (the float32 V-cycle as preconditioner).
+
+Bounds: the least time for the same work on an H100 SXM, the larger of
+(bytes the function must move, each input read once and each output
+written once) / 3.35 TB/s and (its float32 operations) / 67 TFLOP/s.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import subprocess
 import sys
@@ -43,8 +62,11 @@ import numpy as np
 
 SEED = 0
 NX, NY = 1025, 513  # bench.py's headline grid, 1,051,650 dof
+N3 = 65             # bench.py --config 3d: 65^3 nodes, 823,875 dof
 REL_TOL = 1e-5      # kernel vs plain, relative to max|plain|
 FLOOR_FACTOR = 4.0  # float32 true residual <= this x its rounding floor
+HBM_BYTES_S = 3.35e12  # H100 SXM device memory rate
+F32_FLOP_S = 67e12     # H100 SXM float32 rate outside the tensor cores
 FAILS = []
 
 
@@ -83,6 +105,16 @@ def cuda_ms(fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def bound(n_bytes, flops):
+    """(bound_ms, bound_by) for the card's memory and float32 rates."""
+    tb, tf = n_bytes / HBM_BYTES_S, flops / F32_FLOP_S
+    return 1e3 * max(tb, tf), ("bytes" if tb >= tf else "operations")
+
+
 def rel_err(got, ref, where=None):
     d = (got.float() - ref.float()).abs()
     r = ref.float().abs()
@@ -91,12 +123,14 @@ def rel_err(got, ref, where=None):
     return float(d.max()), float(d.max() / r.max())
 
 
-def problem(nx, ny):
+def problem(nx, ny, nz=None):
     from pyfem_gpu_testflight_tpu_torch import ProblemCreator
 
-    c = ProblemCreator(nnodes_x=nx, nnodes_y=ny, element_type="quad")
+    c = ProblemCreator(nnodes_x=nx, nnodes_y=ny, nnodes_z=nz,
+                       element_type="quad" if nz is None else "block")
     conn, X, fixed, force = c.create_linear_elasticity_problem()
-    return conn, X, fixed, force, float(X[:, 0].max()), float(X[:, 1].max())
+    return conn, X, fixed, force, [float(X[:, k].max())
+                                   for k in range(X.shape[1])]
 
 
 def f64_operator(nx, ny, Lx, Ly, rho, p, dev):
@@ -113,6 +147,25 @@ def f64_operator(nx, ny, Lx, Ly, rho, p, dev):
         st.W, a.N, nd=2, p=p,
     )
     c = c.reshape(2, 2, 3, 3, ny, nx)
+    ca = c.abs()
+    return (lambda u: st.op.matvec(c, u)), (lambda u: st.op.matvec(ca, u)), c
+
+
+def f64_operator_3d(n, L, rho, p, dev):
+    """float64 3D planes by the plain path: (A., |A|., full planes)."""
+    import torch
+    from pyfem_gpu_testflight_tpu_torch import multigrid
+    from pyfem_gpu_testflight_tpu_torch.ops import fused_assemble as fa
+    from pyfem_gpu_testflight_tpu_torch.ops import fused_smooth as fs
+
+    a = multigrid.GMGAssembler3D(n, n, n, *L, "elasticity", p=p,
+                                 dtype=torch.float64, device=dev)
+    st = a.static_levels[0]
+    c, _ = fa.assemble_pack_3d_plain(
+        rho.to(dtype=torch.float64, device=dev).reshape(n, n, n), st.maskf,
+        st.W, a.N, nd=3, p=p,
+    )
+    c = fs.full_planes_3d(c, 3)
     ca = c.abs()
     return (lambda u: st.op.matvec(c, u)), (lambda u: st.op.matvec(ca, u)), c
 
@@ -138,8 +191,64 @@ def accuracy_solve(gmg32, mv64, b, rtol=1e-11):
                          maxiter=200, flexible=True)
 
 
+def stencil_csr(c, shape):
+    """torch sparse CSR of full stencil planes (nd, nd, 3.., *shape).
+
+    Rows and columns are planar dofs (component-major); entries that
+    are zero or point off the grid are dropped.
+    """
+    import torch
+
+    nd, dim = c.shape[0], len(shape)
+    dev = c.device
+    npl = int(np.prod(shape))
+    idx = torch.meshgrid(*[torch.arange(n, device=dev) for n in shape],
+                         indexing="ij")
+    node = torch.arange(npl, device=dev).reshape(shape)
+    rows, cols, vals = [], [], []
+    for ca, cb in itertools.product(range(nd), range(nd)):
+        for off in itertools.product(range(3), repeat=dim):
+            v = c[(ca, cb) + off]
+            ok = v != 0
+            j = [g + o - 1 for g, o in zip(idx, off)]
+            flat = torch.zeros_like(node)
+            for g, n in zip(j, shape):
+                ok &= (g >= 0) & (g < n)
+                flat = flat * n + g
+            rows.append(ca * npl + node[ok])
+            cols.append(cb * npl + flat[ok])
+            vals.append(v[ok])
+    n = nd * npl
+    return torch.sparse_coo_tensor(
+        torch.stack([torch.cat(rows), torch.cat(cols)]), torch.cat(vals),
+        (n, n),
+    ).coalesce().to_sparse_csr()
+
+
+def scipy_csr(c, shape):
+    import scipy.sparse as sp
+
+    A = stencil_csr(c, shape)
+    n = A.shape[0]
+    return sp.csr_matrix((A.values().cpu().numpy(),
+                          A.col_indices().cpu().numpy(),
+                          A.crow_indices().cpu().numpy()), shape=(n, n))
+
+
+def library_matvec_ms(c, shape, x):
+    """``torch.sparse.mm`` time of the same operator, float32 CSR built
+    outside the timed region (the yardstick; the port never calls it)."""
+    import torch
+
+    A = stencil_csr(c.float(), shape)
+    xv = x.reshape(-1, 1)
+    ms = cuda_ms(lambda: torch.sparse.mm(A, xv), 20)
+    del A
+    return ms
+
+
 def phase_kernels(dev):
-    """Phase 3: each kernel against its plain version on the card."""
+    """Phase 3: each 2D kernel against its plain version on the card."""
     import torch
     from pyfem_gpu_testflight_tpu_torch import multigrid
     from pyfem_gpu_testflight_tpu_torch.ops import fused_assemble as fa
@@ -171,15 +280,20 @@ def phase_kernels(dev):
               f"K1 {nx}x{ny} bf16 copy == its f32 planes rounded")
         check(lr <= 2.0 ** -8, f"K1 {nx}x{ny} bf16 copy within 1 bf16 ulp")
         if (nx, ny) == (NX, NY):
+            # per node: ~36 planes x 16 weights + 16 RAMP terms, 2 flops
+            b_ms, b_by = bound(nbytes(rho, st.maskf, st.W, a.N, ck, dk, lk),
+                               2 * (36 * 16 + 64) * rho.numel())
             res["K1"] = dict(max_abs_err=max(ea, ia),
                              ms=cuda_ms(lambda: fa.assemble_pack_2d(
                                  *args, **kw), 50),
                              plain_ms=cuda_ms(
                                  lambda: fa.assemble_pack_2d_plain(
-                                     *args, **kw), 10))
+                                     *args, **kw), 10),
+                             bound_ms=b_ms, bound_by=b_by, library_ms=None)
             fine = (ck, dk, lk, st.mask)
     log(f"K1 {NX}x{NY}: kernel {res['K1']['ms']:.4f} ms, plain "
-        f"{res['K1']['plain_ms']:.4f} ms")
+        f"{res['K1']['plain_ms']:.4f} ms, bound {res['K1']['bound_ms']:.4f} "
+        f"ms ({res['K1']['bound_by']})")
 
     ck, dk, lk, mask = fine
     field = lambda: torch.as_tensor(rng.standard_normal((2, NY, NX)),
@@ -217,7 +331,14 @@ def phase_kernels(dev):
         check(all(e[1] <= REL_TOL for e in errs),
               f"K2 {name} within {REL_TOL:g}")
         if name == "matvec_f32":  # one launch: the per-launch time
-            res["K2"] = dict(ms=ms, plain_ms=pms)
+            b_ms, b_by = bound(nbytes(ck, xr) + nbytes(xr),
+                               2 * 72 * NX * NY)
+            lib = library_matvec_ms(ck.reshape(2, 2, 3, 3, NY, NX),
+                                    (NY, NX), xr)
+            log(f"K2 matvec_f32: torch.sparse.mm (f32 CSR) {lib:.4f} ms, "
+                f"bound {b_ms:.4f} ms ({b_by})")
+            res["K2"] = dict(ms=ms, plain_ms=pms, bound_ms=b_ms,
+                             bound_by=b_by, library_ms=lib)
     # 8 Chebyshev-node sweeps damp the residual far below b, so its
     # rounding is measured against max|b|, the scale it is computed at
     kw = dict(niter=8, want_resid=True,
@@ -235,36 +356,233 @@ def phase_kernels(dev):
     return res
 
 
-def main():
+def phase_kernels_3d(dev):
+    """Phase 3a: K3, K4 and K5 against their plain versions on the card."""
+    import torch
+    from pyfem_gpu_testflight_tpu_torch import multigrid
+    from pyfem_gpu_testflight_tpu_torch.ops import fused_assemble as fa
+    from pyfem_gpu_testflight_tpu_torch.ops import fused_smooth as fs
+
+    rng = np.random.default_rng(SEED + 10)
+    res = {}
+    for (nx, ny, nz), physics in itertools.product(
+        ((N3, N3, N3), (9, 7, 5)), ("elasticity", "poisson")
+    ):
+        a = multigrid.GMGAssembler3D(nx, ny, nz, (nx - 1) / (ny - 1), 1.0,
+                                     (nz - 1) / (ny - 1), physics, p=3.0,
+                                     device=dev)
+        st, nd = a.static_levels[0], a.nd
+        rho = torch.as_tensor(rng.uniform(0.2, 1.0, (nz, ny, nx)),
+                              dtype=torch.float32, device=dev)
+        args = (rho, st.maskf, st.W, a.N)
+        kw = dict(nd=nd, p=3.0, lp_dtype=torch.bfloat16)
+        ck, dk, lk = fa.assemble_pack_3d(*args, **kw)
+        cp, dp, _ = fa.assemble_pack_3d_plain(*args, **kw)
+        torch.cuda.synchronize()
+        free = st.maskf > 0
+        ea, er = rel_err(ck, cp)
+        ia, ir = rel_err(dk, dp, free)
+        tag = f"K3 {nx}x{ny}x{nz} nd={nd}"
+        log(f"{tag}: planes rel {er:.2e} (abs {ea:.2e}), inv_diag free rel "
+            f"{ir:.2e}")
+        check(er <= REL_TOL, f"{tag} planes within {REL_TOL:g}")
+        check(ir <= REL_TOL, f"{tag} inv_diag within {REL_TOL:g}")
+        check(bool((dk[~free] == 0).all()), f"{tag} inv_diag 0 fixed")
+        check(torch.equal(lk, ck.to(torch.bfloat16)),
+              f"{tag} bf16 copy == its f32 planes rounded")
+        if (nx, ny, nz, nd) == (N3, N3, N3, 3):
+            # per node: ~2,300 weight FMAs over the kept planes + 512 for
+            # the material at 64 quad points, 2 flops each
+            b_ms, b_by = bound(nbytes(rho, st.maskf, st.W, a.N, ck, dk, lk),
+                               2 * (2300 + 512) * rho.numel())
+            res["K3"] = dict(
+                max_abs_err=max(ea, ia),
+                ms=cuda_ms(lambda: fa.assemble_pack_3d(*args, **kw), 20),
+                plain_ms=cuda_ms(lambda: fa.assemble_pack_3d_plain(
+                    *args, **kw), 3),
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+            log(f"K3 {N3}^3: kernel {res['K3']['ms']:.4f} ms, plain "
+                f"{res['K3']['plain_ms']:.4f} ms, bound "
+                f"{b_ms:.4f} ms ({b_by})")
+            fine = (ck, dk, lk, st.mask)
+
+    ck, dk, lk, mask = fine
+    shape = (3, N3, N3, N3)
+    field = lambda: torch.as_tensor(rng.standard_normal(shape),
+                                    dtype=torch.float32, device=dev)
+    b = torch.where(mask, 0.0, field())
+    x0 = torch.where(mask, 0.0, field())
+    xr = field()
+    n3 = N3 ** 3
+    k4 = {}
+    for cname, c in (("f32", ck), ("bf16", lk)):
+        k4.update({
+            f"sweep_{cname}": ((c, dk, b, x0), dict(mode="sweep", omega=0.5)),
+            f"resid_{cname}": ((c, None, b, x0), dict(mode="resid")),
+            f"negresid_{cname}": ((c, None, b, x0),
+                                  dict(mode="resid", neg_resid=True)),
+            f"matvec_{cname}": ((c, None, None, xr),
+                                dict(mode="matvec", neg_resid=True)),
+            f"negmatvec_{cname}": ((c, None, None, xr), dict(mode="matvec")),
+        })
+    worst = 0.0
+    for name, (a, kw) in k4.items():
+        got = fs.fused_sweep_3d(*a, **kw)
+        ref = fs.fused_sweep_3d_plain(*a, **kw)
+        torch.cuda.synchronize()
+        ea, er = rel_err(got, ref)
+        worst = max(worst, ea)
+        log(f"K4 {name}: rel {er:.2e}")
+        check(er <= REL_TOL, f"K4 {name} within {REL_TOL:g}")
+    a, kw = k4["matvec_f32"]
+    b_ms, b_by = bound(nbytes(ck, xr) + nbytes(xr), 2 * 243 * n3)
+    lib = library_matvec_ms(fs.full_planes_3d(ck, 3), (N3, N3, N3), xr)
+    res["K4"] = dict(
+        max_abs_err=worst,
+        ms=cuda_ms(lambda: fs.fused_sweep_3d(*a, **kw), 50),
+        plain_ms=cuda_ms(lambda: fs.fused_sweep_3d_plain(*a, **kw), 5),
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+    log(f"K4 matvec_f32 {N3}^3: kernel {res['K4']['ms']:.4f} ms, plain "
+        f"{res['K4']['plain_ms']:.4f} ms, torch.sparse.mm (f32 CSR) "
+        f"{lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+
+    om2 = multigrid.smoothing_omegas(2, 3.0)
+    k5 = {
+        "presmooth_resid_bf16": ((lk, dk, b, None),
+                                 dict(niter=2, want_resid=True, omega=om2)),
+        "postsmooth_bf16": ((lk, dk, b, x0), dict(niter=2, omega=om2[::-1])),
+    }
+    worst = 0.0
+    for name, (a, kw) in k5.items():
+        got = fs.fused_sweeps3d(*a, **kw)
+        ref = fs.fused_sweeps3d_plain(*a, **kw)
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        errs = [rel_err(g, r) for g, r in zip(got, ref)]
+        worst = max([worst] + [e[0] for e in errs])
+        ms = cuda_ms(lambda: fs.fused_sweeps3d(*a, **kw), 20)
+        pms = cuda_ms(lambda: fs.fused_sweeps3d_plain(*a, **kw), 3)
+        log(f"K5 {name}: rel " + ", ".join(f"{e[1]:.2e}" for e in errs)
+            + f"; kernel {ms:.4f} ms, plain {pms:.4f} ms")
+        check(all(e[1] <= REL_TOL for e in errs),
+              f"K5 {name} within {REL_TOL:g}")
+        if name == "presmooth_resid_bf16":
+            # the function reads the planes once; the per-sweep form
+            # reads them halo_sweeps_3d(2, True, True) = 2 times
+            b_ms, b_by = bound(nbytes(lk, dk, b) + 2 * nbytes(b),
+                               2 * 243 * 2 * n3)
+            res["K5"] = dict(ms=ms, plain_ms=pms, bound_ms=b_ms,
+                             bound_by=b_by, library_ms=None)
+            log(f"K5 {name}: bound {b_ms:.4f} ms ({b_by}); stencil "
+                f"passes {fs.halo_sweeps_3d(2, True, True)}")
+    # nu=4 Chebyshev-node sweeps: the residual is damped below b, so its
+    # rounding is measured against max|b| (as K2's niter=8 check)
+    kw = dict(niter=4, want_resid=True,
+              omega=multigrid.smoothing_omegas(4, 3.0))
+    (xk, rk), (xp, rp) = (fs.fused_sweeps3d(lk, dk, b, x0, **kw),
+                          fs.fused_sweeps3d_plain(lk, dk, b, x0, **kw))
+    ex, rr = rel_err(xk, xp), rel_err(rk, rp)
+    bmax = float(b.abs().max())
+    log(f"K5 nu4_cheby_bf16: x rel {ex[1]:.2e}; r rel {rr[1]:.2e} of "
+        f"max|r|, {rr[0] / bmax:.2e} of max|b|")
+    check(ex[1] <= REL_TOL and rr[0] <= REL_TOL * bmax,
+          f"K5 nu4_cheby x and r within {REL_TOL:g} (r of max|b|)")
+    res["K5"]["max_abs_err"] = max(worst, ex[0], rr[0])
+    return res
+
+
+def solve_and_measure(step, args, names, label):
+    """Warm-up solve, then one solve with the named counts zeroed just
+    before and read just after; returns (outputs, counts, ms)."""
+    import torch
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+
+    t0 = time.time()
+    step(*args)  # first call: library and allocator warm-up
+    torch.cuda.synchronize()
+    log(f"{label}: first (cold) solve {1e3 * (time.time() - t0):.1f} ms "
+        f"host clock")
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    _cuda.reset_launches()
+    e0.record()
+    out = step(*args)
+    e1.record()
+    e1.synchronize()
+    counts = {k: _cuda.launches[k] for k in names}
+    return out, counts, e0.elapsed_time(e1)
+
+
+def chained_ms(step, rho, rhs, u, n_chain=10):
     import torch
 
-    # 1. device
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
-    card = card_line()
-    log(card)
-    dev = torch.device("cuda", 0)
-    kind = torch.cuda.get_device_name(0)
-    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}")
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(n_chain):
+        u = step(rho, rhs, u)[0]
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / n_chain
 
-    import pyfem_gpu_testflight_tpu_torch as pt
+
+def breakdown(label, step, args, asm, rho, b, single_ms):
+    """Where one solve's time goes: CUDA-event times of the hierarchy
+    assembly, the PCG solve, one V-cycle and one fine-level matvec, then
+    one assemble+solve under ``torch.profiler``: the kernels' device
+    time, the launches, and the device busy share of ``single_ms``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
     from pyfem_gpu_testflight_tpu_torch import multigrid
-    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
-    from pyfem_gpu_testflight_tpu_torch.ops.dia import (
-        interleave_to_planar, planar_to_interleave,
-    )
 
-    # 2. build
-    t0 = time.time()
-    _cuda.library()
-    log(f"build: {time.time() - t0:.2f} s")
+    def timed(fn, reps=1):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(reps):
+            out = fn()
+        e1.record()
+        e1.synchronize()
+        return out, e0.elapsed_time(e1) / reps
 
-    # 3. kernels vs plain
-    kres = phase_kernels(dev)
+    (gmg, lv0), asm_ms = timed(lambda: asm.assemble(rho))
+    (_x, k, _rn), pcg_ms = timed(lambda: multigrid.pcg_gmg(
+        gmg, lv0, b, rtol=1e-6, maxiter=200, flexible=True))
+    _, vc_ms = timed(lambda: gmg.apply(b), 5)
+    _, mv_ms = timed(lambda: lv0.matvec(b), 20)
+    log(f"{label} breakdown (CUDA events): hierarchy assembly {asm_ms:.3f} "
+        f"ms, PCG {pcg_ms:.3f} ms ({k} iterations), one V-cycle "
+        f"{vc_ms:.3f} ms, one fine matvec {mv_ms:.4f} ms")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(*args)
+        torch.cuda.synchronize()
 
-    # 4. main path: bench.py run_2d's speed step through the port
-    conn, X, fixed, force, Lx, Ly = problem(NX, NY)
+    def dev_us(row):
+        return getattr(row, "self_device_time_total",
+                       getattr(row, "self_cuda_time_total", 0.0))
+
+    rows = [r for r in prof.key_averages() if dev_us(r) > 0]
+    busy_ms = sum(dev_us(r) for r in rows) / 1e3
+    if not rows:
+        log(f"{label} profile: no device time recorded (busy share not "
+            f"measured)")
+        return
+    log(f"{label} profile: {sum(r.count for r in rows)} device activities "
+        f"(kernels and copies) in one assemble+solve, device time "
+        f"{busy_ms:.3f} ms = {100 * busy_ms / single_ms:.1f}% of the "
+        f"unprofiled single-shot {single_ms:.3f} ms")
+    for r in sorted(rows, key=dev_us, reverse=True)[:8]:
+        log(f"  {dev_us(r) / 1e3:9.3f} ms {r.count:6d}x  {r.key[:90]}")
+
+
+def phase_main_2d(dev, pt, multigrid, i2p, p2i):
+    """Phase 4: the 2D bench configuration through the port."""
+    import torch
+
+    conn, X, fixed, force, (Lx, Ly) = problem(NX, NY)
     model = pt.LinearElasticity("quad4", X, conn, fixed, None, force, p=0.0,
                                 dtype=torch.float32, device=dev)
     asm = multigrid.GMGAssembler(
@@ -272,171 +590,263 @@ def main():
         device=dev, nu_pre=2, nu_post=2, min_n=5, coarse_dense_max=4096,
         smoother_dtype=torch.bfloat16, omega="cheby",
     )
-    log(f"main path: {model.ndof} dof, levels {asm.sizes}")
+    log(f"main path 2D: {model.ndof} dof, levels {asm.sizes}")
     rho = torch.ones(model.nnodes, dtype=torch.float32, device=dev)
     rhs = model.compute_rhs()
 
     def step(rho, rhs, chain):
         rho = rho + 0.0 * chain[0]
         gmg, lv0 = asm.assemble(rho)
-        b = torch.where(lv0.mask, 0.0,
-                        interleave_to_planar(rhs, 2).reshape(2, NY, NX))
+        b = torch.where(lv0.mask, 0.0, i2p(rhs, 2).reshape(2, NY, NX))
         x, k, rn = multigrid.pcg_gmg(gmg, lv0, b, rtol=1e-6, maxiter=200,
                                      flexible=True)
-        return planar_to_interleave(x.reshape(-1), 2), k, rn, b, gmg
+        return p2i(x.reshape(-1), 2), k, rn, b, gmg
 
-    t0 = time.time()
-    step(rho, rhs, rhs)  # first call: library and allocator warm-up
-    torch.cuda.synchronize()
-    log(f"bench config: first (cold) solve {1e3 * (time.time() - t0):.1f} "
-        f"ms host clock")
-    _cuda.reset_launches()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    u, k, rn, b, gmg = step(rho, rhs, rhs)
-    e1.record()
-    e1.synchronize()
-    counts = dict(_cuda.launches)
-    single_ms = e0.elapsed_time(e1)
-    log(f"bench config: {k} PCG iterations (JAX reference: 7), "
+    (u, k, rn, b, gmg), counts, single_ms = solve_and_measure(
+        step, (rho, rhs, rhs), ("pyfem_assemble_2d", "pyfem_smooth_2d"),
+        "bench 2D")
+    log(f"bench 2D: {k} PCG iterations (JAX reference: 7), "
         f"||r||/||b|| {float(rn) / float(torch.linalg.norm(b)):.3e}, "
         f"launches {counts}, single-shot {single_ms:.3f} ms")
-    check(k <= 8, "bench config converges in <= 8 iterations")
+    check(k <= 8, "bench 2D converges in <= 8 iterations")
     check(float(rn) <= 1e-6 * float(torch.linalg.norm(b)),
-          "bench config PCG residual <= rtol")
+          "bench 2D PCG residual <= rtol")
     check(bool(torch.isfinite(u).all()) and u.shape == (model.ndof,),
-          "bench config solution finite, shape (ndof,)")
+          "bench 2D solution finite, shape (ndof,)")
     check(all(v > 0 for v in counts.values()), "K1 and K2 launched")
     mv64, mvabs, _ = f64_operator(NX, NY, Lx, Ly, rho, 0.0, dev)
-    x = interleave_to_planar(u, 2).reshape(2, NY, NX)
+    x = i2p(u, 2).reshape(2, NY, NX)
     true, floor = residuals(mv64, mvabs, b, x)
-    log(f"bench config: float64 true residual {true:.3e} (float32 floor "
+    log(f"bench 2D: float64 true residual {true:.3e} (float32 floor "
         f"{floor:.3e}, ratio {true / floor:.2f}); <= 1e-5: {true <= 1e-5}")
     check(true <= FLOOR_FACTOR * floor,
-          f"bench config true residual <= {FLOOR_FACTOR:g} x float32 floor")
+          f"bench 2D true residual <= {FLOOR_FACTOR:g} x float32 floor")
     xa, ka, rna = accuracy_solve(gmg, mv64, b)
     true_a, _ = residuals(mv64, mvabs, b, xa)
-    log(f"float64 outer PCG, float32 kernel V-cycle: {ka} iterations, "
-        f"true residual {true_a:.3e}")
-    check(true_a <= 1e-5, "float64-outer solve true residual <= 1e-5")
+    log(f"bench 2D float64 outer PCG, float32 kernel V-cycle: {ka} "
+        f"iterations, true residual {true_a:.3e}")
+    check(true_a <= 1e-5, "bench 2D float64-outer true residual <= 1e-5")
+    ch = chained_ms(step, rho, rhs, u)
+    log(f"bench 2D: chained {ch:.3f} ms/solve over 10")
+    breakdown("bench 2D", step, (rho, rhs, rhs), asm, rho, b, single_ms)
+    return counts, single_ms, ch, (X, conn, fixed, force)
 
-    n_chain = 10
-    e0.record()
-    for _ in range(n_chain):
-        u, k, rn, _, _ = step(rho, rhs, u)
-    e1.record()
-    e1.synchronize()
-    chained_ms = e0.elapsed_time(e1) / n_chain
-    log(f"bench config: chained {chained_ms:.3f} ms/solve over {n_chain}")
 
-    # 5. model entry point
-    for label, p_, rho_m in (
-        ("rho=0.6", 3.0, 0.6),
-        ("rho~U[0.3,1]", 3.0,
-         np.random.default_rng(SEED + 1).uniform(0.3, 1.0, NX * NY)),
-    ):
-        m = pt.LinearElasticity("quad4", X, conn, fixed, None, force, p=p_,
+def phase_main_3d(dev, pt, multigrid, i2p, p2i):
+    """Phase 4a: the 3D bench configuration (bench.py run_3d)."""
+    import torch
+
+    n = N3
+    conn, X, fixed, force, L = problem(n, n, n)
+    model = pt.LinearElasticity("hex8", X, conn, fixed, None, force, p=0.0,
                                 dtype=torch.float32, device=dev)
-        m.attach_structured_grid(NX, NY)
+    asm = multigrid.GMGAssembler3D(
+        n, n, n, *L, "elasticity", p=0.0, dtype=torch.float32, device=dev,
+        nu_pre=2, nu_post=2, min_n=3, coarse_dense_max=4096,
+        smoother_dtype=torch.bfloat16, omega="cheby",
+    )
+    log(f"main path 3D: {model.ndof} dof, levels {asm.sizes}")
+    rho = torch.ones(model.nnodes, dtype=torch.float32, device=dev)
+    rhs = model.compute_rhs()
+
+    def step(rho, rhs, chain):
+        rho = rho + 0.0 * chain[0]
+        gmg, lv0 = asm.assemble(rho)
+        b = torch.where(lv0.mask, 0.0, i2p(rhs, 3).reshape(3, n, n, n))
+        x, k, rn = multigrid.pcg_gmg(gmg, lv0, b, rtol=1e-6, maxiter=200,
+                                     flexible=True)
+        return p2i(x.reshape(-1), 3), k, rn, b, gmg
+
+    names = ("pyfem_assemble_3d", "pyfem_sweep_3d", "pyfem_sweeps_3d")
+    (u, k, rn, b, gmg), counts, single_ms = solve_and_measure(
+        step, (rho, rhs, rhs), names, "bench 3D")
+    log(f"bench 3D: {k} PCG iterations (JAX reference: 7), "
+        f"||r||/||b|| {float(rn) / float(torch.linalg.norm(b)):.3e}, "
+        f"launches {counts}, single-shot {single_ms:.3f} ms")
+    check(k <= 8, "bench 3D converges in <= 8 iterations")
+    check(float(rn) <= 1e-6 * float(torch.linalg.norm(b)),
+          "bench 3D PCG residual <= rtol")
+    check(bool(torch.isfinite(u).all()) and u.shape == (model.ndof,),
+          "bench 3D solution finite, shape (ndof,)")
+    check(all(v > 0 for v in counts.values()), "K3, K4 and K5 launched")
+    mv64, mvabs, _ = f64_operator_3d(n, L, rho, 0.0, dev)
+    x = i2p(u, 3).reshape(3, n, n, n)
+    true, floor = residuals(mv64, mvabs, b, x)
+    log(f"bench 3D: float64 true residual {true:.3e} (float32 floor "
+        f"{floor:.3e}, ratio {true / floor:.2f}); <= 1e-5: {true <= 1e-5}")
+    check(true <= FLOOR_FACTOR * floor,
+          f"bench 3D true residual <= {FLOOR_FACTOR:g} x float32 floor")
+    xa, ka, _ = accuracy_solve(gmg, mv64, b)
+    true_a, _ = residuals(mv64, mvabs, b, xa)
+    log(f"bench 3D float64 outer PCG, float32 kernel V-cycle: {ka} "
+        f"iterations, true residual {true_a:.3e}")
+    check(true_a <= 1e-5, "bench 3D float64-outer true residual <= 1e-5")
+    ch = chained_ms(step, rho, rhs, u)
+    log(f"bench 3D: chained {ch:.3f} ms/solve over 10")
+    breakdown("bench 3D", step, (rho, rhs, rhs), asm, rho, b, single_ms)
+    return counts, single_ms, ch
+
+
+def phase_model(dev, pt, etype, dims, label):
+    """Phases 5 / 5a: ``LinearElasticity.solve(method="gmg")``."""
+    import torch
+
+    conn, X, fixed, force, _L = problem(*dims)
+    nn = int(np.prod(dims))
+    for rlabel, rho_m in (
+        ("rho=0.6", 0.6),
+        ("rho~U[0.3,1]",
+         np.random.default_rng(SEED + 1).uniform(0.3, 1.0, nn)),
+    ):
+        m = pt.LinearElasticity(etype, X, conn, fixed, None, force, p=3.0,
+                                dtype=torch.float32, device=dev)
+        m.attach_structured_grid(*dims)
         t0 = time.time()
         um = m.solve(method="gmg", rho=rho_m, rtol=1e-6)
         torch.cuda.synchronize()
         st = m.last_solve_stats
-        log(f"LinearElasticity.solve gmg {label}: {st['iters']} iterations, "
-            f"||r|| {st['resnorm']:.3e}, {time.time() - t0:.3f} s")
-        check(bool(torch.isfinite(um).all()), f"model solve {label} finite")
+        log(f"{label} LinearElasticity.solve gmg {rlabel}: {st['iters']} "
+            f"iterations, ||r|| {st['resnorm']:.3e}, "
+            f"{time.time() - t0:.3f} s")
+        check(bool(torch.isfinite(um).all()) and um.shape == (m.ndof,),
+              f"{label} model solve {rlabel} finite")
 
-    # 6. scipy check at 257x129
+
+def phase_scipy(dev, pt, multigrid, i2p, p2i, dims):
+    """Phases 6 / 6a: p^T u against scipy's float64 sparse direct solve."""
     import scipy.sparse.linalg as spla
+    import torch
 
-    nx, ny = 257, 129
-    conn, X, fixed, force, Lx, Ly = problem(nx, ny)
-    rho_s = np.random.default_rng(SEED + 2).uniform(0.3, 1.0, nx * ny)
-    m = pt.LinearElasticity("quad4", X, conn, fixed, None, force, p=3.0,
-                            dtype=torch.float32, device=dev)
-    m.attach_structured_grid(nx, ny)
+    dim = len(dims)
+    nd = dim
+    shape = dims[::-1]
+    label = "x".join(map(str, dims))
+    conn, X, fixed, force, L = problem(*dims)
+    nn = int(np.prod(dims))
+    rho_s = np.random.default_rng(SEED + 2).uniform(0.3, 1.0, nn)
+    m = pt.LinearElasticity("quad4" if dim == 2 else "hex8", X, conn, fixed,
+                            None, force, p=3.0, dtype=torch.float32,
+                            device=dev)
+    m.attach_structured_grid(*dims)
     um = m.solve(method="gmg", rho=rho_s, rtol=1e-6)
-    mv64, mvabs, c64 = f64_operator(nx, ny, Lx, Ly, torch.as_tensor(rho_s),
-                                    3.0, "cpu")
-    b = torch.where(
-        m.bc.mask.cpu(), 0.0, m.compute_rhs().cpu().to(torch.float64)
-    )
-    bp = interleave_to_planar(b, 2).reshape(2, ny, nx)
-    K = stencil_csr(c64, nx, ny)
-    u_ref = planar_to_interleave(torch.as_tensor(spla.spsolve(
-        K, bp.reshape(-1).numpy())), 2).numpy()
+    if dim == 2:
+        op = lambda d: f64_operator(*dims, *L, torch.as_tensor(rho_s), 3.0, d)
+        asm = multigrid.GMGAssembler(*dims, *L, "elasticity", p=3.0,
+                                     device=dev)
+    else:
+        op = lambda d: f64_operator_3d(dims[0], L, torch.as_tensor(rho_s),
+                                       3.0, d)
+        asm = multigrid.GMGAssembler3D(*dims, *L, "elasticity", p=3.0,
+                                       device=dev)
+    mv64, mvabs, c64 = op("cpu")
+    b = torch.where(m.bc.mask.cpu(), 0.0,
+                    m.compute_rhs().cpu().to(torch.float64))
+    bp = i2p(b, nd).reshape((nd,) + shape)
+    K = scipy_csr(c64, shape)
+    u_ref = p2i(torch.as_tensor(spla.spsolve(K, bp.reshape(-1).numpy())),
+                nd).numpy()
     p_vec = np.random.RandomState(123).rand(m.ndof)
     ptu = lambda u: float(p_vec @ np.asarray(u, np.float64))
     rel = abs(ptu(um.cpu()) - ptu(u_ref)) / abs(ptu(u_ref))
-    true, floor = residuals(
-        mv64, mvabs, bp, interleave_to_planar(um.cpu(), 2).reshape(2, ny, nx)
-    )
-    log(f"257x129 float32 gmg: p^T u rel err vs scipy {rel:.3e}; true "
+    true, floor = residuals(mv64, mvabs, bp,
+                            i2p(um.cpu(), nd).reshape((nd,) + shape))
+    log(f"{label} float32 gmg: p^T u rel err vs scipy {rel:.3e}; true "
         f"residual {true:.3e} (floor {floor:.3e})")
     check(true <= FLOOR_FACTOR * floor,
-          f"257x129 true residual <= {FLOOR_FACTOR:g} x float32 floor")
-    a32 = multigrid.GMGAssembler(nx, ny, Lx, Ly, "elasticity", p=3.0,
-                                 device=dev)
-    g32, _ = a32.assemble(torch.as_tensor(rho_s, dtype=torch.float32,
+          f"{label} true residual <= {FLOOR_FACTOR:g} x float32 floor")
+    g32, _ = asm.assemble(torch.as_tensor(rho_s, dtype=torch.float32,
                                           device=dev))
-    mv64d, _, _ = f64_operator(nx, ny, Lx, Ly, torch.as_tensor(rho_s), 3.0,
-                               dev)
+    mv64d, _, _ = op(dev)
     xa, ka, _ = accuracy_solve(g32, mv64d, bp.to(dev))
-    rel_a = abs(ptu(planar_to_interleave(xa.reshape(-1), 2).cpu())
-                - ptu(u_ref)) / abs(ptu(u_ref))
-    log(f"257x129 float64 outer PCG ({ka} iterations): p^T u rel err vs "
+    rel_a = abs(ptu(p2i(xa.reshape(-1), nd).cpu()) - ptu(u_ref)) / abs(
+        ptu(u_ref))
+    log(f"{label} float64 outer PCG ({ka} iterations): p^T u rel err vs "
         f"scipy {rel_a:.3e}")
-    check(rel_a <= 1e-5, "257x129 p^T u within 1e-5 of scipy")
+    check(rel_a <= 1e-5, f"{label} p^T u within 1e-5 of scipy")
+
+
+def main():
+    import torch
+
+    # 1. device
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    import pyfem_gpu_testflight_tpu_torch as pt
+    from pyfem_gpu_testflight_tpu_torch import multigrid
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+    from pyfem_gpu_testflight_tpu_torch.ops.dia import (
+        interleave_to_planar as i2p, planar_to_interleave as p2i,
+    )
+
+    card = card_line()
+    log(card)
+    dev = torch.device("cuda", 0)
+    kind = torch.cuda.get_device_name(0)
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}")
+
+    # 2. build
+    t0 = time.time()
+    _cuda.library()
+    log(f"build: {time.time() - t0:.2f} s")
+    for line in _cuda.build_log.splitlines():
+        if "registers" in line or "spill" in line:
+            log("  ptxas: " + line.strip())
+
+    # 3, 3a. kernels vs plain
+    kres = phase_kernels(dev)
+    kres.update(phase_kernels_3d(dev))
+
+    # 4, 4a. main paths
+    c2, s2, ch2, _ = phase_main_2d(dev, pt, multigrid, i2p, p2i)
+    c3, s3, ch3 = phase_main_3d(dev, pt, multigrid, i2p, p2i)
+
+    # 5, 5a. model entry point
+    phase_model(dev, pt, "quad4", (NX, NY), "2D")
+    phase_model(dev, pt, "hex8", (N3, N3, N3), "3D")
+
+    # 6, 6a. scipy checks
+    phase_scipy(dev, pt, multigrid, i2p, p2i, (257, 129))
+    phase_scipy(dev, pt, multigrid, i2p, p2i, (17, 17, 17))
 
     # summary
-    k1, k2 = kres["K1"], kres["K2"]
-    kernels = [
-        dict(name="assemble_pack_2d", route="cuda",
-             source="pyfem_gpu_testflight_tpu_torch/csrc/assemble_2d.cu",
-             replaces="pyfem_gpu_testflight_tpu/ops/pallas_assemble.py:192",
-             launches=counts["pyfem_assemble_2d"], **k1),
-        dict(name="fused_sweeps_2d", route="cuda",
-             source="pyfem_gpu_testflight_tpu_torch/csrc/smooth_2d.cu",
-             replaces="pyfem_gpu_testflight_tpu/ops/pallas_smooth.py:369",
-             launches=counts["pyfem_smooth_2d"], **k2),
-    ]
+    src = "pyfem_gpu_testflight_tpu_torch/csrc/"
+    tpu = "pyfem_gpu_testflight_tpu/ops/"
+    rows = (
+        ("K1", "assemble_pack_2d", "assemble_2d.cu", "pallas_assemble.py:192",
+         c2["pyfem_assemble_2d"], "full 36-plane storage, one pass"),
+        ("K2", "fused_sweeps_2d", "smooth_2d.cu", "pallas_smooth.py:369",
+         c2["pyfem_smooth_2d"], "one stencil pass per sweep"),
+        ("K3", "assemble_pack_3d", "assemble_3d.cu", "pallas_assemble.py:584",
+         c3["pyfem_assemble_3d"], "half-symmetric 123-plane storage, one "
+         "pass"),
+        ("K4", "fused_sweep_3d", "smooth_3d.cu", "pallas_smooth.py:697",
+         c3["pyfem_sweep_3d"], "half-symmetric storage body, one pass"),
+        ("K5", "fused_sweeps3d", "smooth_3d.cu", "pallas_smooth.py:972",
+         c3["pyfem_sweeps_3d"], "per-sweep: one stencil pass per sweep "
+         "and one for the residual (not the single-pass z-blocked form)"),
+    )
+    kernels = []
+    for key, name, source, replaces, launches, form in rows:
+        r = kres[key]
+        kernels.append(dict(
+            name=name, route="cuda", source=src + source,
+            replaces=tpu + replaces, launches=launches,
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_us=1e3 * r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"], form=form,
+        ))
     if FAILS:
         print("chip_smoke FAILED:\n  " + "\n  ".join(FAILS), file=sys.stderr)
         return 1
-    log(f"single-shot {single_ms:.3f} ms, chained {chained_ms:.3f} ms/solve "
-        f"({card})")
+    log(f"2D single-shot {s2:.3f} ms, chained {ch2:.3f} ms/solve; 3D "
+        f"single-shot {s3:.3f} ms, chained {ch3:.3f} ms/solve ({card})")
     log(card_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}))
     return 0
-
-
-def stencil_csr(c, nx, ny):
-    """scipy CSR of (2, 2, 3, 3, ny, nx) stencil planes, planar dofs."""
-    import scipy.sparse as sp
-
-    c = c.cpu().numpy()
-    npl = ny * nx
-    iy, ix = np.meshgrid(np.arange(ny), np.arange(nx), indexing="ij")
-    rows, cols, vals = [], [], []
-    for ca in range(2):
-        for cb in range(2):
-            for dy in range(3):
-                for dx in range(3):
-                    jy, jx = iy + dy - 1, ix + dx - 1
-                    v = c[ca, cb, dy, dx]
-                    ok = ((jy >= 0) & (jy < ny) & (jx >= 0) & (jx < nx)
-                          & (v != 0.0))
-                    rows.append(ca * npl + iy[ok] * nx + ix[ok])
-                    cols.append(cb * npl + jy[ok] * nx + jx[ok])
-                    vals.append(v[ok])
-    return sp.csr_matrix(
-        (np.concatenate(vals), (np.concatenate(rows), np.concatenate(cols))),
-        shape=(2 * npl, 2 * npl),
-    )
 
 
 if __name__ == "__main__":

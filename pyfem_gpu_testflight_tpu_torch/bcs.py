@@ -17,6 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .device import resolve_device
+
 __all__ = ["DirichletBC"]
 
 
@@ -27,11 +29,13 @@ class DirichletBC:
         dof_fixed: indices of constrained dofs.
         dof_fixed_vals: values at constrained dofs, or None for zero.
         ndof_total: total number of dofs.
-        device: where ``mask`` and ``values`` live.
+        device: where ``mask`` and ``values`` live; None means the CUDA
+            card.
     """
 
     def __init__(self, dof_fixed, dof_fixed_vals, ndof_total: int,
-                 device="cpu"):
+                 device=None):
+        device = resolve_device(device)
         self.ndof_total = int(ndof_total)
         self.fixed = np.unique(np.asarray(dof_fixed, dtype=np.int64))
         mask = np.zeros(ndof_total, dtype=bool)

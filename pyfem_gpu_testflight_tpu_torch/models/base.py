@@ -1,8 +1,8 @@
-"""Shared model infrastructure (PyTorch port, slice 1).
+"""Shared model infrastructure (PyTorch port).
 
 Port of ``pyfem_gpu_testflight_tpu/models/base.py`` as far as the
 structured GMG solve needs it: the constructor's mesh/BC state,
-``attach_structured_grid`` in 2D, ``_solve_gmg`` and the ``"gmg"``
+``attach_structured_grid`` in 2D and 3D, ``_solve_gmg`` and the ``"gmg"``
 branch of ``_solve_system``.  Every other method or branch raises
 ``NotImplementedError`` naming the ROADMAP.md slice that ports it.
 
@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..bcs import DirichletBC
+from ..device import resolve_device
 from ..elements import get_element
 
 __all__ = ["FEModel", "ramp", "ramp_deriv"]
@@ -67,8 +68,9 @@ def ramp_deriv(rho_q, p):
 class FEModel:
     """Base class holding mesh/element/BC state for a physics model.
 
-    ``dtype`` and ``device`` are explicit: torch defaults to float32,
-    while the reference package runs with float64 enabled.
+    ``dtype`` is explicit: torch defaults to float32, while the
+    reference package runs with float64 enabled.  ``device=None`` means
+    the CUDA card; ``device="cpu"`` runs the kernels' plain versions.
     """
 
     def __init__(
@@ -81,7 +83,7 @@ class FEModel:
         *,
         ndof_per_node: int,
         dtype=torch.float64,
-        device="cpu",
+        device=None,
     ):
         self.etype = get_element(etype)
         X_host = np.asarray(X, dtype=np.float64)
@@ -98,7 +100,7 @@ class FEModel:
             )
 
         self.dtype = dtype
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.ndof_per_node = int(ndof_per_node)
         self.nelems = int(conn_host.shape[0])
         self.nnodes = int(X_host.shape[0])
@@ -152,39 +154,41 @@ class FEModel:
 
     def attach_structured_grid(self, nnodes_x, nnodes_y, nnodes_z=None,
                                **gmg_options):
-        """Enable the geometric-multigrid fast path (structured quad4).
+        """Enable the geometric-multigrid fast path (structured quad/hex).
 
-        Builds a GMG hierarchy (multigrid.GMGAssembler) using this
+        Builds a GMG hierarchy (multigrid.GMGAssembler[3D]) using this
         model's physics, dtype, device and Dirichlet mask; afterwards
         ``solve(method="gmg")`` runs V-cycle-preconditioned CG.
         """
-        from ..multigrid import GMGAssembler
+        from ..multigrid import GMGAssembler, GMGAssembler3D
 
-        if nnodes_z is not None:
-            _not_ported("3D attach_structured_grid", "slice 3")
-        if self.etype.name != "quad4":
-            raise ValueError("2D gmg requires quad4 grids")
         nd = self.ndof_per_node
-        nx, ny = int(nnodes_x), int(nnodes_y)
-        if nx * ny != self.nnodes:
-            raise ValueError(f"{nx}x{ny} grid != {self.nnodes} nodes")
-        # interleaved (node, comp) mask -> planar (comp, ny, nx)
+        X = self.X_host
+        dims = ((nnodes_x, nnodes_y) if nnodes_z is None
+                else (nnodes_x, nnodes_y, nnodes_z))
+        want = "quad4" if nnodes_z is None else "hex8"
+        if self.etype.name != want:
+            raise ValueError(f"{len(dims)}D gmg requires {want} grids")
+        dims = tuple(int(n) for n in dims)
+        if int(np.prod(dims)) != self.nnodes:
+            raise ValueError(f"{'x'.join(map(str, dims))} grid != "
+                             f"{self.nnodes} nodes")
+        shape = dims[::-1]  # (ny, nx) / (nz, ny, nx)
+        # interleaved (node, comp) mask -> planar (comp, *shape)
         fine_mask = (
             self.bc.mask.cpu().numpy()
-            .reshape(ny * nx, nd).T.reshape(nd, ny, nx)
+            .reshape(self.nnodes, nd).T.reshape((nd,) + shape)
         )
-        physics = "elasticity" if nd == 2 else "poisson"
+        physics = "elasticity" if nd == len(dims) else "poisson"
         kw = dict(p=self.p, dtype=self.dtype, device=self.device,
                   fine_mask=fine_mask)
         if physics == "elasticity":
             kw.update(E=self.E, nu=self.nu)
         kw.update(gmg_options)
-        X = self.X_host
-        self._gmg_asm = GMGAssembler(
-            nx, ny, float(X[:, 0].max()), float(X[:, 1].max()), physics,
-            **kw
-        )
-        self._gmg_shape = (ny, nx)
+        lengths = [float(X[:, k].max()) for k in range(len(dims))]
+        cls = GMGAssembler if nnodes_z is None else GMGAssembler3D
+        self._gmg_asm = cls(*dims, *lengths, physics, **kw)
+        self._gmg_shape = shape
         return self
 
     def _solve_gmg(self, rho, rhs, rtol=1e-8, maxiter=400):

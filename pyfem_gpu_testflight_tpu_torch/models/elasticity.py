@@ -1,4 +1,4 @@
-"""Linear elasticity: plane stress (PyTorch port, slice 1).
+"""Linear elasticity: plane stress in 2D, isotropic in 3D (PyTorch port).
 
 Port of ``LinearElasticity`` from
 ``pyfem_gpu_testflight_tpu/models/elasticity.py`` (reference
@@ -18,13 +18,15 @@ __all__ = ["LinearElasticity"]
 
 
 class LinearElasticity(FEModel):
-    """Isotropic linear elasticity (plane stress on a 2D mesh).
+    """Isotropic linear elasticity (plane stress on a 2D mesh, 3D on hex8).
 
     Args:
         nodal_force: dict {node: [fx, fy]} applied as the rhs
             (pyfem.py:1760-1768).
         E, nu: Young's modulus / Poisson ratio.
         p: RAMP penalization parameter.
+        device: None means the CUDA card; "cpu" runs the kernels' plain
+            versions.
     """
 
     def __init__(
@@ -39,7 +41,7 @@ class LinearElasticity(FEModel):
         nu=0.3,
         p=0.0,
         dtype=torch.float64,
-        device="cpu",
+        device=None,
     ):
         ndims = np.asarray(X).shape[1]
         super().__init__(

@@ -1,17 +1,19 @@
-"""Geometric multigrid for structured 2D quad grids (PyTorch port).
+"""Geometric multigrid for structured quad and hex grids (PyTorch port).
 
-Port of the 2D part of ``pyfem_gpu_testflight_tpu/multigrid.py``:
+Port of the 2D and 3D (uniform element path) parts of
+``pyfem_gpu_testflight_tpu/multigrid.py``:
 
-* every level's operator is a BC-eliminated 9-point stencil assembled
-  from the nodal density by kernel K1 (``ops.fused_assemble``) — on
-  every level, the TPU's 8192-node assembly threshold being a TPU
-  tuning;
-* smoothing is damped Jacobi with per-sweep Chebyshev-node factors,
-  run by kernel K2 (``ops.fused_smooth``), which also supplies the
-  residuals and the operator matvec;
-* prolongation is bilinear interpolation in reshape/interleave form,
-  restriction its exact transpose (FEM Galerkin convention), so the
-  V-cycle is a symmetric preconditioner for CG;
+* every level's operator is a BC-eliminated stencil assembled from the
+  nodal density: 9-point planes by kernel K1 in 2D, the half-symmetric
+  27-point planes by kernel K3 in 3D (``ops.fused_assemble``), on every
+  level (the TPU's assembly-size thresholds are TPU tuning);
+* smoothing is damped Jacobi with per-sweep Chebyshev-node factors:
+  kernel K2 in 2D, which also supplies the residuals and the operator
+  matvec; in 3D kernel K5 runs each smoothing call (sweeps + residual)
+  and kernel K4 the operator matvec (``ops.fused_smooth``);
+* prolongation is bi/trilinear interpolation in reshape/interleave
+  form, restriction its exact transpose (FEM Galerkin convention), so
+  the V-cycle is a symmetric preconditioner for CG;
 * the coarsest level is solved by an explicit dense inverse;
 * coarse operators are rediscretized on coarse ProblemCreator grids,
   with nodal densities restricted by injection.
@@ -28,15 +30,22 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .device import resolve_device
 from .ops import fused_assemble, fused_smooth
-from .ops.stencil import Stencil2D
+from .ops.stencil import Stencil2D, Stencil3D
 
 __all__ = [
     "Level",
+    "Level3D",
     "GMG",
     "GMGAssembler",
+    "GMGAssembler3D",
     "prolong2d_il",
     "restrict2d_il",
+    "prolong_axis_il",
+    "restrict_axis_il",
+    "prolong3d_il",
+    "restrict3d_il",
     "smoothing_omegas",
     "pcg",
     "pcg_gmg",
@@ -114,6 +123,46 @@ def prolong2d_il(c, fine_shape):
     ce = _interleave2(c, colavg, 2, nxf)       # even rows, full width
     rowavg = F.pad(0.5 * (ce[:, :-1] + ce[:, 1:]), (0, 0, 0, 1))
     return _interleave2(ce, rowavg, 1, nyf)
+
+
+def _pad_axis(a, axis, before, after):
+    """Zero-pad ``before``/``after`` entries along ``axis``."""
+    pad = [0, 0] * a.ndim
+    pad[2 * (a.ndim - 1 - axis)] = before
+    pad[2 * (a.ndim - 1 - axis) + 1] = after
+    return F.pad(a, pad)
+
+
+def restrict_axis_il(f, axis, nc):
+    """One separable tent-restriction step along ``axis``: n -> nc."""
+    e, o = _deinterleave2(f, axis)
+    o = o.narrow(axis, 0, nc - 1)
+    return e.narrow(axis, 0, nc) + 0.5 * (
+        _pad_axis(o, axis, 1, 0) + _pad_axis(o, axis, 0, 1)
+    )
+
+
+def prolong_axis_il(c, axis, nf):
+    """One separable tent-prolongation step along ``axis``: nc -> nf."""
+    n = c.shape[axis]
+    avg = 0.5 * (c.narrow(axis, 0, n - 1) + c.narrow(axis, 1, n - 1))
+    return _interleave2(c, _pad_axis(avg, axis, 0, 1), axis, nf)
+
+
+def restrict3d_il(f, coarse_shape):
+    """Trilinear restriction R = P^T on (d, nzf, nyf, nxf) -> (d, nzc,
+    nyc, nxc): the tent step along each axis in turn (the JAX package
+    sums the eight parity blocks at once; the same operator)."""
+    for i, nc in enumerate(coarse_shape):
+        f = restrict_axis_il(f, 1 + i, nc)
+    return f
+
+
+def prolong3d_il(c, fine_shape):
+    """Trilinear prolongation (d, nzc, nyc, nxc) -> (d, nzf, nyf, nxf)."""
+    for i, nf in enumerate(fine_shape):
+        c = prolong_axis_il(c, 1 + i, nf)
+    return c
 
 
 # ---------------------------------------------------------------------------
@@ -209,6 +258,99 @@ class Level:
         return self
 
 
+class Level3D:
+    """One 3D grid level: K3's half-symmetric planes + BC mask + smoother.
+
+    Attributes:
+        op: Stencil3D (plan + plain matvec).
+        coeff: (nk, nz, ny, nx) kept BC-eliminated planes
+            (``fused_smooth.sym_planes_3d``), the PCG operator.
+        coeff_lp: low-precision copy for the smoother, or None.
+        inv_diag: (nd, nz, ny, nx) inverse diagonal, 0 at fixed dofs.
+        mask: (nd, nz, ny, nx) bool, True at constrained dofs.
+        shape: (nz, ny, nx) node grid.
+        nd: dofs per node.
+    """
+
+    def __init__(self, op: Stencil3D, coeff, inv_diag, mask, shape, nd,
+                 coeff_lp=None):
+        self.op = op
+        self.coeff = coeff
+        self.coeff_lp = coeff_lp
+        self.inv_diag = inv_diag
+        self.mask = mask
+        self.shape = tuple(int(s) for s in shape)
+        self.nd = int(nd)
+        self.dense_inv = None  # explicit inverse (see dense_factor)
+
+    @property
+    def _coeff_smooth(self):
+        """Preconditioner-internal coefficients (bf16 copy when set)."""
+        return self.coeff if self.coeff_lp is None else self.coeff_lp
+
+    def matvec(self, u):
+        """A u on the full-precision planes (the PCG operator), K4."""
+        return fused_smooth.fused_sweep_3d(self.coeff, x=u, mode="matvec",
+                                           neg_resid=True)
+
+    def can_fuse3d(self, niter, x0_zero, want_resid):
+        """True when K5 covers the smoothing call: any ``niter >= 1``.
+
+        The port's K5 runs one stencil pass per sweep, so it has neither
+        the TPU kernel's z ghost-plane budget nor its VMEM guard.
+        """
+        return niter >= 1
+
+    def presmooth_resid3d(self, b, niter, omega):
+        """Sweeps from x0 = 0 plus the residual, one K5 call: (x, b - A x).
+
+        Preconditioner-internal (bf16 copy when present; flexible PCG
+        absorbs it).
+        """
+        return fused_smooth.fused_sweeps3d(
+            self._coeff_smooth, self.inv_diag, b, None, niter=niter,
+            want_resid=True, omega=omega,
+        )
+
+    def postsmooth3d(self, b, x0, niter, omega):
+        """Sweeps from a given iterate, one K5 call."""
+        return fused_smooth.fused_sweeps3d(
+            self._coeff_smooth, self.inv_diag, b, x0, niter=niter,
+            omega=omega,
+        )
+
+    def sweep3d(self, b, x, omega):
+        """One sweep x + omega * invD * (b - A x), K4."""
+        return fused_smooth.fused_sweep_3d(
+            self._coeff_smooth, self.inv_diag, b, x, mode="sweep",
+            omega=omega,
+        )
+
+    def resid3d(self, b, x):
+        """b - A x on the smoother's coefficients, K4."""
+        return fused_smooth.fused_sweep_3d(self._coeff_smooth, None, b, x,
+                                           mode="resid")
+
+    def dense_factor(self):
+        """Explicit inverse of the (small) coarsest operator.
+
+        Columns come from the plain stencil matvec over an identity
+        batch, on the full planes rebuilt from the kept ones.
+        """
+        nz, ny, nx = self.shape
+        n = nz * ny * nx * self.nd
+        eye = torch.eye(n, dtype=self.inv_diag.dtype,
+                        device=self.inv_diag.device)
+        full = fused_smooth.full_planes_3d(self.coeff, self.nd)
+        A = self.op.matvec(
+            full, eye.reshape(n, self.nd, nz, ny, nx)
+        ).reshape(n, n)
+        # row i of the batch is A e_i = column i of A; A is symmetric
+        L = torch.linalg.cholesky(A.t())
+        self.dense_inv = torch.cholesky_inverse(L)
+        return self
+
+
 def smoothing_omegas(nu, lam_max=3.0, frac=8.0):
     """Per-sweep damping factors for product-form Chebyshev smoothing.
 
@@ -249,6 +391,11 @@ class GMG:
         self.coarse_iters = int(coarse_iters)
         self.cheb_lam = float(cheb_lam)
         self.cheb_frac = float(cheb_frac)
+        self.dim = len(self.levels[0].shape)
+        if self.dim == 2:
+            self.restrict_fn, self.prolong_fn = restrict2d_il, prolong2d_il
+        else:
+            self.restrict_fn, self.prolong_fn = restrict3d_il, prolong3d_il
 
     def _omegas(self, niter, reverse=False):
         """Per-sweep damping tuple of length ``niter`` (reversed for
@@ -262,7 +409,9 @@ class GMG:
     def _coarse_solve(self, lv, b):
         if lv.dense_inv is not None:
             return (lv.dense_inv @ b.reshape(-1)).reshape(b.shape)
-        return fused_smooth.fused_sweeps_2d(
+        sweeps = (fused_smooth.fused_sweeps_2d if self.dim == 2
+                  else fused_smooth.fused_sweeps3d)
+        return sweeps(
             lv._coeff_smooth, lv.inv_diag, b, None, niter=self.coarse_iters,
             omega=self._omegas(self.coarse_iters),
         )
@@ -270,20 +419,42 @@ class GMG:
     def _coarse_correct(self, k, x, r):
         """x + P (V-cycle of the restricted residual), masked."""
         lv, coarse = self.levels[k], self.levels[k + 1]
-        bc = restrict2d_il(r, coarse.shape)
+        bc = self.restrict_fn(r, coarse.shape)
         bc = torch.where(coarse.mask, 0.0, bc)
         xc = self._cycle(k + 1, bc)
-        corr = prolong2d_il(xc, lv.shape)
+        corr = self.prolong_fn(xc, lv.shape)
         return x + torch.where(lv.mask, 0.0, corr)
 
     def _cycle(self, k, b):
         lv = self.levels[k]
         if k == len(self.levels) - 1:
             return self._coarse_solve(lv, b)
+        if self.dim == 3:
+            return self._cycle3d(k, b)
         x, r = lv.presmooth_resid(b, self.nu_pre, self._omegas(self.nu_pre))
         x = self._coarse_correct(k, x, r)
         return lv.postsmooth(b, x, self.nu_post,
                              self._omegas(self.nu_post, reverse=True))
+
+    def _cycle3d(self, k, b):
+        lv = self.levels[k]
+        oms = self._omegas(self.nu_pre)
+        if lv.can_fuse3d(self.nu_pre, True, True):
+            # all pre-sweeps + the residual in one K5 call
+            x, r = lv.presmooth_resid3d(b, self.nu_pre, oms)
+        else:
+            # per-sweep K4 (K5 takes no nu = 0 call)
+            x = torch.zeros_like(b)
+            for om in oms:
+                x = lv.sweep3d(b, x, om)
+            r = lv.resid3d(b, x)
+        x = self._coarse_correct(k, x, r)
+        om_post = self._omegas(self.nu_post, reverse=True)
+        if lv.can_fuse3d(self.nu_post, False, False):
+            return lv.postsmooth3d(b, x, self.nu_post, om_post)
+        for om in om_post:
+            x = lv.sweep3d(b, x, om)
+        return x
 
     def apply(self, r):
         """Preconditioner action z = M^-1 r (zero at constrained dofs)."""
@@ -291,8 +462,13 @@ class GMG:
 
     @property
     def supports_apply_resid(self):
-        """True when the fine level can supply A z with the V-cycle."""
-        return len(self.levels) > 1
+        """True when the fine level can supply A z with the V-cycle.
+
+        2D only: as in the JAX package, the 3D smoother emits no
+        trailing residual on the PCG operator, so :func:`pcg_gmg` takes
+        :func:`pcg` with the K4 matvec there.
+        """
+        return len(self.levels) > 1 and self.dim == 2
 
     def apply_resid(self, r):
         """One V-cycle returning (z, A z) with A z riding the postsmooth.
@@ -329,9 +505,24 @@ def _grid_sizes(nx, ny, min_n=5):
     return sizes
 
 
+def _grid_sizes_3d(nx, ny, nz, min_n=3):
+    """Sequence of (nx, ny, nz) halving the cell count per axis while
+    every axis has 2 | n-1 and stays >= min_n."""
+    sizes = [(nx, ny, nz)]
+    while True:
+        nxt = []
+        for n in (nx, ny, nz):
+            nxt.append((n - 1) // 2 + 1 if (n - 1) % 2 == 0 else None)
+        if any(v is None or v < min_n for v in nxt):
+            break
+        nx, ny, nz = nxt
+        sizes.append((nx, ny, nz))
+    return sizes
+
+
 def _restrict_nodal(rho_grid):
     """Injection restriction of a nodal field (even entries per axis)."""
-    return rho_grid[::2, ::2].contiguous()
+    return rho_grid[(slice(None, None, 2),) * rho_grid.ndim].contiguous()
 
 
 def _left_edge_mask(nx, ny, nd):
@@ -341,15 +532,23 @@ def _left_edge_mask(nx, ny, nd):
     return mask
 
 
-class StaticLevel(NamedTuple):
-    """Per-level setup data of :class:`GMGAssembler`."""
+def _left_face_mask(nx, ny, nz, nd):
+    """(nd, nz, ny, nx) mask: all components of the x=0 node face."""
+    mask = np.zeros((nd, nz, ny, nx), dtype=bool)
+    mask[:, :, :, 0] = True
+    return mask
 
-    op: Stencil2D
-    mask: torch.Tensor   # (nd, ny, nx) bool, True at fixed dofs
-    maskf: torch.Tensor  # (nd, ny, nx) 1.0 free / 0.0 fixed (K1 input)
-    shape: tuple         # (ny, nx)
+
+class StaticLevel(NamedTuple):
+    """Per-level setup data of :class:`GMGAssembler` (2D) and
+    :class:`GMGAssembler3D` (3D; shapes gain the z axis)."""
+
+    op: object           # Stencil2D / Stencil3D
+    mask: torch.Tensor   # (nd, [nz,] ny, nx) bool, True at fixed dofs
+    maskf: torch.Tensor  # 1.0 free / 0.0 fixed, same shape (K1/K3 input)
+    shape: tuple         # ([nz,] ny, nx)
     Kq: torch.Tensor     # (nq, ndpe, ndpe) unit element matrices
-    W: torch.Tensor      # (nd*nd*9, 4, nq) K1 weights
+    W: torch.Tensor      # (nd*nd*9, 4, nq) K1 / (nd*nd*27, 8, nq) K3 weights
 
 
 class GMGAssembler:
@@ -361,10 +560,15 @@ class GMGAssembler:
 
     Args:
         physics: "elasticity" (plane stress) or "poisson".
+        device: where the hierarchy lives; None means the CUDA card
+            (``device="cpu"`` runs the kernels' plain versions).
     """
 
+    _level_cls = Level
+    _assemble_fn = staticmethod(fused_assemble.assemble_pack_2d)
+
     def __init__(self, nx, ny, Lx, Ly, physics="elasticity", E=10.0, nu=0.3,
-                 p=0.0, dtype=torch.float32, device="cpu", nu_pre=2,
+                 p=0.0, dtype=torch.float32, device=None, nu_pre=2,
                  nu_post=2, omega=0.7, min_n=5, fine_mask=None,
                  coarse_dense=True, coarse_dense_max=4096,
                  smoother_dtype=None, cheb_lam=None, cheb_frac=8.0):
@@ -381,41 +585,15 @@ class GMGAssembler:
         pass); the PCG operator stays full precision, and the solve
         then needs flexible PCG.
         """
-        from .elements import get_element
         from .mesh import ProblemCreator
-        from .ops import stiffness
 
-        if physics not in ("elasticity", "poisson"):
-            raise ValueError(f"unknown physics {physics!r}")
-        self.physics = physics
-        self.p = float(p)
-        self.dtype = dtype
-        self.device = torch.device(device)
-        self.nu_pre, self.nu_post, self.omega = nu_pre, nu_post, omega
-        self.coarse_dense = bool(coarse_dense)
-        self.coarse_dense_max = int(coarse_dense_max)
-        self.smoother_dtype = smoother_dtype
         # spectral-radius bound of D^-1 A for Chebyshev-node smoothing
         # (power iteration on uniform grids: quad4 elasticity 2.20,
         # poisson 1.49; overestimates are safe)
-        if cheb_lam is None:
-            cheb_lam = 2.3 if physics == "elasticity" else 1.6
-        self.cheb_lam = float(cheb_lam)
-        self.cheb_frac = float(cheb_frac)
-        nd = 2 if physics == "elasticity" else 1
-        self.nd = nd
-        if physics == "elasticity":
-            self.mu, self.lam = stiffness.lame_params(E, nu, 2)
-
-        # element tables rounded to the working dtype (as the JAX
-        # package's device copies are), then used in float64 on the host
-        np_dtype = torch.empty((), dtype=dtype).numpy().dtype
-        et = get_element("quad4")
-        self._N64 = et.shape_vals.astype(np_dtype).astype(np.float64)
-        self._dN64 = et.shape_grads.astype(np_dtype).astype(np.float64)
-        self._wq64 = et.quad_wts.astype(np_dtype).astype(np.float64)
-        self.N = self._tensor(self._N64)
-
+        nd = self._setup("quad4", 2, physics, E, nu, p, dtype, device,
+                         nu_pre, nu_post, omega, coarse_dense,
+                         coarse_dense_max, smoother_dtype, cheb_lam,
+                         cheb_frac, 2.3)
         self.sizes = _grid_sizes(nx, ny, min_n=min_n)
         self.static_levels = []
         cur_mask = None
@@ -424,25 +602,63 @@ class GMGAssembler:
         for lnx, lny in self.sizes:
             creator = ProblemCreator(nnodes_x=lnx, nnodes_y=lny, Lx=Lx,
                                      Ly=Ly, element_type="quad")
-            op = Stencil2D(lnx, lny, nd)
             if cur_mask is not None:
                 mask_np = cur_mask.copy()
                 cur_mask = cur_mask[:, ::2, ::2]
             else:
                 mask_np = _left_edge_mask(lnx, lny, nd)
-            # rounded to the working dtype before folding into W, as the
-            # JAX package folds its device copy of Kq
-            Kq = self.unit_matrices(creator.X[np.asarray(creator.conn[0])])
-            Kq = Kq.astype(np_dtype).astype(np.float64)
-            W = fused_assemble.assembly_weights(op.plan, Kq, nd, Kq.shape[0])
-            self.static_levels.append(StaticLevel(
-                op=op,
-                mask=torch.as_tensor(mask_np, device=self.device),
-                maskf=self._tensor((~mask_np).astype(np.float64)),
-                shape=(lny, lnx),
-                Kq=self._tensor(Kq),
-                W=self._tensor(W),
-            ))
+            self._add_level(Stencil2D(lnx, lny, nd), creator, mask_np,
+                            (lny, lnx), fused_assemble.assembly_weights)
+
+    def _setup(self, element, dim, physics, E, nu, p, dtype, device, nu_pre,
+               nu_post, omega, coarse_dense, coarse_dense_max,
+               smoother_dtype, cheb_lam, cheb_frac, cheb_lam_elasticity):
+        """Options, material and element tables shared by 2D and 3D."""
+        from .elements import get_element
+        from .ops import stiffness
+
+        if physics not in ("elasticity", "poisson"):
+            raise ValueError(f"unknown physics {physics!r}")
+        self.physics = physics
+        self.p = float(p)
+        self.dtype = dtype
+        self.device = resolve_device(device)
+        self.nu_pre, self.nu_post, self.omega = nu_pre, nu_post, omega
+        self.coarse_dense = bool(coarse_dense)
+        self.coarse_dense_max = int(coarse_dense_max)
+        self.smoother_dtype = smoother_dtype
+        if cheb_lam is None:
+            cheb_lam = cheb_lam_elasticity if physics == "elasticity" else 1.6
+        self.cheb_lam = float(cheb_lam)
+        self.cheb_frac = float(cheb_frac)
+        self.nd = dim if physics == "elasticity" else 1
+        if physics == "elasticity":
+            self.mu, self.lam = stiffness.lame_params(E, nu, dim)
+
+        # element tables rounded to the working dtype (as the JAX
+        # package's device copies are), then used in float64 on the host
+        self._np_dtype = torch.empty((), dtype=dtype).numpy().dtype
+        et = get_element(element)
+        self._N64 = et.shape_vals.astype(self._np_dtype).astype(np.float64)
+        self._dN64 = et.shape_grads.astype(self._np_dtype).astype(np.float64)
+        self._wq64 = et.quad_wts.astype(self._np_dtype).astype(np.float64)
+        self.N = self._tensor(self._N64)
+        return self.nd
+
+    def _add_level(self, op, creator, mask_np, shape, weights_fn):
+        # rounded to the working dtype before folding into W, as the
+        # JAX package folds its device copy of Kq
+        Kq = self.unit_matrices(creator.X[np.asarray(creator.conn[0])])
+        Kq = Kq.astype(self._np_dtype).astype(np.float64)
+        W = weights_fn(op.plan, Kq, self.nd, Kq.shape[0])
+        self.static_levels.append(StaticLevel(
+            op=op,
+            mask=torch.as_tensor(mask_np, device=self.device),
+            maskf=self._tensor((~mask_np).astype(np.float64)),
+            shape=shape,
+            Kq=self._tensor(Kq),
+            W=self._tensor(W),
+        ))
 
     def _tensor(self, a):
         return torch.as_tensor(np.asarray(a), dtype=self.dtype,
@@ -455,20 +671,39 @@ class GMGAssembler:
         so ``sum_q Cq[e,q] Kq[q]`` reproduces the general assembly
         exactly on uniform grids.  The element tables are rounded to the
         working dtype first (without that, float32 tables drift ~1e-8
-        from the reference's).
+        from the reference's).  The 3x3 inverse is the JAX package's
+        adjugate form, so both give the same float64 tables.
         """
         dN, wq = self._dN64, self._wq64
         Xe = np.asarray(Xe1, np.float64)
         Xc = Xe - Xe.mean(axis=0, keepdims=True)
-        J = np.einsum("qnk,ni->qik", dN, Xc)  # (nq, 2, 2)
-        det = J[:, 0, 0] * J[:, 1, 1] - J[:, 0, 1] * J[:, 1, 0]
-        inv = np.empty_like(J)
-        inv[:, 0, 0] = J[:, 1, 1]
-        inv[:, 0, 1] = -J[:, 0, 1]
-        inv[:, 1, 0] = -J[:, 1, 0]
-        inv[:, 1, 1] = J[:, 0, 0]
-        inv /= det[:, None, None]
-        Ngrad = np.einsum("qnm,qmi->qni", dN, inv)  # (nq, nn, 2)
+        J = np.einsum("qnk,ni->qik", dN, Xc)  # (nq, d, d)
+        if J.shape[-1] == 2:
+            det = J[:, 0, 0] * J[:, 1, 1] - J[:, 0, 1] * J[:, 1, 0]
+            inv = np.empty_like(J)
+            inv[:, 0, 0] = J[:, 1, 1]
+            inv[:, 0, 1] = -J[:, 0, 1]
+            inv[:, 1, 0] = -J[:, 1, 0]
+            inv[:, 1, 1] = J[:, 0, 0]
+            inv /= det[:, None, None]
+        else:
+            a, b, c = J[:, 0, 0], J[:, 0, 1], J[:, 0, 2]
+            p_, q_, r_ = J[:, 1, 0], J[:, 1, 1], J[:, 1, 2]
+            u, v, w = J[:, 2, 0], J[:, 2, 1], J[:, 2, 2]
+            c00 = q_ * w - r_ * v
+            c01 = -(p_ * w - r_ * u)
+            c02 = p_ * v - q_ * u
+            det = a * c00 + b * c01 + c * c02
+            adj = np.stack(
+                [
+                    np.stack([c00, -(b * w - c * v), b * r_ - c * q_], -1),
+                    np.stack([c01, a * w - c * u, -(a * r_ - c * p_)], -1),
+                    np.stack([c02, -(a * v - b * u), a * q_ - b * p_], -1),
+                ],
+                axis=-2,
+            )
+            inv = adj / det[:, None, None]
+        Ngrad = np.einsum("qnm,qmi->qni", dN, inv)  # (nq, nn, d)
         cq = wq * det
         nq, nn, d = Ngrad.shape
         if self.physics == "elasticity":
@@ -484,20 +719,22 @@ class GMGAssembler:
         return np.einsum("q,qnl,qml->qnm", cq, Ngrad, Ngrad)
 
     def assemble(self, rho):
-        """Fine nodal rho -> (gmg, fine_level), every level through K1."""
-        ny, nx = self.static_levels[0].shape
+        """Fine nodal rho -> (gmg, fine_level), every level through the
+        assembly kernel (K1 in 2D, K3 in 3D)."""
+        shape = self.static_levels[0].shape
         rho_grid = torch.as_tensor(rho, dtype=self.dtype,
-                                   device=self.device).reshape(ny, nx)
+                                   device=self.device).reshape(shape)
         rho_grid = rho_grid.contiguous()
         levels = []
         for st in self.static_levels:
-            outs = fused_assemble.assemble_pack_2d(
+            outs = self._assemble_fn(
                 rho_grid, st.maskf, st.W, self.N, nd=self.nd, p=self.p,
                 lp_dtype=self.smoother_dtype,
             )
-            levels.append(Level(st.op, outs[0], outs[1], st.mask, st.shape,
-                                self.nd,
-                                coeff_lp=outs[2] if len(outs) > 2 else None))
+            levels.append(self._level_cls(
+                st.op, outs[0], outs[1], st.mask, st.shape, self.nd,
+                coeff_lp=outs[2] if len(outs) > 2 else None,
+            ))
             rho_grid = _restrict_nodal(rho_grid)
         if self.coarse_dense and (
             int(np.prod(levels[-1].shape)) * self.nd <= self.coarse_dense_max
@@ -507,6 +744,69 @@ class GMGAssembler:
                   omega=self.omega, cheb_lam=self.cheb_lam,
                   cheb_frac=self.cheb_frac)
         return gmg, levels[0]
+
+
+class GMGAssembler3D(GMGAssembler):
+    """3D (hex8) analogue of :class:`GMGAssembler` on the uniform path.
+
+    ``assemble(rho)`` builds every level with kernel K3 (half-symmetric
+    planes, as the JAX package's default ``pallas_sym`` storage); the
+    V-cycle smooths with K5 and the PCG operator is K4.
+
+    Args:
+        physics: "elasticity" (3D isotropic, nd=3) or "poisson" (nd=1).
+        elem_path: "uniform" only; "otf" and "einsum" raise
+            ``NotImplementedError``.
+    """
+
+    _level_cls = Level3D
+    _assemble_fn = staticmethod(fused_assemble.assemble_pack_3d)
+
+    def __init__(self, nx, ny, nz, Lx, Ly, Lz, physics="elasticity",
+                 E=10.0, nu=0.3, p=0.0, dtype=torch.float32, device=None,
+                 nu_pre=2, nu_post=2, omega=0.6, min_n=3, coarse_dense=True,
+                 coarse_dense_max=4096, elem_path="uniform",
+                 smoother_dtype=None, cheb_lam=None, cheb_frac=8.0,
+                 fine_mask=None):
+        """fine_mask: optional (nd, nz, ny, nx) bool Dirichlet mask;
+        coarse masks by injection (default: clamp the x=0 face, the
+        create_*_problem factories' layout).
+
+        omega: a float, a per-sweep tuple, or ``"cheby"`` (see
+        :func:`smoothing_omegas`).  The JAX package's TPU knobs
+        (``pallas_*``) have no meaning here and are not taken.
+        """
+        from .mesh import ProblemCreator
+
+        if elem_path != "uniform":
+            where = ("ROADMAP.md queue 2, K6 (otf_apply_3d)"
+                     if elem_path == "otf" else
+                     "ROADMAP.md queue 1, slice 1 item 6 (einsum route)")
+            raise NotImplementedError(
+                f"elem_path={elem_path!r} is not ported yet ({where})"
+            )
+        self.elem_path = elem_path
+        # hex8 elasticity measured 2.96, poisson 1.49 (JAX package)
+        nd = self._setup("hex8", 3, physics, E, nu, p, dtype, device,
+                         nu_pre, nu_post, omega, coarse_dense,
+                         coarse_dense_max, smoother_dtype, cheb_lam,
+                         cheb_frac, 3.0)
+        self.sizes = _grid_sizes_3d(nx, ny, nz, min_n=min_n)
+        self.static_levels = []
+        cur_mask = None
+        if fine_mask is not None:
+            cur_mask = np.asarray(fine_mask).reshape(nd, nz, ny, nx)
+        for lnx, lny, lnz in self.sizes:
+            creator = ProblemCreator(nnodes_x=lnx, nnodes_y=lny,
+                                     nnodes_z=lnz, Lx=Lx, Ly=Ly, Lz=Lz,
+                                     element_type="block")
+            if cur_mask is not None:
+                mask_np = cur_mask.copy()
+                cur_mask = cur_mask[:, ::2, ::2, ::2]
+            else:
+                mask_np = _left_face_mask(lnx, lny, lnz, nd)
+            self._add_level(Stencil3D(lnx, lny, lnz, nd), creator, mask_np,
+                            (lnz, lny, lnx), fused_assemble.assembly_weights3d)
 
 
 # ---------------------------------------------------------------------------
@@ -565,8 +865,9 @@ def pcg_gmg(gmg, lv0, b, rtol=1e-6, maxiter=500, x0=None, flexible=False):
     ``gmg.apply_resid`` returns ``A z`` alongside ``z`` (the trailing
     residual of the fine postsmooth), and ``A p`` is kept by the
     recurrence ``A p = A z + beta A p`` — no separate operator matvec
-    per iteration.  Falls back to :func:`pcg` for a one-level
-    hierarchy.  Same return contract.
+    per iteration.  Falls back to :func:`pcg` with ``lv0.matvec`` when
+    ``gmg.supports_apply_resid`` is False (a one-level or a 3D
+    hierarchy).  Same return contract.
     """
     if not gmg.supports_apply_resid:
         return pcg(lv0.matvec, gmg.apply, b, rtol=rtol, maxiter=maxiter,

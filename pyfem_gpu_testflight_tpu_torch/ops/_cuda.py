@@ -1,15 +1,17 @@
 """Build, bind and count the package's hand-written CUDA kernels.
 
-The sources in ``csrc/*.cu`` expose plain C entry points; they are
-compiled by ``nvcc`` for Hopper (``sm_90a``) into one shared library at
-first use, keyed by a hash of the sources and flags, and loaded with
-``ctypes``.  The library lands in ``build/pyfem_torch_kernels/`` at the
-root of the checkout.  Nothing is built or loaded at import: the CPU
-tests import every module on machines without ``nvcc``.
+The sources in ``csrc/*.cu`` expose plain C entry points; at first use
+``nvcc`` compiles each of them for Hopper (``sm_90a``) into an object,
+all in parallel, and links the objects into one shared library, keyed
+by a hash of the sources and flags, which is loaded with ``ctypes``.
+The library lands in ``build/pyfem_torch_kernels/`` at the root of the
+checkout; ptxas's register and spill report of the build is kept in
+:data:`build_log`.  Nothing is built or loaded at import: the CPU tests
+import every module on machines without ``nvcc``.
 
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`launch` raises on a nonzero code and
-counts the launch in :data:`launches`, so a run can show that its main
+counts the call in :data:`launches`, so a run can show that its main
 path went through the kernels.
 """
 
@@ -25,20 +27,22 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["library", "launch", "launches", "reset_launches", "stream_ptr"]
+__all__ = ["library", "launch", "launches", "reset_launches", "stream_ptr",
+           "build_log"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_SOURCES = ("assemble_2d.cu", "smooth_2d.cu")
+_SOURCES = ("assemble_2d.cu", "smooth_2d.cu", "assemble_3d.cu",
+            "smooth_3d.cu")
 _BUILD_DIR = (
     Path(__file__).resolve().parent.parent.parent
     / "build" / "pyfem_torch_kernels"
 )
-_NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-)
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+_NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+               "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_FP = ctypes.POINTER(ctypes.c_float)  # a host float array
 # C entry point -> argtypes (pointers and the stream as c_void_p: a
 # bare Python int would be passed as a 32-bit int and cut the pointer)
 _SIGNATURES = {
@@ -46,10 +50,21 @@ _SIGNATURES = {
     "pyfem_assemble_2d": (_P, _P, _P, _P, _F, _I, _I, _I, _P, _P, _P, _P),
     # coeff, coeff_bf16, invd, b, x, out, nd, ny, nx, omega, mode, stream
     "pyfem_smooth_2d": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
+    # rho, maskf, W, N, p, nd, nz, ny, nx, coeff, invd, coeff_lp, stream
+    "pyfem_assemble_3d": (_P, _P, _P, _P, _F, _I, _I, _I, _I, _P, _P, _P,
+                          _P),
+    # coeff, coeff_bf16, invd, b, x, out, nd, nz, ny, nx, omega, mode,
+    # stream
+    "pyfem_sweep_3d": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
+    # coeff, coeff_bf16, invd, b, x0, buf0, buf1, r, omegas, niter, rmode,
+    # nd, nz, ny, nx, stream
+    "pyfem_sweeps_3d": (_P, _I, _P, _P, _P, _P, _P, _P, _FP, _I, _I, _I, _I,
+                        _I, _I, _P),
 }
 
 launches = {name: 0 for name in _SIGNATURES}
 _lib = None
+build_log = ""  # nvcc/ptxas output of the last build in this process
 
 
 def _nvcc():
@@ -65,6 +80,37 @@ def _nvcc():
     )
 
 
+def _build(so):
+    """Compile every source at once (one nvcc each), link into ``so``."""
+    global build_log
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(dir=_BUILD_DIR))
+    try:
+        objs = [tmp / f"{n}.o" for n in _SOURCES]
+        cmds = [[_nvcc(), *_NVCC_FLAGS, "-c", "-o", str(o), str(_CSRC / n)]
+                for n, o in zip(_SOURCES, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        logs = [proc.communicate()[0] for proc in procs]  # waits for all
+        for cmd, proc, out in zip(cmds, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{out}")
+        lib = tmp / "lib.so"
+        cmd = [_nvcc(), *_ARCH, "-shared", "-o", str(lib),
+               *(str(o) for o in objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stdout}"
+                               f"{proc.stderr}")
+        os.replace(lib, so)  # atomic: concurrent builders never see half
+        build_log = "".join(logs)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def library():
     """The loaded kernel library, built on first call."""
     global _lib
@@ -75,19 +121,7 @@ def library():
         h.update((_CSRC / name).read_bytes())
     so = _BUILD_DIR / f"libpyfem_torch_kernels_{h.hexdigest()[:16]}.so"
     if not so.exists():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *_NVCC_FLAGS, "-o", tmp,
-               *(str(_CSRC / n) for n in _SOURCES)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}"
-            )
-        os.replace(tmp, so)  # atomic: concurrent builders never see half
+        _build(so)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

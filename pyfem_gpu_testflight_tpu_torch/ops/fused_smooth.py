@@ -1,7 +1,9 @@
-"""K2: damped-Jacobi sweeps (+ residual) on BC-eliminated stencil planes.
+"""K2, K4, K5: damped-Jacobi sweeps (+ residual) on stencil planes.
 
-Port of ``fused_sweeps_2d`` / ``_omega_seq`` from
-``pyfem_gpu_testflight_tpu/ops/pallas_smooth.py``.  Runs
+Port of ``fused_sweeps_2d`` / ``_omega_seq`` (K2) and the 3D
+``fused_sweep_3d`` (K4) / ``fused_sweeps3d`` (K5) from
+``pyfem_gpu_testflight_tpu/ops/pallas_smooth.py``; the 3D pair is
+described in the "3D" section below.  K2 runs
 
     x <- x + omega_i * invD * (b - A x)
 
@@ -18,18 +20,32 @@ The TPU kernel fused all sweeps into one pass over the coefficients
 and so had a ghost-row budget of 7 sweeps; here each sweep is its own
 launch of ``csrc/smooth_2d.cu`` and any ``niter >= 0`` is accepted.
 
-A CPU tensor takes :func:`fused_sweeps_2d_plain`; a CUDA tensor
-launches the kernel or raises.
+A CPU tensor takes the ``*_plain`` version; a CUDA tensor launches the
+kernel or raises.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
+import torch.nn.functional as F
 
 from . import _cuda
-from .stencil import Stencil2D
+from .stencil import Stencil2D, Stencil3D
 
-__all__ = ["fused_sweeps_2d", "fused_sweeps_2d_plain"]
+__all__ = [
+    "fused_sweeps_2d",
+    "fused_sweeps_2d_plain",
+    "sym_planes_3d",
+    "halo_sweeps_3d",
+    "full_planes_3d",
+    "fused_sweep_3d",
+    "fused_sweep_3d_plain",
+    "fused_sweeps3d",
+    "fused_sweeps3d_plain",
+]
 
 _MODE_SWEEP, _MODE_RESID, _MODE_NEG_RESID = 0, 1, 2
 
@@ -158,3 +174,259 @@ def fused_sweeps_2d(coeff, invd, b=None, x=None, *, niter=2,
     if invd.device.type == "cpu":
         return fused_sweeps_2d_plain(coeff, invd, b, x, **kw)
     raise ValueError(f"unsupported device {invd.device}")
+
+
+# ---------------------------------------------------------------------------
+# 3D: K4 (one 27-point operation) and K5 (all sweeps of a smoothing call)
+# ---------------------------------------------------------------------------
+#
+# The 3D coefficients are the half-symmetric ("sym") storage of the
+# BC-eliminated 27-point stencil, written by K3 (ops.fused_assemble):
+# the kept planes of :func:`sym_planes_3d` in the logical layout
+# (nk, nz, ny, nx), f32 or bf16; fields are (nd, nz, ny, nx).  A kept
+# plane k = (a, b, dz, dy, dx) at node i adds coeff[k][i] *
+# x[b][i + d - 1] to y[a][i]; unless it is its own partner, its partner
+# (b, a, 2 - dz, 2 - dy, 2 - dx) adds, at node j, the stored
+# coefficient of node j - (d - 1) times x[a][j - (d - 1)].  Off-grid
+# neighbours read as 0.  The TPU z-tiling, halo planes, ``_nyp8`` rows
+# and ``SWEEP3_ZEXT`` trailing planes are not ported.
+
+
+@functools.lru_cache(maxsize=None)
+def sym_planes_3d(nd):
+    """Kept-plane list for symmetric 3D (27-point) storage.
+
+    Keeps all dz=0 planes (their dz=2 partners are rebuilt from the
+    next z-plane), drops all dz=2, and keeps the 2D-rule half of dz=1:
+    123 of 243 planes for nd=3, 14 of 27 for nd=1.
+
+    Returns (k_full, ca, cb, dz, dy, dx, is_self) in storage order.
+    """
+    out = []
+    for a in range(nd):
+        for b in range(nd):
+            for dz in range(3):
+                for dy in range(3):
+                    for dx in range(3):
+                        if dz == 2:
+                            continue
+                        selfp = False
+                        if dz == 1:
+                            k2 = (a * nd + b) * 9 + dy * 3 + dx
+                            p2 = (b * nd + a) * 9 + (2 - dy) * 3 + (2 - dx)
+                            if p2 < k2:
+                                continue
+                            selfp = p2 == k2
+                        k = (a * nd + b) * 27 + dz * 9 + dy * 3 + dx
+                        out.append((k, a, b, dz, dy, dx, selfp))
+    return tuple(out)
+
+
+def halo_sweeps_3d(niter, x0_zero, want_resid):
+    """Stencil passes of one fused_sweeps3d call.
+
+    The first sweep from x0 = 0 is elementwise and reads no
+    coefficients; every other sweep and the trailing residual reads them
+    once.  K5's per-sweep form launches this many stencil passes (the
+    TPU kernel spent the same count as z ghost planes).
+    """
+    return (niter - (1 if x0_zero else 0)) + (1 if want_resid else 0)
+
+
+def full_planes_3d(coeff, nd):
+    """Sym planes (nk, nz, ny, nx) -> full (nd, nd, 3, 3, 3, nz, ny, nx).
+
+    The partner of kept plane (a, b, d) is (b, a, 2 - d), holding at
+    node j the kept value of node j - (d - 1) (0 past the grid).
+    """
+    nz, ny, nx = coeff.shape[1:]
+    full = coeff.new_zeros((nd, nd, 3, 3, 3, nz, ny, nx))
+    cp = F.pad(coeff, (1, 1, 1, 1, 1, 1))
+    for si, (_k, a, b, dz, dy, dx, selfp) in enumerate(sym_planes_3d(nd)):
+        full[a, b, dz, dy, dx] = coeff[si]
+        if not selfp:
+            full[b, a, 2 - dz, 2 - dy, 2 - dx] = cp[
+                si, 2 - dz : 2 - dz + nz, 2 - dy : 2 - dy + ny,
+                2 - dx : 2 - dx + nx
+            ]
+    return full
+
+
+def _check3d(coeff, invd, b, x):
+    ref = invd if invd is not None else (b if b is not None else x)
+    if ref is None or ref.dim() != 4:
+        raise ValueError("need (nd, nz, ny, nx) fields")
+    nd, nz, ny, nx = ref.shape
+    nk = len(sym_planes_3d(nd)) if nd in (1, 3) else None
+    if nk is None:
+        raise ValueError(f"nd must be 1 or 3, got {nd}")
+    if tuple(coeff.shape) != (nk, nz, ny, nx):
+        raise ValueError(f"coeff {tuple(coeff.shape)} != sym storage "
+                         f"{(nk, nz, ny, nx)}")
+    for name, t in (("invd", invd), ("b", b), ("x", x)):
+        if t is not None and (t.shape != ref.shape or t.dtype != ref.dtype
+                              or t.device != ref.device):
+            raise ValueError(f"{name} must match the fields' shape/dtype/"
+                             f"device")
+    if coeff.device != ref.device:
+        raise ValueError("coeff and fields on different devices")
+    return nd, nz, ny, nx
+
+
+def _sweep3d_args(mode, invd, b, x):
+    if mode not in ("sweep", "resid", "matvec"):
+        raise ValueError(f"mode must be sweep, resid or matvec, got {mode!r}")
+    if x is None:
+        raise ValueError("fused_sweep_3d needs an iterate x")
+    if mode == "sweep" and (invd is None or b is None):
+        raise ValueError("mode='sweep' needs invd and b")
+    if mode == "resid" and b is None:
+        raise ValueError("mode='resid' needs b")
+
+
+def fused_sweep_3d_plain(coeff, invd=None, b=None, x=None, *, mode="sweep",
+                         neg_resid=False, omega=0.6):
+    """Plain PyTorch K4 (any device); same contract as fused_sweep_3d."""
+    _sweep3d_args(mode, invd, b, x)
+    nd, nz, ny, nx = _check3d(coeff, invd, b, x)
+    ax = Stencil3D(nx, ny, nz, nd).matvec(
+        full_planes_3d(coeff.to(x.dtype), nd), x
+    )
+    if mode == "matvec":
+        return ax if neg_resid else -ax
+    if mode == "resid":
+        return (ax - b) if neg_resid else (b - ax)
+    return x + omega * invd * (b - ax)
+
+
+def _sweep3d_ptrs(coeff, invd, b, x):
+    for t in (invd, b, x):
+        if t is not None and t.dtype != torch.float32:
+            raise TypeError(f"the CUDA kernels take float32 fields, got "
+                            f"{t.dtype}")
+    if coeff.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"coefficients must be float32 or bfloat16, got "
+                        f"{coeff.dtype}")
+    for t in (coeff, invd, b, x):
+        if t is not None and not t.is_contiguous():
+            raise ValueError("inputs must be contiguous")
+    return lambda t: None if t is None else t.data_ptr()
+
+
+def _fused_sweep_3d_cuda(coeff, invd, b, x, *, mode, neg_resid, omega):
+    _sweep3d_args(mode, invd, b, x)
+    nd, nz, ny, nx = _check3d(coeff, invd, b, x)
+    ptr = _sweep3d_ptrs(coeff, invd, b, x)
+    cmode = (_MODE_SWEEP if mode == "sweep" else
+             _MODE_NEG_RESID if neg_resid else _MODE_RESID)
+    out = torch.empty_like(x)
+    # matvec is the residual with b = 0: -A x, or A x with neg_resid
+    _cuda.launch("pyfem_sweep_3d", coeff.data_ptr(),
+                 int(coeff.dtype == torch.bfloat16), ptr(invd),
+                 ptr(None if mode == "matvec" else b), x.data_ptr(),
+                 out.data_ptr(), nd, nz, ny, nx, float(omega), cmode,
+                 _cuda.stream_ptr(x))
+    return out
+
+
+def fused_sweep_3d(coeff, invd=None, b=None, x=None, *, mode="sweep",
+                   neg_resid=False, omega=0.6):
+    """One 27-point operation on sym-stored 3D stencil planes (K4).
+
+    mode: "sweep"  -> x + omega * invd * (b - A x)   (needs invd, b, x)
+          "resid"  -> +-(b - A x)                    (needs b, x)
+          "matvec" -> A x (neg_resid=True) or -A x   (needs x only)
+
+    Args:
+        coeff: (nk, nz, ny, nx) kept planes (:func:`sym_planes_3d`),
+            f32 or bf16 (loaded as bf16, arithmetic in f32).
+        invd, b, x: (nd, nz, ny, nx) fields.
+    """
+    kw = dict(mode=mode, neg_resid=neg_resid, omega=omega)
+    dev = x.device if x is not None else coeff.device
+    if dev.type == "cuda":
+        return _fused_sweep_3d_cuda(coeff, invd, b, x, **kw)
+    if dev.type == "cpu":
+        return fused_sweep_3d_plain(coeff, invd, b, x, **kw)
+    raise ValueError(f"unsupported device {dev}")
+
+
+def _sweeps3d_args(b, niter):
+    if b is None:
+        raise ValueError("fused_sweeps3d needs b")
+    if niter < 1:
+        raise ValueError(f"fused_sweeps3d needs niter >= 1, got {niter}")
+
+
+def fused_sweeps3d_plain(coeff, invd, b, x=None, *, niter=2,
+                         want_resid=False, neg_resid=False, omega=0.6):
+    """Plain PyTorch K5 (any device); same contract as fused_sweeps3d."""
+    _sweeps3d_args(b, niter)
+    nd, nz, ny, nx = _check3d(coeff, invd, b, x)
+    op = Stencil3D(nx, ny, nz, nd)
+    c = full_planes_3d(coeff.to(invd.dtype), nd)
+    for om in _omega_seq(omega, niter):
+        if x is None:  # first sweep from x0 = 0: elementwise
+            x = om * invd * b
+        else:
+            x = x + om * invd * (b - op.matvec(c, x))
+    if not want_resid:
+        return x
+    r = b - op.matvec(c, x)
+    return x, (-r if neg_resid else r)
+
+
+def _fused_sweeps3d_cuda(coeff, invd, b, x, *, niter, want_resid,
+                         neg_resid, omega):
+    _sweeps3d_args(b, niter)
+    nd, nz, ny, nx = _check3d(coeff, invd, b, x)
+    ptr = _sweep3d_ptrs(coeff, invd, b, x)
+    oms = _omega_seq(omega, niter)
+    # ping-pong buffers: a sweep reads every neighbour of its input, so
+    # it can never write in place; the caller's x is never written
+    bufs = [torch.empty_like(b) for _ in range(min(niter, 2))]
+    r = torch.empty_like(b) if want_resid else None
+    rmode = (-1 if not want_resid else
+             _MODE_NEG_RESID if neg_resid else _MODE_RESID)
+    _cuda.launch("pyfem_sweeps_3d", coeff.data_ptr(),
+                 int(coeff.dtype == torch.bfloat16), invd.data_ptr(),
+                 b.data_ptr(), ptr(x), bufs[0].data_ptr(),
+                 bufs[-1].data_ptr(), ptr(r), (ctypes.c_float * niter)(*oms),
+                 niter, rmode, nd, nz, ny, nx, _cuda.stream_ptr(b))
+    xo = bufs[(niter - 1) % 2]
+    return (xo, r) if want_resid else xo
+
+
+def fused_sweeps3d(coeff, invd, b, x=None, *, niter=2, want_resid=False,
+                   neg_resid=False, omega=0.6):
+    """All damped-Jacobi sweeps of one 3D smoothing call (+ residual), K5.
+
+    ``niter`` sweeps x <- x + omega_i * invd * (b - A x) from x (or from
+    x0 = 0 when ``x`` is None: the first sweep is then ``omega_0 * invd
+    * b``), then optionally ``+-(b - A x)``.  On the card this is one
+    call of ``csrc/smooth_3d.cu``'s ``pyfem_sweeps_3d``, which launches
+    one stencil pass per sweep and one for the residual
+    (:func:`halo_sweeps_3d` passes plus the elementwise first sweep), so
+    any ``niter >= 1`` is accepted; the single-pass z-blocked form is
+    ROADMAP work.
+
+    Args:
+        coeff: (nk, nz, ny, nx) sym planes, f32 or bf16.
+        invd, b: (nd, nz, ny, nx) inverse diagonal (0 at fixed dofs) and
+            right-hand side (0 at fixed dofs).
+        x: (nd, nz, ny, nx) initial iterate, or None for x0 = 0.
+        niter: sweeps (>= 1).
+        want_resid: also return sign*(b - A x_final).
+        neg_resid: flip the residual sign (A x - b).
+        omega: a damping factor, or per-sweep factors (len >= niter).
+
+    Returns:
+        x_out, or (x_out, r_out) with want_resid.
+    """
+    kw = dict(niter=int(niter), want_resid=want_resid,
+              neg_resid=neg_resid, omega=omega)
+    if coeff.device.type == "cuda":
+        return _fused_sweeps3d_cuda(coeff, invd, b, x, **kw)
+    if coeff.device.type == "cpu":
+        return fused_sweeps3d_plain(coeff, invd, b, x, **kw)
+    raise ValueError(f"unsupported device {coeff.device}")

@@ -136,3 +136,127 @@ class Stencil2D:
 
     def diagonal(self, coeff):
         return torch.stack([coeff[c, c, 1, 1] for c in range(self.nd)])
+
+
+# hex8 local node (dz, dy, dx) offsets (mesh._hex_conn ordering)
+_HEX8_LOCAL = (
+    (0, 0, 0), (0, 0, 1), (0, 1, 1), (0, 1, 0),
+    (1, 0, 0), (1, 0, 1), (1, 1, 1), (1, 1, 0),
+)
+
+
+def _neighbour_stack(mp, nz, ny, nx):
+    """(..., nz+2, ny+2, nx+2) padded -> (..., 3, 3, 3, nz, ny, nx) views
+    indexed [dz, dy, dx] = value at (iz+dz-1, iy+dy-1, ix+dx-1)."""
+    return torch.stack([
+        torch.stack([
+            torch.stack([
+                mp[..., dz : dz + nz, dy : dy + ny, dx : dx + nx]
+                for dx in range(3)
+            ], dim=-4)
+            for dy in range(3)
+        ], dim=-5)
+        for dz in range(3)
+    ], dim=-6)
+
+
+class Stencil3D:
+    """Stencil form of a hex8-assembled operator on an (nz, ny, nx) grid.
+
+    Port of ``Stencil3D`` from the JAX package.  coeff layout:
+    (nd, nd, 3, 3, 3, nz, ny, nx) — indexed [c_row, c_col, dz+1, dy+1,
+    dx+1, iz, iy, ix]; state fields are (nd, nz, ny, nx).
+    """
+
+    def __init__(self, nx: int, ny: int, nz: int, nd: int):
+        self.nx, self.ny, self.nz, self.nd = int(nx), int(ny), int(nz), int(nd)
+        ndpe = 8 * nd
+        plan = []
+        for r in range(ndpe):
+            a, ca = divmod(r, nd)
+            az, ay, ax = _HEX8_LOCAL[a]
+            for s in range(ndpe):
+                b, cb = divmod(s, nd)
+                bz, by, bx = _HEX8_LOCAL[b]
+                plan.append(
+                    (ca, cb, bz - az + 1, by - ay + 1, bx - ax + 1,
+                     az, ay, ax, r, s)
+                )
+        self.plan = tuple(plan)
+
+    def assemble_uniform(self, Cq_grid, Kq):
+        """Uniform-geometry assembly: Ke[e] = sum_q Cq[e,q] Kq[q].
+
+        Args:
+            Cq_grid: (nquads, nez, ney, nex) material factor at quad points.
+            Kq: (nquads, ndpe, ndpe) unit element matrices.
+        """
+        nz, ny, nx, nd = self.nz, self.ny, self.nx, self.nd
+        Kqh = np.asarray(torch.as_tensor(Kq).cpu())
+        nq = Cq_grid.shape[0]
+        table = {}
+        for (ca, cb, dz, dy, dx, az, ay, ax, r, s) in self.plan:
+            table.setdefault((ca, cb, dz, dy, dx), {}).setdefault(
+                (az, ay, ax), np.zeros(nq)
+            )
+            table[(ca, cb, dz, dy, dx)][(az, ay, ax)] += Kqh[:, r, s]
+        planes = []
+        for ca in range(nd):
+            for cb in range(nd):
+                for dz in range(3):
+                    for dy in range(3):
+                        for dx in range(3):
+                            p = Cq_grid.new_zeros((nz, ny, nx))
+                            for (az, ay, ax), w in table.get(
+                                (ca, cb, dz, dy, dx), {}
+                            ).items():
+                                t = sum(
+                                    float(w[q]) * Cq_grid[q]
+                                    for q in range(nq) if w[q] != 0.0
+                                )
+                                p = p + F.pad(t, (ax, 1 - ax, ay, 1 - ay,
+                                                  az, 1 - az))
+                            planes.append(p)
+        return torch.stack(planes).reshape(nd, nd, 3, 3, 3, nz, ny, nx)
+
+    def matvec(self, coeff, u):
+        """u: (..., nd, nz, ny, nx) -> y: (..., nd, nz, ny, nx).
+
+        Leading batch dimensions broadcast against the coefficients
+        (the coarse dense factor applies it to an identity batch).
+        """
+        nd, nz, ny, nx = self.nd, self.nz, self.ny, self.nx
+        up = F.pad(u, (1, 1, 1, 1, 1, 1))
+        ys = []
+        for c in range(nd):
+            acc = None
+            for cp in range(nd):
+                for dz in range(3):
+                    for dy in range(3):
+                        for dx in range(3):
+                            t = coeff[c, cp, dz, dy, dx] * up[
+                                ..., cp, dz : dz + nz, dy : dy + ny,
+                                dx : dx + nx
+                            ]
+                            acc = t if acc is None else acc + t
+            ys.append(acc)
+        return torch.stack(ys, dim=-4)
+
+    def bc_matvec(self, coeff, mask, u):
+        """Dirichlet mask semantics on (nd, nz, ny, nx) fields."""
+        uz = torch.where(mask, 0.0, u)
+        y = self.matvec(coeff, uz)
+        return torch.where(mask, u, y)
+
+    def bc_eliminate(self, coeff, mask):
+        """3D analogue of :meth:`Stencil2D.bc_eliminate`."""
+        nd, nz, ny, nx = self.nd, self.nz, self.ny, self.nx
+        colm = _neighbour_stack(F.pad(mask, (1, 1, 1, 1, 1, 1)), nz, ny, nx)
+        rowm = mask[:, None, None, None, None]
+        ce = torch.where(rowm | colm[None], 0.0, coeff)
+        for c in range(nd):
+            ce[c, c, 1, 1, 1] = torch.where(mask[c], 1.0, ce[c, c, 1, 1, 1])
+        return ce
+
+    def diagonal(self, coeff):
+        return torch.stack([coeff[c, c, 1, 1, 1] for c in range(self.nd)])

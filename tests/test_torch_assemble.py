@@ -25,6 +25,9 @@ from pyfem_gpu_testflight_tpu_torch.ops import fused_assemble as fa
 
 torch.set_num_threads(2)
 
+# the port's entry points default to the CUDA card; these tests run on CPU
+DEV = "cpu"
+
 NX, NY = 33, 17
 
 
@@ -56,7 +59,7 @@ def test_plain_k1_matches_xla_assembly(physics):
     rho = _rho()
     ce_ref, invd_ref, mask = _jax_fine_planes(physics, rho)
     ta = tmg.GMGAssembler(NX, NY, 2.0, 1.0, physics, p=3.0,
-                          dtype=torch.float64)
+                          dtype=torch.float64, device=DEV)
     st = ta.static_levels[0]
     coeff, invd, lp = fa.assemble_pack_2d_plain(
         torch.as_tensor(rho), st.maskf, st.W, ta.N, nd=ta.nd, p=3.0,
@@ -96,7 +99,7 @@ def test_stencil_reference_matches_jax(physics):
         np.array(a) for a in ref(jnp.asarray(rho), jnp.asarray(u))
     )
     ta = tmg.GMGAssembler(NX, NY, 2.0, 1.0, physics, p=3.0,
-                          dtype=torch.float64)
+                          dtype=torch.float64, device=DEV)
     st = ta.static_levels[0]
     op, ut = st.op, torch.as_tensor(u)
     coeff = op.assemble_uniform(torch.as_tensor(Cq), st.Kq)
@@ -120,7 +123,7 @@ def test_stencil_reference_matches_jax(physics):
 
 def test_wrapper_takes_plain_path_on_cpu():
     ta = tmg.GMGAssembler(NX, NY, 2.0, 1.0, "elasticity", p=3.0,
-                          dtype=torch.float32)
+                          dtype=torch.float32, device=DEV)
     st = ta.static_levels[0]
     rho = torch.as_tensor(_rho(1), dtype=torch.float32)
     a = fa.assemble_pack_2d(rho, st.maskf, st.W, ta.N, nd=2, p=3.0)
@@ -139,7 +142,7 @@ def test_hierarchy_levels_match_xla():
     ja = jmg.GMGAssembler(NX, NY, 2.0, 1.0, "elasticity", p=3.0,
                           dtype=jnp.float64)
     ta = tmg.GMGAssembler(NX, NY, 2.0, 1.0, "elasticity", p=3.0,
-                          dtype=torch.float64)
+                          dtype=torch.float64, device=DEV)
 
     @jax.jit
     def levels(rho):

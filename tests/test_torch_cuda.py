@@ -1,5 +1,9 @@
 """PyTorch port: the CUDA kernels against their plain versions on the card.
 
+K1 and K2 on a 65x33 level; K3, K4 (every mode, f32 and bf16 planes)
+and K5 on a 17^3 level (chip_smoke.py phases 3 and 3a hold them at full
+size).
+
 Needs an NVIDIA Hopper card and nvcc; marked ``slow`` (deselected by the
 CPU tier) and skipped where CUDA is absent.  Run on the card with:
 
@@ -98,3 +102,104 @@ def test_cuda_wrappers_refuse_float64(level):
     with pytest.raises(TypeError):
         fa.assemble_pack_2d(rho.double(), st.maskf.double(), st.W.double(),
                             a.N.double(), nd=2, p=3.0)
+
+
+# -- 3D: K3, K4 (sym storage) and K5 at 17^3 --------------------------------
+
+N3 = 17
+
+
+@pytest.fixture(scope="module")
+def level3d(dev):
+    from pyfem_gpu_testflight_tpu_torch import multigrid
+    from pyfem_gpu_testflight_tpu_torch.ops import fused_assemble as fa
+
+    a = multigrid.GMGAssembler3D(N3, N3, N3, 1.0, 1.0, 1.0, "elasticity",
+                                 p=3.0, device=dev)
+    st = a.static_levels[0]
+    rng = np.random.default_rng(1)
+    rho = torch.as_tensor(rng.uniform(0.2, 1.0, (N3, N3, N3)),
+                          dtype=torch.float32, device=dev)
+    planes = fa.assemble_pack_3d(rho, st.maskf, st.W, a.N, nd=3, p=3.0,
+                                 lp_dtype=torch.bfloat16)
+    f = lambda: torch.as_tensor(rng.standard_normal((3, N3, N3, N3)),
+                                dtype=torch.float32, device=dev)
+    fields = dict(b=torch.where(st.mask, 0.0, f()),
+                  x0=torch.where(st.mask, 0.0, f()), xr=f())
+    return a, st, rho, planes, fields
+
+
+def test_k3_matches_plain_on_card(level3d):
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+    from pyfem_gpu_testflight_tpu_torch.ops import fused_assemble as fa
+
+    a, st, rho, _, _ = level3d
+    args = (rho, st.maskf, st.W, a.N)
+    n0 = _cuda.launches["pyfem_assemble_3d"]
+    ck, dk, lk = fa.assemble_pack_3d(*args, nd=3, p=3.0,
+                                     lp_dtype=torch.bfloat16)
+    cp, dp = fa.assemble_pack_3d_plain(*args, nd=3, p=3.0)
+    torch.cuda.synchronize()
+    assert _cuda.launches["pyfem_assemble_3d"] == n0 + 1
+    free = st.maskf > 0
+    assert ck.shape == (123, N3, N3, N3)
+    assert _rel(ck, cp) <= TOL
+    assert _rel(dk[free], dp[free]) <= TOL
+    assert bool((dk[~free] == 0).all())
+    assert torch.equal(lk, ck.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("variant", ["sweep_f32", "resid_bf16",
+                                     "negresid_f32", "matvec_f32",
+                                     "negmatvec_bf16"])
+def test_k4_matches_plain_on_card(level3d, variant):
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+    from pyfem_gpu_testflight_tpu_torch.ops import fused_smooth as fs
+
+    _, _, _, (ck, dk, lk), fl = level3d
+    name, prec = variant.rsplit("_", 1)
+    c = ck if prec == "f32" else lk
+    args, kw = {
+        "sweep": ((c, dk, fl["b"], fl["x0"]), dict(mode="sweep", omega=0.5)),
+        "resid": ((c, None, fl["b"], fl["x0"]), dict(mode="resid")),
+        "negresid": ((c, None, fl["b"], fl["x0"]),
+                     dict(mode="resid", neg_resid=True)),
+        "matvec": ((c, None, None, fl["xr"]),
+                   dict(mode="matvec", neg_resid=True)),
+        "negmatvec": ((c, None, None, fl["xr"]), dict(mode="matvec")),
+    }[name]
+    n0 = _cuda.launches["pyfem_sweep_3d"]
+    got = fs.fused_sweep_3d(*args, **kw)
+    ref = fs.fused_sweep_3d_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert _cuda.launches["pyfem_sweep_3d"] == n0 + 1
+    assert _rel(got, ref) <= TOL
+
+
+@pytest.mark.parametrize("variant", ["presmooth_resid_bf16", "postsmooth_bf16",
+                                     "nu4_resid_f32"])
+def test_k5_matches_plain_on_card(level3d, variant):
+    from pyfem_gpu_testflight_tpu_torch import multigrid
+    from pyfem_gpu_testflight_tpu_torch.ops import fused_smooth as fs
+
+    _, _, _, (ck, dk, lk), fl = level3d
+    b, x0 = fl["b"], fl["x0"]
+    om2 = multigrid.smoothing_omegas(2, 3.0)
+    args, kw = {
+        "presmooth_resid_bf16": ((lk, dk, b, None),
+                                 dict(niter=2, want_resid=True, omega=om2)),
+        "postsmooth_bf16": ((lk, dk, b, x0), dict(niter=2, omega=om2[::-1])),
+        "nu4_resid_f32": ((ck, dk, b, x0),
+                          dict(niter=4, want_resid=True,
+                               omega=multigrid.smoothing_omegas(4, 3.0))),
+    }[variant]
+    got = fs.fused_sweeps3d(*args, **kw)
+    ref = fs.fused_sweeps3d_plain(*args, **kw)
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    assert _rel(got[0], ref[0]) <= TOL
+    if len(ref) > 1:
+        # the residual is damped below b: its rounding is at b's scale
+        err = float((got[1] - ref[1]).abs().max())
+        assert err <= TOL * float(b.abs().max())

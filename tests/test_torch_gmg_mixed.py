@@ -32,6 +32,9 @@ from pyfem_gpu_testflight_tpu_torch.ops.dia import interleave_to_planar
 
 torch.set_num_threads(2)
 
+# the port's entry points default to the CUDA card; these tests run on CPU
+DEV = "cpu"
+
 
 def test_entry_config_bf16_flexible_matches_jax():
     nx, ny, rtol = 65, 33, 1e-6
@@ -56,7 +59,8 @@ def test_entry_config_bf16_flexible_matches_jax():
     x_ref, k_ref = np.asarray(x_ref), int(k_ref)
 
     ta = tmg.GMGAssembler(nx, ny, Lx, Ly, "elasticity", p=3.0,
-                          dtype=torch.float32, smoother_dtype=torch.bfloat16)
+                          dtype=torch.float32, smoother_dtype=torch.bfloat16,
+                          device=DEV)
     gmg, lv0 = ta.assemble(torch.full((nx * ny,), 0.6))
     assert lv0.coeff_lp.dtype == torch.bfloat16
     b = torch.where(lv0.mask, 0.0, interleave_to_planar(
@@ -69,7 +73,7 @@ def test_entry_config_bf16_flexible_matches_jax():
     assert np.abs(x.numpy() - x_ref).max() <= 1e-3 * scale
 
     a64 = tmg.GMGAssembler(nx, ny, Lx, Ly, "elasticity", p=3.0,
-                           dtype=torch.float64)
+                           dtype=torch.float64, device=DEV)
     g64, l64 = a64.assemble(torch.full((nx * ny,), 0.6, dtype=torch.float64))
     x64, _, _ = tmg.pcg_gmg(g64, l64, b.double(), rtol=1e-12, maxiter=100)
     x64 = x64.numpy()

@@ -1,0 +1,168 @@
+"""PyTorch port, kernels K4 and K5 (``ops/fused_smooth.py``, 3D) on CPU.
+
+K4 replaces the Pallas ``fused_sweep_3d`` (half-storage body) and K5
+``fused_sweeps3d``; on CPU tensors their wrappers run the plain PyTorch
+versions, gated here in float64 to 1e-12 relative against sweeps built
+from the JAX ``Stencil3D.matvec`` on full planes, on a JAX-assembled
+9x7x5 level (p=3, random density):
+
+* K4 in every mode: sweep, residual and matvec, each sign;
+* K5 with nu = 1..4, from x0 = 0 or a given x, with and without the
+  residual, on the full-precision planes and on their bf16 copy;
+* the ``Level3D`` methods that wrap them.
+
+On the full-precision side the JAX reference reads the JAX package's
+own eliminated planes; the bf16 variants read the full planes rebuilt
+from the bf16-rounded kept planes (identical values on both sides).
+"""
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from pyfem_gpu_testflight_tpu import multigrid as jmg
+
+from pyfem_gpu_testflight_tpu_torch import multigrid as tmg
+from pyfem_gpu_testflight_tpu_torch.ops import fused_smooth as fs
+from pyfem_gpu_testflight_tpu_torch.ops.stencil import Stencil3D
+
+torch.set_num_threads(1)
+
+NX, NY, NZ = 9, 7, 5
+ND = 3
+
+
+@pytest.fixture(scope="module")
+def level():
+    rng = np.random.default_rng(0)
+    rho = rng.uniform(0.2, 1.0, (NZ, NY, NX))
+    ja = jmg.GMGAssembler3D(NX, NY, NZ, 2.0, 1.5, 1.0, "elasticity", p=3.0,
+                            dtype=jnp.float64)
+    op, _xe, _conn, mask, _shape, Kq, _pal, _otf = ja.static_levels[0]
+    with jax.disable_jit():
+        ce = op.bc_eliminate(
+            op.assemble_uniform(ja.material_planes(jnp.asarray(rho)), Kq),
+            mask,
+        )
+        d = op.diagonal(ce)
+        invd = 1.0 / jnp.where(d == 0, 1.0, d)
+    mask = np.asarray(mask)
+    keep = [k for (k, *_r) in fs.sym_planes_3d(ND)]
+    kept = torch.as_tensor(np.array(ce).reshape(-1, NZ, NY, NX)[keep])
+    kept_lp = kept.to(torch.bfloat16)
+    full_lp = fs.full_planes_3d(kept_lp.double(), ND).numpy()
+    shape = (ND, NZ, NY, NX)
+    return dict(
+        ce=np.array(ce), ce_lp=full_lp, kept=kept, kept_lp=kept_lp,
+        invd=np.where(mask, 0.0, np.array(invd)), mask=mask,
+        mv=jax.jit(op.matvec),
+        b=np.where(mask, 0.0, rng.standard_normal(shape)),
+        x0=np.where(mask, 0.0, rng.standard_normal(shape)),
+        xr=rng.standard_normal(shape),
+    )
+
+
+def _mv(lv, c, u):
+    return np.asarray(lv["mv"](jnp.asarray(c), jnp.asarray(u)))
+
+
+def _close(got, ref):
+    assert np.abs(got.numpy() - ref).max() <= 1e-12 * np.abs(ref).max()
+
+
+def _t(a):
+    return None if a is None else torch.as_tensor(a)
+
+
+@pytest.mark.parametrize("lp", [False, True])
+@pytest.mark.parametrize("mode,neg", [("sweep", False), ("resid", False),
+                                      ("resid", True), ("matvec", False),
+                                      ("matvec", True)])
+def test_plain_k4_matches_jax(level, mode, neg, lp):
+    c = level["kept_lp"] if lp else level["kept"]
+    ce = level["ce_lp"] if lp else level["ce"]
+    x = level["xr"] if mode == "matvec" else level["x0"]
+    ax = _mv(level, ce, x)
+    b = level["b"]
+    ref = {
+        "sweep": lambda: x + 0.55 * level["invd"] * (b - ax),
+        "resid": lambda: (ax - b) if neg else (b - ax),
+        "matvec": lambda: ax if neg else -ax,
+    }[mode]()
+    out = fs.fused_sweep_3d(
+        c, _t(level["invd"]) if mode == "sweep" else None,
+        None if mode == "matvec" else _t(b), _t(x), mode=mode,
+        neg_resid=neg, omega=0.55,
+    )
+    _close(out, ref)
+
+
+def _sweeps_ref(lv, ce, b, x, oms, want_resid, neg):
+    for om in oms:
+        ax = 0.0 if x is None else _mv(lv, ce, x)
+        x = (0.0 if x is None else x) + om * lv["invd"] * (b - ax)
+    if not want_resid:
+        return x, None
+    r = b - _mv(lv, ce, x)
+    return x, (-r if neg else r)
+
+
+@pytest.mark.parametrize("niter", [1, 2, 3, 4])
+@pytest.mark.parametrize("x0_zero", [True, False])
+@pytest.mark.parametrize("lp,want_resid,neg", [
+    (True, True, False),    # presmooth + residual on the bf16 copy
+    (True, False, False),   # postsmooth on the bf16 copy
+    (False, True, True),    # full precision, negated residual
+])
+def test_plain_k5_matches_jax(level, niter, x0_zero, lp, want_resid, neg):
+    c = level["kept_lp"] if lp else level["kept"]
+    ce = level["ce_lp"] if lp else level["ce"]
+    x = None if x0_zero else level["x0"]
+    oms = tmg.smoothing_omegas(niter, 3.0)
+    x_ref, r_ref = _sweeps_ref(level, ce, level["b"], x, oms, want_resid, neg)
+    out = fs.fused_sweeps3d(c, _t(level["invd"]), _t(level["b"]), _t(x),
+                            niter=niter, want_resid=want_resid,
+                            neg_resid=neg, omega=oms)
+    if want_resid:
+        _close(out[0], x_ref)
+        _close(out[1], r_ref)
+    else:
+        _close(out, x_ref)
+
+
+def test_level3d_methods_match_k4_k5(level):
+    op = Stencil3D(NX, NY, NZ, ND)
+    t = lambda k: torch.as_tensor(level[k])
+    lv = tmg.Level3D(op, level["kept"], t("invd"), t("mask"), (NZ, NY, NX),
+                     ND, coeff_lp=level["kept_lp"])
+    b, x0 = t("b"), t("x0")
+    oms = tmg.smoothing_omegas(2, 3.0)
+    _close(lv.matvec(t("xr")), _mv(level, level["ce"], level["xr"]))
+    assert lv.can_fuse3d(1, True, True) and not lv.can_fuse3d(0, True, True)
+    # K5 = the elementwise first sweep + K4 sweeps + the K4 residual
+    x, r = lv.presmooth_resid3d(b, 2, oms)
+    xs = lv.sweep3d(b, oms[0] * lv.inv_diag * b, oms[1])
+    _close(x, xs.numpy())
+    _close(r, lv.resid3d(b, xs).numpy())
+    _close(lv.postsmooth3d(b, x0, 2, oms[::-1]),
+           lv.sweep3d(b, lv.sweep3d(b, x0, oms[1]), oms[0]).numpy())
+
+
+def test_k4_k5_argument_checks(level):
+    c, d, b = level["kept"], _t(level["invd"]), _t(level["b"])
+    with pytest.raises(ValueError):
+        fs.fused_sweep_3d(c, d, b, None, mode="sweep")  # no iterate
+    with pytest.raises(ValueError):
+        fs.fused_sweep_3d(c, None, b, b, mode="sweep")  # no invd
+    with pytest.raises(ValueError):
+        fs.fused_sweep_3d(c, d, b, b, mode="apply")
+    with pytest.raises(ValueError):
+        fs.fused_sweeps3d(c, d, b, None, niter=0)
+    with pytest.raises(ValueError):
+        fs.fused_sweeps3d(c, d, None, None, niter=2)
+    with pytest.raises(ValueError):
+        fs.fused_sweeps3d(c[:14], d, b, None, niter=2)  # nd=1 storage
+    with pytest.raises(ValueError):
+        fs.fused_sweeps3d(c, d, b, None, niter=3, omega=(0.5, 0.6))

@@ -36,22 +36,32 @@ from pyfem_gpu_testflight_tpu_torch.models import base as tbase
 
 torch.set_num_threads(2)
 
+# the port's entry points default to the CUDA card; these tests run on CPU
+DEV = "cpu"
+
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _DTYPES = {"float64": (torch.float64, jnp.float64),
            "float32": (torch.float32, jnp.float32)}
 
 
 def test_port_imports_without_jax():
+    # every module of the port, and chip_smoke.py as a module, import
+    # with jax and the JAX package made unimportable
     code = (
-        "import sys\n"
+        "import importlib, pkgutil, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['pyfem_gpu_testflight_tpu'] = None\n"
         "import pyfem_gpu_testflight_tpu_torch as pt\n"
-        "import pyfem_gpu_testflight_tpu_torch.convert\n"
-        "import pyfem_gpu_testflight_tpu_torch.ops._cuda\n"
-        "import pyfem_gpu_testflight_tpu_torch.ops.fused_assemble\n"
-        "import pyfem_gpu_testflight_tpu_torch.ops.fused_smooth\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m.startswith('pyfem_gpu_testflight_tpu.')"
-        " or m == 'pyfem_gpu_testflight_tpu']\n"
+        "names = [m.name for m in pkgutil.walk_packages(pt.__path__,"
+        " 'pyfem_gpu_testflight_tpu_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "assert 'pyfem_gpu_testflight_tpu_torch.multigrid' in names\n"
+        "assert 'pyfem_gpu_testflight_tpu_torch.device' in names\n"
+        "import chip_smoke\n"
+        "bad = [m for m, v in sys.modules.items() if v is not None and"
+        " (m == 'jax' or m.startswith('jax.')"
+        " or m.startswith('pyfem_gpu_testflight_tpu.'))]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
@@ -119,7 +129,7 @@ def test_dirichlet_bc_matches_jax(with_vals):
     if with_vals:
         vals[2] = vals[1]  # a repeated dof keeps one value
     jbc = jbcs.DirichletBC(fixed, vals, n)
-    tbc = tbcs.DirichletBC(fixed, vals, n)
+    tbc = tbcs.DirichletBC(fixed, vals, n, device=DEV)
     assert tbc.nfixed == jbc.nfixed == 4
     assert np.array_equal(tbc.mask.numpy(), np.asarray(jbc.mask))
     assert np.array_equal(tbc.values.numpy(), np.asarray(jbc.values))
@@ -146,7 +156,8 @@ def test_dirichlet_bc_matches_jax(with_vals):
 def _assemblers(physics, dtype, nx=65, ny=33):
     tdt, jdt = _DTYPES[dtype]
     ja = jmg.GMGAssembler(nx, ny, 2.0, 1.0, physics, p=3.0, dtype=jdt)
-    ta = tmg.GMGAssembler(nx, ny, 2.0, 1.0, physics, p=3.0, dtype=tdt)
+    ta = tmg.GMGAssembler(nx, ny, 2.0, 1.0, physics, p=3.0, dtype=tdt,
+                          device=DEV)
     return ja, ta
 
 
