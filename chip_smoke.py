@@ -4,10 +4,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``pyfem_gpu_testflight_tpu_torch/
 csrc``, holds each against its plain PyTorch version on the card, then
-drives the port's two main paths through the package's public entry
+drives the port's main paths through the package's public entry
 points — the 2D plane-stress GMG-PCG solve at 1025x513 nodes (1,051,650
-dof) and the 3D hex8 GMG-PCG solve at 65^3 nodes (823,875 dof) — and
-checks the answers against float64 references.  Exits nonzero on any
+dof) and the 3D hex8 GMG-PCG solve at 65^3 nodes (823,875 dof) on its
+assembled route, its on-the-fly route and with full coefficient storage
+— and checks the answers against float64 references.  Exits nonzero on any
 failure; on success the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 The line before it lists each kernel's launches on its main path (the
@@ -21,9 +22,14 @@ Phases:
 2. build the kernels (one nvcc per source, in parallel) and time it;
 3. 2D kernels vs plain (K1 at 1025x513 and 65x33, K2 in the four
    V-cycle variants and niter=8), with times and the CSR matvec time;
-3a. 3D kernels vs plain (K3 at 65^3 and 9x7x5 for nd=3 and nd=1, K4 in
-   every mode on f32 and bf16 planes, K5 presmooth+resid and postsmooth
-   on bf16 and nu=4), with times and the CSR matvec time;
+3a. 3D kernels vs plain, in half-symmetric and full coefficient storage
+   (K3 at 65^3 and 9x7x5 for nd=3 and nd=1, K4 in every mode on f32 and
+   bf16 planes, K5 presmooth+resid and postsmooth on bf16 and nu=4),
+   with times and the CSR matvec time;
+3b. K6, the on-the-fly operator, vs plain at 65^3 (nd=3) and 9x7x5
+   (nd=3 and nd=1): matvec, presmooth+resid and postsmooth (nu=2) with
+   f32 and bf16 operands, presmooth+resid nu=4, compared pass by pass
+   (``k6_passes``), with times, the flop bound and the CSR matvec time;
 4. the 2D bench configuration (p=0, rho=1, Chebyshev-node nu=2, bf16
    smoother copy, flexible PCG, rtol 1e-6): iterations, launch counts,
    float64 true residual, single-shot and chained solve times, and where
@@ -31,10 +37,16 @@ Phases:
    ``torch.profiler``);
 4a. the 3D bench configuration (``bench.py --config 3d``: 65^3, p=0,
    rho=1, Chebyshev-node nu=2, bf16 smoother copy, flexible PCG, rtol
-   1e-6, coarsest 3^3 solved densely), the same measures;
+   1e-6, coarsest 3^3 solved densely), the same measures, and the peak
+   device memory of one assemble+solve;
+4b. the same with ``elem_path="otf"`` (K6 on every level but the
+   coarsest): iterations and solution against 4a's, the same measures;
+4c. the same with ``sym=False`` (all 243 planes): iterations, true
+   residual, K4/K5 launches on full planes;
 5. ``LinearElasticity.solve(method="gmg")`` at 1025x513 (rho=0.6 and a
    seeded random rho, p=3);
 5a. the same entry on hex8 at 65^3;
+5b. the same with ``attach_structured_grid(..., elem_path="otf")``;
 6. at 257x129, p^T u against scipy's sparse direct solve;
 6a. at 17^3 (p=3, seeded rho), the same against scipy.
 
@@ -48,6 +60,8 @@ under a float64 outer PCG (the float32 V-cycle as preconditioner).
 Bounds: the least time for the same work on an H100 SXM, the larger of
 (bytes the function must move, each input read once and each output
 written once) / 3.35 TB/s and (its float32 operations) / 67 TFLOP/s.
+K6's operations are the structurally nonzero ones (the dense count of
+the TPU kernel's matmuls is printed beside it).
 """
 
 from __future__ import annotations
@@ -357,7 +371,8 @@ def phase_kernels(dev):
 
 
 def phase_kernels_3d(dev):
-    """Phase 3a: K3, K4 and K5 against their plain versions on the card."""
+    """Phase 3a: K3, K4 and K5 against their plain versions on the card,
+    in half-symmetric (``sym``) and full coefficient storage."""
     import torch
     from pyfem_gpu_testflight_tpu_torch import multigrid
     from pyfem_gpu_testflight_tpu_torch.ops import fused_assemble as fa
@@ -365,8 +380,9 @@ def phase_kernels_3d(dev):
 
     rng = np.random.default_rng(SEED + 10)
     res = {}
-    for (nx, ny, nz), physics in itertools.product(
-        ((N3, N3, N3), (9, 7, 5)), ("elasticity", "poisson")
+    fine = {}
+    for (nx, ny, nz), physics, sym in itertools.product(
+        ((N3, N3, N3), (9, 7, 5)), ("elasticity", "poisson"), (True, False)
     ):
         a = multigrid.GMGAssembler3D(nx, ny, nz, (nx - 1) / (ny - 1), 1.0,
                                      (nz - 1) / (ny - 1), physics, p=3.0,
@@ -375,38 +391,40 @@ def phase_kernels_3d(dev):
         rho = torch.as_tensor(rng.uniform(0.2, 1.0, (nz, ny, nx)),
                               dtype=torch.float32, device=dev)
         args = (rho, st.maskf, st.W, a.N)
-        kw = dict(nd=nd, p=3.0, lp_dtype=torch.bfloat16)
+        kw = dict(nd=nd, p=3.0, lp_dtype=torch.bfloat16, sym=sym)
         ck, dk, lk = fa.assemble_pack_3d(*args, **kw)
         cp, dp, _ = fa.assemble_pack_3d_plain(*args, **kw)
         torch.cuda.synchronize()
         free = st.maskf > 0
         ea, er = rel_err(ck, cp)
         ia, ir = rel_err(dk, dp, free)
-        tag = f"K3 {nx}x{ny}x{nz} nd={nd}"
-        log(f"{tag}: planes rel {er:.2e} (abs {ea:.2e}), inv_diag free rel "
-            f"{ir:.2e}")
+        form = "sym" if sym else "full"
+        tag = f"K3 {form} {nx}x{ny}x{nz} nd={nd}"
+        log(f"{tag}: {ck.shape[0]} planes rel {er:.2e} (abs {ea:.2e}), "
+            f"inv_diag free rel {ir:.2e}")
         check(er <= REL_TOL, f"{tag} planes within {REL_TOL:g}")
         check(ir <= REL_TOL, f"{tag} inv_diag within {REL_TOL:g}")
         check(bool((dk[~free] == 0).all()), f"{tag} inv_diag 0 fixed")
         check(torch.equal(lk, ck.to(torch.bfloat16)),
               f"{tag} bf16 copy == its f32 planes rounded")
         if (nx, ny, nz, nd) == (N3, N3, N3, 3):
-            # per node: ~2,300 weight FMAs over the kept planes + 512 for
-            # the material at 64 quad points, 2 flops each
+            # per node: ~2,300 (sym) / ~4,600 (full) weight FMAs over the
+            # planes + 512 for the material at 64 quad points, 2 flops each
+            fmas = 2300 if sym else 4608
             b_ms, b_by = bound(nbytes(rho, st.maskf, st.W, a.N, ck, dk, lk),
-                               2 * (2300 + 512) * rho.numel())
-            res["K3"] = dict(
+                               2 * (fmas + 512) * rho.numel())
+            r = dict(
                 max_abs_err=max(ea, ia),
                 ms=cuda_ms(lambda: fa.assemble_pack_3d(*args, **kw), 20),
                 plain_ms=cuda_ms(lambda: fa.assemble_pack_3d_plain(
                     *args, **kw), 3),
                 bound_ms=b_ms, bound_by=b_by, library_ms=None)
-            log(f"K3 {N3}^3: kernel {res['K3']['ms']:.4f} ms, plain "
-                f"{res['K3']['plain_ms']:.4f} ms, bound "
-                f"{b_ms:.4f} ms ({b_by})")
-            fine = (ck, dk, lk, st.mask)
+            log(f"K3 {form} {N3}^3: kernel {r['ms']:.4f} ms, plain "
+                f"{r['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+            res["K3" if sym else "K3 full"] = r
+            fine[form] = (ck, dk, lk, st.mask)
 
-    ck, dk, lk, mask = fine
+    mask = fine["sym"][3]
     shape = (3, N3, N3, N3)
     field = lambda: torch.as_tensor(rng.standard_normal(shape),
                                     dtype=torch.float32, device=dev)
@@ -415,16 +433,20 @@ def phase_kernels_3d(dev):
     xr = field()
     n3 = N3 ** 3
     k4 = {}
-    for cname, c in (("f32", ck), ("bf16", lk)):
-        k4.update({
-            f"sweep_{cname}": ((c, dk, b, x0), dict(mode="sweep", omega=0.5)),
-            f"resid_{cname}": ((c, None, b, x0), dict(mode="resid")),
-            f"negresid_{cname}": ((c, None, b, x0),
-                                  dict(mode="resid", neg_resid=True)),
-            f"matvec_{cname}": ((c, None, None, xr),
-                                dict(mode="matvec", neg_resid=True)),
-            f"negmatvec_{cname}": ((c, None, None, xr), dict(mode="matvec")),
-        })
+    for form, (ck, dk, lk, _m) in fine.items():
+        for cname, c in (("f32", ck), ("bf16", lk)):
+            pre = f"{form}_{cname}"
+            k4.update({
+                f"sweep_{pre}": ((c, dk, b, x0), dict(mode="sweep",
+                                                      omega=0.5)),
+                f"resid_{pre}": ((c, None, b, x0), dict(mode="resid")),
+                f"negresid_{pre}": ((c, None, b, x0),
+                                    dict(mode="resid", neg_resid=True)),
+                f"matvec_{pre}": ((c, None, None, xr),
+                                  dict(mode="matvec", neg_resid=True)),
+                f"negmatvec_{pre}": ((c, None, None, xr),
+                                     dict(mode="matvec")),
+            })
     worst = 0.0
     for name, (a, kw) in k4.items():
         got = fs.fused_sweep_3d(*a, **kw)
@@ -434,23 +456,33 @@ def phase_kernels_3d(dev):
         worst = max(worst, ea)
         log(f"K4 {name}: rel {er:.2e}")
         check(er <= REL_TOL, f"K4 {name} within {REL_TOL:g}")
-    a, kw = k4["matvec_f32"]
-    b_ms, b_by = bound(nbytes(ck, xr) + nbytes(xr), 2 * 243 * n3)
-    lib = library_matvec_ms(fs.full_planes_3d(ck, 3), (N3, N3, N3), xr)
-    res["K4"] = dict(
-        max_abs_err=worst,
-        ms=cuda_ms(lambda: fs.fused_sweep_3d(*a, **kw), 50),
-        plain_ms=cuda_ms(lambda: fs.fused_sweep_3d_plain(*a, **kw), 5),
-        bound_ms=b_ms, bound_by=b_by, library_ms=lib)
-    log(f"K4 matvec_f32 {N3}^3: kernel {res['K4']['ms']:.4f} ms, plain "
-        f"{res['K4']['plain_ms']:.4f} ms, torch.sparse.mm (f32 CSR) "
-        f"{lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    lib = library_matvec_ms(fs.full_planes_3d(fine["sym"][0], 3),
+                            (N3, N3, N3), xr)
+    for form in ("sym", "full"):
+        a, kw = k4[f"matvec_{form}_f32"]
+        ck = fine[form][0]
+        # per node: one FMA per plane and neighbour: 243 either way
+        b_ms, b_by = bound(nbytes(ck, xr) + nbytes(xr), 2 * 243 * n3)
+        r = dict(
+            max_abs_err=worst,
+            ms=cuda_ms(lambda: fs.fused_sweep_3d(*a, **kw), 50),
+            plain_ms=cuda_ms(lambda: fs.fused_sweep_3d_plain(*a, **kw), 5),
+            bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+        res["K4" if form == "sym" else "K4 full"] = r
+        log(f"K4 matvec_{form}_f32 {N3}^3: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, torch.sparse.mm (f32 CSR) "
+            f"{lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
 
+    ck, dk, lk, _m = fine["sym"]
     om2 = multigrid.smoothing_omegas(2, 3.0)
     k5 = {
         "presmooth_resid_bf16": ((lk, dk, b, None),
                                  dict(niter=2, want_resid=True, omega=om2)),
         "postsmooth_bf16": ((lk, dk, b, x0), dict(niter=2, omega=om2[::-1])),
+        "full_presmooth_resid_bf16": ((fine["full"][2], fine["full"][1], b,
+                                       None),
+                                      dict(niter=2, want_resid=True,
+                                           omega=om2)),
     }
     worst = 0.0
     for name, (a, kw) in k5.items():
@@ -489,6 +521,136 @@ def phase_kernels_3d(dev):
     check(ex[1] <= REL_TOL and rr[0] <= REL_TOL * bmax,
           f"K5 nu4_cheby x and r within {REL_TOL:g} (r of max|b|)")
     res["K5"]["max_abs_err"] = max(worst, ex[0], rr[0])
+    return res
+
+
+def k6_passes(lv, b, x, kw):
+    """One K6 call's stencil passes one at a time, each beside the plain
+    version fed the same input (the kernel's previous pass).
+
+    Returns ([(name, kernel, plain, is_residual)], the last pass's kernel
+    outputs).  Pass by pass, because with bf16 operands every pass
+    rounds its iterate to bf16: a float32 summation-order difference of
+    ~1e-7 in one pass can flip a rounding and move the next pass by a
+    bf16 ulp, so a whole multi-pass call differs from its plain version
+    by up to ~1e-4 although every pass agrees to float32 rounding.
+    """
+    from pyfem_gpu_testflight_tpu_torch.ops import otf3d
+    from pyfem_gpu_testflight_tpu_torch.ops.fused_smooth import _omega_seq
+
+    args = (lv.rho, lv.maskf, lv.w3, lv.wd)
+    common = dict(p=lv.p, mxu_bf16=kw.get("mxu_bf16", False))
+    pairs = []
+    for i, om in enumerate(_omega_seq(kw.get("omega", 0.6), kw["niter"])):
+        one = dict(niter=1, want_resid=False, omega=om, **common)
+        k = otf3d.otf_apply_3d(*args, b, x, **one)
+        pairs.append((f"sweep {i}", k,
+                      otf3d.otf_apply_3d_plain(*args, b, x, **one), False))
+        x = k
+    last = [x] if kw["niter"] else []
+    if kw.get("want_resid", True):
+        one = dict(niter=0, neg_resid=kw.get("neg_resid", False), **common)
+        k = otf3d.otf_apply_3d(*args, b, x, **one)
+        pairs.append(("residual", k,
+                      otf3d.otf_apply_3d_plain(*args, b, x, **one), True))
+        last.append(k)
+    return pairs, last
+
+
+def phase_kernels_otf(dev):
+    """Phase 3b: K6 against its plain version on the card, pass by pass
+    (``k6_passes``), and each whole call equal to its passes."""
+    import torch
+    from pyfem_gpu_testflight_tpu_torch import multigrid
+    from pyfem_gpu_testflight_tpu_torch.ops import fused_assemble as fa
+    from pyfem_gpu_testflight_tpu_torch.ops import otf3d
+
+    rng = np.random.default_rng(SEED + 20)
+    res = {}
+    worst = 0.0
+    for (nx, ny, nz), physics in (((N3, N3, N3), "elasticity"),
+                                  ((9, 7, 5), "elasticity"),
+                                  ((9, 7, 5), "poisson")):
+        a = multigrid.GMGAssembler3D(nx, ny, nz, (nx - 1) / (ny - 1), 1.0,
+                                     (nz - 1) / (ny - 1), physics, p=3.0,
+                                     device=dev, elem_path="otf")
+        nd = a.nd
+        rho = torch.as_tensor(rng.uniform(0.2, 1.0, (nz, ny, nx)),
+                              dtype=torch.float32, device=dev)
+        _g, lv = a.assemble(rho)
+        field = lambda: torch.as_tensor(rng.standard_normal((nd, nz, ny, nx)),
+                                        dtype=torch.float32, device=dev)
+        b = torch.where(lv.mask, 0.0, field())
+        x0 = torch.where(lv.mask, 0.0, field())
+        om2 = multigrid.smoothing_omegas(2, 3.0)
+        calls = {"matvec_f32": ((None, x0), dict(niter=0, neg_resid=True))}
+        for cname, bf in (("f32", False), ("bf16", True)):
+            calls[f"presmooth_resid_{cname}"] = (
+                (b, None), dict(niter=2, omega=om2, mxu_bf16=bf))
+            calls[f"postsmooth_{cname}"] = (
+                (b, x0), dict(niter=2, want_resid=False, omega=om2[::-1],
+                              mxu_bf16=bf))
+        calls["presmooth_resid_nu4_f32"] = (
+            (b, None), dict(niter=4, omega=multigrid.smoothing_omegas(4, 3.0)))
+        tag = f"K6 {nx}x{ny}x{nz} nd={nd}"
+        for name, ((bb, xx), kw) in calls.items():
+            kw = dict(kw, p=lv.p)
+            args = (lv.rho, lv.maskf, lv.w3, lv.wd, bb, xx)
+            got = otf3d.otf_apply_3d(*args, **kw)
+            ref = otf3d.otf_apply_3d_plain(*args, **kw)
+            got = got if isinstance(got, tuple) else (got,)
+            ref = ref if isinstance(ref, tuple) else (ref,)
+            pairs, last = k6_passes(lv, bb, xx, kw)
+            torch.cuda.synchronize()
+            same = all(torch.equal(g, l) for g, l in zip(got, last))
+            errs = []
+            for pname, k, r, is_resid in pairs:
+                d = float((k - r).abs().max())
+                scale = float(r.abs().max())
+                if is_resid and bb is not None:
+                    # a residual after damping sweeps is rounded at b's
+                    # scale (as K5's nu=4 check)
+                    scale = max(scale, float(bb.abs().max()))
+                worst = max(worst, d)
+                errs.append(d / scale)
+            whole = max(rel_err(g, r)[1] for g, r in zip(got, ref))
+            log(f"{tag} {name}: per pass rel "
+                + ", ".join(f"{e:.2e}" for e in errs)
+                + f"; whole call vs plain {whole:.2e}; call == its passes "
+                f"{same}")
+            check(max(errs) <= REL_TOL, f"{tag} {name} within {REL_TOL:g}")
+            check(same, f"{tag} {name} call equals its passes bit for bit")
+        if (nx, ny, nz) != (N3, N3, N3):
+            continue
+        n3 = rho.numel()
+        # per node: 512 weight FMAs per (ca, cb) pair (the structurally
+        # nonzero ones), 27 nd^2 Y products, 64 for the material; 2 flops
+        flops = 2 * (nd * nd * (512 + 27) + 64) * n3
+        for name in ("matvec_f32", "presmooth_resid_bf16",
+                     "postsmooth_bf16", "presmooth_resid_f32"):
+            (bb, xx), kw = calls[name]
+            kw = dict(kw, p=lv.p)
+            args = (lv.rho, lv.maskf, lv.w3, lv.wd, bb, xx)
+            ms = cuda_ms(lambda: otf3d.otf_apply_3d(*args, **kw), 20)
+            pms = cuda_ms(lambda: otf3d.otf_apply_3d_plain(*args, **kw), 3)
+            log(f"K6 {name} {N3}^3: kernel {ms:.4f} ms, plain {pms:.4f} ms")
+            if name == "matvec_f32":
+                b_ms, b_by = bound(nbytes(rho, lv.maskf, lv.w3, lv.wd, xx)
+                                   + nbytes(xx), flops)
+                # the yardstick: the same operator as an f32 CSR matvec
+                full, _d = fa.assemble_pack_3d_plain(
+                    rho, lv.maskf, a.static_levels[0].W, a.N, nd=nd, p=3.0,
+                    sym=False)
+                lib = library_matvec_ms(full.reshape(nd, nd, 3, 3, 3, *rho.shape),
+                                        tuple(rho.shape), xx)
+                del full
+                res["K6"] = dict(ms=ms, plain_ms=pms, bound_ms=b_ms,
+                                 bound_by=b_by, library_ms=lib)
+                log(f"K6 matvec_f32 {N3}^3: bound {b_ms:.4f} ms ({b_by}; "
+                    f"{flops / 1e9:.2f} GFLOP, dense TPU count "
+                    f"{2 * nd * (64 * 27 * nd + 64) * n3 / 1e9:.2f}), "
+                    f"torch.sparse.mm (f32 CSR) {lib:.4f} ms")
+    res["K6"]["max_abs_err"] = worst
     return res
 
 
@@ -632,8 +794,12 @@ def phase_main_2d(dev, pt, multigrid, i2p, p2i):
     return counts, single_ms, ch, (X, conn, fixed, force)
 
 
-def phase_main_3d(dev, pt, multigrid, i2p, p2i):
-    """Phase 4a: the 3D bench configuration (bench.py run_3d)."""
+def phase_main_3d(dev, pt, multigrid, i2p, p2i, label="bench 3D",
+                  full=True, **route):
+    """Phases 4a-4c: the 3D bench configuration (bench.py run_3d) on
+    the assembled route (4a), the on-the-fly route
+    (``elem_path="otf"``, 4b) or full coefficient storage (``sym=False``,
+    4c); ``full=False`` skips the chained time and the breakdown."""
     import torch
 
     n = N3
@@ -643,9 +809,10 @@ def phase_main_3d(dev, pt, multigrid, i2p, p2i):
     asm = multigrid.GMGAssembler3D(
         n, n, n, *L, "elasticity", p=0.0, dtype=torch.float32, device=dev,
         nu_pre=2, nu_post=2, min_n=3, coarse_dense_max=4096,
-        smoother_dtype=torch.bfloat16, omega="cheby",
+        smoother_dtype=torch.bfloat16, omega="cheby", **route,
     )
-    log(f"main path 3D: {model.ndof} dof, levels {asm.sizes}")
+    log(f"main path {label}: {model.ndof} dof, levels {asm.sizes}, "
+        f"route {route or 'assembled, sym storage'}")
     rho = torch.ones(model.nnodes, dtype=torch.float32, device=dev)
     rhs = model.compute_rhs()
 
@@ -657,38 +824,50 @@ def phase_main_3d(dev, pt, multigrid, i2p, p2i):
                                      flexible=True)
         return p2i(x.reshape(-1), 3), k, rn, b, gmg
 
-    names = ("pyfem_assemble_3d", "pyfem_sweep_3d", "pyfem_sweeps_3d")
+    names = ("pyfem_assemble_3d", "pyfem_sweep_3d", "pyfem_sweeps_3d",
+             "pyfem_otf_3d")
     (u, k, rn, b, gmg), counts, single_ms = solve_and_measure(
-        step, (rho, rhs, rhs), names, "bench 3D")
-    log(f"bench 3D: {k} PCG iterations (JAX reference: 7), "
+        step, (rho, rhs, rhs), names, label)
+    log(f"{label}: {k} PCG iterations (JAX reference: 7), "
         f"||r||/||b|| {float(rn) / float(torch.linalg.norm(b)):.3e}, "
         f"launches {counts}, single-shot {single_ms:.3f} ms")
-    check(k <= 8, "bench 3D converges in <= 8 iterations")
+    check(k <= 8, f"{label} converges in <= 8 iterations")
     check(float(rn) <= 1e-6 * float(torch.linalg.norm(b)),
-          "bench 3D PCG residual <= rtol")
+          f"{label} PCG residual <= rtol")
     check(bool(torch.isfinite(u).all()) and u.shape == (model.ndof,),
-          "bench 3D solution finite, shape (ndof,)")
-    check(all(v > 0 for v in counts.values()), "K3, K4 and K5 launched")
+          f"{label} solution finite, shape (ndof,)")
+    # the solve's own peak device memory, above what was allocated before
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step(rho, rhs, rhs)
+    torch.cuda.synchronize()
+    mem = torch.cuda.max_memory_allocated() - base
+    log(f"{label}: peak device memory of one assemble+solve {mem / 2**20:.1f} "
+        f"MiB above the {base / 2**20:.1f} MiB allocated before it")
     mv64, mvabs, _ = f64_operator_3d(n, L, rho, 0.0, dev)
     x = i2p(u, 3).reshape(3, n, n, n)
     true, floor = residuals(mv64, mvabs, b, x)
-    log(f"bench 3D: float64 true residual {true:.3e} (float32 floor "
+    log(f"{label}: float64 true residual {true:.3e} (float32 floor "
         f"{floor:.3e}, ratio {true / floor:.2f}); <= 1e-5: {true <= 1e-5}")
     check(true <= FLOOR_FACTOR * floor,
-          f"bench 3D true residual <= {FLOOR_FACTOR:g} x float32 floor")
+          f"{label} true residual <= {FLOOR_FACTOR:g} x float32 floor")
     xa, ka, _ = accuracy_solve(gmg, mv64, b)
     true_a, _ = residuals(mv64, mvabs, b, xa)
-    log(f"bench 3D float64 outer PCG, float32 kernel V-cycle: {ka} "
+    log(f"{label} float64 outer PCG, float32 kernel V-cycle: {ka} "
         f"iterations, true residual {true_a:.3e}")
-    check(true_a <= 1e-5, "bench 3D float64-outer true residual <= 1e-5")
-    ch = chained_ms(step, rho, rhs, u)
-    log(f"bench 3D: chained {ch:.3f} ms/solve over 10")
-    breakdown("bench 3D", step, (rho, rhs, rhs), asm, rho, b, single_ms)
-    return counts, single_ms, ch
+    check(true_a <= 1e-5, f"{label} float64-outer true residual <= 1e-5")
+    out = dict(counts=counts, single_ms=single_ms, u=u, k=k, mem=mem,
+               ch=None, levels=[type(lv).__name__ for lv in gmg.levels])
+    if full:
+        out["ch"] = chained_ms(step, rho, rhs, u)
+        log(f"{label}: chained {out['ch']:.3f} ms/solve over 10")
+        breakdown(label, step, (rho, rhs, rhs), asm, rho, b, single_ms)
+    return out
 
 
-def phase_model(dev, pt, etype, dims, label):
-    """Phases 5 / 5a: ``LinearElasticity.solve(method="gmg")``."""
+def phase_model(dev, pt, etype, dims, label, **gmg_options):
+    """Phases 5 / 5a / 5b: ``LinearElasticity.solve(method="gmg")``."""
     import torch
 
     conn, X, fixed, force, _L = problem(*dims)
@@ -700,7 +879,7 @@ def phase_model(dev, pt, etype, dims, label):
     ):
         m = pt.LinearElasticity(etype, X, conn, fixed, None, force, p=3.0,
                                 dtype=torch.float32, device=dev)
-        m.attach_structured_grid(*dims)
+        m.attach_structured_grid(*dims, **gmg_options)
         t0 = time.time()
         um = m.solve(method="gmg", rho=rho_m, rtol=1e-6)
         torch.cuda.synchronize()
@@ -793,17 +972,46 @@ def main():
         if "registers" in line or "spill" in line:
             log("  ptxas: " + line.strip())
 
-    # 3, 3a. kernels vs plain
+    # 3, 3a, 3b. kernels vs plain
     kres = phase_kernels(dev)
     kres.update(phase_kernels_3d(dev))
+    kres.update(phase_kernels_otf(dev))
 
-    # 4, 4a. main paths
+    # 4, 4a, 4b, 4c. main paths
     c2, s2, ch2, _ = phase_main_2d(dev, pt, multigrid, i2p, p2i)
-    c3, s3, ch3 = phase_main_3d(dev, pt, multigrid, i2p, p2i)
+    m3 = phase_main_3d(dev, pt, multigrid, i2p, p2i)
+    check(all(m3["counts"][k] > 0 for k in (
+        "pyfem_assemble_3d", "pyfem_sweep_3d", "pyfem_sweeps_3d")),
+        "bench 3D: K3, K4 and K5 launched")
+    mo = phase_main_3d(dev, pt, multigrid, i2p, p2i, "bench 3D otf",
+                       elem_path="otf")
+    co = mo["counts"]
+    check(co["pyfem_otf_3d"] > 0 and co["pyfem_assemble_3d"] == 1,
+          "bench 3D otf: K6 launched, K3 once (the coarsest level)")
+    check(mo["levels"][:-1] == ["OTFLevel"] * (len(mo["levels"]) - 1),
+          "bench 3D otf: every level but the coarsest is on the fly")
+    check(mo["k"] <= 8 and abs(mo["k"] - m3["k"]) <= 2,
+          "bench 3D otf: <= 8 iterations, within 2 of the assembled route")
+    du = float((mo["u"] - m3["u"]).abs().max() / m3["u"].abs().max())
+    log(f"bench 3D otf vs assembled: {mo['k']} vs {m3['k']} iterations, "
+        f"solution rel diff {du:.3e}; peak memory {mo['mem'] / 2**20:.1f} "
+        f"vs {m3['mem'] / 2**20:.1f} MiB; single-shot "
+        f"{mo['single_ms']:.3f} vs {m3['single_ms']:.3f} ms, chained "
+        f"{mo['ch']:.3f} vs {m3['ch']:.3f} ms/solve")
+    check(du <= 5e-4, "bench 3D otf solution within 5e-4 of assembled")
+    mf = phase_main_3d(dev, pt, multigrid, i2p, p2i, "bench 3D sym=False",
+                       full=False, sym=False)
+    check(mf["counts"]["pyfem_sweep_3d"] > 0
+          and mf["counts"]["pyfem_sweeps_3d"] > 0,
+          "bench 3D sym=False: K4 and K5 launched on full planes")
+    log(f"bench 3D sym=False: {mf['k']} iterations, single-shot "
+        f"{mf['single_ms']:.3f} ms, peak memory {mf['mem'] / 2**20:.1f} "
+        f"MiB")
 
-    # 5, 5a. model entry point
+    # 5, 5a, 5b. model entry point
     phase_model(dev, pt, "quad4", (NX, NY), "2D")
     phase_model(dev, pt, "hex8", (N3, N3, N3), "3D")
+    phase_model(dev, pt, "hex8", (N3, N3, N3), "3D otf", elem_path="otf")
 
     # 6, 6a. scipy checks
     phase_scipy(dev, pt, multigrid, i2p, p2i, (257, 129))
@@ -812,35 +1020,52 @@ def main():
     # summary
     src = "pyfem_gpu_testflight_tpu_torch/csrc/"
     tpu = "pyfem_gpu_testflight_tpu/ops/"
+    c3 = m3["counts"]
     rows = (
         ("K1", "assemble_pack_2d", "assemble_2d.cu", "pallas_assemble.py:192",
          c2["pyfem_assemble_2d"], "full 36-plane storage, one pass"),
         ("K2", "fused_sweeps_2d", "smooth_2d.cu", "pallas_smooth.py:369",
          c2["pyfem_smooth_2d"], "one stencil pass per sweep"),
         ("K3", "assemble_pack_3d", "assemble_3d.cu", "pallas_assemble.py:584",
-         c3["pyfem_assemble_3d"], "half-symmetric 123-plane storage, one "
-         "pass"),
+         c3["pyfem_assemble_3d"], "both storages, one pass: half-symmetric "
+         "123 planes (timed, main path) and full 243 planes (full_form)"),
         ("K4", "fused_sweep_3d", "smooth_3d.cu", "pallas_smooth.py:697",
-         c3["pyfem_sweep_3d"], "half-symmetric storage body, one pass"),
+         c3["pyfem_sweep_3d"], "both bodies, one pass: _kernel3d_sym "
+         "(timed, main path) and _kernel3d on full planes (full_form)"),
         ("K5", "fused_sweeps3d", "smooth_3d.cu", "pallas_smooth.py:972",
          c3["pyfem_sweeps_3d"], "per-sweep: one stencil pass per sweep "
-         "and one for the residual (not the single-pass z-blocked form)"),
+         "and one for the residual (not the single-pass z-blocked form); "
+         "reads either storage"),
+        ("K6", "otf_apply_3d", "otf_3d.cu", "pallas_otf3d.py:265",
+         co["pyfem_otf_3d"], "one stencil pass per launch, coefficients "
+         "rebuilt per node from the density (main path: bench 3D otf)"),
     )
     kernels = []
     for key, name, source, replaces, launches, form in rows:
         r = kres[key]
-        kernels.append(dict(
+        row = dict(
             name=name, route="cuda", source=src + source,
             replaces=tpu + replaces, launches=launches,
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_us=1e3 * r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"], form=form,
-        ))
+        )
+        if f"{key} full" in kres:
+            f = kres[f"{key} full"]
+            row["full_form"] = dict(
+                max_abs_err=f["max_abs_err"], ms=f["ms"],
+                plain_ms=f["plain_ms"], bound_ms=f["bound_ms"],
+                bound_by=f["bound_by"], library_ms=f["library_ms"],
+                launches_sym_false_path=mf["counts"][
+                    "pyfem_assemble_3d" if key == "K3" else "pyfem_sweep_3d"])
+        kernels.append(row)
     if FAILS:
         print("chip_smoke FAILED:\n  " + "\n  ".join(FAILS), file=sys.stderr)
         return 1
     log(f"2D single-shot {s2:.3f} ms, chained {ch2:.3f} ms/solve; 3D "
-        f"single-shot {s3:.3f} ms, chained {ch3:.3f} ms/solve ({card})")
+        f"single-shot {m3['single_ms']:.3f} ms, chained {m3['ch']:.3f} "
+        f"ms/solve; 3D otf single-shot {mo['single_ms']:.3f} ms, chained "
+        f"{mo['ch']:.3f} ms/solve ({card})")
     log(card_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

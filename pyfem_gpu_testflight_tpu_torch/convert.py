@@ -4,14 +4,16 @@ For this FEM system the "weights" are the problem data (``X``,
 ``conn``, ``dof_fixed``, ``nodal_force`` — plain numpy, passed to both
 packages' constructors as they are), the nodal density, and the static
 per-level tables a ``GMGAssembler`` / ``GMGAssembler3D`` computes at
-setup: the unit element matrices ``Kq``, the K1 / K3 weights ``W`` and
-the Dirichlet masks.
+setup: the unit element matrices ``Kq``, the K1 / K3 weights ``W``, the
+Dirichlet masks, on the 3D on-the-fly route the K6 tables ``(w3, wd)``,
+and the 3D coefficient storage flag.
 
 :func:`assembler_state_from_numpy` installs those tables, taken as
 numpy from a JAX ``GMGAssembler`` or ``GMGAssembler3D``
 (``np.asarray(asm.static_levels[l][5])`` for ``Kq``, ``[3]`` for the
-mask), into a port assembler of the same grid, so both packages can run
-from identical tables.  The port's
+mask, ``[7]`` for the OTF tables, ``asm.pallas_sym`` for the storage),
+into a port assembler of the same grid, so both packages can run from
+identical tables.  The port's
 own setup reproduces them (tests/test_torch_tables.py), so this is a
 test aid, not a dependency.
 """
@@ -26,7 +28,7 @@ from .ops.fused_assemble import assembly_weights, assembly_weights3d
 __all__ = ["assembler_state_from_numpy"]
 
 
-def assembler_state_from_numpy(asm, Kq, masks, W=None):
+def assembler_state_from_numpy(asm, Kq, masks, W=None, otf=None, sym=None):
     """Install per-level tables in a port assembler (in place).
 
     Args:
@@ -37,6 +39,13 @@ def assembler_state_from_numpy(asm, Kq, masks, W=None):
         W: per level, the K1 (nd*nd*9, 4, nq) or K3 (nd*nd*27, 8, nq)
             weights; None folds them from ``Kq``
             (``ops.fused_assemble.assembly_weights[3d]``).
+        otf: 3D ``elem_path="otf"``: per level, the JAX assembler's
+            ``static_levels[l][7]`` — ``(w3, wd, maskf_k1)``, of which
+            ``(w3, wd)`` are read (the mask comes from ``masks``) — or
+            None on its assembled levels; None folds the K6 tables from
+            ``Kq`` (``ops.otf3d.otf_weights``).
+        sym: 3D coefficient storage to install (the JAX ``pallas_sym``);
+            None keeps the assembler's.
 
     Returns:
         ``asm``.
@@ -48,6 +57,10 @@ def assembler_state_from_numpy(asm, Kq, masks, W=None):
         )
     if W is not None and len(W) != len(Kq):
         raise ValueError(f"{len(W)} W for {len(Kq)} levels")
+    if otf is not None and len(otf) != len(Kq):
+        raise ValueError(f"{len(otf)} OTF entries for {len(Kq)} levels")
+    if sym is not None and not hasattr(asm, "sym"):
+        raise ValueError("sym applies to a 3D assembler only")
     put = lambda a: torch.as_tensor(
         np.asarray(a), dtype=asm.dtype, device=asm.device
     ).contiguous()
@@ -61,10 +74,19 @@ def assembler_state_from_numpy(asm, Kq, masks, W=None):
         fold = assembly_weights if len(st.shape) == 2 else assembly_weights3d
         W_l = (fold(st.op.plan, Kq_l, asm.nd, Kq_l.shape[0])
                if W is None else W[li])
-        asm.static_levels[li] = st._replace(
+        st = asm.static_levels[li] = st._replace(
             mask=torch.as_tensor(mask, device=asm.device),
             maskf=put((~mask).astype(np.float64)),
             Kq=put(Kq_l),
             W=put(W_l),
         )
+        if otf is not None and (otf[li] is None) != (st.otf is None):
+            raise ValueError(f"level {li}: OTF tables do not match the "
+                             f"port's route")
+        if st.otf is not None:
+            asm.static_levels[li] = st._replace(
+                otf=asm.otf_tables(st) if otf is None else
+                (put(otf[li][0]), put(otf[li][1])))
+    if sym is not None:
+        asm.sym = bool(sym)
     return asm

@@ -1,18 +1,19 @@
 // K3: nodal density -> BC-eliminated 27-point stencil planes in
-// half-symmetric storage + inverse diagonal (+ optional bf16 copy), one
-// pass, on an NVIDIA Hopper card.
+// half-symmetric or full storage + inverse diagonal (+ optional bf16
+// copy), one pass, on an NVIDIA Hopper card.
 //
 // Replaces: pyfem_gpu_testflight_tpu/ops/pallas_assemble.py:
-//   assemble_pack_3d with sym=True (Pallas kernels _kernel3d,
-//   _kernel3d_slab, _kernel3d_slab_mxu: three TPU tilings of one
-//   computation).  Plain reference:
+//   assemble_pack_3d with sym=True and sym=False (Pallas kernels
+//   _kernel3d, _kernel3d_slab, _kernel3d_slab_mxu: three TPU tilings of
+//   one computation).  Plain reference:
 //   ops/fused_assemble.py::assemble_pack_3d_plain.
 //
 // Per node (iz, iy, ix), for the <= 8 valid elements
 // e = (iz-az, iy-ay, ix-ax) around it:  Cq[o][q] = RAMP(sum_n N[q,n]
 // rho[node n of e]) with o = az*4 + ay*2 + ax (phantom elements past the
 // grid edge contribute 0); then for every kept plane k = (a, b, dz, dy,
-// dx) of sym_planes_3d (ops/fused_smooth.py), in its storage order,
+// dx) of sym_planes_3d (ops/fused_smooth.py) in its storage order, or
+// (full storage) every plane k = (a*nd + b)*27 + dz*9 + dy*3 + dx,
 //   coeff[k] = rowm[a] * colm[b](iz+dz-1, iy+dy-1, ix+dx-1)
 //              * sum_{o, q} W[k_full, o, q] * Cq[o][q]
 // with a unit diagonal at fixed dofs (symmetric Dirichlet elimination;
@@ -24,7 +25,8 @@
 // and reads 16 B of density and free mask per node (the 3x3x3
 // neighbourhood reuse hits L1/L2): about 210 MB at 65^3, ~63 us at
 // 3.35 TB/s.  The arithmetic (~2.3k FMAs per node, below) is a few
-// percent of the card's f32 rate.
+// percent of the card's f32 rate.  Full storage (243 planes) writes
+// 1,470 B per node, ~404 MB at 65^3, ~121 us at 3.35 TB/s.
 // What the design does about it: one thread per node, consecutive
 // threads on consecutive x, so each plane's store is coalesced; every
 // output is written once and nothing intermediate touches device
@@ -47,7 +49,7 @@ constexpr int NQ = 8;  // hex8 2x2x2 Gauss points
 __constant__ float c_W[3 * 3 * 27 * 8 * NQ];
 __constant__ float c_N[NQ * 8];
 
-template <int ND>
+template <int ND, bool FULL>
 __global__ void assemble_3d_kernel(
     const float* __restrict__ rho, const float* __restrict__ maskf, float p,
     int nz, int ny, int nx, float* __restrict__ coeff,
@@ -114,12 +116,12 @@ __global__ void assemble_3d_kernel(
 #pragma unroll
     for (int b = 0; b < ND; ++b) {
 #pragma unroll
-      for (int dz = 0; dz < 2; ++dz) {  // dz = 2 planes are not stored
+      for (int dz = 0; dz < (FULL ? 3 : 2); ++dz) {  // sym: no dz = 2
 #pragma unroll
         for (int dy = 0; dy < 3; ++dy) {
 #pragma unroll
           for (int dx = 0; dx < 3; ++dx) {
-            if (dz == 1) {  // keep one of each (dy, dx) partner pair
+            if (!FULL && dz == 1) {  // keep one of each (dy, dx) pair
               const int k2 = (a * ND + b) * 9 + dy * 3 + dx;
               const int p2 = (b * ND + a) * 9 + (2 - dy) * 3 + (2 - dx);
               if (p2 < k2) continue;
@@ -164,10 +166,30 @@ __global__ void assemble_3d_kernel(
 
 }  // namespace
 
+template <int ND>
+void launch_nd(const float* rho, const float* maskf, float p, int nz, int ny,
+               int nx, int full, float* coeff, float* invd,
+               __nv_bfloat16* lp, cudaStream_t s) {
+  const int n = nz * ny * nx;
+  const int block = 128;
+  const int grid = (n + block - 1) / block;
+  if (full) {
+    assemble_3d_kernel<ND, true><<<grid, block, 0, s>>>(rho, maskf, p, nz,
+                                                        ny, nx, coeff, invd,
+                                                        lp);
+  } else {
+    assemble_3d_kernel<ND, false><<<grid, block, 0, s>>>(rho, maskf, p, nz,
+                                                         ny, nx, coeff, invd,
+                                                         lp);
+  }
+}
+
+// full = 0: the kept planes of sym_planes_3d; full = 1: all nd*nd*27.
 extern "C" int pyfem_assemble_3d(const void* rho, const void* maskf,
                                  const void* W, const void* N, float p,
-                                 int nd, int nz, int ny, int nx, void* coeff,
-                                 void* invd, void* coeff_lp, void* stream) {
+                                 int nd, int nz, int ny, int nx, int full,
+                                 void* coeff, void* invd, void* coeff_lp,
+                                 void* stream) {
   if (nd != 1 && nd != 3) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e = cudaMemcpyToSymbolAsync(
@@ -177,19 +199,14 @@ extern "C" int pyfem_assemble_3d(const void* rho, const void* maskf,
   e = cudaMemcpyToSymbolAsync(c_N, N, sizeof(float) * NQ * 8, 0,
                               cudaMemcpyDeviceToDevice, s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int n = nz * ny * nx;
-  const int block = 128;
-  const int grid = (n + block - 1) / block;
   auto f = [](const void* q) { return static_cast<const float*>(q); };
   auto lp = static_cast<__nv_bfloat16*>(coeff_lp);
+  auto c = static_cast<float*>(coeff);
+  auto d = static_cast<float*>(invd);
   if (nd == 3) {
-    assemble_3d_kernel<3><<<grid, block, 0, s>>>(
-        f(rho), f(maskf), p, nz, ny, nx, static_cast<float*>(coeff),
-        static_cast<float*>(invd), lp);
+    launch_nd<3>(f(rho), f(maskf), p, nz, ny, nx, full, c, d, lp, s);
   } else {
-    assemble_3d_kernel<1><<<grid, block, 0, s>>>(
-        f(rho), f(maskf), p, nz, ny, nx, static_cast<float*>(coeff),
-        static_cast<float*>(invd), lp);
+    launch_nd<1>(f(rho), f(maskf), p, nz, ny, nx, full, c, d, lp, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,17 +1,19 @@
 // K4 and K5: damped-Jacobi sweeps, residual and matvec on the
-// BC-eliminated 27-point stencil in half-symmetric storage, on an NVIDIA
-// Hopper card.
+// BC-eliminated 27-point stencil in half-symmetric or full storage, on an
+// NVIDIA Hopper card.
 //
 // Replaces: pyfem_gpu_testflight_tpu/ops/pallas_smooth.py:
-//   K4  fused_sweep_3d, Pallas kernel _kernel3d_sym (the half-storage
-//       body; the full-storage body _kernel3d is not ported), one
-//       operation per call;
+//   K4  fused_sweep_3d, Pallas kernels _kernel3d_sym (half storage) and
+//       _kernel3d (full storage), one operation per call;
 //   K5  fused_sweeps3d, Pallas kernel _kernel3d_multi, all sweeps of one
 //       smoothing call (+ the residual).
 // Plain references: ops/fused_smooth.py::fused_sweep_3d_plain and
 // fused_sweeps3d_plain.
 //
-// One stencil pass (sweep_3d_kernel), per node i and component a:
+// One stencil pass (sweep_3d_kernel), per node i and component a; on full
+// storage (all nd*nd*27 planes, k = (a*nd + b)*27 + d):
+//   (A x)[a](i) = sum over planes k = (a, b, d): coeff[k](i) * x[b](i + d - 1)
+// and on half storage:
 //   (A x)[a](i) = sum over kept planes k = (a, b, d):
 //                   coeff[k](i) * x[b](i + d - 1)
 //               + sum over kept planes k = (c, a, d) not their own partner:
@@ -35,7 +37,9 @@
 // What bounds it on the H100: bytes.  A pass reads the 123 kept planes
 // once (492 B per node in f32, 246 B in bf16) and ~36 B of fields, and
 // writes 12 B (nd=3): ~142 MB for the f32 matvec at 65^3, ~42 us at
-// 3.35 TB/s; ~250 FMAs per node are far below the compute roof.
+// 3.35 TB/s; ~250 FMAs per node are far below the compute roof.  Full
+// storage reads 243 planes (972 B per node in f32): ~280 MB, ~84 us at
+// 3.35 TB/s.
 // What the design does about it: one thread per node, x fastest, so each
 // plane is streamed with coalesced loads; a plane's partner read (the
 // same plane at most one node away in each axis) is served by L1/L2 from
@@ -52,7 +56,7 @@ __device__ __forceinline__ float load_coeff(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
 
-template <int ND, typename CT>
+template <int ND, bool FULL, typename CT>
 __global__ void sweep_3d_kernel(const CT* __restrict__ coeff,
                                 const float* __restrict__ invd,
                                 const float* __restrict__ b,
@@ -94,34 +98,48 @@ __global__ void sweep_3d_kernel(const CT* __restrict__ coeff,
         }
       }
     }
-    int si = 0;  // storage slot of the kept plane (constant once unrolled)
+    if constexpr (FULL) {
 #pragma unroll
-    for (int a = 0; a < ND; ++a) {
+      for (int a = 0; a < ND; ++a) {
 #pragma unroll
-      for (int bb = 0; bb < ND; ++bb) {
+        for (int bb = 0; bb < ND; ++bb) {
 #pragma unroll
-        for (int dz = 0; dz < 2; ++dz) {  // dz = 2 planes are not stored
+          for (int d = 0; d < 27; ++d) {
+            const long long k = (a * ND + bb) * 27 + d;
+            ax[a] += load_coeff(coeff + k * plane + node) * xv[bb][d];
+          }
+        }
+      }
+    } else {
+      int si = 0;  // storage slot of the kept plane (constant once unrolled)
 #pragma unroll
-          for (int dy = 0; dy < 3; ++dy) {
+      for (int a = 0; a < ND; ++a) {
 #pragma unroll
-            for (int dx = 0; dx < 3; ++dx) {
-              bool self_pair = false;
-              if (dz == 1) {  // sym_planes_3d's rule for the dz = 1 half
-                const int k2 = (a * ND + bb) * 9 + dy * 3 + dx;
-                const int p2 = (bb * ND + a) * 9 + (2 - dy) * 3 + (2 - dx);
-                if (p2 < k2) continue;
-                self_pair = p2 == k2;
+        for (int bb = 0; bb < ND; ++bb) {
+#pragma unroll
+          for (int dz = 0; dz < 2; ++dz) {  // dz = 2 planes are not stored
+#pragma unroll
+            for (int dy = 0; dy < 3; ++dy) {
+#pragma unroll
+              for (int dx = 0; dx < 3; ++dx) {
+                bool self_pair = false;
+                if (dz == 1) {  // sym_planes_3d's rule for the dz = 1 half
+                  const int k2 = (a * ND + bb) * 9 + dy * 3 + dx;
+                  const int p2 = (bb * ND + a) * 9 + (2 - dy) * 3 + (2 - dx);
+                  if (p2 < k2) continue;
+                  self_pair = p2 == k2;
+                }
+                const CT* cp = coeff + si * plane + node;
+                ax[a] += load_coeff(cp) * xv[bb][dz * 9 + dy * 3 + dx];
+                if (!self_pair && vz[2 - dz] && vy[2 - dy] && vx[2 - dx]) {
+                  // partner (bb, a, 2 - d) at this node: the kept value of
+                  // node i - (d - 1) times x[a] there
+                  ax[bb] += load_coeff(cp + (1 - dz) * sz + (1 - dy) * nx +
+                                       (1 - dx)) *
+                            xv[a][(2 - dz) * 9 + (2 - dy) * 3 + (2 - dx)];
+                }
+                ++si;
               }
-              const CT* cp = coeff + si * plane + node;
-              ax[a] += load_coeff(cp) * xv[bb][dz * 9 + dy * 3 + dx];
-              if (!self_pair && vz[2 - dz] && vy[2 - dy] && vx[2 - dx]) {
-                // partner (bb, a, 2 - d) at this node: the kept value of
-                // node i - (d - 1) times x[a] there
-                ax[bb] += load_coeff(cp + (1 - dz) * sz + (1 - dy) * nx +
-                                     (1 - dx)) *
-                          xv[a][(2 - dz) * 9 + (2 - dy) * 3 + (2 - dx)];
-              }
-              ++si;
             }
           }
         }
@@ -143,36 +161,50 @@ __global__ void sweep_3d_kernel(const CT* __restrict__ coeff,
   }
 }
 
-template <int ND>
-void launch_nd(const void* coeff, int coeff_bf16, const float* invd,
-               const float* b, const float* x, float* out, int nz, int ny,
-               int nx, float omega, int mode, cudaStream_t s) {
+template <int ND, bool FULL>
+void launch_storage(const void* coeff, int coeff_bf16, const float* invd,
+                    const float* b, const float* x, float* out, int nz,
+                    int ny, int nx, float omega, int mode, cudaStream_t s) {
   const int n = nz * ny * nx;
   const int block = 128;
   const int grid = (n + block - 1) / block;
   if (coeff_bf16) {
-    sweep_3d_kernel<ND, __nv_bfloat16><<<grid, block, 0, s>>>(
+    sweep_3d_kernel<ND, FULL, __nv_bfloat16><<<grid, block, 0, s>>>(
         static_cast<const __nv_bfloat16*>(coeff), invd, b, x, out, nz, ny,
         nx, omega, mode);
   } else {
-    sweep_3d_kernel<ND, float><<<grid, block, 0, s>>>(
+    sweep_3d_kernel<ND, FULL, float><<<grid, block, 0, s>>>(
         static_cast<const float*>(coeff), invd, b, x, out, nz, ny, nx,
         omega, mode);
   }
 }
 
-// One stencil pass; returns cudaGetLastError() of its launch.
-int pass(const void* coeff, int coeff_bf16, const void* invd, const void* b,
-         const void* x, void* out, int nd, int nz, int ny, int nx,
-         float omega, int mode, cudaStream_t s) {
+template <int ND>
+void launch_nd(const void* coeff, int coeff_bf16, int full, const float* invd,
+               const float* b, const float* x, float* out, int nz, int ny,
+               int nx, float omega, int mode, cudaStream_t s) {
+  if (full) {
+    launch_storage<ND, true>(coeff, coeff_bf16, invd, b, x, out, nz, ny, nx,
+                             omega, mode, s);
+  } else {
+    launch_storage<ND, false>(coeff, coeff_bf16, invd, b, x, out, nz, ny, nx,
+                              omega, mode, s);
+  }
+}
+
+// One stencil pass; returns cudaGetLastError() of its launch.  full = 1:
+// all nd*nd*27 planes; full = 0: the kept planes of sym_planes_3d.
+int pass(const void* coeff, int coeff_bf16, int full, const void* invd,
+         const void* b, const void* x, void* out, int nd, int nz, int ny,
+         int nx, float omega, int mode, cudaStream_t s) {
   if (mode < 0 || mode > 2 || (mode == 0 && invd == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   if (nd == 3) {
-    launch_nd<3>(coeff, coeff_bf16, f(invd), f(b), f(x),
+    launch_nd<3>(coeff, coeff_bf16, full, f(invd), f(b), f(x),
                  static_cast<float*>(out), nz, ny, nx, omega, mode, s);
   } else if (nd == 1) {
-    launch_nd<1>(coeff, coeff_bf16, f(invd), f(b), f(x),
+    launch_nd<1>(coeff, coeff_bf16, full, f(invd), f(b), f(x),
                  static_cast<float*>(out), nz, ny, nx, omega, mode, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -183,12 +215,12 @@ int pass(const void* coeff, int coeff_bf16, const void* invd, const void* b,
 }  // namespace
 
 // K4: one sweep (mode 0), residual (1), negated residual (2).
-extern "C" int pyfem_sweep_3d(const void* coeff, int coeff_bf16,
+extern "C" int pyfem_sweep_3d(const void* coeff, int coeff_bf16, int full,
                               const void* invd, const void* b, const void* x,
                               void* out, int nd, int nz, int ny, int nx,
                               float omega, int mode, void* stream) {
-  return pass(coeff, coeff_bf16, invd, b, x, out, nd, nz, ny, nx, omega,
-              mode, static_cast<cudaStream_t>(stream));
+  return pass(coeff, coeff_bf16, full, invd, b, x, out, nd, nz, ny, nx,
+              omega, mode, static_cast<cudaStream_t>(stream));
 }
 
 // K5: niter sweeps from x0 (nullptr = 0) with per-sweep damping
@@ -196,7 +228,7 @@ extern "C" int pyfem_sweep_3d(const void* coeff, int coeff_bf16,
 // in buf0 for odd niter, buf1 for even; buf1 may equal buf0 when
 // niter == 1), then the residual into r with rmode 1 or 2 (rmode -1: no
 // residual, r unused).
-extern "C" int pyfem_sweeps_3d(const void* coeff, int coeff_bf16,
+extern "C" int pyfem_sweeps_3d(const void* coeff, int coeff_bf16, int full,
                                const void* invd, const void* b,
                                const void* x0, void* buf0, void* buf1,
                                void* r, const float* omegas, int niter,
@@ -210,13 +242,13 @@ extern "C" int pyfem_sweeps_3d(const void* coeff, int coeff_bf16,
   const void* x = x0;
   for (int i = 0; i < niter; ++i) {
     void* out = (i % 2 == 0) ? buf0 : buf1;
-    const int err = pass(coeff, coeff_bf16, invd, b, x, out, nd, nz, ny, nx,
-                         omegas[i], 0, s);
+    const int err = pass(coeff, coeff_bf16, full, invd, b, x, out, nd, nz,
+                         ny, nx, omegas[i], 0, s);
     if (err != 0) return err;
     x = out;
   }
   if (rmode != -1)
-    return pass(coeff, coeff_bf16, invd, b, x, r, nd, nz, ny, nx, 0.f, rmode,
-                s);
+    return pass(coeff, coeff_bf16, full, invd, b, x, r, nd, nz, ny, nx, 0.f,
+                rmode, s);
   return 0;
 }

@@ -1,16 +1,21 @@
 """Geometric multigrid for structured quad and hex grids (PyTorch port).
 
-Port of the 2D and 3D (uniform element path) parts of
+Port of the 2D and 3D (uniform and on-the-fly element paths) parts of
 ``pyfem_gpu_testflight_tpu/multigrid.py``:
 
 * every level's operator is a BC-eliminated stencil assembled from the
-  nodal density: 9-point planes by kernel K1 in 2D, the half-symmetric
-  27-point planes by kernel K3 in 3D (``ops.fused_assemble``), on every
-  level (the TPU's assembly-size thresholds are TPU tuning);
+  nodal density: 9-point planes by kernel K1 in 2D, 27-point planes by
+  kernel K3 in 3D (``ops.fused_assemble``; half-symmetric storage, or
+  all planes with ``sym=False``), on every level (the TPU's
+  assembly-size thresholds are TPU tuning) — except on the 3D
+  ``elem_path="otf"`` route, where every level but the coarsest stores
+  no coefficients and kernel K6 rebuilds them from the density in each
+  pass (``ops.otf3d``, :class:`OTFLevel`);
 * smoothing is damped Jacobi with per-sweep Chebyshev-node factors:
   kernel K2 in 2D, which also supplies the residuals and the operator
   matvec; in 3D kernel K5 runs each smoothing call (sweeps + residual)
-  and kernel K4 the operator matvec (``ops.fused_smooth``);
+  and kernel K4 the operator matvec (``ops.fused_smooth``), or K6 all
+  three on an OTF level;
 * prolongation is bi/trilinear interpolation in reshape/interleave
   form, restriction its exact transpose (FEM Galerkin convention), so
   the V-cycle is a symmetric preconditioner for CG;
@@ -31,12 +36,13 @@ import torch
 import torch.nn.functional as F
 
 from .device import resolve_device
-from .ops import fused_assemble, fused_smooth
+from .ops import fused_assemble, fused_smooth, otf3d
 from .ops.stencil import Stencil2D, Stencil3D
 
 __all__ = [
     "Level",
     "Level3D",
+    "OTFLevel",
     "GMG",
     "GMGAssembler",
     "GMGAssembler3D",
@@ -259,12 +265,13 @@ class Level:
 
 
 class Level3D:
-    """One 3D grid level: K3's half-symmetric planes + BC mask + smoother.
+    """One 3D grid level: K3's planes + BC mask + smoother.
 
     Attributes:
         op: Stencil3D (plan + plain matvec).
-        coeff: (nk, nz, ny, nx) kept BC-eliminated planes
-            (``fused_smooth.sym_planes_3d``), the PCG operator.
+        coeff: (nk, nz, ny, nx) BC-eliminated planes, the PCG operator:
+            the kept planes of ``fused_smooth.sym_planes_3d`` or all
+            nd*nd*27 (K4 and K5 read either storage).
         coeff_lp: low-precision copy for the smoother, or None.
         inv_diag: (nd, nz, ny, nx) inverse diagonal, 0 at fixed dofs.
         mask: (nd, nz, ny, nx) bool, True at constrained dofs.
@@ -335,13 +342,14 @@ class Level3D:
         """Explicit inverse of the (small) coarsest operator.
 
         Columns come from the plain stencil matvec over an identity
-        batch, on the full planes rebuilt from the kept ones.
+        batch, on the full planes (rebuilt from the kept ones under sym
+        storage).
         """
         nz, ny, nx = self.shape
         n = nz * ny * nx * self.nd
         eye = torch.eye(n, dtype=self.inv_diag.dtype,
                         device=self.inv_diag.device)
-        full = fused_smooth.full_planes_3d(self.coeff, self.nd)
+        full = fused_smooth.as_full_planes_3d(self.coeff, self.nd)
         A = self.op.matvec(
             full, eye.reshape(n, self.nd, nz, ny, nx)
         ).reshape(n, n)
@@ -349,6 +357,73 @@ class Level3D:
         L = torch.linalg.cholesky(A.t())
         self.dense_inv = torch.cholesky_inverse(L)
         return self
+
+
+class OTFLevel:
+    """One 3D grid level with no coefficients: K6 applies the operator.
+
+    Holds the level's nodal density, free-dof mask and OTF weight tables
+    (``ops.otf3d.otf_weights``); every matvec, sweep and residual
+    rebuilds the stencil coefficients from the density inside kernel K6,
+    so no coefficient volume is ever written or read.  Nothing is cached
+    per assembly: each sweep pass recomputes the inverse diagonal from
+    the density.  Exposes the surface ``GMG._cycle3d`` uses on
+    :class:`Level3D`.  Precondition (K6's): every field handed in is
+    zero at fixed dofs, which the V-cycle and PCG keep.
+
+    Attributes:
+        rho: (nz, ny, nx) nodal density of the level.
+        maskf: (nd, nz, ny, nx) free-dof mask (1.0 free / 0.0 fixed).
+        w3, wd: the OTF weight tables in the working dtype.
+        mask: (nd, nz, ny, nx) bool, True at constrained dofs.
+        smoother_bf16: the smoother's calls round K6's matmul operands
+            to bf16 (the OTF analogue of the bf16 coefficient copy).
+    """
+
+    dense_inv = None  # never the coarsest level
+
+    def __init__(self, rho, maskf, mask, w3, wd, shape, nd, p,
+                 smoother_bf16=False):
+        self.rho = rho
+        self.maskf = maskf
+        self.mask = mask
+        self.w3 = w3
+        self.wd = wd
+        self.shape = tuple(int(s) for s in shape)
+        self.nd = int(nd)
+        self.p = float(p)
+        self.smoother_bf16 = bool(smoother_bf16)
+
+    def _call(self, b, x, **kw):
+        return otf3d.otf_apply_3d(self.rho, self.maskf, self.w3, self.wd, b,
+                                  x, p=self.p, **kw)
+
+    def matvec(self, u):
+        """A u in float32 operands (the PCG operator), K6."""
+        return self._call(None, u, niter=0, want_resid=True, neg_resid=True)
+
+    def can_fuse3d(self, niter, x0_zero, want_resid):
+        """True for any ``niter >= 1``: K6 runs one pass per sweep, so it
+        has no z ghost-plane budget (the TPU's ``otf_budget_ok``)."""
+        return niter >= 1
+
+    def presmooth_resid3d(self, b, niter, omega):
+        """Sweeps from x0 = 0 plus the residual: (x, b - A x), K6."""
+        return self._call(b, None, niter=niter, want_resid=True, omega=omega,
+                          mxu_bf16=self.smoother_bf16)
+
+    def postsmooth3d(self, b, x0, niter, omega):
+        """Sweeps from a given iterate, K6."""
+        return self._call(b, x0, niter=niter, want_resid=False, omega=omega,
+                          mxu_bf16=self.smoother_bf16)
+
+    def sweep3d(self, b, x, omega):
+        """One sweep x + omega * invD * (b - A x), K6."""
+        return self.postsmooth3d(b, x, 1, omega)
+
+    def resid3d(self, b, x):
+        """b - A x on the float32 operator (as the JAX OTFLevel), K6."""
+        return self._call(b, x, niter=0, want_resid=True)
 
 
 def smoothing_omegas(nu, lam_max=3.0, frac=8.0):
@@ -549,6 +624,7 @@ class StaticLevel(NamedTuple):
     shape: tuple         # ([nz,] ny, nx)
     Kq: torch.Tensor     # (nq, ndpe, ndpe) unit element matrices
     W: torch.Tensor      # (nd*nd*9, 4, nq) K1 / (nd*nd*27, 8, nq) K3 weights
+    otf: tuple = None    # 3D OTF level: (w3, wd) K6 tables, else None
 
 
 class GMGAssembler:
@@ -718,23 +794,29 @@ class GMGAssembler:
             ).reshape(nq, nn * d, nn * d)
         return np.einsum("q,qnl,qml->qnm", cq, Ngrad, Ngrad)
 
+    def _assemble_level(self, st, rho_grid, **kw):
+        """One level's operator from its nodal density (K1 / K3; ``kw``:
+        the kernel's extra options)."""
+        outs = self._assemble_fn(
+            rho_grid, st.maskf, st.W, self.N, nd=self.nd, p=self.p,
+            lp_dtype=self.smoother_dtype, **kw,
+        )
+        return self._level_cls(
+            st.op, outs[0], outs[1], st.mask, st.shape, self.nd,
+            coeff_lp=outs[2] if len(outs) > 2 else None,
+        )
+
     def assemble(self, rho):
         """Fine nodal rho -> (gmg, fine_level), every level through the
-        assembly kernel (K1 in 2D, K3 in 3D)."""
+        assembly kernel (K1 in 2D, K3 in 3D) or, on a 3D OTF level, as
+        the density K6 reads."""
         shape = self.static_levels[0].shape
         rho_grid = torch.as_tensor(rho, dtype=self.dtype,
                                    device=self.device).reshape(shape)
         rho_grid = rho_grid.contiguous()
         levels = []
         for st in self.static_levels:
-            outs = self._assemble_fn(
-                rho_grid, st.maskf, st.W, self.N, nd=self.nd, p=self.p,
-                lp_dtype=self.smoother_dtype,
-            )
-            levels.append(self._level_cls(
-                st.op, outs[0], outs[1], st.mask, st.shape, self.nd,
-                coeff_lp=outs[2] if len(outs) > 2 else None,
-            ))
+            levels.append(self._assemble_level(st, rho_grid))
             rho_grid = _restrict_nodal(rho_grid)
         if self.coarse_dense and (
             int(np.prod(levels[-1].shape)) * self.nd <= self.coarse_dense_max
@@ -747,16 +829,23 @@ class GMGAssembler:
 
 
 class GMGAssembler3D(GMGAssembler):
-    """3D (hex8) analogue of :class:`GMGAssembler` on the uniform path.
+    """3D (hex8) analogue of :class:`GMGAssembler`.
 
-    ``assemble(rho)`` builds every level with kernel K3 (half-symmetric
-    planes, as the JAX package's default ``pallas_sym`` storage); the
-    V-cycle smooths with K5 and the PCG operator is K4.
+    ``elem_path="uniform"``: ``assemble(rho)`` builds every level with
+    kernel K3; the V-cycle smooths with K5 and the PCG operator is K4.
+    ``elem_path="otf"``: every level but the coarsest is an
+    :class:`OTFLevel` (kernel K6 smooths and is the PCG operator, from
+    the density alone); the coarsest is K3-assembled with its dense
+    inverse.
 
     Args:
         physics: "elasticity" (3D isotropic, nd=3) or "poisson" (nd=1).
-        elem_path: "uniform" only; "otf" and "einsum" raise
+        elem_path: "uniform" or "otf"; "einsum" raises
             ``NotImplementedError``.
+        sym: K3's coefficient storage, the JAX package's ``pallas_sym``:
+            the half-symmetric kept planes (True, the default) or all
+            nd*nd*27 planes.  A storage choice, not a tiling: K4 and K5
+            read either.
     """
 
     _level_cls = Level3D
@@ -767,25 +856,27 @@ class GMGAssembler3D(GMGAssembler):
                  nu_pre=2, nu_post=2, omega=0.6, min_n=3, coarse_dense=True,
                  coarse_dense_max=4096, elem_path="uniform",
                  smoother_dtype=None, cheb_lam=None, cheb_frac=8.0,
-                 fine_mask=None):
+                 fine_mask=None, sym=True):
         """fine_mask: optional (nd, nz, ny, nx) bool Dirichlet mask;
         coarse masks by injection (default: clamp the x=0 face, the
         create_*_problem factories' layout).
 
         omega: a float, a per-sweep tuple, or ``"cheby"`` (see
         :func:`smoothing_omegas`).  The JAX package's TPU knobs
-        (``pallas_*``) have no meaning here and are not taken.
+        (``pallas_smooth``, ``pallas_tz`` and the rest) have no meaning
+        here and are not taken; ``pallas_sym`` is ``sym``.
         """
         from .mesh import ProblemCreator
 
-        if elem_path != "uniform":
-            where = ("ROADMAP.md queue 2, K6 (otf_apply_3d)"
-                     if elem_path == "otf" else
-                     "ROADMAP.md queue 1, slice 1 item 6 (einsum route)")
+        if elem_path == "einsum":
             raise NotImplementedError(
-                f"elem_path={elem_path!r} is not ported yet ({where})"
+                "elem_path='einsum' is not ported yet (ROADMAP.md queue 1, "
+                "slice 3 item 9: the einsum route, after slice 1 item 4)"
             )
+        if elem_path not in ("uniform", "otf"):
+            raise ValueError(f"unknown elem_path {elem_path!r}")
         self.elem_path = elem_path
+        self.sym = bool(sym)
         # hex8 elasticity measured 2.96, poisson 1.49 (JAX package)
         nd = self._setup("hex8", 3, physics, E, nu, p, dtype, device,
                          nu_pre, nu_post, omega, coarse_dense,
@@ -807,6 +898,23 @@ class GMGAssembler3D(GMGAssembler):
                 mask_np = _left_face_mask(lnx, lny, lnz, nd)
             self._add_level(Stencil3D(lnx, lny, lnz, nd), creator, mask_np,
                             (lnz, lny, lnx), fused_assemble.assembly_weights3d)
+        if elem_path == "otf":  # every level but the coarsest
+            for li, st in enumerate(self.static_levels[:-1]):
+                self.static_levels[li] = st._replace(otf=self.otf_tables(st))
+
+    def otf_tables(self, st):
+        """(w3, wd) K6 tables of one level, folded in float64 from its
+        unit matrices (as the JAX package folds its device copy of Kq)."""
+        Kq = st.Kq.cpu().double().numpy()
+        return tuple(self._tensor(t) for t in otf3d.otf_weights(
+            st.op.plan, Kq, self.nd, Kq.shape[0]))
+
+    def _assemble_level(self, st, rho_grid):
+        if st.otf is None:
+            return super()._assemble_level(st, rho_grid, sym=self.sym)
+        return OTFLevel(rho_grid, st.maskf, st.mask, *st.otf, st.shape,
+                        self.nd, self.p,
+                        smoother_bf16=self.smoother_dtype is not None)
 
 
 # ---------------------------------------------------------------------------

@@ -32,7 +32,7 @@ __all__ = ["library", "launch", "launches", "reset_launches", "stream_ptr",
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _SOURCES = ("assemble_2d.cu", "smooth_2d.cu", "assemble_3d.cu",
-            "smooth_3d.cu")
+            "smooth_3d.cu", "otf_3d.cu")
 _BUILD_DIR = (
     Path(__file__).resolve().parent.parent.parent
     / "build" / "pyfem_torch_kernels"
@@ -50,16 +50,22 @@ _SIGNATURES = {
     "pyfem_assemble_2d": (_P, _P, _P, _P, _F, _I, _I, _I, _P, _P, _P, _P),
     # coeff, coeff_bf16, invd, b, x, out, nd, ny, nx, omega, mode, stream
     "pyfem_smooth_2d": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
-    # rho, maskf, W, N, p, nd, nz, ny, nx, coeff, invd, coeff_lp, stream
-    "pyfem_assemble_3d": (_P, _P, _P, _P, _F, _I, _I, _I, _I, _P, _P, _P,
-                          _P),
-    # coeff, coeff_bf16, invd, b, x, out, nd, nz, ny, nx, omega, mode,
+    # rho, maskf, W, N, p, nd, nz, ny, nx, full, coeff, invd, coeff_lp,
     # stream
-    "pyfem_sweep_3d": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
-    # coeff, coeff_bf16, invd, b, x0, buf0, buf1, r, omegas, niter, rmode,
-    # nd, nz, ny, nx, stream
-    "pyfem_sweeps_3d": (_P, _I, _P, _P, _P, _P, _P, _P, _FP, _I, _I, _I, _I,
-                        _I, _I, _P),
+    "pyfem_assemble_3d": (_P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _P, _P,
+                          _P, _P),
+    # coeff, coeff_bf16, full, invd, b, x, out, nd, nz, ny, nx, omega,
+    # mode, stream
+    "pyfem_sweep_3d": (_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
+                       _P),
+    # coeff, coeff_bf16, full, invd, b, x0, buf0, buf1, r, omegas, niter,
+    # rmode, nd, nz, ny, nx, stream
+    "pyfem_sweeps_3d": (_P, _I, _I, _P, _P, _P, _P, _P, _P, _FP, _I, _I, _I,
+                        _I, _I, _I, _P),
+    # rho, maskf, tables (w3 | wd | N), b, x, out, p, nd, nz, ny, nx,
+    # omega, mode, bf16, stream
+    "pyfem_otf_3d": (_P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _F, _I, _I,
+                     _P),
 }
 
 launches = {name: 0 for name in _SIGNATURES}

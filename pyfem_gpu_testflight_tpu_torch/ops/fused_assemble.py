@@ -45,6 +45,7 @@ __all__ = [
     "assembly_weights3d",
     "assemble_pack_3d",
     "assemble_pack_3d_plain",
+    "shifted_materials_3d",
 ]
 
 
@@ -178,9 +179,11 @@ def assemble_pack_2d(rho, maskf, W, N, *, nd, p, lp_dtype=None):
 #
 # over the 8 elements around the node, with Cq = RAMP(N @ rho_nodes) and
 # phantom elements past the grid contributing 0.  Outputs are the
-# half-symmetric storage ``coeff (nk, nz, ny, nx)`` that K4/K5 read
-# (123 planes at nd=3, 14 at nd=1), ``invd (nd, nz, ny, nx)`` (rowm /
-# diag, 0 at fixed dofs) and optionally a bf16 copy of the planes.
+# planes ``coeff (nk, nz, ny, nx)`` that K4/K5 read — the half-symmetric
+# storage (``sym=True``: 123 planes at nd=3, 14 at nd=1) or all
+# ``nd*nd*27`` planes (``sym=False``: 243 / 27) — ``invd (nd, nz, ny,
+# nx)`` (rowm / diag, 0 at fixed dofs) and optionally a bf16 copy of the
+# planes.
 
 
 def assembly_weights3d(plan, Kq, nd, nq):
@@ -211,45 +214,57 @@ def _check3d(rho, maskf, W, N, nd):
             raise ValueError(f"{name} must be {rho.dtype} on {rho.device}")
 
 
-def assemble_pack_3d_plain(rho, maskf, W, N, *, nd, p, lp_dtype=None):
-    """Plain PyTorch K3 (any device, any float dtype).
+def shifted_materials_3d(rho, N, p):
+    """RAMP material of the 8 elements around every node.
 
-    All 243 (nd=3) planes as one weights-by-shifted-material product,
-    Dirichlet elimination by ``Stencil3D.bc_eliminate``, then the kept
-    planes.  Returns (coeff, invd[, coeff_lp]).
+    Returns S (8, nq, nz, ny, nx): S[o, q][i] = RAMP(N[q] . rho)[element
+    i - o] with o = az*4 + ay*2 + ax, 0 for phantom elements past the
+    grid.  K3 contracts it with W, K6 with the OTF tables.
     """
-    _check3d(rho, maskf, W, N, nd)
     nz, ny, nx = rho.shape
-    nq = N.shape[0]
     rho_e = [rho[az : az + nz - 1, ay : ay + ny - 1, ax : ax + nx - 1]
              for az, ay, ax in _HEX8_LOCAL]
     Cq = []
-    for q in range(nq):
+    for q in range(N.shape[0]):
         acc = N[q, 0] * rho_e[0]
         for n in range(1, 8):
             acc = acc + N[q, n] * rho_e[n]
         Cq.append(ramp(acc, p))
     # element (ez, ey, ex) at padded (ez+1, ey+1, ex+1): phantoms read 0
     Cq = F.pad(torch.stack(Cq), (1, 1, 1, 1, 1, 1))
-    S = torch.stack([
+    return torch.stack([
         Cq[:, 1 - az : 1 - az + nz, 1 - ay : 1 - ay + ny, 1 - ax : 1 - ax + nx]
         for az in range(2) for ay in range(2) for ax in range(2)
-    ])  # (8, nq, nz, ny, nx), index az*4 + ay*2 + ax
-    full = (W.reshape(-1, 8 * nq) @ S.reshape(8 * nq, -1)).reshape(
-        nd, nd, 3, 3, 3, nz, ny, nx
-    )
+    ])
+
+
+def assemble_pack_3d_plain(rho, maskf, W, N, *, nd, p, lp_dtype=None,
+                           sym=True):
+    """Plain PyTorch K3 (any device, any float dtype).
+
+    All 243 (nd=3) planes as one weights-by-shifted-material product,
+    Dirichlet elimination by ``Stencil3D.bc_eliminate``, then the kept
+    planes (``sym=True``) or all of them.  Returns (coeff, invd[,
+    coeff_lp]).
+    """
+    _check3d(rho, maskf, W, N, nd)
+    nz, ny, nx = rho.shape
+    S = shifted_materials_3d(rho, N, p)
+    full = (W.reshape(-1, S.shape[0] * S.shape[1]) @ S.reshape(
+        S.shape[0] * S.shape[1], -1)).reshape(nd, nd, 3, 3, 3, nz, ny, nx)
     op = Stencil3D(nx, ny, nz, nd)
     ce = op.bc_eliminate(full, maskf == 0)
     diag = op.diagonal(ce)
     invd = maskf / torch.where(diag == 0.0, 1.0, diag)
-    keep = [k for (k, *_r) in sym_planes_3d(nd)]
-    coeff = ce.reshape(nd * nd * 27, nz, ny, nx)[keep]
+    coeff = ce.reshape(nd * nd * 27, nz, ny, nx)
+    if sym:
+        coeff = coeff[[k for (k, *_r) in sym_planes_3d(nd)]]
     if lp_dtype is None:
         return coeff, invd
     return coeff, invd, coeff.to(lp_dtype)
 
 
-def _assemble_pack_3d_cuda(rho, maskf, W, N, *, nd, p, lp_dtype):
+def _assemble_pack_3d_cuda(rho, maskf, W, N, *, nd, p, lp_dtype, sym):
     _check3d(rho, maskf, W, N, nd)
     if rho.dtype != torch.float32:
         raise TypeError(f"the CUDA kernel takes float32, got {rho.dtype}")
@@ -259,22 +274,22 @@ def _assemble_pack_3d_cuda(rho, maskf, W, N, *, nd, p, lp_dtype):
         if not t.is_contiguous():
             raise ValueError("inputs must be contiguous")
     nz, ny, nx = rho.shape
-    nk = len(sym_planes_3d(nd))
+    nk = len(sym_planes_3d(nd)) if sym else nd * nd * 27
     coeff = torch.empty((nk, nz, ny, nx), dtype=rho.dtype, device=rho.device)
     invd = torch.empty((nd, nz, ny, nx), dtype=rho.dtype, device=rho.device)
     lp = (None if lp_dtype is None else
           torch.empty((nk, nz, ny, nx), dtype=lp_dtype, device=rho.device))
     _cuda.launch(
         "pyfem_assemble_3d", rho.data_ptr(), maskf.data_ptr(), W.data_ptr(),
-        N.data_ptr(), float(p), nd, nz, ny, nx, coeff.data_ptr(),
-        invd.data_ptr(), None if lp is None else lp.data_ptr(),
-        _cuda.stream_ptr(rho),
+        N.data_ptr(), float(p), nd, nz, ny, nx, int(not sym),
+        coeff.data_ptr(), invd.data_ptr(),
+        None if lp is None else lp.data_ptr(), _cuda.stream_ptr(rho),
     )
     return (coeff, invd) if lp is None else (coeff, invd, lp)
 
 
-def assemble_pack_3d(rho, maskf, W, N, *, nd, p, lp_dtype=None):
-    """3D density grid -> sym BC-eliminated planes + inverse diagonal (K3).
+def assemble_pack_3d(rho, maskf, W, N, *, nd, p, lp_dtype=None, sym=True):
+    """3D density grid -> BC-eliminated planes + inverse diagonal (K3).
 
     Args:
         rho: (nz, ny, nx) nodal density.
@@ -284,15 +299,16 @@ def assemble_pack_3d(rho, maskf, W, N, *, nd, p, lp_dtype=None):
         nd, p: dofs per node (3 or 1) and RAMP penalization.
         lp_dtype: also emit a low-precision copy of the planes (the
             smoother's) in the same pass.
+        sym: half-symmetric storage (the kept planes of
+            ``sym_planes_3d``) or, with False, all nd*nd*27 planes.
 
     Returns:
         (coeff (nk, nz, ny, nx), invd (nd, nz, ny, nx)[, coeff_lp]),
-        nk = len(sym_planes_3d(nd)).
+        nk = len(sym_planes_3d(nd)) or nd*nd*27.
     """
+    kw = dict(nd=nd, p=p, lp_dtype=lp_dtype, sym=bool(sym))
     if rho.device.type == "cuda":
-        return _assemble_pack_3d_cuda(rho, maskf, W, N, nd=nd, p=p,
-                                      lp_dtype=lp_dtype)
+        return _assemble_pack_3d_cuda(rho, maskf, W, N, **kw)
     if rho.device.type == "cpu":
-        return assemble_pack_3d_plain(rho, maskf, W, N, nd=nd, p=p,
-                                      lp_dtype=lp_dtype)
+        return assemble_pack_3d_plain(rho, maskf, W, N, **kw)
     raise ValueError(f"unsupported device {rho.device}")

@@ -41,6 +41,8 @@ __all__ = [
     "sym_planes_3d",
     "halo_sweeps_3d",
     "full_planes_3d",
+    "as_full_planes_3d",
+    "is_full_storage_3d",
     "fused_sweep_3d",
     "fused_sweep_3d_plain",
     "fused_sweeps3d",
@@ -180,10 +182,13 @@ def fused_sweeps_2d(coeff, invd, b=None, x=None, *, niter=2,
 # 3D: K4 (one 27-point operation) and K5 (all sweeps of a smoothing call)
 # ---------------------------------------------------------------------------
 #
-# The 3D coefficients are the half-symmetric ("sym") storage of the
-# BC-eliminated 27-point stencil, written by K3 (ops.fused_assemble):
-# the kept planes of :func:`sym_planes_3d` in the logical layout
-# (nk, nz, ny, nx), f32 or bf16; fields are (nd, nz, ny, nx).  A kept
+# The 3D coefficients are the BC-eliminated 27-point stencil written by
+# K3 (ops.fused_assemble) in the logical layout (nk, nz, ny, nx), f32 or
+# bf16, in one of two storages told apart by the plane count: full (all
+# nk = nd*nd*27 planes, k = (a*nd + b)*27 + dz*9 + dy*3 + dx, the TPU
+# kernel's ``_kernel3d``) or half-symmetric ("sym", ``_kernel3d_sym``,
+# the kept planes of :func:`sym_planes_3d`).  Fields are (nd, nz, ny,
+# nx).  A kept
 # plane k = (a, b, dz, dy, dx) at node i adds coeff[k][i] *
 # x[b][i + d - 1] to y[a][i]; unless it is its own partner, its partner
 # (b, a, 2 - dz, 2 - dy, 2 - dx) adds, at node j, the stored
@@ -252,17 +257,29 @@ def full_planes_3d(coeff, nd):
     return full
 
 
+def is_full_storage_3d(coeff, nd):
+    """True for all nd*nd*27 planes, False for the sym kept planes."""
+    return coeff.shape[0] == nd * nd * 27
+
+
+def as_full_planes_3d(coeff, nd):
+    """Either storage -> full planes (nd, nd, 3, 3, 3, nz, ny, nx)."""
+    if is_full_storage_3d(coeff, nd):
+        return coeff.reshape((nd, nd, 3, 3, 3) + tuple(coeff.shape[1:]))
+    return full_planes_3d(coeff, nd)
+
+
 def _check3d(coeff, invd, b, x):
     ref = invd if invd is not None else (b if b is not None else x)
     if ref is None or ref.dim() != 4:
         raise ValueError("need (nd, nz, ny, nx) fields")
     nd, nz, ny, nx = ref.shape
-    nk = len(sym_planes_3d(nd)) if nd in (1, 3) else None
-    if nk is None:
+    if nd not in (1, 3):
         raise ValueError(f"nd must be 1 or 3, got {nd}")
-    if tuple(coeff.shape) != (nk, nz, ny, nx):
-        raise ValueError(f"coeff {tuple(coeff.shape)} != sym storage "
-                         f"{(nk, nz, ny, nx)}")
+    nks = (len(sym_planes_3d(nd)), nd * nd * 27)
+    if coeff.shape[0] not in nks or tuple(coeff.shape[1:]) != (nz, ny, nx):
+        raise ValueError(f"coeff {tuple(coeff.shape)}: want sym or full "
+                         f"storage, ({nks[0]} or {nks[1]}, {nz}, {ny}, {nx})")
     for name, t in (("invd", invd), ("b", b), ("x", x)):
         if t is not None and (t.shape != ref.shape or t.dtype != ref.dtype
                               or t.device != ref.device):
@@ -290,7 +307,7 @@ def fused_sweep_3d_plain(coeff, invd=None, b=None, x=None, *, mode="sweep",
     _sweep3d_args(mode, invd, b, x)
     nd, nz, ny, nx = _check3d(coeff, invd, b, x)
     ax = Stencil3D(nx, ny, nz, nd).matvec(
-        full_planes_3d(coeff.to(x.dtype), nd), x
+        as_full_planes_3d(coeff.to(x.dtype), nd), x
     )
     if mode == "matvec":
         return ax if neg_resid else -ax
@@ -322,7 +339,8 @@ def _fused_sweep_3d_cuda(coeff, invd, b, x, *, mode, neg_resid, omega):
     out = torch.empty_like(x)
     # matvec is the residual with b = 0: -A x, or A x with neg_resid
     _cuda.launch("pyfem_sweep_3d", coeff.data_ptr(),
-                 int(coeff.dtype == torch.bfloat16), ptr(invd),
+                 int(coeff.dtype == torch.bfloat16),
+                 int(is_full_storage_3d(coeff, nd)), ptr(invd),
                  ptr(None if mode == "matvec" else b), x.data_ptr(),
                  out.data_ptr(), nd, nz, ny, nx, float(omega), cmode,
                  _cuda.stream_ptr(x))
@@ -331,15 +349,16 @@ def _fused_sweep_3d_cuda(coeff, invd, b, x, *, mode, neg_resid, omega):
 
 def fused_sweep_3d(coeff, invd=None, b=None, x=None, *, mode="sweep",
                    neg_resid=False, omega=0.6):
-    """One 27-point operation on sym-stored 3D stencil planes (K4).
+    """One 27-point operation on 3D stencil planes (K4).
 
     mode: "sweep"  -> x + omega * invd * (b - A x)   (needs invd, b, x)
           "resid"  -> +-(b - A x)                    (needs b, x)
           "matvec" -> A x (neg_resid=True) or -A x   (needs x only)
 
     Args:
-        coeff: (nk, nz, ny, nx) kept planes (:func:`sym_planes_3d`),
-            f32 or bf16 (loaded as bf16, arithmetic in f32).
+        coeff: (nk, nz, ny, nx) kept planes (:func:`sym_planes_3d`) or
+            all nd*nd*27 planes, f32 or bf16 (loaded as bf16, arithmetic
+            in f32).
         invd, b, x: (nd, nz, ny, nx) fields.
     """
     kw = dict(mode=mode, neg_resid=neg_resid, omega=omega)
@@ -364,7 +383,7 @@ def fused_sweeps3d_plain(coeff, invd, b, x=None, *, niter=2,
     _sweeps3d_args(b, niter)
     nd, nz, ny, nx = _check3d(coeff, invd, b, x)
     op = Stencil3D(nx, ny, nz, nd)
-    c = full_planes_3d(coeff.to(invd.dtype), nd)
+    c = as_full_planes_3d(coeff.to(invd.dtype), nd)
     for om in _omega_seq(omega, niter):
         if x is None:  # first sweep from x0 = 0: elementwise
             x = om * invd * b
@@ -389,7 +408,8 @@ def _fused_sweeps3d_cuda(coeff, invd, b, x, *, niter, want_resid,
     rmode = (-1 if not want_resid else
              _MODE_NEG_RESID if neg_resid else _MODE_RESID)
     _cuda.launch("pyfem_sweeps_3d", coeff.data_ptr(),
-                 int(coeff.dtype == torch.bfloat16), invd.data_ptr(),
+                 int(coeff.dtype == torch.bfloat16),
+                 int(is_full_storage_3d(coeff, nd)), invd.data_ptr(),
                  b.data_ptr(), ptr(x), bufs[0].data_ptr(),
                  bufs[-1].data_ptr(), ptr(r), (ctypes.c_float * niter)(*oms),
                  niter, rmode, nd, nz, ny, nx, _cuda.stream_ptr(b))
@@ -411,7 +431,7 @@ def fused_sweeps3d(coeff, invd, b, x=None, *, niter=2, want_resid=False,
     ROADMAP work.
 
     Args:
-        coeff: (nk, nz, ny, nx) sym planes, f32 or bf16.
+        coeff: (nk, nz, ny, nx) sym or full planes, f32 or bf16.
         invd, b: (nd, nz, ny, nx) inverse diagonal (0 at fixed dofs) and
             right-hand side (0 at fixed dofs).
         x: (nd, nz, ny, nx) initial iterate, or None for x0 = 0.

@@ -8,7 +8,9 @@ planes — ``Stencil3D.assemble_uniform(material_planes(rho), Kq)`` then
 to 1e-12 relative, on a 9x7x5 grid with a random density, p=3, nd=3 and
 nd=1.  Inverse diagonals are compared on free dofs (the port stores
 ``rowm / diag``, 0 at fixed dofs; the XLA ``Level`` ``1 / diag``).  The
-bf16 copy equals its own float64 planes rounded.  The per-level unit
+full-storage form (``sym=False``) equals all 243 (27) eliminated planes
+to the same tolerance.  The bf16 copy equals its own float64 planes
+rounded.  The per-level unit
 matrices and K3 weights of ``GMGAssembler3D`` equal the JAX
 assembler's (1e-14 in float64, exactly in float32).
 """
@@ -70,6 +72,30 @@ def test_plain_k3_matches_xla_assembly(physics):
     assert np.all(invd.numpy()[~free] == 0.0)
     assert lp.dtype == torch.bfloat16 and torch.equal(lp,
                                                       c.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("physics", ["elasticity", "poisson"])
+def test_plain_k3_full_storage_matches_xla_assembly(physics):
+    ja, ta = _assemblers(physics, "float64")
+    op, _xe, _conn, mask, _shape, Kq, _pal, _otf = ja.static_levels[0]
+    nd = ja.nd
+    rho = np.random.default_rng(6).uniform(0.2, 1.0, (NZ, NY, NX))
+    with jax.disable_jit():
+        ce = op.bc_eliminate(
+            op.assemble_uniform(ja.material_planes(jnp.asarray(rho)), Kq),
+            mask,
+        )
+    ce_ref = np.asarray(ce).reshape(nd * nd * 27, NZ, NY, NX)
+    st = ta.static_levels[0]
+    args = (torch.as_tensor(rho), st.maskf, st.W, ta.N)
+    c, invd, lp = fa.assemble_pack_3d(*args, nd=nd, p=3.0, sym=False,
+                                      lp_dtype=torch.bfloat16)
+    assert c.shape == ce_ref.shape
+    assert np.abs(c.numpy() - ce_ref).max() <= 1e-12 * np.abs(ce_ref).max()
+    assert torch.equal(lp, c.to(torch.bfloat16))
+    kept, invd_sym = fa.assemble_pack_3d(*args, nd=nd, p=3.0)
+    assert torch.equal(invd, invd_sym)
+    assert torch.equal(c[[k for (k, *_r) in fs.sym_planes_3d(nd)]], kept)
 
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])

@@ -1,8 +1,9 @@
 """PyTorch port: the CUDA kernels against their plain versions on the card.
 
 K1 and K2 on a 65x33 level; K3, K4 (every mode, f32 and bf16 planes)
-and K5 on a 17^3 level (chip_smoke.py phases 3 and 3a hold them at full
-size).
+and K5 on a 17^3 level, in half-symmetric and full coefficient storage;
+K6 on a 17^3 level in every mode with f32 and bf16 operands
+(chip_smoke.py phases 3, 3a and 3b hold them at full size).
 
 Needs an NVIDIA Hopper card and nvcc; marked ``slow`` (deselected by the
 CPU tier) and skipped where CUDA is absent.  Run on the card with:
@@ -176,6 +177,55 @@ def test_k4_matches_plain_on_card(level3d, variant):
     assert _rel(got, ref) <= TOL
 
 
+def test_k3_full_storage_matches_plain_on_card(level3d):
+    from pyfem_gpu_testflight_tpu_torch.ops import fused_assemble as fa
+
+    a, st, rho, _, _ = level3d
+    args = (rho, st.maskf, st.W, a.N)
+    ck, dk, lk = fa.assemble_pack_3d(*args, nd=3, p=3.0,
+                                     lp_dtype=torch.bfloat16, sym=False)
+    cp, dp = fa.assemble_pack_3d_plain(*args, nd=3, p=3.0, sym=False)
+    torch.cuda.synchronize()
+    free = st.maskf > 0
+    assert ck.shape == (243, N3, N3, N3)
+    assert _rel(ck, cp) <= TOL
+    assert _rel(dk[free], dp[free]) <= TOL
+    assert torch.equal(lk, ck.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("variant", ["sweep_f32", "resid_bf16",
+                                     "negmatvec_f32", "k5_presmooth_bf16"])
+def test_k4_k5_full_storage_match_plain_on_card(level3d, variant):
+    from pyfem_gpu_testflight_tpu_torch import multigrid
+    from pyfem_gpu_testflight_tpu_torch.ops import fused_assemble as fa
+    from pyfem_gpu_testflight_tpu_torch.ops import fused_smooth as fs
+
+    a, st, rho, _, fl = level3d
+    ck, dk, lk = fa.assemble_pack_3d(rho, st.maskf, st.W, a.N, nd=3, p=3.0,
+                                     lp_dtype=torch.bfloat16, sym=False)
+    name, prec = variant.rsplit("_", 1)
+    c = ck if prec == "f32" else lk
+    if name == "k5_presmooth":
+        kw = dict(niter=2, want_resid=True,
+                  omega=multigrid.smoothing_omegas(2, 3.0))
+        got = fs.fused_sweeps3d(c, dk, fl["b"], None, **kw)
+        ref = fs.fused_sweeps3d_plain(c, dk, fl["b"], None, **kw)
+    else:
+        args, kw = {
+            "sweep": ((c, dk, fl["b"], fl["x0"]),
+                      dict(mode="sweep", omega=0.5)),
+            "resid": ((c, None, fl["b"], fl["x0"]), dict(mode="resid")),
+            "negmatvec": ((c, None, None, fl["xr"]), dict(mode="matvec")),
+        }[name]
+        got = (fs.fused_sweep_3d(*args, **kw),)
+        ref = (fs.fused_sweep_3d_plain(*args, **kw),)
+    torch.cuda.synchronize()
+    assert _rel(got[0], ref[0]) <= TOL
+    if len(ref) > 1:
+        err = float((got[1] - ref[1]).abs().max())
+        assert err <= TOL * float(fl["b"].abs().max())
+
+
 @pytest.mark.parametrize("variant", ["presmooth_resid_bf16", "postsmooth_bf16",
                                      "nu4_resid_f32"])
 def test_k5_matches_plain_on_card(level3d, variant):
@@ -203,3 +253,95 @@ def test_k5_matches_plain_on_card(level3d, variant):
         # the residual is damped below b: its rounding is at b's scale
         err = float((got[1] - ref[1]).abs().max())
         assert err <= TOL * float(b.abs().max())
+
+
+# -- K6: the on-the-fly operator at 17^3 ------------------------------------
+
+
+@pytest.fixture(scope="module")
+def otf_levels(dev):
+    from pyfem_gpu_testflight_tpu_torch import multigrid
+
+    out = {}
+    for physics in ("elasticity", "poisson"):
+        a = multigrid.GMGAssembler3D(N3, N3, N3, 1.0, 1.0, 1.0, physics,
+                                     p=3.0, device=dev, elem_path="otf")
+        rng = np.random.default_rng(2)
+        rho = torch.as_tensor(rng.uniform(0.3, 1.0, N3 ** 3),
+                              dtype=torch.float32, device=dev)
+        _, lv = a.assemble(rho)
+        f = lambda: torch.as_tensor(rng.standard_normal((a.nd, N3, N3, N3)),
+                                    dtype=torch.float32, device=dev)
+        out[physics] = (lv, torch.where(lv.mask, 0.0, f()),
+                        torch.where(lv.mask, 0.0, f()))
+    return out
+
+
+def _k6_passes(lv, b, x, kw):
+    """One K6 call's stencil passes one at a time on the card, each
+    beside the plain version fed the same input (the kernel's previous
+    pass): [(kernel, plain, is_residual)], and the last pass's kernel
+    outputs.
+
+    Pass by pass, because with bf16 operands every pass rounds its
+    iterate to bf16: a float32 summation-order difference of ~1e-7 in
+    one pass can flip a rounding and move the next pass by a bf16 ulp.
+    """
+    from pyfem_gpu_testflight_tpu_torch.ops import otf3d
+    from pyfem_gpu_testflight_tpu_torch.ops.fused_smooth import _omega_seq
+
+    args = (lv.rho, lv.maskf, lv.w3, lv.wd)
+    common = dict(p=lv.p, mxu_bf16=kw["mxu_bf16"])
+    pairs = []
+    for om in _omega_seq(kw.get("omega", 0.6), kw["niter"]):
+        one = dict(niter=1, want_resid=False, omega=om, **common)
+        k = otf3d.otf_apply_3d(*args, b, x, **one)
+        pairs.append((k, otf3d.otf_apply_3d_plain(*args, b, x, **one),
+                      False))
+        x = k
+    last = [x] if kw["niter"] else []
+    if kw.get("want_resid", True):
+        one = dict(niter=0, neg_resid=kw.get("neg_resid", False), **common)
+        k = otf3d.otf_apply_3d(*args, b, x, **one)
+        pairs.append((k, otf3d.otf_apply_3d_plain(*args, b, x, **one),
+                      True))
+        last.append(k)
+    return pairs, last
+
+
+@pytest.mark.parametrize("physics", ["elasticity", "poisson"])
+@pytest.mark.parametrize("variant", ["matvec", "presmooth_resid",
+                                     "postsmooth", "nu4_resid"])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_k6_matches_plain_on_card(otf_levels, physics, variant, bf16):
+    from pyfem_gpu_testflight_tpu_torch import multigrid
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+    from pyfem_gpu_testflight_tpu_torch.ops import otf3d
+
+    lv, b, x0 = otf_levels[physics]
+    om2 = multigrid.smoothing_omegas(2, 3.0)
+    (bb, xx), kw = {
+        "matvec": ((None, x0), dict(niter=0, neg_resid=True)),
+        "presmooth_resid": ((b, None), dict(niter=2, omega=om2)),
+        "postsmooth": ((b, x0), dict(niter=2, want_resid=False,
+                                     omega=om2[::-1])),
+        "nu4_resid": ((b, x0), dict(niter=4,
+                                    omega=multigrid.smoothing_omegas(4, 3.0))),
+    }[variant]
+    kw.update(p=lv.p, mxu_bf16=bf16)
+    n0 = _cuda.launches["pyfem_otf_3d"]
+    got = otf3d.otf_apply_3d(lv.rho, lv.maskf, lv.w3, lv.wd, bb, xx, **kw)
+    torch.cuda.synchronize()
+    passes = kw["niter"] + (1 if kw.get("want_resid", True) else 0)
+    assert _cuda.launches["pyfem_otf_3d"] == n0 + passes
+    got = got if isinstance(got, tuple) else (got,)
+    pairs, last = _k6_passes(lv, bb, xx, kw)
+    torch.cuda.synchronize()
+    # the fused call is exactly its passes (one launch each, no atomics)
+    assert all(torch.equal(g, l) for g, l in zip(got, last))
+    for k, r, is_resid in pairs:
+        scale = float(r.abs().max())
+        if is_resid and bb is not None:
+            # a residual after damping sweeps is rounded at b's scale
+            scale = max(scale, float(bb.abs().max()))
+        assert float((k - r).abs().max()) <= TOL * scale

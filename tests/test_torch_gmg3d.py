@@ -9,14 +9,17 @@ its own, see :func:`_compiled_matvecs`):
 * ``bench.py --config 3d``'s solver settings (Chebyshev-node nu=2,
   rtol 1e-6, coarsest 3^3 solved densely) at 9^3 (rho=1, and p=3 with a
   seeded random rho) and 17^3 (rho=1): the same PCG iteration count (7
-  at rho=1), the solutions within 1e-10 relative;
+  at rho=1), the solutions within 1e-10 relative; the same at 9^3 with
+  full (``sym=False``) coefficient storage;
 * ``LinearElasticity("hex8").solve(method="gmg")`` equals the JAX
   model's same call (iterations and solution);
 * ``convert.assembler_state_from_numpy`` carrying a JAX
   ``GMGAssembler3D``'s tables in gives identical level planes;
 * the entry points default to the CUDA card and, with no CUDA present,
   raise unless given ``device="cpu"``;
-* the unported element paths raise naming ROADMAP.md.
+* the unported element path (``einsum``) raises naming ROADMAP.md.
+
+:func:`solve_both` is shared with ``tests/test_torch_otf3d.py``.
 """
 
 import numpy as np
@@ -79,35 +82,52 @@ def _problem(n):
     return conn, X, fixed, force, [float(X[:, k].max()) for k in range(3)]
 
 
-def solve_both(n, p, rho, rtol=1e-6):
+_JAX_SOLVES = {}
+
+
+def _jax_solve(n, p, rho, rhs, rtol):
+    """The JAX package's assembled XLA route, once per problem in this
+    process: ((x, iters), level shapes)."""
+    key = (n, p, rho.tobytes(), rtol)
+    if key not in _JAX_SOLVES:
+        L = _problem(n)[4]
+        ja = jmg.GMGAssembler3D(n, n, n, *L, "elasticity", dtype=jnp.float64,
+                                p=p, nu_pre=2, nu_post=2, min_n=3,
+                                coarse_dense_max=4096, omega="cheby")
+        _compiled_matvecs(st[0] for st in ja.static_levels)
+        with jax.disable_jit():
+            gmg, lv0 = ja.assemble(jnp.asarray(rho))
+            b = jnp.where(lv0.mask, 0.0, j_i2p(jnp.asarray(rhs), 3).reshape(
+                3, n, n, n))
+            x, k, _ = jmg.pcg_gmg(gmg, lv0, b, rtol=rtol, maxiter=100)
+        _JAX_SOLVES[key] = ((np.asarray(x), int(k)),
+                            [lv.shape for lv in gmg.levels])
+    return _JAX_SOLVES[key]
+
+
+def solve_both(n, p, rho, rtol=1e-6, **port_kw):
     """The bench 3D solver settings in both packages, float64.
+
+    ``port_kw`` (``elem_path``, ``sym``) picks the port's route; the JAX
+    side is always its assembled XLA route (solved once per problem).
 
     Returns ((x, iters) JAX, (x, iters, resnorm, ||b||) port).
     """
     conn, X, fixed, force, L = _problem(n)
     m = fem.LinearElasticity("hex8", X, conn, fixed, None, force, p=p)
     rhs = np.asarray(m.compute_rhs())
-    kw = dict(p=p, nu_pre=2, nu_post=2, min_n=3, coarse_dense_max=4096,
-              omega="cheby")
-    ja = jmg.GMGAssembler3D(n, n, n, *L, "elasticity", dtype=jnp.float64,
-                            **kw)
-    _compiled_matvecs(st[0] for st in ja.static_levels)
-    with jax.disable_jit():
-        gmg, lv0 = ja.assemble(jnp.asarray(rho))
-        b = jnp.where(lv0.mask, 0.0, j_i2p(jnp.asarray(rhs), 3).reshape(
-            3, n, n, n))
-        x, k, _ = jmg.pcg_gmg(gmg, lv0, b, rtol=rtol, maxiter=100)
+    ref, shapes = _jax_solve(n, p, rho, rhs, rtol)
     ta = tmg.GMGAssembler3D(n, n, n, *L, "elasticity", dtype=torch.float64,
-                            device=DEV, **kw)
+                            device=DEV, p=p, nu_pre=2, nu_post=2, min_n=3,
+                            coarse_dense_max=4096, omega="cheby", **port_kw)
     tg, tl0 = ta.assemble(torch.as_tensor(rho))
-    assert [lv.shape for lv in tg.levels] == [lv.shape for lv in gmg.levels]
+    assert [lv.shape for lv in tg.levels] == shapes
     assert tg.levels[-1].dense_inv is not None
-    assert not tg.supports_apply_resid  # 3D: pcg with the K4 matvec
+    assert not tg.supports_apply_resid  # 3D: pcg with the K4 / K6 matvec
     bt = torch.where(tl0.mask, 0.0, interleave_to_planar(
         torch.as_tensor(rhs), 3).reshape(3, n, n, n))
     xt, kt, rn = tmg.pcg_gmg(tg, tl0, bt, rtol=rtol, maxiter=100)
-    return (np.asarray(x), int(k)), (xt.numpy(), kt, float(rn),
-                                     float(torch.linalg.norm(bt)))
+    return ref, (xt.numpy(), kt, float(rn), float(torch.linalg.norm(bt)))
 
 
 @pytest.mark.parametrize("n,case", [(9, "rho=1"), (9, "p=3 random rho"),
@@ -122,6 +142,16 @@ def test_bench3d_solver_matches_jax(n, case):
     if case == "rho=1":
         assert k_ref == 7
     assert k == k_ref
+    assert rn <= rtol * bn
+    assert np.abs(x - x_ref).max() <= 1e-10 * np.abs(x_ref).max()
+
+
+def test_bench3d_full_storage_matches_jax():
+    """sym=False: K3 writes all 243 planes, K4/K5 read them."""
+    n, rtol = 9, 1e-6
+    (x_ref, k_ref), (x, k, rn, bn) = solve_both(n, 0.0, np.ones(n ** 3), rtol,
+                                                sym=False)
+    assert k_ref == 7 and k == k_ref
     assert rn <= rtol * bn
     assert np.abs(x - x_ref).max() <= 1e-10 * np.abs(x_ref).max()
 
@@ -189,7 +219,14 @@ def test_default_device_is_the_card(monkeypatch):
 
 
 def test_unported_3d_paths_raise():
-    for path in ("otf", "einsum"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tmg.GMGAssembler3D(5, 5, 5, 1.0, 1.0, 1.0, elem_path=path,
-                               device=DEV)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tmg.GMGAssembler3D(5, 5, 5, 1.0, 1.0, 1.0, elem_path="einsum",
+                           device=DEV)
+    # the on-the-fly route is ported: it builds (and solves, see
+    # tests/test_torch_otf3d.py)
+    a = tmg.GMGAssembler3D(5, 5, 5, 1.0, 1.0, 1.0, elem_path="otf",
+                           device=DEV)
+    assert a.static_levels[0].otf is not None
+    with pytest.raises(ValueError):
+        tmg.GMGAssembler3D(5, 5, 5, 1.0, 1.0, 1.0, elem_path="pallas",
+                           device=DEV)

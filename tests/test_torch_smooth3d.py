@@ -9,7 +9,12 @@ from the JAX ``Stencil3D.matvec`` on full planes, on a JAX-assembled
 * K4 in every mode: sweep, residual and matvec, each sign;
 * K5 with nu = 1..4, from x0 = 0 or a given x, with and without the
   residual, on the full-precision planes and on their bf16 copy;
-* the ``Level3D`` methods that wrap them.
+* the ``Level3D`` methods that wrap them;
+* K4's full-storage body (all 243 planes, the TPU kernel's
+  ``_kernel3d``) in every mode against the JAX ``fused_sweep_3d`` on the
+  same full planes, its Pallas kernel in interpret mode, float32 to 2e-6
+  of max (summation order); K5 on full planes equals K5 on the kept
+  planes of the same operator (1e-12).
 
 On the full-precision side the JAX reference reads the JAX package's
 own eliminated planes; the bf16 variants read the full planes rebuilt
@@ -148,6 +153,47 @@ def test_level3d_methods_match_k4_k5(level):
     _close(r, lv.resid3d(b, xs).numpy())
     _close(lv.postsmooth3d(b, x0, 2, oms[::-1]),
            lv.sweep3d(b, lv.sweep3d(b, x0, oms[1]), oms[0]).numpy())
+
+
+def _full(level, dtype=np.float64):
+    return np.ascontiguousarray(level["ce"].reshape(-1, NZ, NY, NX),
+                                dtype=dtype)
+
+
+@pytest.mark.parametrize("mode,neg", [("sweep", False), ("resid", False),
+                                      ("resid", True), ("matvec", False),
+                                      ("matvec", True)])
+def test_plain_k4_full_storage_matches_jax_kernel(level, mode, neg):
+    from pyfem_gpu_testflight_tpu.ops import pallas_smooth as jps
+
+    f32 = lambda k: np.asarray(level[k], np.float32)
+    c = _full(level, np.float32)
+    x = f32("xr") if mode == "matvec" else f32("x0")
+    d = f32("invd") if mode == "sweep" else None
+    b = None if mode == "matvec" else f32("b")
+    pk = lambda a: None if a is None else jps.pack_field3d(jnp.asarray(a))
+    ref = np.asarray(jps.unpack_field3d(jps.fused_sweep_3d(
+        jps.pack_coeff3d(jnp.asarray(c.reshape(ND, ND, 3, 3, 3, NZ, NY, NX))),
+        pk(d), pk(b), jps.pack_field3d(jnp.asarray(x), zpad=1),
+        mode=mode, neg_resid=neg, omega=0.55, interpret=True,
+    ), NZ, NY, NX))
+    out = fs.fused_sweep_3d(torch.as_tensor(c), _t(d), _t(b), _t(x),
+                            mode=mode, neg_resid=neg, omega=0.55)
+    assert out.dtype == torch.float32
+    assert np.abs(out.numpy() - ref).max() <= 2e-6 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("x0_zero", [True, False])
+def test_plain_k5_full_storage_matches_kept(level, x0_zero):
+    full = torch.as_tensor(_full(level))
+    assert fs.is_full_storage_3d(full, ND)
+    x = None if x0_zero else _t(level["x0"])
+    oms = tmg.smoothing_omegas(2, 3.0)
+    args = (_t(level["invd"]), _t(level["b"]), x)
+    kw = dict(niter=2, want_resid=True, omega=oms)
+    for got, ref in zip(fs.fused_sweeps3d(full, *args, **kw),
+                        fs.fused_sweeps3d(level["kept"], *args, **kw)):
+        _close(got, ref.numpy())
 
 
 def test_k4_k5_argument_checks(level):
