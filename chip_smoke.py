@@ -6,9 +6,12 @@ Builds the port's CUDA kernels from ``pyfem_gpu_testflight_tpu_torch/
 csrc``, holds each against its plain PyTorch version on the card, then
 drives the port's main paths through the package's public entry
 points — the 2D plane-stress GMG-PCG solve at 1025x513 nodes (1,051,650
-dof) and the 3D hex8 GMG-PCG solve at 65^3 nodes (823,875 dof) on its
-assembled route, its on-the-fly route and with full coefficient storage
-— and checks the answers against float64 references.  Exits nonzero on any
+dof) on its K1 and element-matrix (K7) routes, the 3D hex8 GMG-PCG
+solve at 65^3 nodes (823,875 dof) on its assembled route, its
+on-the-fly route and with full coefficient storage, and the
+general-mesh element path (K8 element stiffness, matrix-free
+Jacobi-PCG) on a jittered 65^3 hex8 mesh — and checks the answers
+against float64 and scipy references.  Exits nonzero on any
 failure; on success the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 The line before it lists each kernel's launches on its main path (the
@@ -30,6 +33,10 @@ Phases:
    (nd=3 and nd=1): matvec, presmooth+resid and postsmooth (nu=2) with
    f32 and bf16 operands, presmooth+resid nu=4, compared pass by pass
    (``k6_passes``), with times, the flop bound and the CSR matvec time;
+3c. K7a/K7b (quad4 at 1025x513, 17x9 and a ragged 13x7) and K8 (hex8 at
+   65^3, tet10 and brick20 on the 33^3 lattice, elasticity and Poisson)
+   vs plain on jittered meshes, with times, both bounds and ptxas's
+   registers and spills;
 4. the 2D bench configuration (p=0, rho=1, Chebyshev-node nu=2, bf16
    smoother copy, flexible PCG, rtol 1e-6): iterations, launch counts,
    float64 true residual, single-shot and chained solve times, and where
@@ -43,12 +50,30 @@ Phases:
    coarsest): iterations and solution against 4a's, the same measures;
 4c. the same with ``sym=False`` (all 243 planes): iterations, true
    residual, K4/K5 launches on full planes;
+4d. the 2D bench configuration with ``elem_path="cuda"`` (K7a on every
+   level, K2 the V-cycle): iterations against phase 4's, K7a launches
+   per level, true residual, the solution difference, times, hierarchy
+   assembly and peak memory beside phase 4's;
 5. ``LinearElasticity.solve(method="gmg")`` at 1025x513 (rho=0.6 and a
    seeded random rho, p=3);
 5a. the same entry on hex8 at 65^3;
 5b. the same with ``attach_structured_grid(..., elem_path="otf")``;
+5c. ``LinearElasticity("hex8", kernel="cuda", float32).solve(
+   method="cg", rtol=1e-6)`` on the jittered 65^3 mesh: K8 launches,
+   CG iterations and host read-backs, element_jacobian and solve time,
+   where a CG iteration goes, float64 true residual against the
+   ``kernel="einsum"`` solve's and the float32 floor, bit-identity of
+   two solves, peak memory, K8 against its plain version on the
+   solve's inputs;
+5d. the same for ``LinearPoisson`` (g = 1), 274,625 dof;
+5e. the same for ``LinearPoisson`` on a jittered quad4 1025x513 mesh
+   (525,825 dof), K7b's main path;
 6. at 257x129, p^T u against scipy's sparse direct solve;
-6a. at 17^3 (p=3, seeded rho), the same against scipy.
+6a. at 17^3 (p=3, seeded rho), the same against scipy;
+6b. host scipy direct against the card's CG on jittered quad4 257x129
+   (both models) and tet10/brick20 9^3 lattices: float64 by p^T u and
+   relative L2, float32 ``kernel="cuda"`` against ``"einsum"`` by their
+   float64 true residuals.
 
 Float32 accuracy: the operator is ill-conditioned enough that a float32
 solve stalls at the float32 rounding floor of its operator, about
@@ -59,7 +84,9 @@ under a float64 outer PCG (the float32 V-cycle as preconditioner).
 
 Bounds: the least time for the same work on an H100 SXM, the larger of
 (bytes the function must move, each input read once and each output
-written once) / 3.35 TB/s and (its float32 operations) / 67 TFLOP/s.
+written once) / 3.35 TB/s and (the float32 operations it needs) / 67
+TFLOP/s; for the element stiffness only the upper triangle of the
+symmetric Ke is counted (``stiffness_flops``).
 K6's operations are the structurally nonzero ones (the dense count of
 the TPU kernel's matmuls is printed beside it).
 """
@@ -259,6 +286,206 @@ def library_matvec_ms(c, shape, x):
     ms = cuda_ms(lambda: torch.sparse.mm(A, xv), 20)
     del A
     return ms
+
+
+def jittered(X, seed, frac=0.1):
+    """Interior nodes moved by a seeded uniform +-frac of the lattice
+    spacing per coordinate; nodes on the bounding box stay, so the BCs
+    and the loads keep their nodes (no uniform-geometry shortcut
+    applies)."""
+    X = np.array(X, dtype=np.float64)
+    lo, hi = X.min(0), X.max(0)
+    inner = ~(np.isclose(X, lo) | np.isclose(X, hi)).any(1)
+    rng = np.random.default_rng(seed)
+    for k in range(X.shape[1]):
+        h = (hi[k] - lo[k]) / (len(np.unique(np.round(X[:, k], 9))) - 1)
+        X[inner, k] += rng.uniform(-frac * h, frac * h, int(inner.sum()))
+    return X
+
+
+def elem_problem(dims, element_type, seed):
+    """A jittered ProblemCreator elasticity problem (conn, X, fixed,
+    force)."""
+    from pyfem_gpu_testflight_tpu_torch import ProblemCreator
+
+    c = ProblemCreator(*dims, element_type=element_type)
+    conn, X, fixed, force = c.create_linear_elasticity_problem()
+    return conn, jittered(X, seed), np.asarray(fixed), force
+
+
+def make_model(pt, physics, etype, mesh, dtype, kernel, dev):
+    """``LinearElasticity`` on ``mesh = (conn, X, fixed, force)``, or
+    ``LinearPoisson`` (source 1, the x=0 nodes fixed) on its nodes; p=3."""
+    import torch
+
+    conn, X, fixed, force = mesh
+    if physics == "elasticity":
+        return pt.LinearElasticity(etype, X, conn, fixed, None, force, p=3.0,
+                                   dtype=dtype, device=dev, kernel=kernel)
+    nd = X.shape[1]
+    return pt.LinearPoisson(etype, X, conn, fixed[::nd] // nd,
+                            gfunc=lambda x: torch.ones_like(x[..., 0]),
+                            p=3.0, dtype=dtype, device=dev, kernel=kernel)
+
+
+def smooth_density(X, seed):
+    """A seeded smooth nodal density in [0.3, 1]: the mean of three
+    cosines with wave numbers up to one per domain length.  Used on the
+    quadratic elements, whose shape functions are negative at some
+    quadrature points: an interpolated U[0.3, 1] field there overshoots
+    past RAMP's pole at rho = 1 + 1/p, which makes element matrices
+    indefinite (and float32 CG diverge)."""
+    rng = np.random.default_rng(seed)
+    span = np.ptp(X, axis=0)
+    Y = (X - X.min(0)) / np.where(span > 0, span, 1.0)
+    t = sum(np.cos(2 * np.pi * Y @ rng.uniform(-1, 1, X.shape[1])
+                   + rng.uniform(0, 2 * np.pi)) for _ in range(3))
+    return 0.65 + 0.35 * t / 3
+
+
+def density(etype, X, seed):
+    """rho ~ U[0.3, 1] on the linear elements, smooth_density on the
+    quadratic ones."""
+    if etype in ("tet10", "brick20"):
+        return smooth_density(X, seed)
+    return np.random.default_rng(seed).uniform(0.3, 1.0, len(X))
+
+
+def stiffness_flops(nn, nq, nd, dims, nelems):
+    """float32 operations an element-stiffness function needs (a fused
+    multiply-add counts 2), per element and quadrature point: the
+    Jacobian (2 dims^2 nn), its inverse by cofactors (8 in 2D, 42 in
+    3D), the shape gradients G (dims (2 dims - 1) nn), the scaled weight
+    c = cq w detJ (2), then only the upper triangle of the symmetric Ke,
+    ndpe (ndpe + 1) / 2 entries (ndpe = nd nn; the rest is a copy).
+    Elasticity: mu c G_n and lam c G_n once per node (2 dims nn + 2),
+    two multiply-adds per entry (mu c G_nb G_ma + lam c G_na G_mb into
+    the sum), and per node pair G_n.G_m (2 dims - 1) and one
+    multiply-add on each of its dims diagonal entries.  Poisson: c G_n
+    once per node (dims nn) and a dims-term dot product into the sum
+    per entry (2 dims)."""
+    ndpe = nd * nn
+    upper, pairs = ndpe * (ndpe + 1) // 2, nn * (nn + 1) // 2
+    per = (2 * dims * dims * nn + (8 if dims == 2 else 42)
+           + dims * (2 * dims - 1) * nn + 2)
+    if nd > 1:
+        per += 2 * dims * nn + 2 + 4 * upper + pairs * (4 * dims - 1)
+    else:
+        per += dims * nn + 2 * dims * upper
+    return nelems * nq * per
+
+
+def stiffness_pair(m, etype, physics, rho):
+    """(kernel, plain, inputs): zero-argument calls of the element
+    stiffness function that ``m.element_jacobian`` runs for ``etype`` and
+    ``physics`` (K7a / K7b / K8) and of its plain version, on m's
+    element coordinates and the RAMP material of ``rho`` (a tensor on
+    m's device) in the kernels' layout, and those inputs."""
+    from pyfem_gpu_testflight_tpu_torch.ops import element_kernels as ek
+    from pyfem_gpu_testflight_tpu_torch.ops import element_kernels3d as ek3
+
+    XeT, cqT = m._XeT, m._cq_transposed(rho)
+    elastic = physics == "elasticity"
+    args = (XeT, cqT, m.mu, m.lam) if elastic else (XeT, cqT)
+    if etype == "quad4":
+        fk, fp = ((ek.elasticity_stiffness_quad4,
+                   ek.elasticity_stiffness_quad4_plain) if elastic else
+                  (ek.poisson_stiffness_quad4,
+                   ek.poisson_stiffness_quad4_plain))
+        kw = {}
+    else:
+        fk, fp = ((ek3.elasticity_stiffness_3d,
+                   ek3.elasticity_stiffness_3d_plain) if elastic else
+                  (ek3.poisson_stiffness_3d, ek3.poisson_stiffness_3d_plain))
+        kw = dict(etype=etype)
+    return (lambda: fk(*args, **kw)), (lambda: fp(*args, **kw)), (XeT, cqT)
+
+
+def ptxas_table(log):
+    """{kernel symbol: "N registers, S/L bytes spill stores/loads"} from
+    nvcc -Xptxas -v output."""
+    table, name, spill = {}, None, ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "spill stores" in line and name:
+            parts = line.replace(",", "").split()
+            spill = f"{parts[4]}/{parts[8]} B spill stores/loads"
+        elif "Used" in line and "registers" in line and name:
+            regs = line.split("Used")[1].split("registers")[0].strip()
+            table[name] = f"{regs} registers, {spill}"
+            name = None
+    return table
+
+
+# (key, etype, ProblemCreator element_type, template tag in the symbol)
+ELEM_FORMS = (
+    ("K7a", "quad4", "quad", "stiffness_quad4_kernelILb1E"),
+    ("K7b", "quad4", "quad", "stiffness_quad4_kernelILb0E"),
+    ("K8 hex8 elasticity", "hex8", "block", "ILi8ELi8ELb1E"),
+    ("K8 hex8 poisson", "hex8", "block", "ILi8ELi8ELb0E"),
+    ("K8 tet10 elasticity", "tet10", "tet", "ILi10ELi5ELb1E"),
+    ("K8 tet10 poisson", "tet10", "tet", "ILi10ELi5ELb0E"),
+    ("K8 brick20 elasticity", "brick20", "brick20", "ILi20ELi27ELb1E"),
+    ("K8 brick20 poisson", "brick20", "brick20", "ILi20ELi27ELb0E"),
+)
+
+
+def phase_kernels_elem(dev, pt, build_log):
+    """Phase 3c: K7a, K7b and K8 against their plain versions on the
+    card, on jittered meshes with p=3 and ``density``: quad4 at 1025x513
+    and on the 17x9 / ragged 13x7 meshes, hex8 at 65^3, tet10 and
+    brick20 on the 33^3 node lattice."""
+    import torch
+
+    regs = ptxas_table(build_log)
+    sizes = {"quad4": [(NX, NY), (17, 9), (13, 7)], "hex8": [(N3,) * 3],
+             "tet10": [(33,) * 3], "brick20": [(33,) * 3]}
+    res = {}
+    for key, etype, ctype, tag in ELEM_FORMS:
+        physics = "poisson" if ("poisson" in key or key == "K7b") else \
+            "elasticity"
+        et = pt.get_element(etype)
+        nd = et.ndims if physics == "elasticity" else 1
+        worst = 0.0
+        for i, dims in enumerate(sizes[etype]):
+            conn, X, fixed, force = elem_problem(dims, ctype, SEED + 30 + i)
+            m = pt.LinearElasticity(etype, X, conn, fixed, None, force,
+                                    p=3.0, dtype=torch.float32, device=dev,
+                                    kernel="cuda")
+            rho = torch.as_tensor(density(etype, X, SEED + 31),
+                                  dtype=torch.float32, device=dev)
+            fk, fp, (XeT, cqT) = stiffness_pair(m, etype, physics, rho)
+            got, ref = fk(), fp()
+            torch.cuda.synchronize()
+            ea, er = rel_err(got, ref)
+            worst = max(worst, ea)
+            tagd = f"{key} {'x'.join(map(str, dims))} ({m.nelems} elements)"
+            log(f"{tagd}: rel {er:.2e} (abs {ea:.2e})")
+            check(er <= REL_TOL, f"{tagd} within {REL_TOL:g}")
+            check(torch.equal(got, fk()),
+                  f"{tagd} repeat call bit-identical")
+            if i:
+                continue
+            ms = cuda_ms(fk, 20)
+            pms = cuda_ms(fp, 3)
+            flops = stiffness_flops(et.nnodes, et.nquads, nd, et.ndims,
+                                    m.nelems)
+            b_ms, b_by = bound(nbytes(XeT, cqT, got), flops)
+            reg = [v for k, v in regs.items() if tag in k]
+            res[key] = dict(max_abs_err=ea, ms=ms, plain_ms=pms,
+                            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                            ptxas=reg[0] if reg else "not found",
+                            bytes_ms=1e3 * nbytes(XeT, cqT, got) / HBM_BYTES_S,
+                            flops_ms=1e3 * flops / F32_FLOP_S)
+            log(f"{tagd}: kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
+                f"{b_ms:.4f} ms ({b_by}; bytes {res[key]['bytes_ms']:.4f} "
+                f"ms, operations {res[key]['flops_ms']:.4f} ms at "
+                f"{flops / 1e9:.2f} GFLOP), library none; ptxas "
+                f"{res[key]['ptxas']}")
+            del got, ref
+        res[key]["max_abs_err"] = worst
+    return res
 
 
 def phase_kernels(dev):
@@ -693,7 +920,8 @@ def breakdown(label, step, args, asm, rho, b, single_ms):
     """Where one solve's time goes: CUDA-event times of the hierarchy
     assembly, the PCG solve, one V-cycle and one fine-level matvec, then
     one assemble+solve under ``torch.profiler``: the kernels' device
-    time, the launches, and the device busy share of ``single_ms``."""
+    time, the launches, and the device busy share of ``single_ms``.
+    Returns the hierarchy-assembly milliseconds."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from pyfem_gpu_testflight_tpu_torch import multigrid
@@ -731,17 +959,20 @@ def breakdown(label, step, args, asm, rho, b, single_ms):
     if not rows:
         log(f"{label} profile: no device time recorded (busy share not "
             f"measured)")
-        return
+        return asm_ms
     log(f"{label} profile: {sum(r.count for r in rows)} device activities "
         f"(kernels and copies) in one assemble+solve, device time "
         f"{busy_ms:.3f} ms = {100 * busy_ms / single_ms:.1f}% of the "
         f"unprofiled single-shot {single_ms:.3f} ms")
     for r in sorted(rows, key=dev_us, reverse=True)[:8]:
         log(f"  {dev_us(r) / 1e3:9.3f} ms {r.count:6d}x  {r.key[:90]}")
+    return asm_ms
 
 
-def phase_main_2d(dev, pt, multigrid, i2p, p2i):
-    """Phase 4: the 2D bench configuration through the port."""
+def phase_main_2d(dev, pt, multigrid, i2p, p2i, label="bench 2D",
+                  **route):
+    """Phase 4 (4d with ``elem_path="cuda"``): the 2D bench configuration
+    through the port."""
     import torch
 
     conn, X, fixed, force, (Lx, Ly) = problem(NX, NY)
@@ -750,9 +981,10 @@ def phase_main_2d(dev, pt, multigrid, i2p, p2i):
     asm = multigrid.GMGAssembler(
         NX, NY, Lx, Ly, "elasticity", p=0.0, dtype=torch.float32,
         device=dev, nu_pre=2, nu_post=2, min_n=5, coarse_dense_max=4096,
-        smoother_dtype=torch.bfloat16, omega="cheby",
+        smoother_dtype=torch.bfloat16, omega="cheby", **route,
     )
-    log(f"main path 2D: {model.ndof} dof, levels {asm.sizes}")
+    log(f"main path {label}: {model.ndof} dof, levels {asm.sizes}, route "
+        f"{route or 'uniform (K1)'}")
     rho = torch.ones(model.nnodes, dtype=torch.float32, device=dev)
     rhs = model.compute_rhs()
 
@@ -765,33 +997,53 @@ def phase_main_2d(dev, pt, multigrid, i2p, p2i):
         return p2i(x.reshape(-1), 2), k, rn, b, gmg
 
     (u, k, rn, b, gmg), counts, single_ms = solve_and_measure(
-        step, (rho, rhs, rhs), ("pyfem_assemble_2d", "pyfem_smooth_2d"),
-        "bench 2D")
-    log(f"bench 2D: {k} PCG iterations (JAX reference: 7), "
+        step, (rho, rhs, rhs), ("pyfem_assemble_2d", "pyfem_smooth_2d",
+                                "pyfem_elasticity_quad4"), label)
+    log(f"{label}: {k} PCG iterations (JAX reference: 7), "
         f"||r||/||b|| {float(rn) / float(torch.linalg.norm(b)):.3e}, "
         f"launches {counts}, single-shot {single_ms:.3f} ms")
-    check(k <= 8, "bench 2D converges in <= 8 iterations")
+    check(k <= 8, f"{label} converges in <= 8 iterations")
     check(float(rn) <= 1e-6 * float(torch.linalg.norm(b)),
-          "bench 2D PCG residual <= rtol")
+          f"{label} PCG residual <= rtol")
     check(bool(torch.isfinite(u).all()) and u.shape == (model.ndof,),
-          "bench 2D solution finite, shape (ndof,)")
-    check(all(v > 0 for v in counts.values()), "K1 and K2 launched")
+          f"{label} solution finite, shape (ndof,)")
+    if route.get("elem_path", "uniform") == "uniform":
+        check(counts["pyfem_assemble_2d"] > 0 and counts["pyfem_smooth_2d"]
+              > 0, "K1 and K2 launched")
+    else:
+        check(counts["pyfem_elasticity_quad4"] == len(gmg.levels)
+              and counts["pyfem_assemble_2d"] == 0
+              and counts["pyfem_smooth_2d"] > 0,
+              f"{label}: K7a once per level ({len(gmg.levels)}), no K1, K2 "
+              f"launched")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step(rho, rhs, rhs)
+    torch.cuda.synchronize()
+    mem = torch.cuda.max_memory_allocated() - base
+    log(f"{label}: peak device memory of one assemble+solve {mem / 2**20:.1f} "
+        f"MiB above the {base / 2**20:.1f} MiB allocated before it")
     mv64, mvabs, _ = f64_operator(NX, NY, Lx, Ly, rho, 0.0, dev)
     x = i2p(u, 2).reshape(2, NY, NX)
     true, floor = residuals(mv64, mvabs, b, x)
-    log(f"bench 2D: float64 true residual {true:.3e} (float32 floor "
+    log(f"{label}: float64 true residual {true:.3e} (float32 floor "
         f"{floor:.3e}, ratio {true / floor:.2f}); <= 1e-5: {true <= 1e-5}")
     check(true <= FLOOR_FACTOR * floor,
-          f"bench 2D true residual <= {FLOOR_FACTOR:g} x float32 floor")
+          f"{label} true residual <= {FLOOR_FACTOR:g} x float32 floor")
     xa, ka, rna = accuracy_solve(gmg, mv64, b)
     true_a, _ = residuals(mv64, mvabs, b, xa)
-    log(f"bench 2D float64 outer PCG, float32 kernel V-cycle: {ka} "
-        f"iterations, true residual {true_a:.3e}")
-    check(true_a <= 1e-5, "bench 2D float64-outer true residual <= 1e-5")
+    err = float(torch.linalg.norm(x.double() - xa) / torch.linalg.norm(xa))
+    log(f"{label} float64 outer PCG, float32 kernel V-cycle: {ka} "
+        f"iterations, true residual {true_a:.3e}; the float32 solve's "
+        f"rel L2 error against it {err:.3e}")
+    check(true_a <= 1e-5, f"{label} float64-outer true residual <= 1e-5")
     ch = chained_ms(step, rho, rhs, u)
-    log(f"bench 2D: chained {ch:.3f} ms/solve over 10")
-    breakdown("bench 2D", step, (rho, rhs, rhs), asm, rho, b, single_ms)
-    return counts, single_ms, ch, (X, conn, fixed, force)
+    log(f"{label}: chained {ch:.3f} ms/solve over 10")
+    asm_ms = breakdown(label, step, (rho, rhs, rhs), asm, rho, b, single_ms)
+    return dict(counts=counts, single_ms=single_ms, ch=ch, u=u, k=k,
+                mem=mem, asm_ms=asm_ms, true=true, floor=floor, err=err,
+                nlevels=len(gmg.levels))
 
 
 def phase_main_3d(dev, pt, multigrid, i2p, p2i, label="bench 3D",
@@ -891,6 +1143,189 @@ def phase_model(dev, pt, etype, dims, label, **gmg_options):
               f"{label} model solve {rlabel} finite")
 
 
+def bc_residuals(m64, Ke64, b, u):
+    """(float64 true relative residual, float32 floor) of ``u`` on the
+    Dirichlet-constrained system of ``m64`` (float64 element matrices
+    ``Ke64``): ||b - A u|| / ||b|| and u32 || |A| |u| || / ||b||."""
+    import torch
+
+    mask = m64.bc.mask
+    u64, b64 = u.to(torch.float64), b.to(torch.float64)
+    Au = torch.where(mask, u64, m64.matvec(Ke64, torch.where(mask, 0.0, u64)))
+    ua = u64.abs()
+    Aa = torch.where(mask, ua, m64.matvec(Ke64.abs(),
+                                          torch.where(mask, 0.0, ua)))
+    bn = float(torch.linalg.norm(b64))
+    return (float(torch.linalg.norm(b64 - Au)) / bn,
+            2.0 ** -24 * float(torch.linalg.norm(Aa)) / bn)
+
+
+def phase_general(dev, pt, label, physics, etype="hex8", dims=(N3,) * 3):
+    """Phases 5c / 5d / 5e: ``LinearElasticity`` / ``LinearPoisson``
+    (gfunc = 1) on a jittered mesh (hex8 at 65^3, or quad4 at 1025x513
+    for 5e), ``kernel="cuda"``, float32, ``solve(method="cg",
+    rho~U[0.3,1], rtol=1e-6)``: the general-mesh element path (K8 or K7
+    -> matrix-free operator -> Jacobi-PCG).  The kernel's launches are
+    those of one solve; afterwards the kernel is held against its plain
+    version on that solve's inputs."""
+    import torch
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+
+    key = ("pyfem_stiffness_3d" if etype != "quad4" else
+           "pyfem_elasticity_quad4" if physics == "elasticity" else
+           "pyfem_poisson_quad4")
+    label = f"{label} {etype} {physics} {'x'.join(map(str, dims))}"
+    mesh = elem_problem(dims, "quad" if etype == "quad4" else "block",
+                        SEED + 40)
+    rho = np.random.default_rng(SEED + 41).uniform(0.3, 1.0, len(mesh[1]))
+    make = lambda dtype, kernel: make_model(  # noqa: E731
+        pt, physics, etype, mesh, dtype, kernel, dev)
+    m = make(torch.float32, "cuda")
+    log(f"{label}: {m.ndof} dof, {m.nelems} elements, jittered mesh")
+    ej_ms = cuda_ms(lambda: m.element_jacobian(rho), 5)
+    out = {}
+    for name in ("cuda", "cuda again", "einsum"):
+        mm = make(torch.float32, "einsum") if name == "einsum" else m
+        mm.solve(method="cg", rho=rho, rtol=0.5)  # warm-up
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        t0 = time.time()
+        u = mm.solve(method="cg", rho=rho, rtol=1e-6)
+        torch.cuda.synchronize()
+        st = dict(mm.last_solve_stats, seconds=time.time() - t0,
+                  launches=_cuda.launches[key])
+        out[name] = (u, st)
+        log(f"{label} kernel={name.split()[0]}: {st['iters']} CG "
+            f"iterations, {st['readbacks']} host read-backs, ||r|| "
+            f"{st['resnorm']:.3e}, solve (element_jacobian + CG) "
+            f"{1e3 * st['seconds']:.1f} ms host clock, {key} launches "
+            f"{st['launches']}")
+        if name == "einsum":
+            del mm
+    u, st = out["cuda"]
+    ue, ste = out["einsum"]
+    # the kernel against its plain version at the shape this path gives it
+    fk, fp, _ = stiffness_pair(m, etype, physics, torch.as_tensor(
+        rho, dtype=torch.float32, device=dev))
+    got, ref = fk(), fp()
+    err, rel_k = rel_err(got, ref)
+    del got, ref
+    log(f"{label}: {key} on this solve's inputs vs plain: rel {rel_k:.2e} "
+        f"(abs {err:.2e})")
+    check(rel_k <= REL_TOL, f"{label}: kernel within {REL_TOL:g} of plain "
+          f"on the main path's inputs")
+    # where a CG iteration goes: the matrix-free operator and its parts
+    from pyfem_gpu_testflight_tpu_torch import assembly
+
+    Ke = m.element_jacobian(rho)
+    seg, cd = m.segments, m.conn_dof
+    data = (Ke, cd, m.bc.mask, seg)
+    fe = torch.bmm(Ke, u[cd].unsqueeze(-1))
+    parts = {
+        "bc_elem_matvec": cuda_ms(lambda: assembly.bc_elem_matvec(data, u),
+                                  10),
+        "gather u[conn_dof]": cuda_ms(lambda: u[cd], 10),
+        "bmm (element products)": cuda_ms(
+            lambda: torch.bmm(Ke, u[cd].unsqueeze(-1)), 10),
+        "segment sum": cuda_ms(lambda: seg.sum(fe), 10),
+    }
+    del Ke, fe
+    per_it = 1e3 * st["seconds"] / st["iters"]
+    log(f"{label}: one CG iteration {per_it:.3f} ms (solve host time / "
+        f"iterations); " + ", ".join(f"{k} {v:.3f} ms"
+                                     for k, v in parts.items()))
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    m.solve(method="cg", rho=rho, rtol=1e-6)
+    torch.cuda.synchronize()
+    mem = torch.cuda.max_memory_allocated() - base
+    m64 = make(torch.float64, "einsum")
+    Ke64 = m64.element_jacobian(rho)
+    b = m64.bc.constrain_rhs(m64.compute_rhs(), lambda v: m64.matvec(Ke64, v))
+    true, floor = bc_residuals(m64, Ke64, b, u)
+    true_e, floor_e = bc_residuals(m64, Ke64, b, ue)
+    del Ke64, m64
+    rel = float(torch.linalg.norm(u.double() - ue.double())
+                / torch.linalg.norm(ue.double()))
+    log(f"{label}: element_jacobian {ej_ms:.3f} ms (kernel + layout copy); "
+        f"peak device memory of one solve {mem / 2**20:.1f} MiB above "
+        f"{base / 2**20:.1f} MiB")
+    log(f"{label}: float64 true residual kernel=cuda {true:.3e}, "
+        f"kernel=einsum {true_e:.3e} (ratio {true / true_e:.2f}); float32 "
+        f"floor {floor:.3e} / {floor_e:.3e}; iterations {st['iters']} vs "
+        f"{ste['iters']}; solution rel L2 diff {rel:.3e}")
+    check(st["resnorm"] <= 1e-6 * float(torch.linalg.norm(b)) * 1.0001,
+          f"{label} converged at rtol 1e-6")
+    check(st["launches"] == 1,
+          f"{label}: {key} launched once per element_jacobian")
+    check(true <= 2.0 * true_e,
+          f"{label} true residual <= 2 x the einsum float32 solve's")
+    check(abs(st["iters"] - ste["iters"]) <= 0.15 * ste["iters"],
+          f"{label} iterations within 15% of the einsum float32 solve")
+    check(torch.equal(u, out["cuda again"][0])
+          and st["iters"] == out["cuda again"][1]["iters"],
+          f"{label}: two solves bit-identical")
+    check(st["readbacks"] <= st["iters"] // 16 + 1,
+          f"{label}: <= 1 host read-back per 16 CG iterations")
+    check(bool(torch.isfinite(u).all()) and u.shape == (m.ndof,),
+          f"{label} solution finite, shape (ndof,)")
+    return dict(st=st, ste=ste, ej_ms=ej_ms, mem=mem, true=true,
+                true_e=true_e, floor=floor, parts=parts, err=err)
+
+
+def phase_direct(dev, pt):
+    """Phase 6b: host scipy direct solves against the card's CG on small
+    jittered meshes (quad4 257x129 both models; tet10 and brick20 on a
+    9^3 lattice, elasticity).  float64 einsum: CG (rtol 1e-12) vs direct
+    by p^T u and relative L2.  float32: kernel="cuda" against
+    kernel="einsum" by the float64 true residuals of their CG solves."""
+    import torch
+
+    for etype, ctype, dims, physics in (
+        ("quad4", "quad", (257, 129), "elasticity"),
+        ("quad4", "quad", (257, 129), "poisson"),
+        ("tet10", "tet", (9, 9, 9), "elasticity"),
+        ("brick20", "brick20", (9, 9, 9), "elasticity"),
+    ):
+        mesh = elem_problem(dims, ctype, SEED + 50)
+        rho = density(etype, mesh[1], SEED + 51)
+        label = f"6b {etype} {'x'.join(map(str, dims))} {physics}"
+        make = lambda dtype, kernel: make_model(  # noqa: E731
+            pt, physics, etype, mesh, dtype, kernel, dev)
+        m64 = make(torch.float64, "einsum")
+        u_cg = m64.solve(method="cg", rho=rho, rtol=1e-12)
+        it = m64.last_solve_stats["iters"]
+        u_d = m64.solve(method="direct", rho=rho).to(dev)
+        p_vec = torch.as_tensor(np.random.RandomState(123).rand(m64.ndof),
+                                device=dev)
+        ptu = lambda v: float(p_vec @ v.double())  # noqa: E731
+        rel_ptu = abs(ptu(u_cg) - ptu(u_d)) / abs(ptu(u_d))
+        rel_l2 = float(torch.linalg.norm(u_cg - u_d) / torch.linalg.norm(u_d))
+        log(f"{label} float64 einsum: card CG ({it} iterations, rtol "
+            f"1e-12) vs host scipy direct: p^T u rel {rel_ptu:.3e}, u rel "
+            f"L2 {rel_l2:.3e}")
+        check(rel_ptu <= 1e-10, f"{label} float64 p^T u within 1e-10")
+        check(rel_l2 <= 1e-6, f"{label} float64 u within 1e-6 (rel L2)")
+        Ke64 = m64.element_jacobian(rho)
+        b = m64.bc.constrain_rhs(m64.compute_rhs(),
+                                 lambda v: m64.matvec(Ke64, v))
+        res = {}
+        for kernel in ("cuda", "einsum"):
+            m = make(torch.float32, kernel)
+            u = m.solve(method="cg", rho=rho, rtol=1e-6)
+            res[kernel] = bc_residuals(m64, Ke64, b, u) + (
+                m.last_solve_stats["iters"],
+                float(torch.linalg.norm(u.double() - u_d)
+                      / torch.linalg.norm(u_d)))
+        (tc, fc, ic, lc), (te, fe, ie, le) = res["cuda"], res["einsum"]
+        log(f"{label} float32 CG rtol 1e-6: kernel=cuda {ic} iterations, "
+            f"true residual {tc:.3e}, u rel L2 vs direct {lc:.3e}; "
+            f"kernel=einsum {ie} iterations, true residual {te:.3e}, u rel "
+            f"L2 {le:.3e}; float32 floor {fc:.3e}")
+        check(tc <= 2.0 * te, f"{label} float32 kernel=cuda true residual "
+              f"<= 2 x kernel=einsum's")
+
+
 def phase_scipy(dev, pt, multigrid, i2p, p2i, dims):
     """Phases 6 / 6a: p^T u against scipy's float64 sparse direct solve."""
     import scipy.sparse.linalg as spla
@@ -976,9 +1411,12 @@ def main():
     kres = phase_kernels(dev)
     kres.update(phase_kernels_3d(dev))
     kres.update(phase_kernels_otf(dev))
+    # 3c. element stiffness
+    kres.update(phase_kernels_elem(dev, pt, _cuda.build_log))
 
-    # 4, 4a, 4b, 4c. main paths
-    c2, s2, ch2, _ = phase_main_2d(dev, pt, multigrid, i2p, p2i)
+    # 4, 4a, 4b, 4c, 4d. main paths
+    m2 = phase_main_2d(dev, pt, multigrid, i2p, p2i)
+    c2, s2, ch2 = m2["counts"], m2["single_ms"], m2["ch"]
     m3 = phase_main_3d(dev, pt, multigrid, i2p, p2i)
     check(all(m3["counts"][k] > 0 for k in (
         "pyfem_assemble_3d", "pyfem_sweep_3d", "pyfem_sweeps_3d")),
@@ -1007,15 +1445,34 @@ def main():
     log(f"bench 3D sym=False: {mf['k']} iterations, single-shot "
         f"{mf['single_ms']:.3f} ms, peak memory {mf['mem'] / 2**20:.1f} "
         f"MiB")
+    m2c = phase_main_2d(dev, pt, multigrid, i2p, p2i,
+                        "bench 2D elem_path=cuda", elem_path="cuda")
+    check(m2c["k"] <= 8 and abs(m2c["k"] - m2["k"]) <= 1,
+          "bench 2D elem_path=cuda: <= 8 iterations, within 1 of phase 4")
+    du2 = float((m2c["u"] - m2["u"]).abs().max() / m2["u"].abs().max())
+    log(f"bench 2D elem_path=cuda vs uniform: {m2c['k']} vs {m2['k']} "
+        f"iterations, solution rel diff {du2:.3e} (max-abs; rel L2 errors "
+        f"against the float64-outer solution {m2c['err']:.3e} vs "
+        f"{m2['err']:.3e}); true residual "
+        f"{m2c['true']:.3e} vs {m2['true']:.3e}; hierarchy assembly "
+        f"{m2c['asm_ms']:.3f} vs {m2['asm_ms']:.3f} ms; single-shot "
+        f"{m2c['single_ms']:.3f} vs {m2['single_ms']:.3f} ms, chained "
+        f"{m2c['ch']:.3f} vs {m2['ch']:.3f} ms/solve; peak memory "
+        f"{m2c['mem'] / 2**20:.1f} vs {m2['mem'] / 2**20:.1f} MiB")
 
     # 5, 5a, 5b. model entry point
     phase_model(dev, pt, "quad4", (NX, NY), "2D")
     phase_model(dev, pt, "hex8", (N3, N3, N3), "3D")
     phase_model(dev, pt, "hex8", (N3, N3, N3), "3D otf", elem_path="otf")
+    # 5c, 5d. the general-mesh element path
+    g5c = phase_general(dev, pt, "5c", "elasticity")
+    g5d = phase_general(dev, pt, "5d", "poisson")
+    g5e = phase_general(dev, pt, "5e", "poisson", "quad4", (NX, NY))
 
-    # 6, 6a. scipy checks
+    # 6, 6a, 6b. scipy checks
     phase_scipy(dev, pt, multigrid, i2p, p2i, (257, 129))
     phase_scipy(dev, pt, multigrid, i2p, p2i, (17, 17, 17))
+    phase_direct(dev, pt)
 
     # summary
     src = "pyfem_gpu_testflight_tpu_torch/csrc/"
@@ -1039,8 +1496,26 @@ def main():
         ("K6", "otf_apply_3d", "otf_3d.cu", "pallas_otf3d.py:265",
          co["pyfem_otf_3d"], "one stencil pass per launch, coefficients "
          "rebuilt per node from the density (main path: bench 3D otf)"),
+        ("K7a", "elasticity_stiffness_quad4", "stiffness_2d.cu",
+         "pallas_stiffness.py:163", m2c["counts"]["pyfem_elasticity_quad4"],
+         "one thread per element, upper triangle mirrored (main path: "
+         "4d, once per GMG level; timed at 1025x513 jittered)"),
+        ("K7b", "poisson_stiffness_quad4", "stiffness_2d.cu",
+         "pallas_stiffness.py:205", g5e["st"]["launches"],
+         "one thread per element, upper triangle mirrored (main path: 5e "
+         "LinearPoisson quad4 kernel='cuda' CG solve at 1025x513)"),
+        ("K8", "elasticity_stiffness_3d / poisson_stiffness_3d",
+         "stiffness_3d.cu", "pallas_stiffness3d.py:231",
+         g5c["st"]["launches"],
+         "thread per (element, row block): hex8 elasticity one row node "
+         "(timed, main path 5c), hex8 Poisson the whole element, "
+         "tet10/brick20 one row (forms)"),
     )
     kernels = []
+    kres["K8"] = dict(kres["K8 hex8 elasticity"], max_abs_err=max(
+        [v["max_abs_err"] for k, v in kres.items() if k.startswith("K8 ")]
+        + [g5c["err"], g5d["err"]]))
+    kres["K7b"]["max_abs_err"] = max(kres["K7b"]["max_abs_err"], g5e["err"])
     for key, name, source, replaces, launches, form in rows:
         r = kres[key]
         row = dict(
@@ -1058,6 +1533,15 @@ def main():
                 bound_by=f["bound_by"], library_ms=f["library_ms"],
                 launches_sym_false_path=mf["counts"][
                     "pyfem_assemble_3d" if key == "K3" else "pyfem_sweep_3d"])
+        if key == "K8":
+            row["launches_5d"] = g5d["st"]["launches"]
+            row["forms"] = {
+                k[3:]: dict(max_abs_err=v["max_abs_err"], ms=v["ms"],
+                            plain_ms=v["plain_ms"], bound_ms=v["bound_ms"],
+                            bound_by=v["bound_by"], ptxas=v["ptxas"])
+                for k, v in kres.items() if k.startswith("K8 ")}
+        if key in ("K7a", "K7b", "K8"):
+            row["ptxas"] = r["ptxas"]
         kernels.append(row)
     if FAILS:
         print("chip_smoke FAILED:\n  " + "\n  ".join(FAILS), file=sys.stderr)

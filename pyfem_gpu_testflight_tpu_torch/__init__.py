@@ -1,12 +1,13 @@
 """pyfem_gpu_testflight_tpu_torch — PyTorch/CUDA port of the TPU FEM package.
 
 The port of ``pyfem_gpu_testflight_tpu`` to PyTorch on an NVIDIA
-Hopper card, slice by slice (ROADMAP.md).  This slice carries the 2D
-plane-stress GMG-PCG solve: structured quad4 meshes, RAMP material,
-BC-eliminated stencil assembly of every multigrid level (CUDA kernel
-K1, ``csrc/assemble_2d.cu``), Chebyshev-node Jacobi smoothing and the
-operator matvec (CUDA kernel K2, ``csrc/smooth_2d.cu``), and flexible
-PCG.  On CPU tensors each kernel's plain PyTorch version runs instead.
+Hopper card, slice by slice (ROADMAP.md): the 2D and 3D structured
+GMG-PCG solves (CUDA kernels K1-K6, ``csrc/``), and the general-mesh
+element path of ``LinearElasticity`` / ``LinearPoisson`` — element
+stiffness by the einsum path or kernels K7 / K8, a matrix-free
+Dirichlet-constrained operator, Jacobi-PCG or a host scipy direct solve
+(``solve(method="cg" | "direct")``).  On CPU tensors each kernel's plain
+PyTorch version runs instead.
 
 The package imports torch and never jax.  float32 is pinned to IEEE
 float32 at import (TF32 off, see ``ops.precision``).
@@ -19,8 +20,9 @@ _pin_fp32()
 from . import multigrid  # noqa: E402
 from .elements import get_element  # noqa: E402
 from .mesh import ProblemCreator  # noqa: E402
-from .models import LinearElasticity  # noqa: E402
+from .models import LinearElasticity, LinearPoisson  # noqa: E402
 
 __version__ = "0.1.0"
 
-__all__ = ["LinearElasticity", "ProblemCreator", "get_element", "multigrid"]
+__all__ = ["LinearElasticity", "LinearPoisson", "ProblemCreator",
+           "get_element", "multigrid"]

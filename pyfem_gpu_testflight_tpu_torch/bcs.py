@@ -54,6 +54,17 @@ class DirichletBC:
     def nfixed(self) -> int:
         return int(self.fixed.shape[0])
 
+    # -- operator-level (matrix-free) ------------------------------------
+
+    def constrain_operator(self, apply_fn):
+        """Wrap a matvec so fixed rows/cols act as the identity."""
+        mask = self.mask
+
+        def apply_bc(u):
+            return torch.where(mask, u, apply_fn(torch.where(mask, 0.0, u)))
+
+        return apply_bc
+
     def constrain_rhs(self, rhs, apply_fn):
         """rhs -> [fr - Krb u0; u0] using one unconstrained matvec."""
         vals = self.values.to(rhs.dtype)
@@ -62,6 +73,21 @@ class DirichletBC:
 
     def zero_fixed(self, u):
         return torch.where(self.mask, 0.0, u)
+
+    # -- assembled-values level (pattern-based / scipy export) -----------
+
+    def constrain_values(self, values, pattern):
+        """Symmetric elimination applied to assembled nonzero values
+        (``assembly.SparsityPattern`` order): fixed rows and columns
+        zeroed, unit diagonal at fixed dofs."""
+        mask = self.mask.to(values.device)
+        dev = values.device
+        rows = torch.as_tensor(pattern.rows, device=dev).long()
+        cols = torch.as_tensor(pattern.cols, device=dev).long()
+        diag_pos = torch.as_tensor(pattern.diag_pos, device=dev).long()
+        out = torch.where(mask[rows] | mask[cols], 0.0, values)
+        out[diag_pos] = torch.where(mask, 1.0, out[diag_pos])
+        return out
 
     def apply_scipy(self, K, rhs, enforce_symmetric_K=True):
         """Reference-equivalent BC application on a scipy CSR matrix.

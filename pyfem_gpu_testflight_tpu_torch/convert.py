@@ -16,6 +16,15 @@ into a port assembler of the same grid, so both packages can run from
 identical tables.  The port's
 own setup reproduces them (tests/test_torch_tables.py), so this is a
 test aid, not a dependency.
+
+On the general-mesh element path the state is the mesh, the density and
+the element tables, passed to both packages as they are.  What differs
+is the element kernels' layout: :func:`ket_to_ke` and :func:`xe_to_xet`
+take the JAX Pallas kernels' element-minor ``KeT (ndpe*ndpe, nelems)``
+to the element-major ``Ke (nelems, ndpe, ndpe)``, and ``Xe (nelems, nn,
+ndims)`` to ``XeT (nn*ndims, nelems)``, through the port's own
+transposes (``ops.element_kernels.transpose_xe`` / ``untranspose``).
+Each takes a numpy array or a torch tensor and returns the same kind.
 """
 
 from __future__ import annotations
@@ -23,9 +32,30 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .ops.element_kernels import transpose_xe, untranspose
 from .ops.fused_assemble import assembly_weights, assembly_weights3d
 
-__all__ = ["assembler_state_from_numpy"]
+__all__ = ["assembler_state_from_numpy", "ket_to_ke", "xe_to_xet"]
+
+
+def _same_kind(fn, a, *args):
+    """``fn`` on a torch tensor, or on a numpy array (returned as one)."""
+    if torch.is_tensor(a):
+        return fn(a, *args)
+    return fn(torch.as_tensor(np.array(a)), *args).numpy()
+
+
+def ket_to_ke(KeT):
+    """(ndpe*ndpe, nelems) -> (nelems, ndpe, ndpe)."""
+    ndpe = int(round(KeT.shape[0] ** 0.5))
+    if ndpe * ndpe != KeT.shape[0]:
+        raise ValueError(f"KeT has {KeT.shape[0]} rows, not a square")
+    return _same_kind(untranspose, KeT, ndpe, ndpe)
+
+
+def xe_to_xet(Xe):
+    """(nelems, nn, ndims) -> (nn*ndims, nelems), rows n*ndims + i."""
+    return _same_kind(transpose_xe, Xe)
 
 
 def assembler_state_from_numpy(asm, Kq, masks, W=None, otf=None, sym=None):

@@ -1,10 +1,12 @@
 """Shared model infrastructure (PyTorch port).
 
-Port of ``pyfem_gpu_testflight_tpu/models/base.py`` as far as the
-structured GMG solve needs it: the constructor's mesh/BC state,
-``attach_structured_grid`` in 2D and 3D, ``_solve_gmg`` and the ``"gmg"``
-branch of ``_solve_system``.  Every other method or branch raises
-``NotImplementedError`` naming the ROADMAP.md slice that ports it.
+Port of ``pyfem_gpu_testflight_tpu/models/base.py``: the constructor's
+mesh, element-table and BC state, the lazy host sparsity ``pattern``,
+``assemble_scipy``, the matrix-free ``matvec`` / ``diagonal``,
+``attach_structured_grid`` in 2D and 3D, and the ``"gmg"``, ``"cg"``
+and ``"direct"`` branches of ``_solve_system``.  Every other method or
+branch raises ``NotImplementedError`` naming the ROADMAP.md slice that
+ports it.
 
 Reference parity: ModelBase (pyfem.py:634-931) and the RAMP material
 helpers (pyfem.py:1278-1329, 1922-1973).
@@ -12,19 +14,24 @@ helpers (pyfem.py:1278-1329, 1922-1973).
 
 from __future__ import annotations
 
+import warnings
+
 import numpy as np
 import torch
 
+from .. import assembly
 from ..bcs import DirichletBC
 from ..device import resolve_device
 from ..elements import get_element
+from ..ops import geometry
 
 __all__ = ["FEModel", "ramp", "ramp_deriv"]
 
+# element types the element-stiffness kernels K7 / K8 take
+KERNEL_ETYPES = ("quad4", "hex8", "tet10", "brick20")
+
 # solve method -> the ROADMAP.md slice (queue 1) that ports it
 _METHOD_SLICE = {
-    "direct": "slice 1 item 4",
-    "cg": "slice 1 item 4",
     "gmres": "slice 4",
     "pmg": "slice 5",
     "amg": "slice 6",
@@ -53,6 +60,11 @@ def _check_converged(method, resnorm, tol, iters=None, slack=10.0):
             f"{method} failed to converge{it}: ||r|| = {rn:.3e} > "
             f"tolerance {t:.3e}"
         )
+
+
+def _host(v):
+    """A tensor or array as a host numpy array."""
+    return v.detach().cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
 
 
 def ramp(rho_q, p):
@@ -110,6 +122,25 @@ class FEModel:
         self.ndof = self.nnodes * self.ndof_per_node
         self.X_host = X_host
         self.conn_host = conn_host
+        self.conn_dof_host = assembly.make_conn_dof(conn_host,
+                                                    self.ndof_per_node)
+
+        # device tensors: mesh, dof map, element tables, element coords
+        dev = self.device
+        self.X = torch.as_tensor(X_host, dtype=dtype, device=dev)
+        self.conn = torch.as_tensor(conn_host, device=dev)
+        self.conn_dof = torch.as_tensor(
+            self.conn_dof_host.astype(np.int64), device=dev)
+        self.N = torch.as_tensor(self.etype.shape_vals, dtype=dtype,
+                                 device=dev)
+        self.dN = torch.as_tensor(self.etype.shape_grads, dtype=dtype,
+                                  device=dev)
+        self.wq = torch.as_tensor(self.etype.quad_wts, dtype=dtype,
+                                  device=dev)
+        self.Xe = geometry.gather_to_elements(self.X, self.conn)
+        self._pattern = None
+        self._segments = None
+        self.kernel = "einsum"
 
         # Constrain dofs of unreferenced grid nodes (e.g. brick20 meshes
         # skip super-cell centers, pyfem.py:683) so systems stay regular.
@@ -131,17 +162,99 @@ class FEModel:
         self.bc = DirichletBC(dof_fixed, dof_fixed_vals, self.ndof,
                               device=self.device)
 
-    # -- not ported in this slice -----------------------------------------
+    # -- element-stiffness route --------------------------------------------
+
+    def _init_kernel(self, kernel):
+        """Check and set the element-stiffness route.
+
+        ``"einsum"``: the einsum path (any element, any dtype).
+        ``"cuda"``: kernels K7 (quad4) / K8 (hex8, tet10, brick20), the
+        JAX package's ``kernel="pallas"`` (the reference's A2DWrapper
+        role, pyfem.py:2180); float32 only.  On CPU tensors it runs the
+        kernels' plain versions.
+        """
+        if kernel not in ("einsum", "cuda"):
+            raise ValueError(f"kernel must be 'einsum' or 'cuda', got "
+                             f"{kernel!r} (the JAX 'pallas' kernel is "
+                             f"'cuda' here)")
+        if kernel == "cuda" and (self.etype.name not in KERNEL_ETYPES
+                                 or self.dtype != torch.float32):
+            raise ValueError("kernel='cuda' requires quad4/hex8/tet10/"
+                             "brick20 + float32")
+        self.kernel = kernel
+        if kernel != "cuda":
+            return
+        if self.etype.name in ("tet10", "brick20"):
+            # f32 quadratic elements lose ~2 digits on distorted meshes
+            # to near-degenerate-element cancellation — equally on the
+            # einsum-f32 path (measured by the JAX package, round 3)
+            warnings.warn(
+                "kernel='cuda' on quadratic elements runs in float32; "
+                "distorted meshes lose ~2 digits vs float64 (use the "
+                "default einsum kernel with dtype=float64 for "
+                "accuracy-critical work)",
+                stacklevel=3,
+            )
+        from ..ops.element_kernels import transpose_xe
+
+        self._XeT = transpose_xe(self.Xe)  # (ndims*nn, nelems)
+
+    def _cq_transposed(self, rho):
+        """RAMP material at the quad points, (nquads, nelems)."""
+        rho_q = geometry.interp_to_quads(self.N, rho[self.conn])
+        return ramp(rho_q, self.p).t().contiguous()
+
+    def _untranspose_ke(self, KeT):
+        """Kernel layout (ndpe^2, nelems) -> contiguous (nelems, ndpe,
+        ndpe), the layout the matrix-free operator reads."""
+        from ..ops.element_kernels import untranspose
+
+        nn = self.nnodes_per_elem * self.ndof_per_node
+        return untranspose(KeT, nn, nn)
+
+    # -- pattern / global matrix (lazy; host) --------------------------------
+
+    @property
+    def pattern(self) -> assembly.SparsityPattern:
+        """Host sparsity pattern of the global matrix, built on first use
+        (only ``assemble_scipy`` and ``method="direct"`` need it)."""
+        if self._pattern is None:
+            self._pattern = assembly.SparsityPattern(self.conn_dof_host,
+                                                     self.ndof)
+        return self._pattern
+
+    @property
+    def segments(self) -> assembly.SortedSegments:
+        """Sorted dof index of ``conn_dof`` for the matrix-free operator
+        (one entry per element dof), built on first use."""
+        if self._segments is None:
+            self._segments = assembly.SortedSegments(
+                self.conn_dof, self.ndof, device=self.device)
+        return self._segments
 
     def assemble_scipy(self, Ke, apply_bcs=False, enforce_symmetric_K=True,
                        rhs=None):
-        _not_ported("FEModel.assemble_scipy", "slice 1 item 4")
+        """Assemble element matrices into a host scipy CSR matrix."""
+        values = assembly.assemble_values(torch.as_tensor(Ke), self.pattern)
+        K = assembly.scipy_csr(values, self.pattern)
+        if not apply_bcs:
+            return K
+        if rhs is None:
+            rhs = np.zeros(self.ndof)
+        return self.bc.apply_scipy(K, _host(rhs), enforce_symmetric_K)
+
+    # -- operator helpers ----------------------------------------------------
 
     def matvec(self, Ke, u):
-        _not_ported("FEModel.matvec", "slice 1 item 4")
+        """Unconstrained matrix-free SpMV (deterministic segment sum)."""
+        return assembly.elem_matvec(Ke, self.conn_dof, u, self.ndof,
+                                    self.segments)
 
     def diagonal(self, Ke):
-        _not_ported("FEModel.diagonal", "slice 1 item 4")
+        return assembly.elem_diagonal(Ke, self.conn_dof, self.ndof,
+                                      self.segments)
+
+    # -- not ported in this slice -----------------------------------------
 
     def attach_pmg(self, nnodes_x, nnodes_y, nnodes_z, **pmg_options):
         _not_ported("FEModel.attach_pmg", "slice 5")
@@ -231,14 +344,41 @@ class FEModel:
         """
         if method in _METHOD_SLICE:
             _not_ported(f"method={method!r}", _METHOD_SLICE[method])
-        if method != "gmg":
+        from .. import solvers
+
+        if method == "gmg":
+            if getattr(self, "_gmg_asm", None) is None:
+                raise RuntimeError(
+                    "call attach_structured_grid(nx, ny) before method='gmg'"
+                )
+            return self._solve_gmg(rho if rho is not None else 1.0, rhs,
+                                   rtol=rtol)
+        if method == "direct":
+            K, b = self.bc.apply_scipy(self.assemble_scipy(Ke), _host(rhs))
+            return (torch.as_tensor(solvers.direct_solve(K, b),
+                                    device=self.device),
+                    torch.as_tensor(b, device=self.device))
+        if method != "cg":
             raise ValueError(f"unknown solve method {method!r}")
-        if getattr(self, "_gmg_asm", None) is None:
-            raise RuntimeError(
-                "call attach_structured_grid(nx, ny) before method='gmg'"
-            )
-        return self._solve_gmg(rho if rho is not None else 1.0, rhs,
-                               rtol=rtol)
+        b = self.bc.constrain_rhs(rhs, lambda v: self.matvec(Ke, v))
+        mask = self.bc.mask
+        diag = self.diagonal(Ke)
+        # unit entries at fixed dofs; guard unreferenced dofs (zero rows)
+        inv_diag = 1.0 / torch.where(mask | (diag == 0), 1.0, diag)
+        n0 = solvers.readbacks["cg"]
+        res = solvers.cg(
+            assembly.bc_elem_matvec, (Ke, self.conn_dof, mask, self.segments),
+            b, inv_diag=inv_diag, rtol=rtol, maxiter=maxiter,
+        )
+        _check_converged("cg", res.resnorm,
+                         rtol * float(torch.linalg.norm(b)), res.iters)
+        # observable convergence info; readbacks: host syncs of the loop
+        self.last_solve_stats = {
+            "method": "cg", "iters": int(res.iters),
+            "resnorm": float(res.resnorm),
+            "readbacks": solvers.readbacks["cg"] - n0,
+        }
+        return res.x, b
 
     def _as_nodal(self, rho):
         """Broadcast scalar density to a nodal field (pyfem.py:1015-1016)."""

@@ -2,8 +2,11 @@
 
 Port of ``LinearElasticity`` from
 ``pyfem_gpu_testflight_tpu/models/elasticity.py`` (reference
-pyfem.py:1667-2068) as far as the structured GMG solve needs it: the
-constructor, ``compute_rhs`` and ``solve(method="gmg")``.
+pyfem.py:1667-2068): the constructor with its ``kernel`` option,
+``element_jacobian`` (einsum path or the element kernels K7 / K8),
+``compute_jacobian``, ``compute_rhs`` and ``solve`` with ``method="cg"``,
+``"direct"`` or ``"gmg"``.  The stiffness is in Lamé form, algebraically
+identical to the reference's B^T C0 B einsum (pyfem.py:2016-2027).
 """
 
 from __future__ import annotations
@@ -11,20 +14,26 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops import stiffness
-from .base import FEModel, _not_ported
+from ..ops import geometry, stiffness
+from .base import FEModel, _not_ported, ramp
 
 __all__ = ["LinearElasticity"]
 
 
 class LinearElasticity(FEModel):
-    """Isotropic linear elasticity (plane stress on a 2D mesh, 3D on hex8).
+    """Isotropic linear elasticity (plane stress on a 2D mesh, 3D else).
 
     Args:
-        nodal_force: dict {node: [fx, fy]} applied as the rhs
+        nodal_force: dict {node: [fx, fy(, fz)]} applied as the rhs
             (pyfem.py:1760-1768).
         E, nu: Young's modulus / Poisson ratio.
         p: RAMP penalization parameter.
+        kernel: "einsum" (the einsum path, any element and dtype) or
+            "cuda": the hand-written element-stiffness kernels K7
+            (quad4, ``ops.element_kernels``) and K8 (hex8, tet10,
+            brick20, ``ops.element_kernels3d``), float32 only — the JAX
+            package's ``kernel="pallas"``, the in-repo analogue of the
+            reference's A2DWrapper native kernels (pyfem.py:2180).
         device: None means the CUDA card; "cpu" runs the kernels' plain
             versions.
     """
@@ -42,6 +51,7 @@ class LinearElasticity(FEModel):
         p=0.0,
         dtype=torch.float64,
         device=None,
+        kernel="einsum",
     ):
         ndims = np.asarray(X).shape[1]
         super().__init__(
@@ -54,12 +64,34 @@ class LinearElasticity(FEModel):
         self.mu, self.lam = stiffness.lame_params(self.E, self.nu, self.ndims)
         self.nodal_force = dict(nodal_force or {})
         self._rhs = None
+        self._init_kernel(kernel)
+
+    # -- assembly ----------------------------------------------------------
 
     def element_jacobian(self, rho=1.0):
-        _not_ported("LinearElasticity.element_jacobian", "slice 1 item 4")
+        """Element stiffness matrices Ke (nelems, ndpe, ndpe)."""
+        rho = self._as_nodal(rho)
+        if self.kernel == "cuda":
+            cqT = self._cq_transposed(rho)
+            if self.ndims == 3:
+                from ..ops import element_kernels3d as ek3
+
+                KeT = ek3.elasticity_stiffness_3d(
+                    self._XeT, cqT, self.mu, self.lam, etype=self.etype.name)
+            else:
+                from ..ops import element_kernels as ek
+
+                KeT = ek.elasticity_stiffness_quad4(self._XeT, cqT, self.mu,
+                                                    self.lam)
+            return self._untranspose_ke(KeT)
+        rho_q = geometry.interp_to_quads(self.N, rho[self.conn])
+        return stiffness.elasticity_stiffness(
+            self.Xe, self.dN, self.wq, ramp(rho_q, self.p), self.mu,
+            self.lam)
 
     def compute_jacobian(self, rho=1.0):
-        _not_ported("LinearElasticity.compute_jacobian", "slice 1 item 4")
+        """Assembled host scipy CSR global matrix (the direct path)."""
+        return self.assemble_scipy(self.element_jacobian(rho))
 
     def compliance(self, rho, solver="cg"):
         _not_ported("LinearElasticity.compliance", "slice 1 item 4")
@@ -81,8 +113,12 @@ class LinearElasticity(FEModel):
                                         device=self.device)
         return self._rhs
 
+    # -- solves --------------------------------------------------------------
+
     def solve(self, method="cg", rho=1.0, rtol=1e-8, maxiter=None):
-        """Static solve; this slice ports ``method="gmg"``."""
-        u, _ = self._solve_system(None, self.compute_rhs(), method, rtol,
+        """Static solve: ``"cg"`` (Jacobi-PCG on the matrix-free
+        operator), ``"direct"`` (host scipy) or ``"gmg"``."""
+        Ke = None if method == "gmg" else self.element_jacobian(rho)
+        u, _ = self._solve_system(Ke, self.compute_rhs(), method, rtol,
                                   rho=rho, maxiter=maxiter)
         return u

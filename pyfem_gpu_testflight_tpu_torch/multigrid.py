@@ -10,7 +10,10 @@ Port of the 2D and 3D (uniform and on-the-fly element paths) parts of
   assembly-size thresholds are TPU tuning) — except on the 3D
   ``elem_path="otf"`` route, where every level but the coarsest stores
   no coefficients and kernel K6 rebuilds them from the density in each
-  pass (``ops.otf3d``, :class:`OTFLevel`);
+  pass (``ops.otf3d``, :class:`OTFLevel`), and on the 2D
+  ``elem_path="cuda" | "einsum"`` routes, where each level's planes are
+  assembled from element matrices (kernel K7 or the einsum path) and
+  BC-eliminated in PyTorch;
 * smoothing is damped Jacobi with per-sweep Chebyshev-node factors:
   kernel K2 in 2D, which also supplies the residuals and the operator
   matvec; in 3D kernel K5 runs each smoothing call (sweeps + residual)
@@ -625,6 +628,7 @@ class StaticLevel(NamedTuple):
     Kq: torch.Tensor     # (nq, ndpe, ndpe) unit element matrices
     W: torch.Tensor      # (nd*nd*9, 4, nq) K1 / (nd*nd*27, 8, nq) K3 weights
     otf: tuple = None    # 3D OTF level: (w3, wd) K6 tables, else None
+    elem: tuple = None   # 2D elem_path "einsum"/"cuda": (Xe, conn, XeT)
 
 
 class GMGAssembler:
@@ -632,12 +636,25 @@ class GMGAssembler:
 
     Setup (host, once): coarse ProblemCreator grids, BC masks, unit
     element matrices and K1 weights per level.  ``assemble(rho)`` then
-    builds every level's operator on the device with kernel K1.
+    builds every level's operator on the device: with kernel K1 on the
+    default ``elem_path="uniform"``, or from element matrices.
 
     Args:
         physics: "elasticity" (plane stress) or "poisson".
         device: where the hierarchy lives; None means the CUDA card
             (``device="cpu"`` runs the kernels' plain versions).
+        elem_path: element-matrix route of ``assemble``:
+            * "uniform" (default): uniform-geometry unit matrices folded
+              into K1, which writes the eliminated planes directly;
+            * "cuda": element matrices by kernel K7
+              (``ops.element_kernels``; the JAX ``"pallas"`` route);
+            * "einsum": element matrices by the einsum path
+              (``ops.stiffness``), any dtype.
+            On "cuda" and "einsum" each level's planes come from
+            ``Stencil2D.assemble[_transposed]`` and are BC-eliminated
+            with their inverse diagonal and optional bf16 copy, as the
+            JAX ``Level.__init__`` does; K2 smooths them as on the
+            uniform route.
     """
 
     _level_cls = Level
@@ -647,7 +664,8 @@ class GMGAssembler:
                  p=0.0, dtype=torch.float32, device=None, nu_pre=2,
                  nu_post=2, omega=0.7, min_n=5, fine_mask=None,
                  coarse_dense=True, coarse_dense_max=4096,
-                 smoother_dtype=None, cheb_lam=None, cheb_frac=8.0):
+                 smoother_dtype=None, cheb_lam=None, cheb_frac=8.0,
+                 elem_path="uniform"):
         """fine_mask: optional (nd, ny, nx) bool Dirichlet mask; coarse
         masks are derived by injection (default: clamp the x=0 column,
         matching ProblemCreator's problem factories).
@@ -662,7 +680,12 @@ class GMGAssembler:
         then needs flexible PCG.
         """
         from .mesh import ProblemCreator
+        from .ops.element_kernels import transpose_xe
 
+        if elem_path not in ("uniform", "einsum", "cuda"):
+            raise ValueError(f"unknown elem_path {elem_path!r} (the JAX "
+                             f"'pallas' route is 'cuda' here)")
+        self.elem_path = elem_path
         # spectral-radius bound of D^-1 A for Chebyshev-node smoothing
         # (power iteration on uniform grids: quad4 elasticity 2.20,
         # poisson 1.49; overestimates are safe)
@@ -685,6 +708,13 @@ class GMGAssembler:
                 mask_np = _left_edge_mask(lnx, lny, nd)
             self._add_level(Stencil2D(lnx, lny, nd), creator, mask_np,
                             (lny, lnx), fused_assemble.assembly_weights)
+            if elem_path != "uniform":
+                # gathered on the host, as the JAX package does
+                Xe = self._tensor(creator.X[creator.conn])
+                self.static_levels[-1] = self.static_levels[-1]._replace(
+                    elem=(Xe, torch.as_tensor(creator.conn, dtype=torch.int64,
+                                              device=self.device),
+                          transpose_xe(Xe)))
 
     def _setup(self, element, dim, physics, E, nu, p, dtype, device, nu_pre,
                nu_post, omega, coarse_dense, coarse_dense_max,
@@ -794,9 +824,69 @@ class GMGAssembler:
             ).reshape(nq, nn * d, nn * d)
         return np.einsum("q,qnl,qml->qnm", cq, Ngrad, Ngrad)
 
+    def material_planes(self, rho_grid):
+        """RAMP material at quad points as (nquads, ney, nex) planes
+        (gather-free: the quad4 nodal gather is four shifted slices)."""
+        from .models.base import ramp
+        from .ops.stencil import _QUAD4_LOCAL
+
+        ny, nx = rho_grid.shape
+        rho_e = [rho_grid[ay : ay + ny - 1, ax : ax + nx - 1]
+                 for (ay, ax) in _QUAD4_LOCAL]
+        planes = []
+        for q in range(self.N.shape[0]):
+            acc = self.N[q, 0] * rho_e[0]
+            for n in range(1, len(rho_e)):
+                acc = acc + self.N[q, n] * rho_e[n]
+            planes.append(acc)
+        return ramp(torch.stack(planes), self.p)
+
+    def _elem_matrices(self, Xe, conn, rho_flat):
+        """(nelems, ndpe, ndpe) by the einsum path."""
+        from .models.base import ramp
+        from .ops import geometry, stiffness
+
+        Cq = ramp(geometry.interp_to_quads(self.N, rho_flat[conn]), self.p)
+        dN, wq = self._tensor(self._dN64), self._tensor(self._wq64)
+        if self.physics == "elasticity":
+            return stiffness.elasticity_stiffness(Xe, dN, wq, Cq, self.mu,
+                                                  self.lam)
+        return stiffness.poisson_stiffness(Xe, dN, wq, Cq)
+
+    def _elem_level(self, st, rho_grid):
+        """A 2D level from element matrices (elem_path "cuda" / "einsum"):
+        stencil assembly, Dirichlet elimination, inverse diagonal (0 at
+        fixed dofs, K1's convention) and the optional bf16 copy."""
+        from .ops import element_kernels as ek
+
+        Xe, conn, XeT = st.elem
+        if self.elem_path == "cuda":
+            Cq = self.material_planes(rho_grid)
+            cqT = Cq.reshape(Cq.shape[0], -1)
+            if self.physics == "elasticity":
+                KeT = ek.elasticity_stiffness_quad4(XeT, cqT, self.mu,
+                                                    self.lam)
+            else:
+                KeT = ek.poisson_stiffness_quad4(XeT, cqT)
+            coeff = st.op.assemble_transposed(KeT)
+        else:
+            coeff = st.op.assemble(
+                self._elem_matrices(Xe, conn, rho_grid.reshape(-1)))
+        ce = st.op.bc_eliminate(coeff, st.mask)
+        diag = st.op.diagonal(ce)
+        invd = st.maskf / torch.where(diag == 0, 1.0, diag)
+        ce = ce.reshape(-1, *st.shape)
+        lp = None if self.smoother_dtype is None else ce.to(
+            self.smoother_dtype)
+        return self._level_cls(st.op, ce, invd, st.mask, st.shape, self.nd,
+                               coeff_lp=lp)
+
     def _assemble_level(self, st, rho_grid, **kw):
         """One level's operator from its nodal density (K1 / K3; ``kw``:
-        the kernel's extra options)."""
+        the kernel's extra options), or from element matrices on a 2D
+        ``elem_path`` other than "uniform"."""
+        if st.elem is not None:
+            return self._elem_level(st, rho_grid)
         outs = self._assemble_fn(
             rho_grid, st.maskf, st.W, self.N, nd=self.nd, p=self.p,
             lp_dtype=self.smoother_dtype, **kw,

@@ -32,7 +32,8 @@ __all__ = ["library", "launch", "launches", "reset_launches", "stream_ptr",
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _SOURCES = ("assemble_2d.cu", "smooth_2d.cu", "assemble_3d.cu",
-            "smooth_3d.cu", "otf_3d.cu")
+            "smooth_3d.cu", "otf_3d.cu", "stiffness_2d.cu",
+            "stiffness_3d.cu")
 _BUILD_DIR = (
     Path(__file__).resolve().parent.parent.parent
     / "build" / "pyfem_torch_kernels"
@@ -66,6 +67,12 @@ _SIGNATURES = {
     # omega, mode, bf16, stream
     "pyfem_otf_3d": (_P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _F, _I, _I,
                      _P),
+    # XeT, cq, mu, lam, nelems, KeT, stream
+    "pyfem_elasticity_quad4": (_P, _P, _F, _F, _I, _P, _P),
+    # XeT, kq, nelems, KeT, stream
+    "pyfem_poisson_quad4": (_P, _P, _I, _P, _P),
+    # XeT, cq, table, mu, lam, elastic, nn, nelems, KeT, stream
+    "pyfem_stiffness_3d": (_P, _P, _P, _F, _F, _I, _I, _I, _P, _P),
 }
 
 launches = {name: 0 for name in _SIGNATURES}

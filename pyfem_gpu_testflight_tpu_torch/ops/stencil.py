@@ -10,7 +10,10 @@ components, dy/dx in {0,1,2} indexing the neighbor offset - 1):
 
 This module is the plain reference both hand kernels are held against
 (``fused_assemble`` for the coefficient planes, ``fused_smooth`` for the
-sweeps); state vectors live as (nd, ny, nx) component planes.
+sweeps), and assembles the planes from element matrices on the 2D
+``elem_path="einsum" | "cuda"`` routes (``assemble``,
+``assemble_transposed``); state vectors live as (nd, ny, nx) component
+planes.
 """
 
 from __future__ import annotations
@@ -45,6 +48,40 @@ class Stencil2D:
                 dy, dx = by - ay + 1, bx - ax + 1
                 plan.append((ca, cb, dy, dx, ay, ax, r, s))
         self.plan = tuple(plan)
+
+    def _assemble_blocks(self, block, like):
+        """Coefficient planes from element-matrix entries ``block(r, s)``
+        (each (ney, nex)): every plane is a sum of zero-padded element
+        planes, in plan order — scatter-free and deterministic."""
+        ny, nx, nd = self.ny, self.nx, self.nd
+        table = {}
+        for (ca, cb, dy, dx, ay, ax, r, s) in self.plan:
+            table.setdefault((ca, cb, dy, dx), []).append((ay, ax, r, s))
+        planes = []
+        for ca in range(nd):
+            for cb in range(nd):
+                for dy in range(3):
+                    for dx in range(3):
+                        p = like.new_zeros((ny, nx))
+                        for (ay, ax, r, s) in table.get((ca, cb, dy, dx), ()):
+                            p = p + F.pad(block(r, s),
+                                          (ax, 1 - ax, ay, 1 - ay))
+                        planes.append(p)
+        return torch.stack(planes).reshape(nd, nd, 3, 3, ny, nx)
+
+    def assemble(self, Ke):
+        """(nelems, ndpe, ndpe) element matrices (raster element order)
+        -> coefficient planes (nd, nd, 3, 3, ny, nx)."""
+        ney, nex = self.ny - 1, self.nx - 1
+        Kg = Ke.reshape(ney, nex, Ke.shape[-2], Ke.shape[-1])
+        return self._assemble_blocks(lambda r, s: Kg[:, :, r, s], Ke)
+
+    def assemble_transposed(self, KeT):
+        """(ndpe*ndpe, nelems) element-minor layout (kernel K7's output)
+        -> coefficient planes."""
+        ndpe = 4 * self.nd
+        Kg = KeT.reshape(ndpe * ndpe, self.ny - 1, self.nx - 1)
+        return self._assemble_blocks(lambda r, s: Kg[r * ndpe + s], KeT)
 
     def assemble_uniform(self, Cq_grid, Kq):
         """Uniform-geometry assembly: Ke[e] = sum_q Cq[e,q] Kq[q].

@@ -2,8 +2,12 @@
 
 K1 and K2 on a 65x33 level; K3, K4 (every mode, f32 and bf16 planes)
 and K5 on a 17^3 level, in half-symmetric and full coefficient storage;
-K6 on a 17^3 level in every mode with f32 and bf16 operands
-(chip_smoke.py phases 3, 3a and 3b hold them at full size).
+K6 on a 17^3 level in every mode with f32 and bf16 operands; K7 and K8
+in every form (quad4, hex8, tet10, brick20; elasticity and Poisson) on
+jittered meshes, the determinism of the matrix-free operator and of a
+CG solve, ``kernel="cuda"`` never taking a plain version on a CUDA
+tensor, and the 2D ``elem_path="cuda"`` hierarchy against the uniform
+one (chip_smoke.py phases 3-3c hold them at full size).
 
 Needs an NVIDIA Hopper card and nvcc; marked ``slow`` (deselected by the
 CPU tier) and skipped where CUDA is absent.  Run on the card with:
@@ -345,3 +349,145 @@ def test_k6_matches_plain_on_card(otf_levels, physics, variant, bf16):
             # a residual after damping sweeps is rounded at b's scale
             scale = max(scale, float(bb.abs().max()))
         assert float((k - r).abs().max()) <= TOL * scale
+
+
+# -- K7 / K8: element stiffness; the general-mesh CG path ----------------
+
+
+def _jittered(creator_kw, seed, amp=0.03):
+    """A ProblemCreator mesh with every node moved by amp * N(0, 1)."""
+    from pyfem_gpu_testflight_tpu_torch import ProblemCreator
+
+    c = ProblemCreator(**creator_kw)
+    conn, X, fixed, force = c.create_linear_elasticity_problem()
+    rng = np.random.default_rng(seed)
+    return conn, X + amp * rng.standard_normal(X.shape), fixed, force
+
+
+_STIFF_CASES = {
+    # name: (etype, ProblemCreator kwargs)
+    "quad4": ("quad4", dict(nnodes_x=17, nnodes_y=9)),
+    "quad4_ragged": ("quad4", dict(nnodes_x=12, nnodes_y=7)),
+    "hex8": ("hex8", dict(nnodes_x=9, nnodes_y=7, nnodes_z=5,
+                          element_type="block")),
+    "tet10": ("tet10", dict(nnodes_x=5, nnodes_y=5, nnodes_z=5,
+                            element_type="tet")),
+    "brick20": ("brick20", dict(nnodes_x=5, nnodes_y=5, nnodes_z=5,
+                                element_type="brick20")),
+}
+
+
+@pytest.mark.parametrize("physics", ["elasticity", "poisson"])
+@pytest.mark.parametrize("case", sorted(_STIFF_CASES))
+def test_k7_k8_match_plain_on_card(dev, case, physics):
+    from pyfem_gpu_testflight_tpu_torch.elements import get_element
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+    from pyfem_gpu_testflight_tpu_torch.ops import element_kernels as ek
+    from pyfem_gpu_testflight_tpu_torch.ops import element_kernels3d as ek3
+    from pyfem_gpu_testflight_tpu_torch.ops import stiffness
+
+    etype, kw = _STIFF_CASES[case]
+    conn, X, _f, _l = _jittered(kw, seed=len(case))
+    et = get_element(etype)
+    rng = np.random.default_rng(7)
+    Xe = torch.as_tensor(X[conn], dtype=torch.float32, device=dev)
+    XeT = ek.transpose_xe(Xe)
+    cq = torch.as_tensor(rng.uniform(0.3, 1.0, (et.nquads, len(conn))),
+                         dtype=torch.float32, device=dev)
+    mu, lam = stiffness.lame_params(10.0, 0.3, et.ndims)
+    if etype == "quad4":
+        name = ("pyfem_elasticity_quad4" if physics == "elasticity"
+                else "pyfem_poisson_quad4")
+        run = ((lambda f: f(XeT, cq, mu, lam)) if physics == "elasticity"
+               else (lambda f: f(XeT, cq)))
+        fns = ((ek.elasticity_stiffness_quad4,
+                ek.elasticity_stiffness_quad4_plain)
+               if physics == "elasticity" else
+               (ek.poisson_stiffness_quad4, ek.poisson_stiffness_quad4_plain))
+    else:
+        name = "pyfem_stiffness_3d"
+        if physics == "elasticity":
+            run = lambda f: f(XeT, cq, mu, lam, etype=etype)
+            fns = (ek3.elasticity_stiffness_3d,
+                   ek3.elasticity_stiffness_3d_plain)
+        else:
+            run = lambda f: f(XeT, cq, etype=etype)
+            fns = (ek3.poisson_stiffness_3d, ek3.poisson_stiffness_3d_plain)
+    n0 = _cuda.launches[name]
+    got = run(fns[0])
+    ref = run(fns[1])
+    torch.cuda.synchronize()
+    assert _cuda.launches[name] == n0 + 1
+    assert got.shape == ref.shape
+    assert _rel(got, ref) <= TOL
+    assert torch.equal(got, run(fns[0]))  # one thread per output: no atomics
+
+
+def test_elem_matvec_and_cg_are_deterministic_on_card(dev):
+    import pyfem_gpu_testflight_tpu_torch as pt
+    from pyfem_gpu_testflight_tpu_torch import assembly
+
+    conn, X, fixed, force = _jittered(
+        dict(nnodes_x=9, nnodes_y=9, nnodes_z=9, element_type="block"), 3)
+    m = pt.LinearElasticity("hex8", X, conn, fixed, None, force, p=3.0,
+                            dtype=torch.float32, device=dev, kernel="cuda")
+    rho = np.random.default_rng(4).uniform(0.3, 1.0, m.nnodes)
+    Ke = m.element_jacobian(rho)
+    u = torch.as_tensor(np.random.default_rng(5).standard_normal(m.ndof),
+                        dtype=torch.float32, device=dev)
+    y1 = assembly.elem_matvec(Ke, m.conn_dof, u, m.ndof, m.segments)
+    y2 = assembly.elem_matvec(Ke, m.conn_dof, u, m.ndof, m.segments)
+    assert torch.equal(y1, y2)
+    u1 = m.solve(method="cg", rho=rho, rtol=1e-6)
+    s1 = dict(m.last_solve_stats)
+    u2 = m.solve(method="cg", rho=rho, rtol=1e-6)
+    assert torch.equal(u1, u2) and s1 == m.last_solve_stats
+    assert s1["readbacks"] <= s1["iters"] // 16 + 1
+
+
+def test_kernel_cuda_never_takes_the_plain_version(dev, monkeypatch):
+    import pyfem_gpu_testflight_tpu_torch as pt
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+    from pyfem_gpu_testflight_tpu_torch.ops import element_kernels as ek
+    from pyfem_gpu_testflight_tpu_torch.ops import element_kernels3d as ek3
+
+    def refuse(*a, **k):
+        raise AssertionError("plain version called on a CUDA tensor")
+
+    for mod in (ek, ek3):
+        for fn in [f for f in dir(mod) if f.endswith("_plain")]:
+            monkeypatch.setattr(mod, fn, refuse)
+    for etype, kw in (("quad4", dict(nnodes_x=9, nnodes_y=5)),
+                      ("hex8", dict(nnodes_x=5, nnodes_y=5, nnodes_z=5,
+                                    element_type="block"))):
+        conn, X, fixed, force = _jittered(kw, 6)
+        before = dict(_cuda.launches)
+        m = pt.LinearElasticity(etype, X, conn, fixed, None, force,
+                                dtype=torch.float32, device=dev,
+                                kernel="cuda")
+        m.element_jacobian(0.5)
+        mp = pt.LinearPoisson(etype, X, conn, fixed[::m.ndims] // m.ndims,
+                              dtype=torch.float32, device=dev,
+                              kernel="cuda")
+        mp.element_jacobian(0.5)
+        names = (("pyfem_elasticity_quad4", "pyfem_poisson_quad4")
+                 if etype == "quad4" else ("pyfem_stiffness_3d",))
+        assert sum(_cuda.launches[n] - before[n] for n in names) == 2
+
+
+def test_gmg_elem_path_cuda_matches_uniform_on_card(dev):
+    from pyfem_gpu_testflight_tpu_torch import multigrid
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+
+    rho = torch.as_tensor(np.random.default_rng(8).uniform(0.3, 1.0, NY * NX),
+                          dtype=torch.float32, device=dev)
+    levels = {}
+    n0 = _cuda.launches["pyfem_elasticity_quad4"]
+    for ep in ("uniform", "cuda"):
+        a = multigrid.GMGAssembler(NX, NY, 2.0, 1.0, "elasticity", p=3.0,
+                                   device=dev, elem_path=ep)
+        levels[ep] = a.assemble(rho)[0].levels
+    assert (_cuda.launches["pyfem_elasticity_quad4"] - n0
+            == len(levels["cuda"]))
+    for lc, lu in zip(levels["cuda"], levels["uniform"]):
+        assert _rel(lc.coeff, lu.coeff) <= TOL
