@@ -6,7 +6,9 @@ Builds the port's CUDA kernels from ``pyfem_gpu_testflight_tpu_torch/
 csrc``, holds each against its plain PyTorch version on the card, then
 drives the port's main paths through the package's public entry
 points — the 2D plane-stress GMG-PCG solve at 1025x513 nodes (1,051,650
-dof) on its K1 and element-matrix (K7) routes, the 3D hex8 GMG-PCG
+dof) on its K1, element-matrix (K7) and half-symmetric (K1-sym/K2-sym)
+routes, 2D topology optimization at the same width (Helmholtz filter
+on K9, GMG state solves, MMA; ``opt.DeviceTopo``), the 3D hex8 GMG-PCG
 solve at 65^3 nodes (823,875 dof) on its assembled route, its
 on-the-fly route and with full coefficient storage, and the
 general-mesh element path (K8 element stiffness, matrix-free
@@ -37,6 +39,12 @@ Phases:
    65^3, tet10 and brick20 on the 33^3 lattice, elasticity and Poisson)
    vs plain on jittered meshes, with times, both bounds and ptxas's
    registers and spills;
+3d. K9 (the 2D stencil product) vs plain at 1025x513, 17x9 and 13x7:
+   nd=1 (the Helmholtz filter's planes) and nd=2 (elasticity), float32
+   and float64, with times, the bound and the CSR time of each form;
+3e. K1-sym and K2-sym (half-symmetric 2D storage) vs plain at the same
+   sizes, nd=2 and nd=1, K2-sym in every mode on f32 and bf16 planes,
+   with times, bounds and the CSR matvec time;
 4. the 2D bench configuration (p=0, rho=1, Chebyshev-node nu=2, bf16
    smoother copy, flexible PCG, rtol 1e-6): iterations, launch counts,
    float64 true residual, single-shot and chained solve times, and where
@@ -54,6 +62,10 @@ Phases:
    level, K2 the V-cycle): iterations against phase 4's, K7a launches
    per level, true residual, the solution difference, times, hierarchy
    assembly and peak memory beside phase 4's;
+4e. "bench 2D sym": the 2D bench configuration with ``sym=True``
+   (K1-sym on every level, K2-sym in every V-cycle variant): iterations
+   against phase 4's, launches (no full-storage K1/K2), the breakdown and
+   peak memory beside phase 4's;
 5. ``LinearElasticity.solve(method="gmg")`` at 1025x513 (rho=0.6 and a
    seeded random rho, p=3);
 5a. the same entry on hex8 at 65^3;
@@ -74,6 +86,14 @@ Phases:
    (both models) and tet10/brick20 9^3 lattices: float64 by p^T u and
    relative L2, float32 ``kernel="cuda"`` against ``"einsum"`` by their
    float64 true residuals.
+7. "topo": ``bench.py --config topo`` at its width (1025x513 quad4
+   cantilever, p=3, Helmholtz r0=0.01, ``DeviceTopo(fixed_volume=0.4)``),
+   2 warm-up and 20 timed MMA iterations (the bench's 40 cut for time):
+   s/iteration, state and filter iteration counts, K1/K2/K9 launches and
+   host read-backs per iteration, CUDA-event stage times, busy share,
+   peak memory, the first iteration's float32 compliance against a
+   float64-outer solve, and a run resumed at iteration 2 against the
+   uninterrupted one, bit for bit;
 
 Float32 accuracy: the operator is ill-conditioned enough that a float32
 solve stalls at the float32 rounding floor of its operator, about
@@ -85,7 +105,7 @@ under a float64 outer PCG (the float32 V-cycle as preconditioner).
 Bounds: the least time for the same work on an H100 SXM, the larger of
 (bytes the function must move, each input read once and each output
 written once) / 3.35 TB/s and (the float32 operations it needs) / 67
-TFLOP/s; for the element stiffness only the upper triangle of the
+TFLOP/s (float64: / 34 TFLOP/s, K9's float64 forms); for the element stiffness only the upper triangle of the
 symmetric Ke is counted (``stiffness_flops``).
 K6's operations are the structurally nonzero ones (the dense count of
 the TPU kernel's matmuls is printed beside it).
@@ -108,6 +128,7 @@ REL_TOL = 1e-5      # kernel vs plain, relative to max|plain|
 FLOOR_FACTOR = 4.0  # float32 true residual <= this x its rounding floor
 HBM_BYTES_S = 3.35e12  # H100 SXM device memory rate
 F32_FLOP_S = 67e12     # H100 SXM float32 rate outside the tensor cores
+F64_FLOP_S = 34e12     # H100 SXM float64 rate outside the tensor cores
 FAILS = []
 
 
@@ -150,9 +171,10 @@ def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
-def bound(n_bytes, flops):
-    """(bound_ms, bound_by) for the card's memory and float32 rates."""
-    tb, tf = n_bytes / HBM_BYTES_S, flops / F32_FLOP_S
+def bound(n_bytes, flops, flop_s=F32_FLOP_S):
+    """(bound_ms, bound_by) for the card's memory rate and the operations'
+    rate (float32 by default)."""
+    tb, tf = n_bytes / HBM_BYTES_S, flops / flop_s
     return 1e3 * max(tb, tf), ("bytes" if tb >= tf else "operations")
 
 
@@ -175,10 +197,17 @@ def problem(nx, ny, nz=None):
 
 
 def f64_operator(nx, ny, Lx, Ly, rho, p, dev):
-    """float64 BC-eliminated planes by the plain path: (A., |A|., planes)."""
+    """float64 BC-eliminated planes by the plain path: (A., |A|., planes).
+
+    A. is kernel K9 in float64 (the ``--accuracy-op xla64`` operator,
+    bench.py:933-1007); |A|. , which only sets the float32 floor, stays
+    on the plain stencil product."""
     import torch
     from pyfem_gpu_testflight_tpu_torch import multigrid
     from pyfem_gpu_testflight_tpu_torch.ops import fused_assemble as fa
+    from pyfem_gpu_testflight_tpu_torch.ops.stencil_matvec import (
+        stencil_matvec_2d,
+    )
 
     a = multigrid.GMGAssembler(nx, ny, Lx, Ly, "elasticity", p=p,
                                dtype=torch.float64, device=dev)
@@ -189,7 +218,8 @@ def f64_operator(nx, ny, Lx, Ly, rho, p, dev):
     )
     c = c.reshape(2, 2, 3, 3, ny, nx)
     ca = c.abs()
-    return (lambda u: st.op.matvec(c, u)), (lambda u: st.op.matvec(ca, u)), c
+    return ((lambda u: stencil_matvec_2d(c, u)),
+            (lambda u: st.op.matvec(ca, u)), c)
 
 
 def f64_operator_3d(n, L, rho, p, dev):
@@ -276,13 +306,15 @@ def scipy_csr(c, shape):
                           A.crow_indices().cpu().numpy()), shape=(n, n))
 
 
-def library_matvec_ms(c, shape, x):
-    """``torch.sparse.mm`` time of the same operator, float32 CSR built
-    outside the timed region (the yardstick; the port never calls it)."""
+def library_matvec_ms(c, shape, x, dtype=None):
+    """``torch.sparse.mm`` time of the same operator, CSR (float32, or
+    ``dtype``) built outside the timed region (the yardstick; the port
+    never calls it)."""
     import torch
 
-    A = stencil_csr(c.float(), shape)
-    xv = x.reshape(-1, 1)
+    dtype = torch.float32 if dtype is None else dtype
+    A = stencil_csr(c.to(dtype), shape)
+    xv = x.to(dtype).reshape(-1, 1)
     ms = cuda_ms(lambda: torch.sparse.mm(A, xv), 20)
     del A
     return ms
@@ -594,6 +626,170 @@ def phase_kernels(dev):
     check(ex[1] <= REL_TOL and rr[0] <= REL_TOL * bmax,
           f"K2 niter8_cheby x and r within {REL_TOL:g} (r of max|b|)")
     res["K2"]["max_abs_err"] = max(worst_abs, ex[0], rr[0])
+    return res
+
+
+def phase_kernels_k9(dev):
+    """Phase 3d: K9 against its plain version at 1025x513, 17x9 and 13x7:
+    nd=1 (the Helmholtz filter's K planes) and nd=2 (the float64
+    accuracy operator's elasticity planes), float32 and float64, with
+    times, the bound and the CSR time at full size."""
+    import torch
+    import pyfem_gpu_testflight_tpu_torch as pt
+    from pyfem_gpu_testflight_tpu_torch.ops import stencil_matvec as sm
+
+    rng = np.random.default_rng(SEED + 9)
+    forms, worst = {}, 0.0
+    for nx, ny in ((NX, NY), (17, 9), (13, 7)):
+        conn, X, _f, _l, (Lx, Ly) = problem(nx, ny)
+        filt = pt.Helmholtz(0.01, "quad4", X, conn, dtype=torch.float64,
+                            device=dev).attach_structured_grid(nx, ny)
+        rho = torch.as_tensor(rng.uniform(0.3, 1.0, nx * ny), device=dev)
+        c2 = f64_operator(nx, ny, Lx, Ly, rho, 3.0, dev)[2]
+        for name, c in (("nd1_f32", filt._coeffK), ("nd1_f64", filt._coeffK),
+                        ("nd2_f32", c2), ("nd2_f64", c2)):
+            dt = torch.float32 if name.endswith("f32") else torch.float64
+            c = c.to(dt).contiguous()
+            nd = c.shape[0]
+            u = torch.as_tensor(rng.standard_normal((nd, ny, nx)), dtype=dt,
+                                device=dev)
+            got = sm.stencil_matvec_2d(c, u)
+            ref = sm.stencil_matvec_2d_plain(c, u)
+            torch.cuda.synchronize()
+            ea, er = rel_err(got, ref)
+            worst = max(worst, ea)
+            check(er <= REL_TOL and got.dtype == dt,
+                  f"K9 {name} {nx}x{ny} within {REL_TOL:g} (rel {er:.2e})")
+            if (nx, ny) != (NX, NY):
+                continue
+            b_ms, b_by = bound(nbytes(c, u, got), 2 * nd * nd * 9 * nx * ny,
+                               F32_FLOP_S if dt == torch.float32
+                               else F64_FLOP_S)
+            forms[name] = dict(
+                max_abs_err=ea,
+                ms=cuda_ms(lambda: sm.stencil_matvec_2d(c, u), 50),
+                plain_ms=cuda_ms(lambda: sm.stencil_matvec_2d_plain(c, u),
+                                 10),
+                bound_ms=b_ms, bound_by=b_by,
+                library_ms=library_matvec_ms(c, (ny, nx), u, dtype=dt))
+            f = forms[name]
+            log(f"K9 {name} {NX}x{NY}: rel {er:.2e}; kernel {f['ms']:.4f} ms, "
+                f"plain {f['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+                f"torch.sparse.mm ({str(dt)[6:]} CSR) {f['library_ms']:.4f} "
+                f"ms")
+    res = dict(forms["nd1_f32"], max_abs_err=worst, forms=forms)
+    return {"K9": res}
+
+
+def phase_kernels_sym2d(dev):
+    """Phase 3e: K1-sym and K2-sym (half-symmetric 2D storage) against
+    their plain versions at 1025x513, 17x9 and 13x7, nd=2 and nd=1, K2
+    in every mode on f32 and bf16 planes, with times, bounds and the CSR
+    matvec time at full size (nd=2)."""
+    import torch
+    from pyfem_gpu_testflight_tpu_torch import multigrid
+    from pyfem_gpu_testflight_tpu_torch.ops import fused_assemble as fa
+    from pyfem_gpu_testflight_tpu_torch.ops import fused_smooth as fs
+
+    rng = np.random.default_rng(SEED + 10)
+    res = {"K1-sym": dict(max_abs_err=0.0), "K2-sym": dict(max_abs_err=0.0)}
+    for nx, ny in ((NX, NY), (17, 9), (13, 7)):
+        for nd in (2, 1):
+            full = (nx, ny) == (NX, NY) and nd == 2
+            tag = f"{nx}x{ny} nd={nd}"
+            a = multigrid.GMGAssembler(
+                nx, ny, (nx - 1) / (ny - 1), 1.0,
+                "elasticity" if nd == 2 else "poisson", p=3.0, device=dev,
+                sym=True)
+            st = a.static_levels[0]
+            rho = torch.as_tensor(rng.uniform(0.2, 1.0, (ny, nx)),
+                                  dtype=torch.float32, device=dev)
+            args = (rho, st.maskf, st.W, a.N)
+            kw = dict(nd=nd, p=3.0, lp_dtype=torch.bfloat16, sym=True)
+            ck, dk, lk = fa.assemble_pack_2d(*args, **kw)
+            cp, dp, _ = fa.assemble_pack_2d_plain(*args, **kw)
+            torch.cuda.synchronize()
+            free = st.maskf > 0
+            ea, er = rel_err(ck, cp)
+            ia, ir = rel_err(dk, dp, free)
+            res["K1-sym"]["max_abs_err"] = max(res["K1-sym"]["max_abs_err"],
+                                               ea, ia)
+            check(ck.shape[0] == len(fs.sym_planes_2d(nd)) and er <= REL_TOL
+                  and ir <= REL_TOL and bool((dk[~free] == 0).all())
+                  and torch.equal(lk, ck.to(torch.bfloat16)),
+                  f"K1-sym {tag}: {ck.shape[0]} planes within {REL_TOL:g} "
+                  f"(rel {er:.2e}), inv_diag (rel {ir:.2e}), bf16 copy")
+            if full:
+                b_ms, b_by = bound(
+                    nbytes(rho, st.maskf, st.W, a.N, ck, dk, lk),
+                    2 * (ck.shape[0] * 16 + 64) * rho.numel())
+                res["K1-sym"].update(
+                    ms=cuda_ms(lambda: fa.assemble_pack_2d(*args, **kw), 50),
+                    plain_ms=cuda_ms(
+                        lambda: fa.assemble_pack_2d_plain(*args, **kw), 10),
+                    bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                r = res["K1-sym"]
+                log(f"K1-sym {tag}: kernel {r['ms']:.4f} ms, plain "
+                    f"{r['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+            field = lambda: torch.as_tensor(
+                rng.standard_normal((nd, ny, nx)), dtype=torch.float32,
+                device=dev)
+            b = torch.where(st.mask, 0.0, field())
+            x0 = torch.where(st.mask, 0.0, field())
+            xr = field()
+            om2 = multigrid.smoothing_omegas(2, 2.3 if nd == 2 else 1.6)
+            variants = {
+                "presmooth_resid_bf16": ((lk, dk, b, None), dict(
+                    niter=2, want_resid=True, omega=om2)),
+                "postsmooth_bf16": ((lk, dk, b, x0), dict(
+                    niter=2, omega=om2[::-1])),
+                "postsmooth_resid_f32": ((ck, dk, b, x0), dict(
+                    niter=2, want_resid=True, omega=om2[::-1])),
+                "resid_f32": ((ck, dk, b, xr), dict(niter=0,
+                                                    want_resid=True)),
+                "matvec_f32": ((ck, dk, None, xr), dict(
+                    niter=0, want_resid=True, neg_resid=True)),
+                "matvec_bf16": ((lk, dk, None, xr), dict(
+                    niter=0, want_resid=True, neg_resid=True)),
+            }
+            for name, (va, vkw) in variants.items():
+                got = fs.fused_sweeps_2d(*va, **vkw)
+                ref = fs.fused_sweeps_2d_plain(*va, **vkw)
+                torch.cuda.synchronize()
+                got = got if isinstance(got, tuple) else (got,)
+                ref = ref if isinstance(ref, tuple) else (ref,)
+                errs = [rel_err(g, r) for g, r in zip(got, ref)]
+                res["K2-sym"]["max_abs_err"] = max(
+                    [res["K2-sym"]["max_abs_err"]] + [e[0] for e in errs])
+                check(all(e[1] <= REL_TOL for e in errs),
+                      f"K2-sym {name} {tag} within {REL_TOL:g} (rel "
+                      + ", ".join(f"{e[1]:.2e}" for e in errs) + ")")
+                if not full:
+                    continue
+                ms = cuda_ms(lambda: fs.fused_sweeps_2d(*va, **vkw), 50)
+                pms = cuda_ms(lambda: fs.fused_sweeps_2d_plain(*va, **vkw),
+                              10)
+                log(f"K2-sym {name} {tag}: kernel {ms:.4f} ms, plain "
+                    f"{pms:.4f} ms")
+                if name == "matvec_f32":
+                    b_ms, b_by = bound(nbytes(ck, xr) + nbytes(xr),
+                                       2 * 72 * nx * ny)
+                    lib = library_matvec_ms(fs.full_planes_2d(ck, 2),
+                                            (ny, nx), xr)
+                    log(f"K2-sym matvec_f32: bound {b_ms:.4f} ms ({b_by}), "
+                        f"torch.sparse.mm (f32 CSR) {lib:.4f} ms")
+                    res["K2-sym"].update(ms=ms, plain_ms=pms, bound_ms=b_ms,
+                                         bound_by=b_by, library_ms=lib)
+            kw8 = dict(niter=8, want_resid=True,
+                       omega=multigrid.smoothing_omegas(8, 2.3))
+            (xk, rk), (xp, rp) = (fs.fused_sweeps_2d(ck, dk, b, None, **kw8),
+                                  fs.fused_sweeps_2d_plain(ck, dk, b, None,
+                                                           **kw8))
+            ex, rr = rel_err(xk, xp), rel_err(rk, rp)
+            bmax = float(b.abs().max())
+            check(ex[1] <= REL_TOL and rr[0] <= REL_TOL * bmax,
+                  f"K2-sym niter8_cheby {tag}: x rel {ex[1]:.2e}, r "
+                  f"{rr[0] / bmax:.2e} of max|b|")
     return res
 
 
@@ -998,6 +1194,8 @@ def phase_main_2d(dev, pt, multigrid, i2p, p2i, label="bench 2D",
 
     (u, k, rn, b, gmg), counts, single_ms = solve_and_measure(
         step, (rho, rhs, rhs), ("pyfem_assemble_2d", "pyfem_smooth_2d",
+                                "pyfem_assemble_2d_sym",
+                                "pyfem_smooth_2d_sym",
                                 "pyfem_elasticity_quad4"), label)
     log(f"{label}: {k} PCG iterations (JAX reference: 7), "
         f"||r||/||b|| {float(rn) / float(torch.linalg.norm(b)):.3e}, "
@@ -1007,7 +1205,14 @@ def phase_main_2d(dev, pt, multigrid, i2p, p2i, label="bench 2D",
           f"{label} PCG residual <= rtol")
     check(bool(torch.isfinite(u).all()) and u.shape == (model.ndof,),
           f"{label} solution finite, shape (ndof,)")
-    if route.get("elem_path", "uniform") == "uniform":
+    if route.get("sym"):
+        check(counts["pyfem_assemble_2d_sym"] == len(gmg.levels)
+              and counts["pyfem_smooth_2d_sym"] > 0
+              and counts["pyfem_assemble_2d"] == 0
+              and counts["pyfem_smooth_2d"] == 0,
+              f"{label}: K1-sym once per level ({len(gmg.levels)}), K2-sym "
+              f"launched, no full-storage K1/K2 launch")
+    elif route.get("elem_path", "uniform") == "uniform":
         check(counts["pyfem_assemble_2d"] > 0 and counts["pyfem_smooth_2d"]
               > 0, "K1 and K2 launched")
     else:
@@ -1273,6 +1478,190 @@ def phase_general(dev, pt, label, physics, etype="hex8", dims=(N3,) * 3):
                 true_e=true_e, floor=floor, parts=parts, err=err)
 
 
+TOPO_WARMUP, TOPO_ITERS = 2, 20  # bench.py --topo-iters defaults to 40
+
+
+def phase_topo(dev, pt, i2p):
+    """Phase 7: topology optimization at the width of ``bench.py --config
+    topo`` (bench.py:319-428): 1025x513 quad4 cantilever, p=3,
+    Chebyshev-node nu=2, bf16 smoother copy, flexible PCG rtol 1e-6,
+    Helmholtz r0=0.01 rtol 1e-6, ``DeviceTopo(fixed_volume=0.4)``;
+    2 warm-up and 20 timed MMA iterations (the bench's 40 cut for
+    time).  Reports s/iteration, the state and filter iteration counts,
+    K1/K2/K9 launches and host read-backs per iteration, the CUDA-event
+    times of an iteration's six stages, the device busy share and peak
+    memory, the first iteration's float32 compliance against a
+    float64-outer solve, and a 4-iteration run resumed at 2 against the
+    uninterrupted one."""
+    import torch
+    from pathlib import Path
+    from torch.profiler import ProfilerActivity, profile
+    from pyfem_gpu_testflight_tpu_torch import solvers
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+    from pyfem_gpu_testflight_tpu_torch.opt import DeviceTopo
+
+    conn, X, fixed, force, (Lx, Ly) = problem(NX, NY)
+    t0 = time.time()
+    model = pt.LinearElasticity("quad4", X, conn, fixed, None, force, p=3.0,
+                                dtype=torch.float32, device=dev)
+    model.attach_structured_grid(NX, NY, nu_pre=2, nu_post=2, min_n=5,
+                                 smoother_dtype=torch.bfloat16,
+                                 omega="cheby")
+    filtr = pt.Helmholtz(0.01, "quad4", X, conn, dtype=torch.float32,
+                         rtol=1e-6, device=dev)
+    filtr.attach_structured_grid(NX, NY)
+    make = lambda: DeviceTopo(model, filtr, fixed_volume=0.4, rtol=1e-6,
+                              maxiter=200)
+    dt = make()
+    torch.cuda.synchronize()
+    log(f"topo: {model.ndof} state dof, {model.nnodes} design variables, "
+        f"levels {model._gmg_asm.sizes}, set-up {time.time() - t0:.2f} s")
+    t0 = time.time()
+    dt.optimize(max_iterations=TOPO_WARMUP, verbose=False,
+                log_every=TOPO_WARMUP)
+    log(f"topo: {TOPO_WARMUP}-iteration warm-up {time.time() - t0:.2f} s")
+
+    # the timed run: launches snapshotted at the end of every iteration
+    names = ("pyfem_assemble_2d", "pyfem_smooth_2d", "pyfem_stencil_2d")
+    snaps = []
+
+    def snapshot(stage):
+        if stage == "mma_update":
+            snaps.append(dict({k: _cuda.launches[k] for k in names},
+                              **solvers.readbacks))
+
+    dt.mark = snapshot
+    dt.history.clear()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    rb0 = dict(solvers.readbacks)
+    log_every = TOPO_ITERS // 4
+    _cuda.reset_launches()
+    x, rho = dt.optimize(max_iterations=TOPO_ITERS, verbose=False,
+                         log_every=log_every)
+    torch.cuda.synchronize()
+    mem = torch.cuda.max_memory_allocated() - base
+    dt.mark = None
+    per_it = [{k: s_[k] - (snaps[i - 1][k] if i else 0) for k in names}
+              for i, s_ in enumerate(snaps)]
+    hist = dt.history
+    cg = [h["cg_iters"] for h in hist]
+    fi = [h["filter_iters"] for h in hist]
+    objs = [h["obj"] for h in hist]
+    # read-backs of the timed iterations: the state PCG's r.r per PCG
+    # iteration, the filter's flag per 16 of its iterations, one stats
+    # drain per log_every iterations
+    rb = {k: snaps[-1][k] - rb0[k] for k in rb0}
+    reads = rb["pcg"] + rb["cg"] + TOPO_ITERS // log_every
+    log(f"topo: {TOPO_ITERS} timed MMA iterations (bench.py runs 40; cut "
+        f"to {TOPO_ITERS} for the time limit) in {dt.elapsed:.3f} s, "
+        f"{dt.s_per_iter:.4f} s/iteration (CUDA-synchronized; steady "
+        f"{dt.steady_s_per_iter:.4f}); compliance {objs[0]:.6e} -> "
+        f"{objs[-1]:.6e}, volume {float(model.volume(rho)):.5f}")
+    log(f"topo: state PCG iterations {cg}")
+    log(f"topo: filter PCG iterations (fwd, bwd) {fi}")
+    log(f"topo: launches per iteration K1 {[p['pyfem_assemble_2d'] for p in per_it]}, "
+        f"K2 {[p['pyfem_smooth_2d'] for p in per_it]}, K9 "
+        f"{[p['pyfem_stencil_2d'] for p in per_it]}")
+    log(f"topo: host read-backs {reads} in {TOPO_ITERS} iterations "
+        f"({reads / TOPO_ITERS:.1f} per iteration: state PCG {rb['pcg']}, "
+        f"filter {rb['cg']}, drains {TOPO_ITERS // log_every}); peak "
+        f"device memory {mem / 2**20:.1f} MiB above the {base / 2**20:.1f} "
+        f"MiB allocated before the run")
+    check(len(hist) == TOPO_ITERS and all(np.isfinite(objs))
+          and all(0 < c <= 200 for c in cg), "topo: 20 iterations, finite "
+          "history, every state solve converged (drain checks each)")
+    check(len(per_it) == TOPO_ITERS
+          and all(p["pyfem_stencil_2d"] > 0 for p in per_it)
+          and all(p["pyfem_assemble_2d"] == len(model._gmg_asm.sizes)
+                  for p in per_it),
+          "topo: K9 launched in every iteration, K1 once per level")
+
+    # the six stages of an iteration (CUDA events between them), then
+    # the same step under the profiler
+    lb_v, ub_v = dt._init_state()[1:3]
+    state, k = dt.state, TOPO_ITERS
+    stage_ms, step_ms = {}, []
+    for _ in range(3):
+        events = []
+
+        def record(stage):
+            events.append((stage, torch.cuda.Event(enable_timing=True)))
+            events[-1][1].record()
+
+        dt.mark = record
+        e0 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        state, _st = dt._step(*state, k, lb_v, ub_v)
+        k += 1
+        torch.cuda.synchronize()
+        prev = e0
+        for stage, e in events:
+            stage_ms.setdefault(stage, []).append(prev.elapsed_time(e))
+            prev = e
+        step_ms.append(e0.elapsed_time(prev))
+    dt.mark = None
+    log("topo: one iteration's stages (CUDA events, mean of 3): " + ", ".join(
+        f"{st_} {np.mean(v):.3f} ms" for st_, v in stage_ms.items())
+        + f"; whole iteration {np.mean(step_ms):.3f} ms")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, _st = dt._step(*state, k, lb_v, ub_v)
+        torch.cuda.synchronize()
+    dev_us = lambda r: getattr(r, "self_device_time_total",
+                               getattr(r, "self_cuda_time_total", 0.0))
+    rows = [r for r in prof.key_averages() if dev_us(r) > 0]
+    busy_ms = sum(dev_us(r) for r in rows) / 1e3
+    if rows:
+        log(f"topo profile: {sum(r.count for r in rows)} device activities "
+            f"in one iteration, device time {busy_ms:.3f} ms = "
+            f"{100 * busy_ms / np.mean(step_ms):.1f}% of the unprofiled "
+            f"iteration's {np.mean(step_ms):.3f} ms")
+        for r in sorted(rows, key=dev_us, reverse=True)[:8]:
+            log(f"  {dev_us(r) / 1e3:9.3f} ms {r.count:6d}x  {r.key[:90]}")
+    else:
+        log("topo profile: no device time recorded (busy share not "
+            "measured)")
+
+    # the first iteration's float32 compliance against a float64-outer
+    # solve of the same density
+    x0 = torch.full((model.nnodes,), 0.95, dtype=torch.float32, device=dev)
+    rho0 = torch.clamp(filtr.apply(x0), min=dt.rho_floor)
+    gmg, lv0 = model._gmg_asm.assemble(rho0)
+    b = torch.where(lv0.mask, 0.0,
+                    i2p(model.compute_rhs(), 2).reshape(2, NY, NX))
+    mv64, mvabs, _ = f64_operator(NX, NY, Lx, Ly, rho0, 3.0, dev)
+    xa, ka, _ = accuracy_solve(gmg, mv64, b)
+    true_a, _ = residuals(mv64, mvabs, b, xa)
+    c64 = float(torch.dot(b.double().reshape(-1), xa.reshape(-1)))
+    log(f"topo: first iteration compliance float32 {objs[0]:.8e}, "
+        f"float64-outer ({ka} iterations, true residual {true_a:.2e}) "
+        f"{c64:.8e}: rel diff {abs(objs[0] - c64) / abs(c64):.3e}")
+    check(true_a <= 1e-5, "topo: float64-outer true residual <= 1e-5")
+
+    # stop at 2, resume to 4: bit for bit the uninterrupted 4 iterations
+    ck = Path("build") / "chip_smoke" / "topo_checkpoint.npz"
+    ck.parent.mkdir(parents=True, exist_ok=True)
+    d_full = make()
+    x4, _ = d_full.optimize(max_iterations=4, verbose=False, log_every=2)
+    make().optimize(max_iterations=2, verbose=False, log_every=2,
+                    checkpoint_path=str(ck))
+    d_res = make()
+    x4r, _ = d_res.optimize(max_iterations=4, verbose=False, log_every=2,
+                            resume=str(ck))
+    same = torch.equal(x4, x4r) and [h["obj"] for h in d_res.history] == [
+        h["obj"] for h in d_full.history]
+    log(f"topo: 4 iterations resumed at 2 vs uninterrupted: bit-identical "
+        f"{same} (objectives {[h['obj'] for h in d_res.history]})")
+    check(same, "topo: a run resumed at iteration 2 equals the "
+          "uninterrupted run bit for bit")
+    n_k9 = sum(p["pyfem_stencil_2d"] for p in per_it)
+    return dict(s_per_iter=dt.s_per_iter, k9_launches=n_k9,
+                k9_per_iter=n_k9 / TOPO_ITERS, mem=mem, cg=cg)
+
+
 def phase_direct(dev, pt):
     """Phase 6b: host scipy direct solves against the card's CG on small
     jittered meshes (quad4 257x129 both models; tet10 and brick20 on a
@@ -1413,6 +1802,9 @@ def main():
     kres.update(phase_kernels_otf(dev))
     # 3c. element stiffness
     kres.update(phase_kernels_elem(dev, pt, _cuda.build_log))
+    # 3d, 3e. the 2D stencil product and the half-symmetric 2D storage
+    kres.update(phase_kernels_k9(dev))
+    kres.update(phase_kernels_sym2d(dev))
 
     # 4, 4a, 4b, 4c, 4d. main paths
     m2 = phase_main_2d(dev, pt, multigrid, i2p, p2i)
@@ -1460,6 +1852,17 @@ def main():
         f"{m2c['ch']:.3f} vs {m2['ch']:.3f} ms/solve; peak memory "
         f"{m2c['mem'] / 2**20:.1f} vs {m2['mem'] / 2**20:.1f} MiB")
 
+    m2s = phase_main_2d(dev, pt, multigrid, i2p, p2i, "bench 2D sym",
+                        sym=True)
+    check(m2s["k"] <= 8 and abs(m2s["k"] - m2["k"]) <= 1,
+          "bench 2D sym: <= 8 iterations, within 1 of phase 4")
+    log(f"bench 2D sym vs full storage: {m2s['k']} vs {m2['k']} iterations; "
+        f"true residual {m2s['true']:.3e} vs {m2['true']:.3e}; hierarchy "
+        f"assembly {m2s['asm_ms']:.3f} vs {m2['asm_ms']:.3f} ms; "
+        f"single-shot {m2s['single_ms']:.3f} vs {m2['single_ms']:.3f} ms, "
+        f"chained {m2s['ch']:.3f} vs {m2['ch']:.3f} ms/solve; peak memory "
+        f"{m2s['mem'] / 2**20:.1f} vs {m2['mem'] / 2**20:.1f} MiB")
+
     # 5, 5a, 5b. model entry point
     phase_model(dev, pt, "quad4", (NX, NY), "2D")
     phase_model(dev, pt, "hex8", (N3, N3, N3), "3D")
@@ -1473,6 +1876,9 @@ def main():
     phase_scipy(dev, pt, multigrid, i2p, p2i, (257, 129))
     phase_scipy(dev, pt, multigrid, i2p, p2i, (17, 17, 17))
     phase_direct(dev, pt)
+
+    # 7. topology optimization at the bench width
+    topo = phase_topo(dev, pt, i2p)
 
     # summary
     src = "pyfem_gpu_testflight_tpu_torch/csrc/"
@@ -1511,6 +1917,22 @@ def main():
          "(timed, main path 5c), hex8 Poisson the whole element, "
          "tet10/brick20 one row (forms)"),
     )
+    cs = m2s["counts"]
+    rows += (
+        ("K1-sym", "assemble_pack_2d(sym=True)", "assemble_2d.cu",
+         "pallas_assemble.py:192", cs["pyfem_assemble_2d_sym"],
+         "half-symmetric storage, 19 of 36 planes (5 of 9 at nd=1), one "
+         "pass (main path: bench 2D sym, once per level)"),
+        ("K2-sym", "fused_sweeps_2d (sym planes)", "smooth_2d.cu",
+         "pallas_smooth.py:369", cs["pyfem_smooth_2d_sym"],
+         "half-symmetric storage, partner term by a shifted read, one "
+         "stencil pass per sweep (main path: bench 2D sym)"),
+        ("K9", "stencil_matvec_2d", "stencil_2d.cu", "pallas_stencil.py:56",
+         topo["k9_launches"],
+         "one thread per node, all nd outputs, f32 and f64 (main path: "
+         f"topo, {TOPO_ITERS} MMA iterations; timed form nd=1 f32, the "
+         "filter's)"),
+    )
     kernels = []
     kres["K8"] = dict(kres["K8 hex8 elasticity"], max_abs_err=max(
         [v["max_abs_err"] for k, v in kres.items() if k.startswith("K8 ")]
@@ -1542,10 +1964,15 @@ def main():
                 for k, v in kres.items() if k.startswith("K8 ")}
         if key in ("K7a", "K7b", "K8"):
             row["ptxas"] = r["ptxas"]
+        if key == "K9":
+            row["launches_per_mma_iteration"] = topo["k9_per_iter"]
+            row["forms"] = r["forms"]
         kernels.append(row)
     if FAILS:
         print("chip_smoke FAILED:\n  " + "\n  ".join(FAILS), file=sys.stderr)
         return 1
+    log(f"topo: {topo['s_per_iter']:.4f} s per MMA iteration at "
+        f"{NX}x{NY} ({card})")
     log(f"2D single-shot {s2:.3f} ms, chained {ch2:.3f} ms/solve; 3D "
         f"single-shot {m3['single_ms']:.3f} ms, chained {m3['ch']:.3f} "
         f"ms/solve; 3D otf single-shot {mo['single_ms']:.3f} ms, chained "

@@ -19,12 +19,18 @@ test aid, not a dependency.
 
 On the general-mesh element path the state is the mesh, the density and
 the element tables, passed to both packages as they are.  What differs
-is the element kernels' layout: :func:`ket_to_ke` and :func:`xe_to_xet`
-take the JAX Pallas kernels' element-minor ``KeT (ndpe*ndpe, nelems)``
-to the element-major ``Ke (nelems, ndpe, ndpe)``, and ``Xe (nelems, nn,
-ndims)`` to ``XeT (nn*ndims, nelems)``, through the port's own
-transposes (``ops.element_kernels.transpose_xe`` / ``untranspose``).
-Each takes a numpy array or a torch tensor and returns the same kind.
+is the element kernels' layout: :func:`ket_to_ke` takes the JAX Pallas
+kernels' element-minor ``KeT (ndpe*ndpe, nelems)`` to the element-major
+``Ke (nelems, ndpe, ndpe)`` through the port's one transpose pair
+(``ops.element_kernels.transpose_xe`` / ``untranspose``, which also
+takes ``Xe (nelems, nn, ndims)`` to ``XeT (nn*ndims, nelems)``).  It
+takes a numpy array or a torch tensor and returns the same kind.
+
+Topology optimization's state is the optimizer's:
+:func:`load_topo_checkpoint` reads a ``DeviceTopo`` checkpoint npz of
+either package (the keys are the same; ``u_prev`` is planar ``(nd, ny,
+nx)`` in both) into the port's device tensors, so the port can resume a
+JAX run.
 """
 
 from __future__ import annotations
@@ -32,10 +38,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .ops.element_kernels import transpose_xe, untranspose
+from .ops.element_kernels import untranspose
 from .ops.fused_assemble import assembly_weights, assembly_weights3d
 
-__all__ = ["assembler_state_from_numpy", "ket_to_ke", "xe_to_xet"]
+__all__ = ["assembler_state_from_numpy", "ket_to_ke",
+           "load_topo_checkpoint"]
 
 
 def _same_kind(fn, a, *args):
@@ -53,9 +60,24 @@ def ket_to_ke(KeT):
     return _same_kind(untranspose, KeT, ndpe, ndpe)
 
 
-def xe_to_xet(Xe):
-    """(nelems, nn, ndims) -> (nn*ndims, nelems), rows n*ndims + i."""
-    return _same_kind(transpose_xe, Xe)
+def load_topo_checkpoint(path, dtype, device):
+    """A ``DeviceTopo`` checkpoint (either package's npz) as the port's
+    optimizer state.
+
+    Returns:
+        ((x, xold1, xold2, low, upp, u_prev) tensors of ``dtype`` on
+        ``device``, k_next, the replayed history list).
+    """
+    d = np.load(path)
+    state = tuple(torch.as_tensor(d[n], dtype=dtype, device=device)
+                  for n in ("x", "xold1", "xold2", "low", "upp", "u_prev"))
+    history = [
+        {"iter": int(i), "obj": float(o), "con": [float(v) for v in c],
+         "step": float(s), "cg_iters": int(g)}
+        for i, o, c, s, g in zip(d["hist_iter"], d["hist_obj"],
+                                 d["hist_con"], d["hist_step"], d["hist_cg"])
+    ]
+    return state, int(d["k_next"]), history
 
 
 def assembler_state_from_numpy(asm, Kq, masks, W=None, otf=None, sym=None):
@@ -74,7 +96,7 @@ def assembler_state_from_numpy(asm, Kq, masks, W=None, otf=None, sym=None):
             ``(w3, wd)`` are read (the mask comes from ``masks``) — or
             None on its assembled levels; None folds the K6 tables from
             ``Kq`` (``ops.otf3d.otf_weights``).
-        sym: 3D coefficient storage to install (the JAX ``pallas_sym``);
+        sym: coefficient storage to install (the JAX ``pallas_sym``);
             None keeps the assembler's.
 
     Returns:
@@ -89,8 +111,6 @@ def assembler_state_from_numpy(asm, Kq, masks, W=None, otf=None, sym=None):
         raise ValueError(f"{len(W)} W for {len(Kq)} levels")
     if otf is not None and len(otf) != len(Kq):
         raise ValueError(f"{len(otf)} OTF entries for {len(Kq)} levels")
-    if sym is not None and not hasattr(asm, "sym"):
-        raise ValueError("sym applies to a 3D assembler only")
     put = lambda a: torch.as_tensor(
         np.asarray(a), dtype=asm.dtype, device=asm.device
     ).contiguous()

@@ -1,8 +1,11 @@
 // K1: nodal density -> BC-eliminated 9-point stencil planes + inverse
-// diagonal (+ optional bf16 copy), one pass, on an NVIDIA Hopper card.
+// diagonal (+ optional bf16 copy), one pass, on an NVIDIA Hopper card, in
+// full storage (all nd*nd*9 planes) or half-symmetric storage (the kept
+// planes of ops/fused_smooth.py::sym_planes_2d: 19 of 36 at nd=2, 5 of 9
+// at nd=1).
 //
 // Replaces: pyfem_gpu_testflight_tpu/ops/pallas_assemble.py:
-//   assemble_pack_2d (Pallas kernel _kernel).
+//   assemble_pack_2d with sym=False and sym=True (Pallas kernel _kernel).
 // Plain reference: ops/fused_assemble.py::assemble_pack_2d_plain.
 //
 // Per node (iy, ix), for the <= 4 valid elements (ey, ex) = (iy-ay, ix-ax)
@@ -19,7 +22,8 @@
 // neighbourhood) and writes 36 f32 planes + 36 bf16 planes + 2 inverse
 // diagonal planes: 36 x 6 B + 8 B = 224 B per node, about 118 MB at
 // 1025x513 (~35 us at 3.35 TB/s).  The ~600 FMAs per node are far below
-// the card's compute roof.
+// the card's compute roof.  Half storage writes 19 + 19 planes + 2: about
+// 70 MB at nd=2 with the bf16 copy (~21 us).
 // What the design does about it: one thread per node with x fastest, so
 // each plane's store is one coalesced 128-byte line per warp; every
 // output is written exactly once and nothing intermediate touches
@@ -33,7 +37,7 @@ namespace {
 
 constexpr int NQ = 4;  // quad4 2x2 Gauss points
 
-template <int ND>
+template <int ND, bool FULL>
 __global__ void assemble_2d_kernel(
     const float* __restrict__ rho, const float* __restrict__ maskf,
     const float* __restrict__ W, const float* __restrict__ N, float p,
@@ -73,6 +77,7 @@ __global__ void assemble_2d_kernel(
     diag[c] = 1.f;
   }
 
+  int si = 0;  // storage slot of the plane (constant once unrolled)
 #pragma unroll
   for (int ca = 0; ca < ND; ++ca) {
 #pragma unroll
@@ -84,6 +89,10 @@ __global__ void assemble_2d_kernel(
         for (int dx = 0; dx < 3; ++dx) {
           const int jx = ix + dx - 1;
           const int k = (ca * ND + cb) * 9 + dy * 3 + dx;
+          // sym_planes_2d: keep a plane unless its partner (cb, ca, 2-dy,
+          // 2-dx) comes first in the full order
+          if (!FULL && (cb * ND + ca) * 9 + (2 - dy) * 3 + (2 - dx) < k)
+            continue;
           const float* w = W + k * 4 * NQ;
           float acc = 0.f;
 #pragma unroll
@@ -99,8 +108,9 @@ __global__ void assemble_2d_kernel(
             v += 1.f - rowm[ca];
             diag[ca] = v;
           }
-          coeff[k * plane + node] = v;
-          if (coeff_lp != nullptr) coeff_lp[k * plane + node] = __float2bfloat16_rn(v);
+          coeff[si * plane + node] = v;
+          if (coeff_lp != nullptr) coeff_lp[si * plane + node] = __float2bfloat16_rn(v);
+          ++si;
         }
       }
     }
@@ -110,30 +120,48 @@ __global__ void assemble_2d_kernel(
     invd[c * plane + node] = rowm[c] / (diag[c] == 0.f ? 1.f : diag[c]);
 }
 
-}  // namespace
-
-extern "C" int pyfem_assemble_2d(const void* rho, const void* maskf,
-                                 const void* W, const void* N, float p,
-                                 int nd, int ny, int nx, void* coeff,
-                                 void* invd, void* coeff_lp, void* stream) {
+template <bool FULL>
+int launch(const void* rho, const void* maskf, const void* W, const void* N,
+           float p, int nd, int ny, int nx, void* coeff, void* invd,
+           void* coeff_lp, void* stream) {
   const dim3 block(32, 8);
   const dim3 grid((nx + 31) / 32, (ny + 7) / 8);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto lp = static_cast<__nv_bfloat16*>(coeff_lp);
+  auto f = [](const void* q) { return static_cast<const float*>(q); };
   if (nd == 2) {
-    assemble_2d_kernel<2><<<grid, block, 0, s>>>(
-        static_cast<const float*>(rho), static_cast<const float*>(maskf),
-        static_cast<const float*>(W), static_cast<const float*>(N), p, ny, nx,
-        static_cast<float*>(coeff), static_cast<float*>(invd), lp);
+    assemble_2d_kernel<2, FULL><<<grid, block, 0, s>>>(
+        f(rho), f(maskf), f(W), f(N), p, ny, nx, static_cast<float*>(coeff),
+        static_cast<float*>(invd), lp);
   } else if (nd == 1) {
-    assemble_2d_kernel<1><<<grid, block, 0, s>>>(
-        static_cast<const float*>(rho), static_cast<const float*>(maskf),
-        static_cast<const float*>(W), static_cast<const float*>(N), p, ny, nx,
-        static_cast<float*>(coeff), static_cast<float*>(invd), lp);
+    assemble_2d_kernel<1, FULL><<<grid, block, 0, s>>>(
+        f(rho), f(maskf), f(W), f(N), p, ny, nx, static_cast<float*>(coeff),
+        static_cast<float*>(invd), lp);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// All nd*nd*9 planes (K1 full storage).
+extern "C" int pyfem_assemble_2d(const void* rho, const void* maskf,
+                                 const void* W, const void* N, float p,
+                                 int nd, int ny, int nx, void* coeff,
+                                 void* invd, void* coeff_lp, void* stream) {
+  return launch<true>(rho, maskf, W, N, p, nd, ny, nx, coeff, invd,
+                      coeff_lp, stream);
+}
+
+// The kept planes of sym_planes_2d (K1 half-symmetric storage).
+extern "C" int pyfem_assemble_2d_sym(const void* rho, const void* maskf,
+                                     const void* W, const void* N, float p,
+                                     int nd, int ny, int nx, void* coeff,
+                                     void* invd, void* coeff_lp,
+                                     void* stream) {
+  return launch<false>(rho, maskf, W, N, p, nd, ny, nx, coeff, invd,
+                       coeff_lp, stream);
 }
 
 extern "C" const char* pyfem_cuda_error_string(int err) {

@@ -3,8 +3,11 @@
 Port of ``pyfem_gpu_testflight_tpu/models/base.py``: the constructor's
 mesh, element-table and BC state, the lazy host sparsity ``pattern``,
 ``assemble_scipy``, the matrix-free ``matvec`` / ``diagonal``,
-``attach_structured_grid`` in 2D and 3D, and the ``"gmg"``, ``"cg"``
-and ``"direct"`` branches of ``_solve_system``.  Every other method or
+``attach_structured_grid`` in 2D and 3D, the ``"gmg"``, ``"cg"`` and
+``"direct"`` branches of ``_solve_system``, the design sensitivity
+``d(phi^T K psi)/drho`` (the generic einsum route with a deterministic
+segment sum, and the scatter-free structured route of an attached
+uniform grid) and the volume functionals.  Every other method or
 branch raises ``NotImplementedError`` naming the ROADMAP.md slice that
 ports it.
 
@@ -140,6 +143,7 @@ class FEModel:
         self.Xe = geometry.gather_to_elements(self.X, self.conn)
         self._pattern = None
         self._segments = None
+        self._node_segments = None
         self.kernel = "einsum"
 
         # Constrain dofs of unreferenced grid nodes (e.g. brick20 meshes
@@ -232,6 +236,15 @@ class FEModel:
                 self.conn_dof, self.ndof, device=self.device)
         return self._segments
 
+    @property
+    def node_segments(self) -> assembly.SortedSegments:
+        """Sorted node index of ``conn`` (element -> node sums of the
+        design sensitivity), built on first use."""
+        if self._node_segments is None:
+            self._node_segments = assembly.SortedSegments(
+                self.conn, self.nnodes, device=self.device)
+        return self._node_segments
+
     def assemble_scipy(self, Ke, apply_bcs=False, enforce_symmetric_K=True,
                        rhs=None):
         """Assemble element matrices into a host scipy CSR matrix."""
@@ -253,6 +266,60 @@ class FEModel:
     def diagonal(self, Ke):
         return assembly.elem_diagonal(Ke, self.conn_dof, self.ndof,
                                       self.segments)
+
+    # -- design sensitivity and volume ----------------------------------------
+
+    def _dv_sens_inputs(self, rho, phi, psi):
+        """Nodal rho, phi, psi on the device; complex inputs (the
+        reference's complex-step probes) are not ported."""
+        if any(torch.is_complex(torch.as_tensor(v)) for v in (rho, phi, psi)):
+            _not_ported("complex-step inputs", "slice 1 item 4")
+        return (self._as_nodal(rho), torch.as_tensor(phi, device=self.device),
+                torch.as_tensor(psi, device=self.device))
+
+    def _gather_dv(self, rho, phi, psi):
+        """Quad-point rho and element-gathered phi/psi of the generic
+        route: (rho_q (nelems, nq), phi_e, psi_e (nelems, nn[, nd]))."""
+        rho_q = geometry.interp_to_quads(self.N, rho[self.conn])
+        nd = self.ndof_per_node
+        shape = (self.nelems, self.nnodes_per_elem) + ((nd,) if nd > 1
+                                                      else ())
+        return (rho_q, phi[self.conn_dof].reshape(shape),
+                psi[self.conn_dof].reshape(shape))
+
+    def _k_dv_sens_structured(self, rho, phi, psi):
+        """Uniform-grid scatter-free d(phi^T K psi)/drho.
+
+        Valid when ``attach_structured_grid`` has been called (the GMG
+        assembler shares this model's physics and uniform geometry);
+        dispatched from the models' ``k_dv_sens``.  Same contract as the
+        generic einsum + segment-sum route, without the per-element
+        gather and scatter.
+        """
+        from ..ops.dia import interleave_to_planar
+
+        nd = self.ndof_per_node
+        shape = self._gmg_shape
+        to_planes = lambda v: interleave_to_planar(
+            v.to(self.dtype), nd).reshape((nd,) + shape)
+        out = self._gmg_asm.dv_sens(rho.to(self.dtype).reshape(shape),
+                                    to_planes(phi), to_planes(psi))
+        return out.reshape(-1)
+
+    def _use_structured_sens(self):
+        """True when the scatter-free uniform-grid sensitivity applies:
+        a structured grid on the uniform element path is attached."""
+        asm = getattr(self, "_gmg_asm", None)
+        return asm is not None and asm.elem_path == "uniform"
+
+    def volume(self, rho):
+        """Mean nodal density."""
+        return torch.sum(torch.as_tensor(rho, device=self.device)) / \
+            self.nnodes
+
+    def volume_grad(self, rho):
+        return torch.full((self.nnodes,), 1.0 / self.nnodes,
+                          dtype=self.dtype, device=self.device)
 
     # -- not ported in this slice -----------------------------------------
 

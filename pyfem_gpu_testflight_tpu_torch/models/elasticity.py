@@ -4,8 +4,10 @@ Port of ``LinearElasticity`` from
 ``pyfem_gpu_testflight_tpu/models/elasticity.py`` (reference
 pyfem.py:1667-2068): the constructor with its ``kernel`` option,
 ``element_jacobian`` (einsum path or the element kernels K7 / K8),
-``compute_jacobian``, ``compute_rhs`` and ``solve`` with ``method="cg"``,
-``"direct"`` or ``"gmg"``.  The stiffness is in Lamé form, algebraically
+``compute_jacobian``, ``compute_rhs``, ``solve`` with ``method="cg"``,
+``"direct"`` or ``"gmg"``, and the optimization functionals
+``compliance``, ``compliance_grad``, ``k_dv_sens``, ``volume`` and
+``volume_grad`` (pyfem.py:1797-1920).  The stiffness is in Lamé form, algebraically
 identical to the reference's B^T C0 B einsum (pyfem.py:2016-2027).
 """
 
@@ -14,8 +16,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import assembly
 from ..ops import geometry, stiffness
-from .base import FEModel, _not_ported, ramp
+from .base import FEModel, ramp, ramp_deriv
 
 __all__ = ["LinearElasticity"]
 
@@ -93,15 +96,6 @@ class LinearElasticity(FEModel):
         """Assembled host scipy CSR global matrix (the direct path)."""
         return self.assemble_scipy(self.element_jacobian(rho))
 
-    def compliance(self, rho, solver="cg"):
-        _not_ported("LinearElasticity.compliance", "slice 1 item 4")
-
-    def compliance_grad(self, rho, u):
-        _not_ported("LinearElasticity.compliance_grad", "slice 1 item 4")
-
-    def k_dv_sens(self, rho, phi, psi):
-        _not_ported("LinearElasticity.k_dv_sens", "slice 1 item 4")
-
     def compute_rhs(self):
         """Nodal point forces scattered into the dof vector."""
         if self._rhs is None:
@@ -122,3 +116,30 @@ class LinearElasticity(FEModel):
         u, _ = self._solve_system(Ke, self.compute_rhs(), method, rtol,
                                   rho=rho, maxiter=maxiter)
         return u
+
+    # -- optimization functionals -------------------------------------------
+
+    def compliance(self, rho, solver="cg"):
+        """Compliance c = <rhs_bc, u> and state u (pyfem.py:1797-1834)."""
+        rho = self._as_nodal(rho)
+        Ke = None if solver == "gmg" else self.element_jacobian(rho)
+        u, b = self._solve_system(Ke, self.compute_rhs(), solver, rho=rho)
+        b = b.to(u.dtype)
+        return torch.dot(b, u), u
+
+    def compliance_grad(self, rho, u):
+        """Self-adjoint compliance gradient (pyfem.py:1836-1848)."""
+        return -self.k_dv_sens(rho, u, u)
+
+    def k_dv_sens(self, rho, phi, psi):
+        """d(phi^T K psi)/d rho, nodal (pyfem.py:1872-1920): the
+        structured route on an attached uniform grid, else the einsum
+        route with a deterministic element -> node segment sum."""
+        rho, phi, psi = self._dv_sens_inputs(rho, phi, psi)
+        if self._use_structured_sens():
+            return self._k_dv_sens_structured(rho, phi, psi)
+        rho_q, phi_e, psi_e = self._gather_dv(rho, phi, psi)
+        inner = stiffness.elasticity_dv_inner(
+            self.Xe, self.dN, self.N, self.wq, ramp_deriv(rho_q, self.p),
+            phi_e, psi_e, self.mu, self.lam)
+        return assembly.segment_sum(inner, self.node_segments, self.nnodes)

@@ -3,8 +3,11 @@
 Port of ``LinearPoisson`` from ``pyfem_gpu_testflight_tpu/models/poisson.py``
 (reference pyfem.py:934-1329): the constructor with its ``kernel``
 option, ``compute_rhs`` (source term ``gfunc``), ``element_jacobian``
-(einsum path or the element kernels K7 / K8), ``compute_jacobian`` and
-``solve`` with ``method="cg"``, ``"direct"`` or ``"gmg"``.
+(einsum path or the element kernels K7 / K8), ``compute_jacobian``,
+``solve`` with ``method="cg"``, ``"direct"`` or ``"gmg"``, and the
+optimization functionals ``compliance``, ``compliance_grad`` (with its
+adjoint solve for the unweighted objective), ``k_dv_sens``, ``volume``
+and ``volume_grad`` (pyfem.py:1032-1276).
 """
 
 from __future__ import annotations
@@ -13,7 +16,7 @@ import torch
 
 from .. import assembly
 from ..ops import geometry, stiffness
-from .base import FEModel, _not_ported, ramp
+from .base import FEModel, ramp, ramp_deriv
 
 __all__ = ["LinearPoisson"]
 
@@ -106,15 +109,6 @@ class LinearPoisson(FEModel):
                                                  self.ndof, self.segments)
         return self._rhs
 
-    def compliance(self, rho, solver="cg", weighted=True):
-        _not_ported("LinearPoisson.compliance", "slice 1 item 4")
-
-    def compliance_grad(self, rho, u, weighted=True, solver="cg"):
-        _not_ported("LinearPoisson.compliance_grad", "slice 1 item 4")
-
-    def k_dv_sens(self, rho, phi, psi):
-        _not_ported("LinearPoisson.k_dv_sens", "slice 1 item 4")
-
     # -- solves --------------------------------------------------------------
 
     def solve(self, method="cg", rho=1.0, rtol=1e-8, maxiter=None):
@@ -124,3 +118,42 @@ class LinearPoisson(FEModel):
         u, _ = self._solve_system(Ke, self.compute_rhs(), method, rtol,
                                   rho=rho, maxiter=maxiter)
         return u
+
+    # -- optimization functionals -------------------------------------------
+
+    def compliance(self, rho, solver="cg", weighted=True):
+        """Thermal compliance c = <rhs_bc, u> (or mean(u)) and state u
+        (pyfem.py:1032-1073)."""
+        rho = self._as_nodal(rho)
+        Ke = None if solver == "gmg" else self.element_jacobian(rho)
+        u, b = self._solve_system(Ke, self.compute_rhs(), solver, rho=rho)
+        if weighted:
+            return torch.dot(b.to(u.dtype), u), u
+        return torch.sum(u) / u.shape[0], u
+
+    def compliance_grad(self, rho, u, weighted=True, solver="cg"):
+        """Adjoint gradient of compliance w.r.t. nodal rho (pyfem.py:1075).
+
+        The unweighted objective's adjoint solve uses the caller's
+        solver (the reference hardcodes spsolve, pyfem.py:1098).
+        """
+        rho = self._as_nodal(rho)
+        if weighted:
+            psi = u  # self-adjoint
+        else:
+            Ke = None if solver == "gmg" else self.element_jacobian(rho)
+            rhs = torch.ones(self.ndof, dtype=self.dtype, device=self.device)
+            psi, _ = self._solve_system(Ke, rhs, solver, rho=rho)
+            psi = psi / self.ndof
+        return -self.k_dv_sens(rho, psi, u)
+
+    def k_dv_sens(self, rho, phi, psi):
+        """d(phi^T K psi)/d rho, nodal (pyfem.py:1240-1276)."""
+        rho, phi, psi = self._dv_sens_inputs(rho, phi, psi)
+        if self._use_structured_sens():
+            return self._k_dv_sens_structured(rho, phi, psi)
+        rho_q, phi_e, psi_e = self._gather_dv(rho, phi, psi)
+        inner = stiffness.poisson_dv_inner(
+            self.Xe, self.dN, self.N, self.wq, ramp_deriv(rho_q, self.p),
+            phi_e, psi_e)
+        return assembly.segment_sum(inner, self.node_segments, self.nnodes)

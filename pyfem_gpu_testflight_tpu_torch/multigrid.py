@@ -4,9 +4,10 @@ Port of the 2D and 3D (uniform and on-the-fly element paths) parts of
 ``pyfem_gpu_testflight_tpu/multigrid.py``:
 
 * every level's operator is a BC-eliminated stencil assembled from the
-  nodal density: 9-point planes by kernel K1 in 2D, 27-point planes by
-  kernel K3 in 3D (``ops.fused_assemble``; half-symmetric storage, or
-  all planes with ``sym=False``), on every level (the TPU's
+  nodal density: 9-point planes by kernel K1 in 2D (all planes, or
+  half-symmetric storage with ``sym=True``), 27-point planes by kernel
+  K3 in 3D (``ops.fused_assemble``; half-symmetric storage, or all
+  planes with ``sym=False``), on every level (the TPU's
   assembly-size thresholds are TPU tuning) — except on the 3D
   ``elem_path="otf"`` route, where every level but the coarsest stores
   no coefficients and kernel K6 rebuilds them from the density in each
@@ -19,6 +20,8 @@ Port of the 2D and 3D (uniform and on-the-fly element paths) parts of
   matvec; in 3D kernel K5 runs each smoothing call (sweeps + residual)
   and kernel K4 the operator matvec (``ops.fused_smooth``), or K6 all
   three on an OTF level;
+* the design sensitivity d(phi^T K psi)/drho on the fine uniform grid
+  is scatter-free (:func:`_dv_sens_uniform`, ``GMGAssembler.dv_sens``);
 * prolongation is bi/trilinear interpolation in reshape/interleave
   form, restriction its exact transpose (FEM Galerkin convention), so
   the V-cycle is a symmetric preconditioner for CG;
@@ -39,8 +42,9 @@ import torch
 import torch.nn.functional as F
 
 from .device import resolve_device
+from .solvers import readbacks
 from .ops import fused_assemble, fused_smooth, otf3d
-from .ops.stencil import Stencil2D, Stencil3D
+from .ops.stencil import _HEX8_LOCAL, _QUAD4_LOCAL, Stencil2D, Stencil3D
 
 __all__ = [
     "Level",
@@ -184,7 +188,9 @@ class Level:
 
     Attributes:
         op: Stencil2D (plan + plain matvec).
-        coeff: (nd*nd*9, ny, nx) BC-eliminated stencil planes.
+        coeff: (nk, ny, nx) BC-eliminated stencil planes: all nd*nd*9,
+            or the kept planes of ``fused_smooth.sym_planes_2d`` (K2
+            reads either).
         coeff_lp: low-precision copy for the smoother, or None.
         inv_diag: (nd, ny, nx) inverse diagonal, 0 at fixed dofs.
         mask: (nd, ny, nx) bool, True at constrained dofs.
@@ -251,7 +257,8 @@ class Level:
         """Explicit inverse of the (small) coarsest operator.
 
         Columns come from the plain stencil matvec over an identity
-        batch; the inverse is computed once per hierarchy assembly.  It
+        batch, on the full planes (rebuilt from the kept ones under sym
+        storage); the inverse is computed once per hierarchy assembly.  It
         is a preconditioner component, so the inverse's (bounded) loss
         of backward stability vs a Cholesky solve is immaterial.
         """
@@ -259,7 +266,7 @@ class Level:
         n = ny * nx * self.nd
         eye = torch.eye(n, dtype=self.inv_diag.dtype,
                         device=self.inv_diag.device)
-        c = self.coeff.reshape(self.nd, self.nd, 3, 3, ny, nx)
+        c = fused_smooth.as_full_planes_2d(self.coeff, self.nd)
         A = self.op.matvec(c, eye.reshape(n, self.nd, ny, nx)).reshape(n, n)
         # row i of the batch is A e_i = column i of A; A is symmetric
         L = torch.linalg.cholesky(A.t())
@@ -603,6 +610,73 @@ def _restrict_nodal(rho_grid):
     return rho_grid[(slice(None, None, 2),) * rho_grid.ndim].contiguous()
 
 
+def _dv_sens_uniform(Kq, N, p, offsets, rho_grid, phi, psi):
+    """Nodal d(phi^T K(rho) psi)/drho on a uniform grid, scatter-free.
+
+    Port of the JAX ``multigrid._dv_sens_uniform``.  With ``Ke = sum_q
+    ramp(rho_q) Kq`` the gradient is
+
+        dc[m] = sum_{e ni m} sum_q ramp'(rho_q[e]) N[q, m_e]
+                                   (phi_e^T Kq psi_e)[e]
+
+    where phi_e / psi_e are shifted slices of the (nd, *grid) component
+    planes, the quadratic forms are one ``(nq*ndpe, ndpe) @ (ndpe,
+    nelems)`` product, and the element -> node sum is one zero-padded
+    plane add per local node — no gather, no scatter, no atomics.
+    Written over the local-node offsets, so 2D and 3D share it.
+
+    Args:
+        Kq: (nq, ndpe, ndpe) unit element matrices (rows node*nd+comp,
+            nodes in ``offsets`` order).
+        N: (nq, nnodes_per_elem) shape values at quadrature points.
+        p: RAMP penalization parameter.
+        offsets: per-local-node grid offsets (``_QUAD4_LOCAL`` /
+            ``_HEX8_LOCAL`` of ``ops.stencil``).
+        rho_grid: nodal density, (ny, nx) or (nz, ny, nx).
+        phi, psi: (nd, *grid) dof component planes.
+
+    Returns:
+        (*grid,) nodal gradient (flatten for the dof-vector form).
+    """
+    from .models.base import ramp_deriv
+
+    nd = phi.shape[0]
+    esh = tuple(s - 1 for s in rho_grid.shape)
+
+    def sl(off, a):
+        return a[tuple(slice(o, o + e) for o, e in zip(off, esh))]
+
+    rho_e = [sl(off, rho_grid) for off in offsets]
+    nq = N.shape[0]
+    # term order of the JAX package's sum(): n = 1.. first, then n = 0
+    rho_q = torch.stack([
+        sum(N[q, n] * rho_e[n] for n in range(1, len(offsets)))
+        + N[q, 0] * rho_e[0]
+        for q in range(nq)
+    ])
+    w = ramp_deriv(rho_q, p)  # (nq,) + esh
+    # element dof planes, row r = local_node * nd + comp
+    P = torch.stack([sl(off, phi[a]) for off in offsets for a in range(nd)])
+    Q = torch.stack([sl(off, psi[a]) for off in offsets for a in range(nd)])
+    Pf = P.reshape(P.shape[0], -1)
+    Qf = Q.reshape(Q.shape[0], -1)
+    Kqa = Kq.to(phi.dtype)
+    # s_q[e] = phi_e^T Kq psi_e for all q at once (one matrix product)
+    Y = torch.einsum("qrs,se->qre", Kqa, Qf)
+    s = torch.einsum("re,qre->qe", Pf, Y).reshape((nq,) + esh)
+    ws = w * s
+    out = None
+    for n, off in enumerate(offsets):
+        contrib = (sum(N[q, n] * ws[q] for q in range(1, nq))
+                   + N[0, n] * ws[0])
+        pad = []
+        for o, g, e in reversed(list(zip(off, rho_grid.shape, esh))):
+            pad += [o, g - e - o]
+        padded = F.pad(contrib, pad)
+        out = padded if out is None else out + padded
+    return out
+
+
 def _left_edge_mask(nx, ny, nd):
     """(nd, ny, nx) mask: all components of the x=0 node column."""
     mask = np.zeros((nd, ny, nx), dtype=bool)
@@ -655,17 +729,22 @@ class GMGAssembler:
             with their inverse diagonal and optional bf16 copy, as the
             JAX ``Level.__init__`` does; K2 smooths them as on the
             uniform route.
+        sym: coefficient storage, the JAX package's ``pallas_sym``: all
+            nd*nd*9 planes (False, the default in 2D, as in JAX) or the
+            half-symmetric kept planes of ``fused_smooth.sym_planes_2d``
+            (K1 writes them; K2 reads them in every mode).
     """
 
     _level_cls = Level
     _assemble_fn = staticmethod(fused_assemble.assemble_pack_2d)
+    _offsets = _QUAD4_LOCAL  # local-node grid offsets (dv_sens)
 
     def __init__(self, nx, ny, Lx, Ly, physics="elasticity", E=10.0, nu=0.3,
                  p=0.0, dtype=torch.float32, device=None, nu_pre=2,
                  nu_post=2, omega=0.7, min_n=5, fine_mask=None,
                  coarse_dense=True, coarse_dense_max=4096,
                  smoother_dtype=None, cheb_lam=None, cheb_frac=8.0,
-                 elem_path="uniform"):
+                 elem_path="uniform", sym=False):
         """fine_mask: optional (nd, ny, nx) bool Dirichlet mask; coarse
         masks are derived by injection (default: clamp the x=0 column,
         matching ProblemCreator's problem factories).
@@ -686,6 +765,7 @@ class GMGAssembler:
             raise ValueError(f"unknown elem_path {elem_path!r} (the JAX "
                              f"'pallas' route is 'cuda' here)")
         self.elem_path = elem_path
+        self.sym = bool(sym)
         # spectral-radius bound of D^-1 A for Chebyshev-node smoothing
         # (power iteration on uniform grids: quad4 elasticity 2.20,
         # poisson 1.49; overestimates are safe)
@@ -828,7 +908,6 @@ class GMGAssembler:
         """RAMP material at quad points as (nquads, ney, nex) planes
         (gather-free: the quad4 nodal gather is four shifted slices)."""
         from .models.base import ramp
-        from .ops.stencil import _QUAD4_LOCAL
 
         ny, nx = rho_grid.shape
         rho_e = [rho_grid[ay : ay + ny - 1, ax : ax + nx - 1]
@@ -840,6 +919,15 @@ class GMGAssembler:
                 acc = acc + self.N[q, n] * rho_e[n]
             planes.append(acc)
         return ramp(torch.stack(planes), self.p)
+
+    def dv_sens(self, rho_grid, phi, psi):
+        """Scatter-free d(phi^T K psi)/drho on the fine grid (see
+        :func:`_dv_sens_uniform`).
+
+        rho_grid: (*grid); phi/psi: (nd, *grid).  Returns (*grid).
+        """
+        return _dv_sens_uniform(self.static_levels[0].Kq, self.N, self.p,
+                                self._offsets, rho_grid, phi, psi)
 
     def _elem_matrices(self, Xe, conn, rho_flat):
         """(nelems, ndpe, ndpe) by the einsum path."""
@@ -876,20 +964,22 @@ class GMGAssembler:
         diag = st.op.diagonal(ce)
         invd = st.maskf / torch.where(diag == 0, 1.0, diag)
         ce = ce.reshape(-1, *st.shape)
+        if self.sym:
+            ce = ce[[k for (k, *_r) in fused_smooth.sym_planes_2d(self.nd)]]
         lp = None if self.smoother_dtype is None else ce.to(
             self.smoother_dtype)
         return self._level_cls(st.op, ce, invd, st.mask, st.shape, self.nd,
                                coeff_lp=lp)
 
-    def _assemble_level(self, st, rho_grid, **kw):
-        """One level's operator from its nodal density (K1 / K3; ``kw``:
-        the kernel's extra options), or from element matrices on a 2D
+    def _assemble_level(self, st, rho_grid):
+        """One level's operator from its nodal density (K1 / K3, in the
+        assembler's storage), or from element matrices on a 2D
         ``elem_path`` other than "uniform"."""
         if st.elem is not None:
             return self._elem_level(st, rho_grid)
         outs = self._assemble_fn(
             rho_grid, st.maskf, st.W, self.N, nd=self.nd, p=self.p,
-            lp_dtype=self.smoother_dtype, **kw,
+            lp_dtype=self.smoother_dtype, sym=self.sym,
         )
         return self._level_cls(
             st.op, outs[0], outs[1], st.mask, st.shape, self.nd,
@@ -940,6 +1030,7 @@ class GMGAssembler3D(GMGAssembler):
 
     _level_cls = Level3D
     _assemble_fn = staticmethod(fused_assemble.assemble_pack_3d)
+    _offsets = _HEX8_LOCAL
 
     def __init__(self, nx, ny, nz, Lx, Ly, Lz, physics="elasticity",
                  E=10.0, nu=0.3, p=0.0, dtype=torch.float32, device=None,
@@ -1001,7 +1092,7 @@ class GMGAssembler3D(GMGAssembler):
 
     def _assemble_level(self, st, rho_grid):
         if st.otf is None:
-            return super()._assemble_level(st, rho_grid, sym=self.sym)
+            return super()._assemble_level(st, rho_grid)
         return OTFLevel(rho_grid, st.maskf, st.mask, *st.otf, st.shape,
                         self.nd, self.p,
                         smoother_bf16=self.smoother_dtype is not None)
@@ -1014,6 +1105,13 @@ class GMGAssembler3D(GMGAssembler):
 
 def _dot(a, b):
     return torch.dot(a.reshape(-1), b.reshape(-1))
+
+
+def _more(r, tol2):
+    """r.r > tol2, read back to the host (counted in
+    ``solvers.readbacks["pcg"]``)."""
+    readbacks["pcg"] += 1
+    return bool(_dot(r, r) > tol2)
 
 
 def pcg(matvec, precond, b, rtol=1e-6, maxiter=500, x0=None,
@@ -1040,7 +1138,7 @@ def pcg(matvec, precond, b, rtol=1e-6, maxiter=500, x0=None,
     pv = z
     rz = _dot(r, z)
     k = 0
-    while k < maxiter and bool(_dot(r, r) > tol2):  # one host sync
+    while k < maxiter and _more(r, tol2):  # one host sync
         Ap = matvec(pv)
         alpha = rz / _dot(pv, Ap)
         x = x + alpha * pv
@@ -1081,7 +1179,7 @@ def pcg_gmg(gmg, lv0, b, rtol=1e-6, maxiter=500, x0=None, flexible=False):
     pv = z
     rz = _dot(r, z)
     k = 0
-    while k < maxiter and bool(_dot(r, r) > tol2):  # one host sync
+    while k < maxiter and _more(r, tol2):  # one host sync
         alpha = rz / _dot(pv, Ap)
         x = x + alpha * pv
         r_new = r - alpha * Ap

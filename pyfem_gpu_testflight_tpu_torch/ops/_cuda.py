@@ -33,7 +33,7 @@ __all__ = ["library", "launch", "launches", "reset_launches", "stream_ptr",
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _SOURCES = ("assemble_2d.cu", "smooth_2d.cu", "assemble_3d.cu",
             "smooth_3d.cu", "otf_3d.cu", "stiffness_2d.cu",
-            "stiffness_3d.cu")
+            "stiffness_3d.cu", "stencil_2d.cu")
 _BUILD_DIR = (
     Path(__file__).resolve().parent.parent.parent
     / "build" / "pyfem_torch_kernels"
@@ -49,8 +49,14 @@ _FP = ctypes.POINTER(ctypes.c_float)  # a host float array
 _SIGNATURES = {
     # rho, maskf, W, N, p, nd, ny, nx, coeff, invd, coeff_lp, stream
     "pyfem_assemble_2d": (_P, _P, _P, _P, _F, _I, _I, _I, _P, _P, _P, _P),
+    # the same, half-symmetric storage (kept planes of sym_planes_2d)
+    "pyfem_assemble_2d_sym": (_P, _P, _P, _P, _F, _I, _I, _I, _P, _P, _P,
+                              _P),
     # coeff, coeff_bf16, invd, b, x, out, nd, ny, nx, omega, mode, stream
     "pyfem_smooth_2d": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
+    "pyfem_smooth_2d_sym": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
+    # coeff, u, out, nd, ny, nx, f64, stream
+    "pyfem_stencil_2d": (_P, _P, _P, _I, _I, _I, _I, _P),
     # rho, maskf, W, N, p, nd, nz, ny, nx, full, coeff, invd, coeff_lp,
     # stream
     "pyfem_assemble_3d": (_P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _P, _P,

@@ -27,8 +27,6 @@ from . import _cuda
 from .element_kernels import einsum_ket, transpose_xe
 
 __all__ = [
-    "transpose_xe_3d",
-    "transpose_xe_hex8",
     "element_table",
     "elasticity_stiffness_3d",
     "elasticity_stiffness_3d_plain",
@@ -42,10 +40,6 @@ __all__ = [
 ETYPES = ("hex8", "tet10", "brick20")
 
 _tables = {}  # (etype, device) -> (nq, 3nn+1) float32 table
-
-
-# the JAX names of the one element-minor transpose (rows n*3 + i)
-transpose_xe_3d = transpose_xe_hex8 = transpose_xe
 
 
 def element_table(etype, device):
@@ -119,7 +113,8 @@ def elasticity_stiffness_3d(XeT, cq, mu, lam, etype="hex8"):
     """3D isotropic element stiffness for hex8 / tet10 / brick20 (K8).
 
     Args:
-        XeT: (3*nn, nelems) transposed coordinates (transpose_xe_3d).
+        XeT: (3*nn, nelems) transposed coordinates
+            (``element_kernels.transpose_xe``).
         cq: (nq, nelems) RAMP material factor at quadrature points.
         mu/lam: 3D Lamé parameters.
         etype: "hex8" | "tet10" | "brick20".

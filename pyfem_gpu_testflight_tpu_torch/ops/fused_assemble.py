@@ -16,12 +16,13 @@ with ``Cq = RAMP(N @ rho_nodes)`` and ``W`` the unit matrices folded
 through the stencil plan (:func:`assembly_weights`).
 
 Layout is logical: ``rho (ny, nx)``, free mask ``(nd, ny, nx)`` (1.0
-free / 0.0 fixed), outputs ``coeff (nd*nd*9, ny, nx)`` and ``invd (nd,
-ny, nx)``.  Inverse-diagonal convention: ``invd = rowm / diag``, i.e. 0
+free / 0.0 fixed), outputs ``coeff (nk, ny, nx)`` — all ``nd*nd*9``
+planes, or with ``sym=True`` the half-symmetric kept planes of
+``fused_smooth.sym_planes_2d`` (19 at nd=2, 5 at nd=1) — and ``invd
+(nd, ny, nx)``.  Inverse-diagonal convention: ``invd = rowm / diag``, i.e. 0
 at fixed dofs (the JAX ``Level`` uses ``1 / diag``, 1 there; the two
 agree on free dofs, and a V-cycle field is zero at fixed dofs either
-way).  The TPU packing (halo rows, 128-lane padding) and the
-half-symmetric 19-plane storage are not ported.
+way).  The TPU packing (halo rows, 128-lane padding) is not ported.
 
 A CPU tensor takes the ``*_plain`` version; a CUDA tensor launches
 ``csrc/assemble_2d.cu`` (K1) or ``csrc/assemble_3d.cu`` (K3) or raises.
@@ -35,7 +36,7 @@ import torch.nn.functional as F
 
 from ..models.base import ramp
 from . import _cuda
-from .fused_smooth import sym_planes_3d
+from .fused_smooth import sym_planes_2d, sym_planes_3d
 from .stencil import _HEX8_LOCAL, _QUAD4_LOCAL, Stencil3D
 
 __all__ = [
@@ -78,10 +79,12 @@ def _check(rho, maskf, W, N, nd):
             raise ValueError(f"{name} must be {rho.dtype} on {rho.device}")
 
 
-def assemble_pack_2d_plain(rho, maskf, W, N, *, nd, p, lp_dtype=None):
+def assemble_pack_2d_plain(rho, maskf, W, N, *, nd, p, lp_dtype=None,
+                           sym=False):
     """Plain PyTorch K1 (any device, any float dtype).
 
-    Returns (coeff, invd[, coeff_lp]) — see the module docstring.
+    All planes, then the kept ones with ``sym=True``.  Returns (coeff,
+    invd[, coeff_lp]) — see the module docstring.
     """
     _check(rho, maskf, W, N, nd)
     ny, nx = rho.shape
@@ -114,12 +117,14 @@ def assemble_pack_2d_plain(rho, maskf, W, N, *, nd, p, lp_dtype=None):
     diag = torch.stack([coeff[c, c, 1, 1] for c in range(nd)])
     invd = maskf / torch.where(diag == 0.0, 1.0, diag)
     coeff = coeff.reshape(nd * nd * 9, ny, nx)
+    if sym:
+        coeff = coeff[[k for (k, *_r) in sym_planes_2d(nd)]]
     if lp_dtype is None:
         return coeff, invd
     return coeff, invd, coeff.to(lp_dtype)
 
 
-def _assemble_pack_2d_cuda(rho, maskf, W, N, *, nd, p, lp_dtype):
+def _assemble_pack_2d_cuda(rho, maskf, W, N, *, nd, p, lp_dtype, sym):
     _check(rho, maskf, W, N, nd)
     if rho.dtype != torch.float32:
         raise TypeError(f"the CUDA kernel takes float32, got {rho.dtype}")
@@ -129,13 +134,14 @@ def _assemble_pack_2d_cuda(rho, maskf, W, N, *, nd, p, lp_dtype):
         if not t.is_contiguous():
             raise ValueError("inputs must be contiguous")
     ny, nx = rho.shape
-    nk = nd * nd * 9
+    nk = len(sym_planes_2d(nd)) if sym else nd * nd * 9
     coeff = torch.empty((nk, ny, nx), dtype=rho.dtype, device=rho.device)
     invd = torch.empty((nd, ny, nx), dtype=rho.dtype, device=rho.device)
     lp = (None if lp_dtype is None else
           torch.empty((nk, ny, nx), dtype=lp_dtype, device=rho.device))
     _cuda.launch(
-        "pyfem_assemble_2d", rho.data_ptr(), maskf.data_ptr(), W.data_ptr(),
+        "pyfem_assemble_2d_sym" if sym else "pyfem_assemble_2d",
+        rho.data_ptr(), maskf.data_ptr(), W.data_ptr(),
         N.data_ptr(), float(p), nd, ny, nx, coeff.data_ptr(),
         invd.data_ptr(), None if lp is None else lp.data_ptr(),
         _cuda.stream_ptr(rho),
@@ -143,7 +149,7 @@ def _assemble_pack_2d_cuda(rho, maskf, W, N, *, nd, p, lp_dtype):
     return (coeff, invd) if lp is None else (coeff, invd, lp)
 
 
-def assemble_pack_2d(rho, maskf, W, N, *, nd, p, lp_dtype=None):
+def assemble_pack_2d(rho, maskf, W, N, *, nd, p, lp_dtype=None, sym=False):
     """Density grid -> BC-eliminated coefficient planes + inverse diagonal.
 
     Args:
@@ -154,16 +160,19 @@ def assemble_pack_2d(rho, maskf, W, N, *, nd, p, lp_dtype=None):
         nd, p: dofs per node and RAMP penalization.
         lp_dtype: also emit a low-precision copy of the planes (the
             smoother's) in the same pass.
+        sym: half-symmetric storage (the kept planes of
+            ``fused_smooth.sym_planes_2d``, the JAX ``pallas_sym``) or,
+            with False, all nd*nd*9 planes.
 
     Returns:
-        (coeff (nd*nd*9, ny, nx), invd (nd, ny, nx)[, coeff_lp]).
+        (coeff (nk, ny, nx), invd (nd, ny, nx)[, coeff_lp]), nk =
+        nd*nd*9 or len(sym_planes_2d(nd)).
     """
+    kw = dict(nd=nd, p=p, lp_dtype=lp_dtype, sym=bool(sym))
     if rho.device.type == "cuda":
-        return _assemble_pack_2d_cuda(rho, maskf, W, N, nd=nd, p=p,
-                                      lp_dtype=lp_dtype)
+        return _assemble_pack_2d_cuda(rho, maskf, W, N, **kw)
     if rho.device.type == "cpu":
-        return assemble_pack_2d_plain(rho, maskf, W, N, nd=nd, p=p,
-                                      lp_dtype=lp_dtype)
+        return assemble_pack_2d_plain(rho, maskf, W, N, **kw)
     raise ValueError(f"unsupported device {rho.device}")
 
 

@@ -10,7 +10,10 @@ described in the "3D" section below.  K2 runs
 ``niter`` times, then optionally returns ``±(b - A x)``; ``niter=0``
 with ``neg_resid=True`` and ``b=None`` is the operator matvec.  The
 coefficients are the BC-eliminated planes of ``fused_assemble`` (so the
-matvec is select-free) in the logical layout ``(nd*nd*9, ny, nx)``, as
+matvec is select-free) in the logical layout ``(nk, ny, nx)`` — all
+``nk = nd*nd*9`` planes, or the half-symmetric kept planes of
+:func:`sym_planes_2d` (the TPU kernel's ``sym_list`` storage), told
+apart by the plane count — as
 float32 or bfloat16 (loaded as bf16, arithmetic in the field dtype);
 fields are ``(nd, ny, nx)`` and zero at fixed dofs (the V-cycle
 invariant).  A first sweep from ``x = None`` (x0 = 0) is elementwise
@@ -36,6 +39,10 @@ from . import _cuda
 from .stencil import Stencil2D, Stencil3D
 
 __all__ = [
+    "sym_planes_2d",
+    "full_planes_2d",
+    "as_full_planes_2d",
+    "is_full_storage_2d",
     "fused_sweeps_2d",
     "fused_sweeps_2d_plain",
     "sym_planes_3d",
@@ -67,6 +74,60 @@ def _omega_seq(omega, niter):
     return (float(omega),) * niter
 
 
+@functools.lru_cache(maxsize=None)
+def sym_planes_2d(nd):
+    """Kept-plane list for half-symmetric 2D (9-point) storage.
+
+    The BC-eliminated operator is symmetric, so plane (a, b, dy, dx) and
+    its partner (b, a, 2-dy, 2-dx) hold the same values one node apart:
+    ``coeff[(b,a,2-dy,2-dx)][i] = coeff[(a,b,dy,dx)][i+d-1]``.  One plane
+    per pair is kept, the one first in the full order: 19 of 36 planes
+    for nd=2, 5 of 9 for nd=1.
+
+    Returns (k_full, ca, cb, dy, dx, is_self) in storage order.
+    """
+    out = []
+    for a in range(nd):
+        for b in range(nd):
+            for dy in range(3):
+                for dx in range(3):
+                    k = (a * nd + b) * 9 + dy * 3 + dx
+                    pk = (b * nd + a) * 9 + (2 - dy) * 3 + (2 - dx)
+                    if pk < k:
+                        continue
+                    out.append((k, a, b, dy, dx, pk == k))
+    return tuple(out)
+
+
+def full_planes_2d(coeff, nd):
+    """Kept planes (nk, ny, nx) -> full (nd, nd, 3, 3, ny, nx).
+
+    The partner of kept plane (a, b, d) is (b, a, 2 - d), holding at
+    node j the kept value of node j - (d - 1) (0 past the grid).
+    """
+    ny, nx = coeff.shape[1:]
+    full = coeff.new_zeros((nd, nd, 3, 3, ny, nx))
+    cp = F.pad(coeff, (1, 1, 1, 1))
+    for si, (_k, a, b, dy, dx, selfp) in enumerate(sym_planes_2d(nd)):
+        full[a, b, dy, dx] = coeff[si]
+        if not selfp:
+            full[b, a, 2 - dy, 2 - dx] = cp[si, 2 - dy : 2 - dy + ny,
+                                            2 - dx : 2 - dx + nx]
+    return full
+
+
+def is_full_storage_2d(coeff, nd):
+    """True for all nd*nd*9 planes, False for the kept planes."""
+    return coeff.shape[0] == nd * nd * 9
+
+
+def as_full_planes_2d(coeff, nd):
+    """Either storage -> full planes (nd, nd, 3, 3, ny, nx)."""
+    if is_full_storage_2d(coeff, nd):
+        return coeff.reshape((nd, nd, 3, 3) + tuple(coeff.shape[1:]))
+    return full_planes_2d(coeff, nd)
+
+
 def _check(coeff, invd, b, x, niter, want_resid):
     if x is None and b is None:
         raise ValueError("b and x cannot both be zero (None)")
@@ -75,10 +136,10 @@ def _check(coeff, invd, b, x, niter, want_resid):
     if niter == 0 and not want_resid:
         raise ValueError("niter=0 without want_resid computes nothing")
     nd, ny, nx = invd.shape
-    if tuple(coeff.shape) != (nd * nd * 9, ny, nx):
-        raise ValueError(
-            f"coeff {tuple(coeff.shape)} != {(nd * nd * 9, ny, nx)}"
-        )
+    nks = (nd * nd * 9, len(sym_planes_2d(nd)))
+    if coeff.shape[0] not in nks or tuple(coeff.shape[1:]) != (ny, nx):
+        raise ValueError(f"coeff {tuple(coeff.shape)}: want full or sym "
+                         f"storage, ({nks[0]} or {nks[1]}, {ny}, {nx})")
     for name, t in (("b", b), ("x", x)):
         if t is not None and (t.shape != invd.shape or t.dtype != invd.dtype
                               or t.device != invd.device):
@@ -99,7 +160,7 @@ def fused_sweeps_2d_plain(coeff, invd, b=None, x=None, *, niter=2,
     _check(coeff, invd, b, x, niter, want_resid)
     nd, ny, nx = invd.shape
     op = Stencil2D(nx, ny, nd)
-    c = coeff.to(invd.dtype).reshape(nd, nd, 3, 3, ny, nx)
+    c = as_full_planes_2d(coeff.to(invd.dtype), nd)
     oms = _omega_seq(omega, niter)
     zero = torch.zeros_like(invd)
     bb = zero if b is None else b
@@ -131,9 +192,11 @@ def _fused_sweeps_2d_cuda(coeff, invd, b, x, *, niter, want_resid,
     bf16 = int(coeff.dtype == torch.bfloat16)
     stream = _cuda.stream_ptr(invd)
     ptr = lambda t: None if t is None else t.data_ptr()
+    entry = ("pyfem_smooth_2d" if is_full_storage_2d(coeff, nd)
+             else "pyfem_smooth_2d_sym")
 
     def step(xin, out, om, mode):
-        _cuda.launch("pyfem_smooth_2d", coeff.data_ptr(), bf16,
+        _cuda.launch(entry, coeff.data_ptr(), bf16,
                      invd.data_ptr(), ptr(b), ptr(xin), out.data_ptr(),
                      nd, ny, nx, float(om), mode, stream)
 
@@ -156,7 +219,8 @@ def fused_sweeps_2d(coeff, invd, b=None, x=None, *, niter=2,
     """Damped-Jacobi sweeps (+ optional residual) on stencil planes.
 
     Args:
-        coeff: (nd*nd*9, ny, nx) BC-eliminated planes, f32 or bf16.
+        coeff: (nk, ny, nx) BC-eliminated planes, f32 or bf16: all
+            nd*nd*9, or the kept planes of :func:`sym_planes_2d`.
         invd: (nd, ny, nx) inverse diagonal (0 at fixed dofs).
         b: (nd, ny, nx) rhs, or None for b = 0.
         x: (nd, ny, nx) initial iterate, or None for x0 = 0.

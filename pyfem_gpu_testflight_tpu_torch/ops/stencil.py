@@ -18,6 +18,8 @@ planes.
 
 from __future__ import annotations
 
+import itertools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -220,6 +222,27 @@ class Stencil3D:
                      az, ay, ax, r, s)
                 )
         self.plan = tuple(plan)
+
+    def assemble(self, Ke):
+        """(nelems, ndpe, ndpe) element matrices (raster element order)
+        -> coefficient planes (nd, nd, 3, 3, 3, nz, ny, nx): every plane
+        a sum of zero-padded element planes, in plan order (scatter-free
+        and deterministic, as ``Stencil2D.assemble``)."""
+        nz, ny, nx, nd = self.nz, self.ny, self.nx, self.nd
+        Kg = Ke.reshape(nz - 1, ny - 1, nx - 1, Ke.shape[-2], Ke.shape[-1])
+        table = {}
+        for (ca, cb, dz, dy, dx, az, ay, ax, r, s) in self.plan:
+            table.setdefault((ca, cb, dz, dy, dx), []).append(
+                (az, ay, ax, r, s))
+        planes = []
+        for key in itertools.product(range(nd), range(nd), range(3),
+                                     range(3), range(3)):
+            p = Ke.new_zeros((nz, ny, nx))
+            for (az, ay, ax, r, s) in table.get(key, ()):
+                p = p + F.pad(Kg[..., r, s], (ax, 1 - ax, ay, 1 - ay,
+                                              az, 1 - az))
+            planes.append(p)
+        return torch.stack(planes).reshape(nd, nd, 3, 3, 3, nz, ny, nx)
 
     def assemble_uniform(self, Cq_grid, Kq):
         """Uniform-geometry assembly: Ke[e] = sum_q Cq[e,q] Kq[q].

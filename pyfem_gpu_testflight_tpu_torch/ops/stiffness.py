@@ -1,8 +1,10 @@
 """Material constants and element stiffness, einsum path (plain PyTorch).
 
-Port of ``lame_params``, ``poisson_stiffness`` and
-``elasticity_stiffness`` from ``pyfem_gpu_testflight_tpu/ops/stiffness.py``
-(the reference's element einsums, pyfem.py:1176-1186, 2016-2027).  This
+Port of ``lame_params``, ``poisson_stiffness``, ``mass_matrix``,
+``elasticity_stiffness`` and the design-sensitivity inner products
+``poisson_dv_inner`` / ``elasticity_dv_inner`` from
+``pyfem_gpu_testflight_tpu/ops/stiffness.py`` (the reference's element
+einsums, pyfem.py:1176-1186, 1219-1276, 1872-1920, 2016-2027).  This
 is the models' ``kernel="einsum"`` route and, through a layout
 transpose, the plain version the element kernels K7 and K8
 (``ops.element_kernels``, ``ops.element_kernels3d``) are held against.
@@ -19,7 +21,9 @@ import torch
 
 from . import geometry
 
-__all__ = ["lame_params", "poisson_stiffness", "elasticity_stiffness"]
+__all__ = ["lame_params", "poisson_stiffness", "mass_matrix",
+           "elasticity_stiffness", "poisson_dv_inner",
+           "elasticity_dv_inner"]
 
 
 def lame_params(E, nu, ndims):
@@ -49,6 +53,12 @@ def poisson_stiffness(Xe, dN, wq, kappa_q):
     return torch.einsum("eq,eqnl,eqml->enm", c, Ngrad, Ngrad)
 
 
+def mass_matrix(Xe, dN, N, wq):
+    """Consistent mass matrix Me[e,n,m] = sum_q w_q |J_q| N_n N_m."""
+    detJ, _ = geometry.det_and_inv(geometry.jacobian(Xe, dN))
+    return torch.einsum("eq,qn,qm->enm", detJ * wq[None, :], N, N)
+
+
 def elasticity_stiffness(Xe, dN, wq, Cq, mu, lam):
     """Isotropic (plane-stress / 3D) element stiffness in Lamé form.
 
@@ -72,3 +82,44 @@ def elasticity_stiffness(Xe, dN, wq, Cq, mu, lam):
         + lam * P
     )
     return Ke.reshape(nelems, nn * nd, nn * nd)
+
+
+def poisson_dv_inner(Xe, dN, N, wq, dramp_q, phi_e, psi_e):
+    """Per-(element, node) inner product for d(phi^T K psi)/d rho.
+
+    Contracts phi/psi into gradients first instead of materializing the
+    reference's 4-axis Ke_deriv (pyfem.py:1219-1276).
+
+    Args:
+        dramp_q: (nelems, nquads) RAMP derivative at quads.
+        phi_e, psi_e: (nelems, nn) gathered vectors.
+
+    Returns:
+        inner: (nelems, nn); sum over conn for the nodal gradient.
+    """
+    detJ, Ngrad = geometry.shape_gradients(Xe, dN)
+    gphi = torch.einsum("eqnl,en->eql", Ngrad, phi_e)
+    gpsi = torch.einsum("eqnl,en->eql", Ngrad, psi_e)
+    a = torch.einsum("eql,eql->eq", gphi, gpsi)
+    w = dramp_q * (detJ * wq[None, :]) * a
+    return torch.einsum("qo,eq->eo", N, w)
+
+
+def elasticity_dv_inner(Xe, dN, N, wq, dramp_q, phi_e, psi_e, mu, lam):
+    """Elasticity analogue of :func:`poisson_dv_inner`.
+
+    phi_e/psi_e: (nelems, nn, ndims) gathered displacement-like vectors.
+    Uses (B phi)^T C0 (B psi) = mu (grad phi : grad psi
+    + grad phi : grad psi^T) + lam div(phi) div(psi).
+    """
+    detJ, Ngrad = geometry.shape_gradients(Xe, dN)
+    # displacement gradient g[e,q,a,l] = d phi_a / d x_l
+    gphi = torch.einsum("eqnl,ena->eqal", Ngrad, phi_e)
+    gpsi = torch.einsum("eqnl,ena->eqal", Ngrad, psi_e)
+    t1 = torch.einsum("eqal,eqal->eq", gphi, gpsi)
+    t2 = torch.einsum("eqal,eqla->eq", gphi, gpsi)
+    divphi = torch.diagonal(gphi, dim1=2, dim2=3).sum(-1)
+    divpsi = torch.diagonal(gpsi, dim1=2, dim2=3).sum(-1)
+    s = mu * (t1 + t2) + lam * divphi * divpsi
+    w = dramp_q * (detJ * wq[None, :]) * s
+    return torch.einsum("qo,eq->eo", N, w)

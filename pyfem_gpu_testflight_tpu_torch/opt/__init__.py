@@ -1,0 +1,6 @@
+from .mma import MMA, Problem
+from .topo import TopoProblem, optimize_topology
+from .topo_device import DeviceTopo
+
+__all__ = ["MMA", "Problem", "TopoProblem", "optimize_topology",
+           "DeviceTopo"]

@@ -27,8 +27,10 @@ import torch
 
 __all__ = ["cg", "cg_loop", "direct_solve", "CGResult", "readbacks"]
 
-# host read-backs of the convergence flag made by cg_loop (one per block)
-readbacks = {"cg": 0}
+# host read-backs of a convergence test: cg_loop's flag (one per block of
+# CHECK_EVERY iterations) and multigrid.pcg / pcg_gmg's r.r (one per
+# iteration)
+readbacks = {"cg": 0, "pcg": 0}
 # iterations between those read-backs (1 = the JAX loop's per-iteration test)
 CHECK_EVERY = 16
 
@@ -46,15 +48,15 @@ def _dot(a, b):
 def cg_loop(matvec, b, inv_diag=None, rtol=1e-8, atol=0.0, maxiter=1000,
             x0=None):
     """Jacobi-PCG; returns (x, iters, resnorm) as device tensors."""
-    if x0 is None:
-        x0 = torch.zeros_like(b)
     if inv_diag is None:
         inv_diag = torch.ones_like(b)
     normb = torch.linalg.norm(b)
     tol2 = torch.clamp(rtol * normb, min=atol) ** 2
 
-    x = x0
-    r = b - matvec(x0)
+    if x0 is None:  # r = b - A 0 = b: no setup matvec
+        x, r = torch.zeros_like(b), b
+    else:
+        x, r = x0, b - matvec(x0)
     z = inv_diag * r
     p = z
     rz = _dot(r, z)

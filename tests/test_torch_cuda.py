@@ -6,8 +6,11 @@ K6 on a 17^3 level in every mode with f32 and bf16 operands; K7 and K8
 in every form (quad4, hex8, tet10, brick20; elasticity and Poisson) on
 jittered meshes, the determinism of the matrix-free operator and of a
 CG solve, ``kernel="cuda"`` never taking a plain version on a CUDA
-tensor, and the 2D ``elem_path="cuda"`` hierarchy against the uniform
-one (chip_smoke.py phases 3-3c hold them at full size).
+tensor, the 2D ``elem_path="cuda"`` hierarchy against the uniform
+one, K9 (nd 1 and 2, float32 and float64), K1-sym and K2-sym (every
+mode) on 65x33, 17x9 and 13x7 grids, and three ``DeviceTopo``
+iterations at 65x33 with a bit-for-bit resume (chip_smoke.py phases
+3-3e and 7 hold them at full size).
 
 Needs an NVIDIA Hopper card and nvcc; marked ``slow`` (deselected by the
 CPU tier) and skipped where CUDA is absent.  Run on the card with:
@@ -491,3 +494,133 @@ def test_gmg_elem_path_cuda_matches_uniform_on_card(dev):
             == len(levels["cuda"]))
     for lc, lu in zip(levels["cuda"], levels["uniform"]):
         assert _rel(lc.coeff, lu.coeff) <= TOL
+
+
+# -- K9 (2D stencil product), K1-sym / K2-sym (half-symmetric 2D storage)
+# and the device topology loop ---------------------------------------------
+
+
+@pytest.mark.parametrize("nd", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(NY, NX), (9, 17), (7, 13)])
+def test_k9_matches_plain_on_card(dev, nd, dtype, shape):
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+    from pyfem_gpu_testflight_tpu_torch.ops import stencil_matvec as sm
+
+    rng = np.random.default_rng(3)
+    ny, nx = shape
+    c = torch.as_tensor(rng.standard_normal((nd, nd, 3, 3, ny, nx)),
+                        dtype=dtype, device=dev)
+    u = torch.as_tensor(rng.standard_normal((nd, ny, nx)), dtype=dtype,
+                        device=dev)
+    n0 = _cuda.launches["pyfem_stencil_2d"]
+    got = sm.stencil_matvec_2d(c, u)
+    ref = sm.stencil_matvec_2d_plain(c, u)
+    torch.cuda.synchronize()
+    assert _cuda.launches["pyfem_stencil_2d"] == n0 + 1
+    assert got.dtype == dtype and _rel(got, ref) <= TOL
+
+
+@pytest.mark.parametrize("nd", [1, 2])
+@pytest.mark.parametrize("shape", [(NY, NX), (9, 17), (7, 13)])
+def test_k1_sym_matches_plain_on_card(dev, nd, shape):
+    from pyfem_gpu_testflight_tpu_torch import multigrid
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+    from pyfem_gpu_testflight_tpu_torch.ops import fused_assemble as fa
+
+    ny, nx = shape
+    a = multigrid.GMGAssembler(nx, ny, 2.0, 1.0,
+                               "elasticity" if nd == 2 else "poisson",
+                               p=3.0, device=dev)
+    st = a.static_levels[0]
+    rho = torch.as_tensor(np.random.default_rng(4).uniform(0.2, 1.0, shape),
+                          dtype=torch.float32, device=dev)
+    args = (rho, st.maskf, st.W, a.N)
+    kw = dict(nd=nd, p=3.0, lp_dtype=torch.bfloat16, sym=True)
+    n0 = _cuda.launches["pyfem_assemble_2d_sym"]
+    ck, dk, lk = fa.assemble_pack_2d(*args, **kw)
+    cp, dp, _ = fa.assemble_pack_2d_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert _cuda.launches["pyfem_assemble_2d_sym"] == n0 + 1
+    assert ck.shape[0] == (19 if nd == 2 else 5)
+    free = st.maskf > 0
+    assert _rel(ck, cp) <= TOL
+    assert _rel(dk[free], dp[free]) <= TOL
+    assert torch.equal(lk, ck.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("nd", [1, 2])
+@pytest.mark.parametrize("variant", ["pre_bf16", "post_f32", "matvec",
+                                     "resid_f32"])
+@pytest.mark.parametrize("shape", [(NY, NX), (7, 13)])
+def test_k2_sym_matches_plain_on_card(dev, nd, variant, shape):
+    from pyfem_gpu_testflight_tpu_torch import multigrid
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+    from pyfem_gpu_testflight_tpu_torch.ops import fused_assemble as fa
+    from pyfem_gpu_testflight_tpu_torch.ops import fused_smooth as fs
+
+    ny, nx = shape
+    a = multigrid.GMGAssembler(nx, ny, 2.0, 1.0,
+                               "elasticity" if nd == 2 else "poisson",
+                               p=3.0, device=dev)
+    st = a.static_levels[0]
+    rng = np.random.default_rng(5)
+    rho = torch.as_tensor(rng.uniform(0.2, 1.0, shape), dtype=torch.float32,
+                          device=dev)
+    ck, dk, lk = fa.assemble_pack_2d(rho, st.maskf, st.W, a.N, nd=nd, p=3.0,
+                                     lp_dtype=torch.bfloat16, sym=True)
+    f = lambda: torch.where(st.mask, 0.0, torch.as_tensor(
+        rng.standard_normal((nd, ny, nx)), dtype=torch.float32, device=dev))
+    b, x0 = f(), f()
+    om = multigrid.smoothing_omegas(2, 2.3)
+    args, kw = {
+        "pre_bf16": ((lk, dk, b, None), dict(niter=2, want_resid=True,
+                                             omega=om)),
+        "post_f32": ((ck, dk, b, x0), dict(niter=2, omega=om[::-1])),
+        "matvec": ((ck, dk, None, x0), dict(niter=0, want_resid=True,
+                                            neg_resid=True)),
+        "resid_f32": ((ck, dk, b, x0), dict(niter=0, want_resid=True)),
+    }[variant]
+    n0 = _cuda.launches["pyfem_smooth_2d_sym"]
+    got = fs.fused_sweeps_2d(*args, **kw)
+    ref = fs.fused_sweeps_2d_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert _cuda.launches["pyfem_smooth_2d_sym"] > n0
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    for g, r in zip(got, ref):
+        assert _rel(g, r) <= TOL
+
+
+def test_device_topo_runs_on_card_and_resumes_bit_for_bit(dev, tmp_path):
+    import pyfem_gpu_testflight_tpu_torch as pt
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+
+    nx, ny = 65, 33
+    c = pt.ProblemCreator(nnodes_x=nx, nnodes_y=ny, element_type="quad")
+    conn, X, fixed, force = c.create_linear_elasticity_problem()
+    m = pt.LinearElasticity("quad4", X, conn, fixed, None, force, p=3.0,
+                            dtype=torch.float32, device=dev)
+    m.attach_structured_grid(nx, ny, omega="cheby",
+                             smoother_dtype=torch.bfloat16)
+    f = pt.Helmholtz(0.01, "quad4", X, conn, dtype=torch.float32,
+                     rtol=1e-6, device=dev)
+    f.attach_structured_grid(nx, ny)
+
+    def run(n, **kw):
+        d = pt.opt.DeviceTopo(m, f, fixed_volume=0.4)
+        x, _ = d.optimize(max_iterations=n, verbose=False, log_every=1,
+                          **kw)
+        return d, x
+
+    _cuda.reset_launches()
+    d3, x3 = run(3)
+    assert _cuda.launches["pyfem_stencil_2d"] >= 3
+    assert _cuda.launches["pyfem_assemble_2d"] == 3 * len(
+        m._gmg_asm.static_levels)
+    assert all(np.isfinite(h["obj"]) for h in d3.history)
+    ck = str(tmp_path / "ck.npz")
+    run(2, checkpoint_path=ck)
+    d_r, x_r = run(3, resume=ck)
+    assert torch.equal(x_r, x3)
+    assert [h["obj"] for h in d_r.history] == [h["obj"] for h in d3.history]

@@ -11,7 +11,7 @@ Gates:
 * at 33x17 ``LinearElasticity.solve(method="gmg")`` gives the same
   compliance p^T u as the JAX package's ``solve(method="direct")``
   (1e-10 relative);
-* branches of the model not ported in this slice raise.
+* branches of the model not ported yet raise.
 
 The JAX side runs its XLA path (``pallas_smooth=False``) under
 ``jax.jit``; the port runs K1/K2's plain versions (CPU tensors).
@@ -140,8 +140,11 @@ def test_unported_branches_raise():
     assert (u_cg - u_dir).abs().max() <= 1e-8 * u_dir.abs().max()
     with pytest.raises(ValueError, match="hex8"):
         m.attach_structured_grid(9, 5, 3)  # 3D gmg needs a hex8 model
-    with pytest.raises(NotImplementedError):
-        m.compliance(1.0)
+    # compliance is ported (tests/test_torch_topo.py); complex-step
+    # inputs are not
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        m.k_dv_sens(torch.ones(m.nnodes, dtype=torch.complex128),
+                    torch.zeros(m.ndof), torch.zeros(m.ndof))
     m2 = pt.LinearElasticity("quad4", X, conn, fixed, np.ones(len(fixed)),
                              force, device=DEV).attach_structured_grid(9, 5)
     with pytest.raises(NotImplementedError):

@@ -71,7 +71,7 @@ def _jax_einsum(etype, Xe, cq, mulam, physics, dtype):
 
 def _port_plain(etype, Xe, cq, mulam, physics, dtype):
     """The K7 / K8 plain version through the element-minor layout."""
-    XeT = convert.xe_to_xet(torch.as_tensor(Xe, dtype=dtype))
+    XeT = ek.transpose_xe(torch.as_tensor(Xe, dtype=dtype))
     cqT = torch.as_tensor(cq, dtype=dtype).t().contiguous()
     if etype == "quad4":
         KeT = (ek.elasticity_stiffness_quad4(XeT, cqT, *mulam)
@@ -114,7 +114,8 @@ def test_stiffness_matches_jax_pallas_interpret_f32(name, physics):
     from pyfem_gpu_testflight_tpu.ops import pallas_stiffness3d as jp3
 
     etype, Xe, cq, mulam = _inputs(name, seed=1)
-    XeT = jnp.asarray(convert.xe_to_xet(Xe), jnp.float32)
+    XeT = jnp.asarray(ek.transpose_xe(torch.as_tensor(Xe)).numpy(),
+                      jnp.float32)
     cqT = jnp.asarray(cq.T, jnp.float32)
     if etype == "quad4":
         KeT = (jp2.elasticity_stiffness_quad4(XeT, cqT, *mulam, tile=1024,
@@ -144,8 +145,7 @@ def test_quadratic_stiffness_matches_jax_einsum_f32(name, physics):
 def test_layout_helpers_round_trip():
     rng = np.random.default_rng(0)
     Xe = rng.standard_normal((7, 8, 3))
-    XeT = convert.xe_to_xet(Xe)
-    assert isinstance(XeT, np.ndarray)
+    XeT = ek.transpose_xe(torch.as_tensor(Xe)).numpy()
     assert XeT.shape == (24, 7) and XeT[3 * 2 + 1, 4] == Xe[4, 2, 1]
     assert torch.equal(ek.untranspose(torch.as_tensor(XeT), 8, 3),
                        torch.as_tensor(Xe))
@@ -154,10 +154,11 @@ def test_layout_helpers_round_trip():
     assert KeT.shape == (576, 7) and KeT[5 * 24 + 9, 3] == Ke[3, 5, 9]
     assert torch.equal(convert.ket_to_ke(KeT), Ke)
     assert np.array_equal(convert.ket_to_ke(KeT.numpy()), Ke.numpy())
-    # the kernels' own transposes are the same layout
-    assert torch.equal(ek.transpose_xe(torch.as_tensor(Xe)),
-                       torch.as_tensor(XeT))
-    assert ek3.transpose_xe_3d is ek3.transpose_xe_hex8 is ek.transpose_xe
+    # one transpose serves K7's quad4 layout too (rows n*2 + i)
+    Xe2 = torch.as_tensor(rng.standard_normal((5, 4, 2)))
+    XeT2 = ek.transpose_xe(Xe2)
+    assert XeT2.shape == (8, 5) and XeT2[2 * 3 + 1, 2] == Xe2[2, 3, 1]
+    assert torch.equal(ek.untranspose(XeT2, 4, 2), Xe2)
 
 
 def test_wrappers_check_inputs():
