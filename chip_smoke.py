@@ -129,7 +129,9 @@ FLOOR_FACTOR = 4.0  # float32 true residual <= this x its rounding floor
 HBM_BYTES_S = 3.35e12  # H100 SXM device memory rate
 F32_FLOP_S = 67e12     # H100 SXM float32 rate outside the tensor cores
 F64_FLOP_S = 34e12     # H100 SXM float64 rate outside the tensor cores
+BF16_FLOP_S = 989e12   # H100 SXM dense bf16 rate on the tensor cores
 FAILS = []
+DEVICE_MS = {}  # main path label -> device time of one assemble+solve
 
 
 def log(*a):
@@ -165,6 +167,39 @@ def cuda_ms(fn, reps):
     t1.record()
     t1.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def dev_us(row):
+    """A profiler row's own device time, microseconds."""
+    return getattr(row, "self_device_time_total",
+                   getattr(row, "self_cuda_time_total", 0.0))
+
+
+def device_ms(fn, reps=20):
+    """Milliseconds of device time per call, from ``torch.profiler`` (the
+    kernels' own time, whatever the host's speed).  A session that
+    records no device time at all (seen now and then on the card) is
+    repeated, up to three times; 0.0 means not measured."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(dev_us(r) for r in prof.key_averages())
+        if total > 0:
+            return total / reps / 1e3
+    return 0.0
+
+
+def verdict(met, measured=True):
+    """How a design target came out in this run."""
+    return "not measured" if not measured else "met" if met else "NOT met"
 
 
 def nbytes(*ts):
@@ -895,6 +930,15 @@ def phase_kernels_3d(dev):
         log(f"K4 matvec_{form}_f32 {N3}^3: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, torch.sparse.mm (f32 CSR) "
             f"{lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    # one sweep pass on f32 and on bf16 planes, device time: what bounds
+    # the pass (bytes halve in bf16)
+    a32, kw32 = k4["sweep_sym_f32"]
+    a16, kw16 = k4["sweep_sym_bf16"]
+    d = [device_ms(lambda: fs.fused_sweep_3d(*a, **kw))
+         for a, kw in ((a32, kw32), (a16, kw16))]
+    log(f"K4 sweep pass {N3}^3, device time (profiler): f32 planes "
+        f"{d[0]:.4f} ms, bf16 planes {d[1]:.4f} ms")
+    res["K4"]["sweep_device_ms"] = dict(f32=d[0], bf16=d[1])
 
     ck, dk, lk, _m = fine["sym"]
     om2 = multigrid.smoothing_omegas(2, 3.0)
@@ -916,21 +960,9 @@ def phase_kernels_3d(dev):
         ref = ref if isinstance(ref, tuple) else (ref,)
         errs = [rel_err(g, r) for g, r in zip(got, ref)]
         worst = max([worst] + [e[0] for e in errs])
-        ms = cuda_ms(lambda: fs.fused_sweeps3d(*a, **kw), 20)
-        pms = cuda_ms(lambda: fs.fused_sweeps3d_plain(*a, **kw), 3)
-        log(f"K5 {name}: rel " + ", ".join(f"{e[1]:.2e}" for e in errs)
-            + f"; kernel {ms:.4f} ms, plain {pms:.4f} ms")
+        log(f"K5 {name}: rel " + ", ".join(f"{e[1]:.2e}" for e in errs))
         check(all(e[1] <= REL_TOL for e in errs),
               f"K5 {name} within {REL_TOL:g}")
-        if name == "presmooth_resid_bf16":
-            # the function reads the planes once; the per-sweep form
-            # reads them halo_sweeps_3d(2, True, True) = 2 times
-            b_ms, b_by = bound(nbytes(lk, dk, b) + 2 * nbytes(b),
-                               2 * 243 * 2 * n3)
-            res["K5"] = dict(ms=ms, plain_ms=pms, bound_ms=b_ms,
-                             bound_by=b_by, library_ms=None)
-            log(f"K5 {name}: bound {b_ms:.4f} ms ({b_by}); stencil "
-                f"passes {fs.halo_sweeps_3d(2, True, True)}")
     # nu=4 Chebyshev-node sweeps: the residual is damped below b, so its
     # rounding is measured against max|b| (as K2's niter=8 check)
     kw = dict(niter=4, want_resid=True,
@@ -943,7 +975,139 @@ def phase_kernels_3d(dev):
         f"max|r|, {rr[0] / bmax:.2e} of max|b|")
     check(ex[1] <= REL_TOL and rr[0] <= REL_TOL * bmax,
           f"K5 nu4_cheby x and r within {REL_TOL:g} (r of max|b|)")
-    res["K5"]["max_abs_err"] = max(worst, ex[0], rr[0])
+    res["K5 checks"] = max(worst, ex[0], rr[0])
+    return res
+
+
+def phase_kernels_k5_single(dev, build_log):
+    """Phase 3a, K5's single pass (``pyfem_sweeps_3d_fused``): every call
+    within its budget (nu = 1..4, from x0 = 0 or a given x, with and
+    without the residual) against the plain version at 65^3 and 9x7x5,
+    nd=3 and nd=1, on f32 and bf16 planes; then the bf16
+    presmooth+residual at 65^3 timed against the per-sweep form on the
+    same inputs, in turns."""
+    import torch
+    from pyfem_gpu_testflight_tpu_torch import multigrid
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+    from pyfem_gpu_testflight_tpu_torch.ops import fused_assemble as fa
+    from pyfem_gpu_testflight_tpu_torch.ops import fused_smooth as fs
+
+    rng = np.random.default_rng(SEED + 11)
+    worst, res = 0.0, {}
+    for (nx, ny, nz), physics in (((N3, N3, N3), "elasticity"),
+                                  ((9, 7, 5), "elasticity"),
+                                  ((9, 7, 5), "poisson")):
+        a = multigrid.GMGAssembler3D(nx, ny, nz, (nx - 1) / (ny - 1), 1.0,
+                                     (nz - 1) / (ny - 1), physics, p=3.0,
+                                     device=dev)
+        st, nd = a.static_levels[0], a.nd
+        rho = torch.as_tensor(rng.uniform(0.2, 1.0, (nz, ny, nx)),
+                              dtype=torch.float32, device=dev)
+        ck, dk, lk = fa.assemble_pack_3d(rho, st.maskf, st.W, a.N, nd=nd,
+                                         p=3.0, lp_dtype=torch.bfloat16)
+        field = lambda: torch.as_tensor(rng.standard_normal((nd, nz, ny, nx)),
+                                        dtype=torch.float32, device=dev)
+        b = torch.where(st.mask, 0.0, field())
+        x0 = torch.where(st.mask, 0.0, field())
+        bmax = float(b.abs().max())
+        tag = f"K5 single pass {nx}x{ny}x{nz} nd={nd}"
+        for (cname, c), niter, x0_zero, resid in itertools.product(
+                (("f32", ck), ("bf16", lk)), (1, 2, 3, 4), (True, False),
+                (True, False)):
+            if not fs.single_pass_3d(c.shape[0], nd, niter, x0_zero, resid):
+                continue
+            kw = dict(niter=niter, want_resid=resid,
+                      omega=multigrid.smoothing_omegas(niter, 3.0))
+            x = None if x0_zero else x0
+            n0 = _cuda.launches["pyfem_sweeps_3d_fused"]
+            got = fs.fused_sweeps3d(c, dk, b, x, **kw)
+            ref = fs.fused_sweeps3d_plain(c, dk, b, x, **kw)
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            ref = ref if isinstance(ref, tuple) else (ref,)
+            ex = rel_err(got[0], ref[0])
+            # the residual is damped below b: its rounding is at b's scale
+            er = float((got[1] - ref[1]).abs().max()) if resid else 0.0
+            worst = max(worst, ex[0], er)
+            name = (f"{tag} {cname} nu={niter} "
+                    f"{'x0=0' if x0_zero else 'x0 given'}"
+                    f"{' +resid' if resid else ''}")
+            log(f"{name}: x rel {ex[1]:.2e}"
+                + (f", r {er / bmax:.2e} of max|b|" if resid else ""))
+            check(_cuda.launches["pyfem_sweeps_3d_fused"] == n0 + 1
+                  and ex[1] <= REL_TOL and er <= REL_TOL * bmax,
+                  f"{name}: one launch, within {REL_TOL:g} of max|plain| "
+                  f"(r of max|b|)")
+        if (nx, ny, nz) != (N3, N3, N3):
+            continue
+        om2 = multigrid.smoothing_omegas(2, 3.0)
+        kw = dict(niter=2, want_resid=True, neg_resid=False, omega=om2)
+        one = lambda: fs._sweeps3d_single_pass(lk, dk, b, None, **kw)
+        per = lambda: fs._sweeps3d_per_sweep(lk, dk, b, None, **kw)
+        # in turns: per-sweep, single, single, per-sweep
+        t = [cuda_ms(f, 20) for f in (per, one, one, per)]
+        ms, per_ms = min(t[1], t[2]), min(t[0], t[3])
+        pms = cuda_ms(lambda: fs.fused_sweeps3d_plain(
+            lk, dk, b, None, niter=2, want_resid=True, omega=om2), 3)
+        # the function reads the kept planes, invd and b once and writes
+        # x and r; 243 FMAs per node and stencil pass, 2 passes
+        b_ms, b_by = bound(nbytes(lk, dk, b) + 2 * nbytes(b),
+                           2 * 243 * 2 * rho.numel())
+        regs = [v for k, v in ptxas_table(build_log).items()
+                if "sweeps_3d_coop_kernelILi3E13__nv_bfloat16" in k]
+        # device time alone: the CUDA-event times above include the host's
+        # launch work whenever the host is slower than the card
+        d = [device_ms(f) for f in (per, one, one, per)]
+        # the lesser of each pair's measured times (0.0: not measured)
+        best = lambda a, b: min([v for v in (a, b) if v > 0] or [0.0])
+        dev1, dev_per = best(d[1], d[2]), best(d[0], d[3])
+        log(f"K5 presmooth+resid bf16 {N3}^3: single pass {t[1]:.4f} / "
+            f"{t[2]:.4f} ms, per-sweep form {t[0]:.4f} / {t[3]:.4f} ms on "
+            f"the same inputs (in turns, CUDA events); device time (profiler) "
+            f"single pass {d[1]:.4f} / {d[2]:.4f} ms, per-sweep {d[0]:.4f} / "
+            f"{d[3]:.4f} ms; plain {pms:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}); ptxas {regs}")
+        # a target of the design, reported (not a gate of the smoke run)
+        log(f"K5 single pass faster than the per-sweep form (bf16 "
+            f"presmooth+resid at {N3}^3, same run): CUDA events "
+            f"{'met' if ms < per_ms else 'NOT met'}, device time "
+            f"{verdict(dev1 < dev_per, dev1 * dev_per)}")
+        post = dict(niter=2, want_resid=False, neg_resid=False,
+                    omega=om2[::-1])
+        tp = [cuda_ms(f, 20) for f in (
+            lambda: fs._sweeps3d_per_sweep(lk, dk, b, x0, **post),
+            lambda: fs._sweeps3d_single_pass(lk, dk, b, x0, **post))]
+        log(f"K5 postsmooth bf16 {N3}^3: per-sweep {tp[0]:.4f} ms, single "
+            f"pass {tp[1]:.4f} ms")
+        res["K5"] = dict(ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=None, per_sweep_ms=per_ms,
+                         device_ms=dev1, per_sweep_device_ms=dev_per,
+                         postsmooth_ms=tp[1], postsmooth_per_sweep_ms=tp[0],
+                         ptxas=regs[0] if regs else None)
+    # the coarser smoothing levels of bench 3D: one launch against three
+    for n in (33, 17, 9, 5):
+        a = multigrid.GMGAssembler3D(n, n, n, 1.0, 1.0, 1.0, "elasticity",
+                                     p=3.0, device=dev)
+        st = a.static_levels[0]
+        rho = torch.as_tensor(rng.uniform(0.2, 1.0, (n, n, n)),
+                              dtype=torch.float32, device=dev)
+        _c, dk, lk = fa.assemble_pack_3d(rho, st.maskf, st.W, a.N, nd=3,
+                                         p=3.0, lp_dtype=torch.bfloat16)
+        b = torch.where(st.mask, 0.0, torch.as_tensor(
+            rng.standard_normal((3, n, n, n)), dtype=torch.float32,
+            device=dev))
+        kw = dict(niter=2, want_resid=True, neg_resid=False,
+                  omega=multigrid.smoothing_omegas(2, 3.0))
+        fns = (lambda: fs._sweeps3d_per_sweep(lk, dk, b, None, **kw),
+               lambda: fs._sweeps3d_single_pass(lk, dk, b, None, **kw))
+        t = [cuda_ms(f, 50) for f in fns]
+        d = [device_ms(f) for f in fns]
+        log(f"K5 presmooth+resid bf16 {n}^3: per-sweep (3 launches) "
+            f"{t[0]:.4f} ms, device {d[0]:.4f} ms; single pass (1 launch) "
+            f"{t[1]:.4f} ms, device {d[1]:.4f} ms")
+        res["K5"][f"single_vs_per_sweep_ms_{n}"] = t[::-1]
+        res["K5"][f"single_vs_per_sweep_device_ms_{n}"] = d[::-1]
+    res["K5"]["max_abs_err"] = worst
     return res
 
 
@@ -980,17 +1144,22 @@ def k6_passes(lv, b, x, kw):
     return pairs, last
 
 
-def phase_kernels_otf(dev):
+def phase_kernels_otf(dev, build_log):
     """Phase 3b: K6 against its plain version on the card, pass by pass
-    (``k6_passes``), and each whole call equal to its passes."""
+    (``k6_passes``), and each whole call equal to its passes; the bf16
+    calls run the tensor-core body (``pyfem_otf_3d_tc``), the f32 ones the
+    CUDA-core body.  Then one sweep pass at 65^3 timed on both bodies,
+    in turns, and on the CUDA-core body with bf16 operands (the earlier
+    form of the bf16 pass)."""
     import torch
     from pyfem_gpu_testflight_tpu_torch import multigrid
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
     from pyfem_gpu_testflight_tpu_torch.ops import fused_assemble as fa
     from pyfem_gpu_testflight_tpu_torch.ops import otf3d
 
     rng = np.random.default_rng(SEED + 20)
     res = {}
-    worst = 0.0
+    worst = worst_tc = 0.0
     for (nx, ny, nz), physics in (((N3, N3, N3), "elasticity"),
                                   ((9, 7, 5), "elasticity"),
                                   ((9, 7, 5), "poisson")):
@@ -1034,7 +1203,10 @@ def phase_kernels_otf(dev):
                     # a residual after damping sweeps is rounded at b's
                     # scale (as K5's nu=4 check)
                     scale = max(scale, float(bb.abs().max()))
-                worst = max(worst, d)
+                if kw.get("mxu_bf16"):
+                    worst_tc = max(worst_tc, d)
+                else:
+                    worst = max(worst, d)
                 errs.append(d / scale)
             whole = max(rel_err(g, r)[1] for g, r in zip(got, ref))
             log(f"{tag} {name}: per pass rel "
@@ -1073,7 +1245,52 @@ def phase_kernels_otf(dev):
                     f"{flops / 1e9:.2f} GFLOP, dense TPU count "
                     f"{2 * nd * (64 * 27 * nd + 64) * n3 / 1e9:.2f}), "
                     f"torch.sparse.mm (f32 CSR) {lib:.4f} ms")
+        # one sweep pass from a given x: f32 (CUDA cores) and bf16
+        # operands (tensor cores) in turns, and the bf16 operands on the
+        # CUDA-core body as it ran them before
+        args = (lv.rho, lv.maskf, lv.w3, lv.wd, b, x0)
+        sw = dict(niter=1, want_resid=False, omega=0.5, p=lv.p)
+        f32 = lambda: otf3d.otf_apply_3d(*args, mxu_bf16=False, **sw)
+        tc = lambda: otf3d.otf_apply_3d(*args, mxu_bf16=True, **sw)
+        t = [cuda_ms(f, 20) for f in (f32, tc, tc, f32)]
+        tab = torch.cat([otf3d._bf16(torch.cat([
+            lv.w3.reshape(-1)[otf3d._compact_index(nd, dev)],
+            lv.wd.reshape(-1)])), otf3d._shape_vals(rho).reshape(-1)])
+        out = torch.empty_like(x0)
+        old = cuda_ms(lambda: _cuda.launch(
+            "pyfem_otf_3d", lv.rho.data_ptr(), lv.maskf.data_ptr(),
+            tab.data_ptr(), b.data_ptr(), x0.data_ptr(), out.data_ptr(),
+            float(lv.p), nd, nz, ny, nx, 0.5, 0, 1, _cuda.stream_ptr(b)), 20)
+        pms = cuda_ms(lambda: otf3d.otf_apply_3d_plain(
+            *args, mxu_bf16=True, **sw), 3)
+        io = nbytes(rho, lv.maskf, lv.w3, lv.wd, b, x0) + nbytes(x0)
+        f_ms, f_by = bound(io, flops)
+        # dense, as the TPU kernel counts its matmuls, on the bf16 tensor
+        # cores
+        dense = 2 * nd * (64 * 27 * nd + 64) * n3
+        t_ms, t_by = bound(io, dense, BF16_FLOP_S)
+        regs = [v for k, v in ptxas_table(build_log).items()
+                if "otf_3d_tc_kernelILi3E" in k]
+        log(f"K6 sweep pass {N3}^3: f32 (CUDA cores) {t[0]:.4f} / "
+            f"{t[3]:.4f} ms, bound {f_ms:.4f} ms ({f_by}); bf16 operands "
+            f"(tensor cores) {t[1]:.4f} / {t[2]:.4f} ms, bound {t_ms:.4f} ms "
+            f"({t_by}, {dense / 1e9:.2f} GFLOP dense at 989 TFLOP/s); the "
+            f"bf16 operands on the CUDA-core body (the earlier form) "
+            f"{old:.4f} ms; plain {pms:.4f} ms; ptxas {regs}")
+        ms = min(t[1], t[2])
+        d = [device_ms(f) for f in (f32, tc)]
+        log(f"K6 sweep pass {N3}^3, device time (profiler): f32 {d[0]:.4f} "
+            f"ms, bf16 operands (tensor cores) {d[1]:.4f} ms")
+        log(f"K6 bf16 sweep pass at most half the f32 pass (same run): CUDA "
+            f"events {'met' if ms <= 0.5 * min(t[0], t[3]) else 'NOT met'}, "
+            f"device time {verdict(d[1] <= 0.5 * d[0], d[0] * d[1])}")
+        res["K6-tc"] = dict(ms=ms, plain_ms=pms, bound_ms=t_ms, bound_by=t_by,
+                            library_ms=None, f32_pass_ms=min(t[0], t[3]),
+                            device_ms=d[1], f32_pass_device_ms=d[0],
+                            cuda_core_bf16_ms=old,
+                            ptxas=regs[0] if regs else None)
     res["K6"]["max_abs_err"] = worst
+    res["K6-tc"]["max_abs_err"] = worst_tc
     return res
 
 
@@ -1097,6 +1314,38 @@ def solve_and_measure(step, args, names, label):
     e1.synchronize()
     counts = {k: _cuda.launches[k] for k in names}
     return out, counts, e0.elapsed_time(e1)
+
+
+# position of the grid's nz among each 3D entry point's arguments
+_NZ_ARG = {"pyfem_sweep_3d": 8, "pyfem_sweeps_3d": 13,
+           "pyfem_sweeps_3d_fused": 14, "pyfem_otf_3d": 8,
+           "pyfem_otf_3d_tc": 9}
+
+
+def launches_by_level(step, args):
+    """One more run of ``step`` with every 3D smoother/operator launch
+    tallied by entry point and grid level (its nz): {entry: {nz: n}}.
+    A run of its own, so the tally costs the timed solves nothing."""
+    import torch
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+
+    tally = {name: {} for name in _NZ_ARG}
+    launch = _cuda.launch
+
+    def counting(name, *a):
+        launch(name, *a)
+        if name in tally:
+            nz = a[_NZ_ARG[name]]
+            tally[name][nz] = tally[name].get(nz, 0) + 1
+
+    _cuda.launch = counting
+    try:
+        step(*args)
+        torch.cuda.synchronize()
+    finally:
+        _cuda.launch = launch
+    return {k: dict(sorted(v.items(), reverse=True)) for k, v in tally.items()
+            if v}
 
 
 def chained_ms(step, rho, rhs, u, n_chain=10):
@@ -1146,16 +1395,13 @@ def breakdown(label, step, args, asm, rho, b, single_ms):
         step(*args)
         torch.cuda.synchronize()
 
-    def dev_us(row):
-        return getattr(row, "self_device_time_total",
-                       getattr(row, "self_cuda_time_total", 0.0))
-
     rows = [r for r in prof.key_averages() if dev_us(r) > 0]
     busy_ms = sum(dev_us(r) for r in rows) / 1e3
     if not rows:
         log(f"{label} profile: no device time recorded (busy share not "
             f"measured)")
         return asm_ms
+    DEVICE_MS[label] = busy_ms
     log(f"{label} profile: {sum(r.count for r in rows)} device activities "
         f"(kernels and copies) in one assemble+solve, device time "
         f"{busy_ms:.3f} ms = {100 * busy_ms / single_ms:.1f}% of the "
@@ -1282,12 +1528,15 @@ def phase_main_3d(dev, pt, multigrid, i2p, p2i, label="bench 3D",
         return p2i(x.reshape(-1), 3), k, rn, b, gmg
 
     names = ("pyfem_assemble_3d", "pyfem_sweep_3d", "pyfem_sweeps_3d",
-             "pyfem_otf_3d")
+             "pyfem_sweeps_3d_fused", "pyfem_otf_3d", "pyfem_otf_3d_tc")
     (u, k, rn, b, gmg), counts, single_ms = solve_and_measure(
         step, (rho, rhs, rhs), names, label)
     log(f"{label}: {k} PCG iterations (JAX reference: 7), "
         f"||r||/||b|| {float(rn) / float(torch.linalg.norm(b)):.3e}, "
         f"launches {counts}, single-shot {single_ms:.3f} ms")
+    by_level = launches_by_level(step, (rho, rhs, rhs))
+    log(f"{label}: launches by entry point and level (nz: count) "
+        f"{by_level}")
     check(k <= 8, f"{label} converges in <= 8 iterations")
     check(float(rn) <= 1e-6 * float(torch.linalg.norm(b)),
           f"{label} PCG residual <= rtol")
@@ -1315,7 +1564,8 @@ def phase_main_3d(dev, pt, multigrid, i2p, p2i, label="bench 3D",
         f"iterations, true residual {true_a:.3e}")
     check(true_a <= 1e-5, f"{label} float64-outer true residual <= 1e-5")
     out = dict(counts=counts, single_ms=single_ms, u=u, k=k, mem=mem,
-               ch=None, levels=[type(lv).__name__ for lv in gmg.levels])
+               ch=None, levels=[type(lv).__name__ for lv in gmg.levels],
+               by_level=by_level, nlevels=len(gmg.levels))
     if full:
         out["ch"] = chained_ms(step, rho, rhs, u)
         log(f"{label}: chained {out['ch']:.3f} ms/solve over 10")
@@ -1799,7 +2049,10 @@ def main():
     # 3, 3a, 3b. kernels vs plain
     kres = phase_kernels(dev)
     kres.update(phase_kernels_3d(dev))
-    kres.update(phase_kernels_otf(dev))
+    kres.update(phase_kernels_k5_single(dev, _cuda.build_log))
+    kres["K5"]["max_abs_err"] = max(kres["K5"]["max_abs_err"],
+                                    kres.pop("K5 checks"))
+    kres.update(phase_kernels_otf(dev, _cuda.build_log))
     # 3c. element stiffness
     kres.update(phase_kernels_elem(dev, pt, _cuda.build_log))
     # 3d, 3e. the 2D stencil product and the half-symmetric 2D storage
@@ -1810,14 +2063,44 @@ def main():
     m2 = phase_main_2d(dev, pt, multigrid, i2p, p2i)
     c2, s2, ch2 = m2["counts"], m2["single_ms"], m2["ch"]
     m3 = phase_main_3d(dev, pt, multigrid, i2p, p2i)
-    check(all(m3["counts"][k] > 0 for k in (
-        "pyfem_assemble_3d", "pyfem_sweep_3d", "pyfem_sweeps_3d")),
+    c3 = m3["counts"]
+    check(all(c3[k] > 0 for k in (
+        "pyfem_assemble_3d", "pyfem_sweep_3d", "pyfem_sweeps_3d_fused")),
         "bench 3D: K3, K4 and K5 launched")
+    # nu = 2: a presmooth+residual and a postsmooth call per smoothing
+    # level and V-cycle, k + 1 V-cycles (the initial one and one per
+    # iteration)
+    calls = 2 * (m3["k"] + 1)
+    fused = m3["by_level"].get("pyfem_sweeps_3d_fused", {})
+    check(c3["pyfem_sweeps_3d"] == 0
+          and c3["pyfem_sweeps_3d_fused"] == calls * (m3["nlevels"] - 1)
+          and len(fused) == m3["nlevels"] - 1
+          and set(fused.values()) == {calls},
+          f"bench 3D: every smoothing call is one single-pass K5 launch "
+          f"({calls} per level, {calls * (m3['nlevels'] - 1)} in all), the "
+          f"per-sweep entry none")
     mo = phase_main_3d(dev, pt, multigrid, i2p, p2i, "bench 3D otf",
                        elem_path="otf")
     co = mo["counts"]
-    check(co["pyfem_otf_3d"] > 0 and co["pyfem_assemble_3d"] == 1,
+    check(co["pyfem_otf_3d_tc"] > 0 and co["pyfem_assemble_3d"] == 1,
           "bench 3D otf: K6 launched, K3 once (the coarsest level)")
+    # per V-cycle and OTF level: presmooth (elementwise + nu - 1 sweeps +
+    # residual) and nu postsweeps, all with bf16 operands; the PCG
+    # matvec (float32) once per iteration on the fine level
+    passes = (mo["k"] + 1) * (mo["nlevels"] - 1) * (2 + 1 + 2)
+    f32 = mo["by_level"].get("pyfem_otf_3d", {})
+    check(co["pyfem_otf_3d_tc"] == passes and co["pyfem_otf_3d"] == mo["k"]
+          and set(f32) == {N3},
+          f"bench 3D otf: the tensor-core entry runs all {passes} bf16 "
+          f"smoother passes, the float32 entry only the {mo['k']} PCG "
+          f"matvecs at {N3}^3")
+    # the earlier K5 and K6 forms' device times on the same paths, as
+    # PERF.md records them: 15.6 and 22.7 ms
+    log(f"device time of one assemble+solve: bench 3D "
+        f"{DEVICE_MS.get('bench 3D', float('nan')):.3f} ms (earlier forms: "
+        f"15.6 ms), bench 3D otf "
+        f"{DEVICE_MS.get('bench 3D otf', float('nan')):.3f} ms (earlier "
+        f"forms: 22.7 ms) ({card})")
     check(mo["levels"][:-1] == ["OTFLevel"] * (len(mo["levels"]) - 1),
           "bench 3D otf: every level but the coarsest is on the fly")
     check(mo["k"] <= 8 and abs(mo["k"] - m3["k"]) <= 2,
@@ -1832,8 +2115,10 @@ def main():
     mf = phase_main_3d(dev, pt, multigrid, i2p, p2i, "bench 3D sym=False",
                        full=False, sym=False)
     check(mf["counts"]["pyfem_sweep_3d"] > 0
-          and mf["counts"]["pyfem_sweeps_3d"] > 0,
-          "bench 3D sym=False: K4 and K5 launched on full planes")
+          and mf["counts"]["pyfem_sweeps_3d"] > 0
+          and mf["counts"]["pyfem_sweeps_3d_fused"] == 0,
+          "bench 3D sym=False: K4 and K5 launched on full planes (K5's "
+          "per-sweep form: the single pass takes half storage)")
     log(f"bench 3D sym=False: {mf['k']} iterations, single-shot "
         f"{mf['single_ms']:.3f} ms, peak memory {mf['mem'] / 2**20:.1f} "
         f"MiB")
@@ -1883,7 +2168,6 @@ def main():
     # summary
     src = "pyfem_gpu_testflight_tpu_torch/csrc/"
     tpu = "pyfem_gpu_testflight_tpu/ops/"
-    c3 = m3["counts"]
     rows = (
         ("K1", "assemble_pack_2d", "assemble_2d.cu", "pallas_assemble.py:192",
          c2["pyfem_assemble_2d"], "full 36-plane storage, one pass"),
@@ -1896,12 +2180,21 @@ def main():
          c3["pyfem_sweep_3d"], "both bodies, one pass: _kernel3d_sym "
          "(timed, main path) and _kernel3d on full planes (full_form)"),
         ("K5", "fused_sweeps3d", "smooth_3d.cu", "pallas_smooth.py:972",
-         c3["pyfem_sweeps_3d"], "per-sweep: one stencil pass per sweep "
-         "and one for the residual (not the single-pass z-blocked form); "
-         "reads either storage"),
+         c3["pyfem_sweeps_3d_fused"], "single pass (pyfem_sweeps_3d_fused, "
+         "timed, main path): all sweeps and the residual of a smoothing "
+         "call in one cooperative launch, passes separated by grid-wide "
+         "barriers, half storage; the per-sweep form (per_sweep_form) "
+         "serves full storage and calls past the budget"),
         ("K6", "otf_apply_3d", "otf_3d.cu", "pallas_otf3d.py:265",
-         co["pyfem_otf_3d"], "one stencil pass per launch, coefficients "
-         "rebuilt per node from the density (main path: bench 3D otf)"),
+         co["pyfem_otf_3d"], "f32 body on the CUDA cores (pyfem_otf_3d): "
+         "one stencil pass per launch, coefficients rebuilt per node from "
+         "the density (main path: bench 3D otf, the PCG matvecs)"),
+        ("K6-tc", "otf_apply_3d(mxu_bf16=True)", "otf_3d.cu",
+         "pallas_otf3d.py:265", co["pyfem_otf_3d_tc"],
+         "bf16-operand pass on the tensor cores (pyfem_otf_3d_tc): "
+         "mma.sync m16n8k16 per element offset, one stencil pass per "
+         "launch (main path: bench 3D otf, every smoother pass; timed: a "
+         "sweep pass)"),
         ("K7a", "elasticity_stiffness_quad4", "stiffness_2d.cu",
          "pallas_stiffness.py:163", m2c["counts"]["pyfem_elasticity_quad4"],
          "one thread per element, upper triangle mirrored (main path: "
@@ -1962,8 +2255,21 @@ def main():
                             plain_ms=v["plain_ms"], bound_ms=v["bound_ms"],
                             bound_by=v["bound_by"], ptxas=v["ptxas"])
                 for k, v in kres.items() if k.startswith("K8 ")}
-        if key in ("K7a", "K7b", "K8"):
+        if key in ("K5", "K6-tc", "K7a", "K7b", "K8"):
             row["ptxas"] = r["ptxas"]
+        if key == "K5":
+            row["device_ms"] = r["device_ms"]
+            row["per_sweep_form"] = dict(
+                ms=r["per_sweep_ms"], device_ms=r["per_sweep_device_ms"],
+                launches_bench_3d=c3["pyfem_sweeps_3d"],
+                launches_sym_false_path=mf["counts"]["pyfem_sweeps_3d"],
+                postsmooth_ms=r["postsmooth_per_sweep_ms"])
+            row["postsmooth_ms"] = r["postsmooth_ms"]
+        if key == "K6-tc":
+            row["device_ms"] = r["device_ms"]
+            row["f32_pass_device_ms"] = r["f32_pass_device_ms"]
+            row["f32_pass_ms"] = r["f32_pass_ms"]
+            row["cuda_core_bf16_pass_ms"] = r["cuda_core_bf16_ms"]
         if key == "K9":
             row["launches_per_mma_iteration"] = topo["k9_per_iter"]
             row["forms"] = r["forms"]

@@ -22,10 +22,17 @@
 //   mode 2 (-residual): out = A x - b
 // b == nullptr reads as 0 (modes 1/2 are then -A x / A x, the matvec);
 // x == nullptr is the elementwise first sweep from x0 = 0 (mode 0 only).
-// With bf16 = 1 the TPU kernel's matmul operands are rounded to bf16: w3
-// and wd (rounded by the wrapper), the shifted fields Y (rounded here on
-// load) and B in the diagonal; the coefficient rebuild keeps B in f32, as
-// the TPU kernel's final B * Z product does, and all arithmetic is f32.
+// With bf16 operands (the smoother's mxu_bf16 calls) the TPU kernel's
+// matmul operands are rounded to bf16: w3 and wd (rounded by the wrapper),
+// the shifted fields Y (rounded here on load) and B in the diagonal; the
+// final B * Z product keeps B in f32.  Two bodies:
+//   pyfem_otf_3d (otf_3d_kernel), the f32 body on the CUDA cores below;
+//     its bf16 = 1 form is the bf16 pass as it ran before the tensor-core
+//     body, kept as that body's yardstick; float32 on the tensor cores
+//     would be TF32;
+//   pyfem_otf_3d_tc (otf_3d_tc_kernel), the bf16-operand pass with Z on
+//     the tensor cores (mma.sync bf16, f32 accumulate), as the TPU kernel
+//     ran it on its matrix unit; see TcShape below.
 //
 // What bounds it on the H100: operations.  Counted as the TPU kernel
 // does its dense matmuls, a pass is nd * (64 * 27 * nd + 64) = 15,744
@@ -72,6 +79,40 @@ __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
+// RAMP material at the quad points of each element touching the tile
+// whose low corner is (z0, y0, x0); element (z0 - 1 + lz, y0 - 1 + ly,
+// x0 - 1 + lx) has its low corner at s_rho[lz][ly][lx] (the density tile
+// with its one-node halo, 0 off the grid); 0 for elements past the grid.
+__device__ __forceinline__ void tile_materials(
+    const float* s_N, const float (*s_rho)[RY][RX],
+    float (*s_cq)[EZ][EY][EX], int x0, int y0, int z0, int nz, int ny,
+    int nx, float p, int tid) {
+  for (int i = tid; i < EZ * EY * EX; i += NT) {
+    const int lx = i % EX, ly = (i / EX) % EY, lz = i / (EX * EY);
+    const int ez = z0 - 1 + lz, ey = y0 - 1 + ly, ex = x0 - 1 + lx;
+    const bool valid = ez >= 0 && ez < nz - 1 && ey >= 0 && ey < ny - 1 &&
+                       ex >= 0 && ex < nx - 1;
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      // N . rho then RAMP, each operation rounded (no FMA contraction) in
+      // the plain version's order: bit-identical B
+      float s = 0.f;
+#pragma unroll
+      for (int m = 0; m < 8; ++m) {
+        // hex8 local node m at (dz, dy, dx): (0,0,0) (0,0,1) (0,1,1)
+        // (0,1,0) (1,0,0) (1,0,1) (1,1,1) (1,1,0)
+        const int mz = m >> 2, my = (m >> 1) & 1, mx = (m ^ (m >> 1)) & 1;
+        const float t = __fmul_rn(s_N[q * 8 + m],
+                                  s_rho[lz + mz][ly + my][lx + mx]);
+        s = m == 0 ? t : __fadd_rn(s, t);
+      }
+      s_cq[q][lz][ly][lx] =
+          valid ? __fdiv_rn(s, __fadd_rn(1.f, __fmul_rn(p, __fsub_rn(1.f, s))))
+                : 0.f;
+    }
+  }
+}
+
 template <int ND, bool BF16>
 __global__ void __launch_bounds__(NT)
     otf_3d_kernel(const float* __restrict__ rho,
@@ -116,33 +157,7 @@ __global__ void __launch_bounds__(NT)
   }
   __syncthreads();
 
-  // RAMP material at the quad points of each element touching the tile;
-  // element (z0 - 1 + lz, y0 - 1 + ly, x0 - 1 + lx) has its low corner
-  // at s_rho[lz][ly][lx]
-  for (int i = tid; i < EZ * EY * EX; i += NT) {
-    const int lx = i % EX, ly = (i / EX) % EY, lz = i / (EX * EY);
-    const int ez = z0 - 1 + lz, ey = y0 - 1 + ly, ex = x0 - 1 + lx;
-    const bool valid = ez >= 0 && ez < nz - 1 && ey >= 0 && ey < ny - 1 &&
-                       ex >= 0 && ex < nx - 1;
-#pragma unroll
-    for (int q = 0; q < NQ; ++q) {
-      // N . rho then RAMP, each operation rounded (no FMA contraction) in
-      // the plain version's order: bit-identical B
-      float s = 0.f;
-#pragma unroll
-      for (int m = 0; m < 8; ++m) {
-        // hex8 local node m at (dz, dy, dx): (0,0,0) (0,0,1) (0,1,1)
-        // (0,1,0) (1,0,0) (1,0,1) (1,1,1) (1,1,0)
-        const int mz = m >> 2, my = (m >> 1) & 1, mx = (m ^ (m >> 1)) & 1;
-        const float t = __fmul_rn(s_N[q * 8 + m],
-                                  s_rho[lz + mz][ly + my][lx + mx]);
-        s = m == 0 ? t : __fadd_rn(s, t);
-      }
-      s_cq[q][lz][ly][lx] =
-          valid ? __fdiv_rn(s, __fadd_rn(1.f, __fmul_rn(p, __fsub_rn(1.f, s))))
-                : 0.f;
-    }
-  }
+  tile_materials(s_N, s_rho, s_cq, x0, y0, z0, nz, ny, nx, p, tid);
   __syncthreads();
 
   const int ix = x0 + tx, iy = y0 + ty, iz = z0 + tz;
@@ -243,6 +258,225 @@ void launch_nd(const float* rho, const float* maskf, const float* tables,
   }
 }
 
+// The bf16-operand pass on the tensor cores (the TPU kernel's matmul on
+// its matrix unit).  The product Z = w3[ca] @ Y is zero wherever the
+// element node - o does not hold the neighbour node + d - 1, so it runs as
+// one small product per element offset o, over that element's 8 nodes m:
+//   Z[node, (o, q)] = sum_{cb, m} x[cb](node + m - o) * w3o[ca][o][q][(cb, m)]
+// with w3o the structurally nonzero weights of w3 (ops/otf3d.py::tc_table)
+// and the same values, the same products and the same f32 accumulation as
+// the dense Z.  Each is mma.sync m16n8k16 (bf16 operands, f32 accumulate):
+// the 16 nodes of one x-row of the tile as M, (cb, m) as K (8 nd,
+// zero-padded to KP) and q as N (8).  The epilogue forms sum_{o, q} B_(o,q)
+// Z from the C fragments (each thread holds two nodes and two q) and a
+// quad shuffle; then each thread finishes its node as the f32 body does.
+template <int ND>
+struct TcShape {
+  static constexpr int K = 8 * ND;                // (cb, m) per offset
+  static constexpr int KP = (K + 15) / 16 * 16;   // padded to k16 steps
+  static constexpr int KS = KP + 8;  // smem row stride: conflict-free B loads
+  static constexpr int KSTEPS = KP / 16;
+  static constexpr int XT = RZ * RY * RX;         // one component's x tile
+  // bytes of dynamic shared memory: w3o (bf16) | wd, N | rho | cq | ax | x
+  static constexpr int W_BYTES = ND * 8 * NQ * KS * 2;
+  static constexpr int SMEM = W_BYTES + 4 * (ND * NJ + NQ * 8 + XT +
+                                             NQ * EZ * EY * EX + ND * NT) +
+                              2 * ND * XT;
+};
+
+__device__ __forceinline__ uint32_t pack_bf16(uint16_t lo, uint16_t hi) {
+  return static_cast<uint32_t>(lo) | (static_cast<uint32_t>(hi) << 16);
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <int ND>
+__global__ void __launch_bounds__(NT)
+    otf_3d_tc_kernel(const float* __restrict__ rho,
+                     const float* __restrict__ maskf,
+                     const uint16_t* __restrict__ w3t,
+                     const float* __restrict__ tab,
+                     const float* __restrict__ b, const float* __restrict__ x,
+                     float* __restrict__ out, float p, int nz, int ny, int nx,
+                     float omega, int mode) {
+  using S = TcShape<ND>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const uint16_t* s_w = reinterpret_cast<const uint16_t*>(smem);
+  float* s_wd = reinterpret_cast<float*>(smem + S::W_BYTES);
+  float* s_N = s_wd + ND * NJ;
+  auto s_rho = reinterpret_cast<float (*)[RY][RX]>(s_N + NQ * 8);
+  auto s_cq = reinterpret_cast<float (*)[EZ][EY][EX]>(s_N + NQ * 8 + S::XT);
+  float* s_ax = s_N + NQ * 8 + S::XT + NQ * EZ * EY * EX;
+  uint16_t* s_x = reinterpret_cast<uint16_t*>(s_ax + ND * NT);
+  const int tx = threadIdx.x, ty = threadIdx.y, tz = threadIdx.z;
+  const int tid = tx + TX * (ty + TY * tz);
+  const int x0 = blockIdx.x * TX, y0 = blockIdx.y * TY, z0 = blockIdx.z * TZ;
+  const long long plane = static_cast<long long>(nz) * ny * nx;
+  const long long sz = static_cast<long long>(ny) * nx;
+
+  for (int i = tid; i < S::W_BYTES / 16; i += NT)
+    reinterpret_cast<uint4*>(smem)[i] =
+        __ldg(reinterpret_cast<const uint4*>(w3t) + i);
+  for (int i = tid; i < ND * NJ + NQ * 8; i += NT) s_wd[i] = __ldg(tab + i);
+  // density and the bf16-rounded iterate on the tile + a one-node halo
+  for (int i = tid; i < S::XT; i += NT) {
+    const int lx = i % RX, ly = (i / RX) % RY, lz = i / (RX * RY);
+    const int gx = x0 + lx - 1, gy = y0 + ly - 1, gz = z0 + lz - 1;
+    const bool in = gx >= 0 && gx < nx && gy >= 0 && gy < ny && gz >= 0 &&
+                    gz < nz;
+    const long long g = gz * sz + static_cast<long long>(gy) * nx + gx;
+    s_rho[lz][ly][lx] = in ? __ldg(rho + g) : 0.f;
+    if (x != nullptr) {
+#pragma unroll
+      for (int c = 0; c < ND; ++c)
+        s_x[c * S::XT + i] = __bfloat16_as_ushort(
+            __float2bfloat16_rn(in ? __ldg(x + c * plane + g) : 0.f));
+    }
+  }
+  __syncthreads();
+  tile_materials(s_N, s_rho, s_cq, x0, y0, z0, nz, ny, nx, p, tid);
+  __syncthreads();
+
+  if (x != nullptr) {
+    const int lane = tid & 31, warp = tid >> 5;
+    const int g = lane >> 2, c4 = lane & 3;
+    // x-tile offsets of this thread's contraction indices k = (cb, m) for
+    // the offset o = 0: per k-step, k = 16 s + 2 c4 + {0, 1, 8, 9}; -1
+    // past 8 nd (the zero padding)
+    int koff[S::KSTEPS][4];
+#pragma unroll
+    for (int st = 0; st < S::KSTEPS; ++st) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int k = 16 * st + 2 * c4 + (e & 1) + (e >> 1) * 8;
+        const int cb = k / 8, m = k % 8;
+        koff[st][e] = k < S::K ? cb * S::XT + (m >> 2) * RY * RX +
+                                     ((m >> 1) & 1) * RX + (m & 1)
+                               : -1;
+      }
+    }
+    for (int mt = warp; mt < TY * TZ; mt += NT / 32) {
+      const int my = mt % TY, mz = mt / TY;  // the x-row of 16 nodes
+      // the row's node g at its place in the x tile (one-node halo)
+      const int base0 = ((mz + 1) * RY + my + 1) * RX + g + 1;
+      const int base1 = base0 + 8;
+      float s0[ND], s1[ND];
+#pragma unroll
+      for (int ca = 0; ca < ND; ++ca) s0[ca] = s1[ca] = 0.f;
+#pragma unroll
+      for (int o = 0; o < 8; ++o) {
+        const int az = o >> 2, ay = (o >> 1) & 1, ax = o & 1;
+        const int ooff = az * RY * RX + ay * RX + ax;
+        auto y = [&](int base, int off) -> uint16_t {
+          return off < 0 ? static_cast<uint16_t>(0) : s_x[base + off - ooff];
+        };
+        uint32_t a[S::KSTEPS][4];
+#pragma unroll
+        for (int st = 0; st < S::KSTEPS; ++st) {
+          a[st][0] = pack_bf16(y(base0, koff[st][0]), y(base0, koff[st][1]));
+          a[st][1] = pack_bf16(y(base1, koff[st][0]), y(base1, koff[st][1]));
+          a[st][2] = pack_bf16(y(base0, koff[st][2]), y(base0, koff[st][3]));
+          a[st][3] = pack_bf16(y(base1, koff[st][2]), y(base1, koff[st][3]));
+        }
+        // B at this thread's nodes g, g + 8 and quad points 2 c4, 2 c4 + 1
+        const float* c0 = &s_cq[2 * c4][mz + 1 - az][my + 1 - ay][1 - ax];
+        const float* c1 =
+            &s_cq[2 * c4 + 1][mz + 1 - az][my + 1 - ay][1 - ax];
+        const float b00 = c0[g], b01 = c1[g], b10 = c0[g + 8],
+                    b11 = c1[g + 8];
+#pragma unroll
+        for (int ca = 0; ca < ND; ++ca) {
+          float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int st = 0; st < S::KSTEPS; ++st) {
+            const uint16_t* bp =
+                s_w + ((ca * 8 + o) * NQ + g) * S::KS + 16 * st + 2 * c4;
+            mma_bf16(acc, a[st], *reinterpret_cast<const uint32_t*>(bp),
+                     *reinterpret_cast<const uint32_t*>(bp + 8));
+          }
+          s0[ca] += b00 * acc[0] + b01 * acc[1];
+          s1[ca] += b10 * acc[2] + b11 * acc[3];
+        }
+      }
+#pragma unroll
+      for (int ca = 0; ca < ND; ++ca) {
+        float v0 = s0[ca], v1 = s1[ca];
+        v0 += __shfl_xor_sync(0xffffffffu, v0, 1);
+        v0 += __shfl_xor_sync(0xffffffffu, v0, 2);
+        v1 += __shfl_xor_sync(0xffffffffu, v1, 1);
+        v1 += __shfl_xor_sync(0xffffffffu, v1, 2);
+        if (c4 == 0) {
+          s_ax[ca * NT + mt * TX + g] = v0;
+          s_ax[ca * NT + mt * TX + g + 8] = v1;
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  const int ix = x0 + tx, iy = y0 + ty, iz = z0 + tz;
+  if (ix >= nx || iy >= ny || iz >= nz) return;
+  const long long node = iz * sz + static_cast<long long>(iy) * nx + ix;
+  // the diagonal rnd(wd) . rnd(B), in the f32 body's order per component
+  float d[ND];
+#pragma unroll
+  for (int c = 0; c < ND; ++c) d[c] = 0.f;
+  if (mode == 0) {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int o = j / NQ, az = o >> 2, ay = (o >> 1) & 1, ax = o & 1;
+      const float bj =
+          bf16_round(s_cq[j % NQ][tz + 1 - az][ty + 1 - ay][tx + 1 - ax]);
+#pragma unroll
+      for (int c = 0; c < ND; ++c) d[c] += s_wd[c * NJ + j] * bj;
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < ND; ++c) {
+    const long long i = c * plane + node;
+    const float rowm = __ldg(maskf + i);
+    float acc = 0.f;
+    if (x != nullptr)
+      acc = rowm * s_ax[c * NT + tid] + (1.f - rowm) * __ldg(x + i);
+    const float r = (b != nullptr ? __ldg(b + i) : 0.f) - acc;
+    if (mode == 0) {
+      const float dd = rowm * d[c] + (1.f - rowm);
+      const float invd = rowm / (dd == 0.f ? 1.f : dd);
+      const float xc = x != nullptr ? __ldg(x + i) : 0.f;
+      out[i] = xc + omega * invd * r;
+    } else if (mode == 1) {
+      out[i] = r;
+    } else {
+      out[i] = -r;
+    }
+  }
+}
+
+template <int ND>
+int launch_tc(const float* rho, const float* maskf, const uint16_t* w3t,
+              const float* tab, const float* b, const float* x, float* out,
+              float p, int nz, int ny, int nx, float omega, int mode,
+              cudaStream_t s) {
+  constexpr int smem = TcShape<ND>::SMEM;
+  const cudaError_t e = cudaFuncSetAttribute(
+      otf_3d_tc_kernel<ND>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 block(TX, TY, TZ);
+  const dim3 grid((nx + TX - 1) / TX, (ny + TY - 1) / TY, (nz + TZ - 1) / TZ);
+  otf_3d_tc_kernel<ND><<<grid, block, smem, s>>>(
+      rho, maskf, w3t, tab, b, x, out, p, nz, ny, nx, omega, mode);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // One stencil pass: mode 0 (sweep; x == nullptr: the elementwise first
@@ -269,4 +503,28 @@ extern "C" int pyfem_otf_3d(const void* rho, const void* maskf,
                  omega, mode, bf16, s);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16-operand pass on the tensor cores (the mxu_bf16 calls): w3t =
+// the structurally nonzero bf16 weights as (nd, 8 o, 8 q, KS) with zero
+// padding (TcShape, ops/otf3d.py::tc_table), tab = float32 rnd(wd)
+// (nd * 64) | N (64); otherwise as pyfem_otf_3d.  w3t 16-byte aligned.
+extern "C" int pyfem_otf_3d_tc(const void* rho, const void* maskf,
+                               const void* w3t, const void* tab,
+                               const void* b, const void* x, void* out,
+                               float p, int nd, int nz, int ny, int nx,
+                               float omega, int mode, void* stream) {
+  if ((nd != 1 && nd != 3) || mode < 0 || mode > 2 ||
+      (mode != 0 && x == nullptr) || (x == nullptr && b == nullptr) ||
+      reinterpret_cast<uintptr_t>(w3t) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto f = [](const void* q) { return static_cast<const float*>(q); };
+  auto w = static_cast<const uint16_t*>(w3t);
+  auto o = static_cast<float*>(out);
+  if (nd == 3)
+    return launch_tc<3>(f(rho), f(maskf), w, f(tab), f(b), f(x), o, p, nz,
+                        ny, nx, omega, mode, s);
+  return launch_tc<1>(f(rho), f(maskf), w, f(tab), f(b), f(x), o, p, nz, ny,
+                      nx, omega, mode, s);
 }

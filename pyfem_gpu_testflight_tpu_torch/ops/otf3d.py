@@ -47,7 +47,7 @@ from . import _cuda
 from .fused_assemble import assembly_weights3d, shifted_materials_3d
 from .fused_smooth import _MODE_NEG_RESID, _MODE_RESID, _MODE_SWEEP, _omega_seq
 
-__all__ = ["otf_weights", "otf_apply_3d", "otf_apply_3d_plain"]
+__all__ = ["otf_weights", "otf_apply_3d", "otf_apply_3d_plain", "tc_table"]
 
 
 def otf_weights(plan, Kq, nd, nq):
@@ -184,6 +184,67 @@ def otf_apply_3d_plain(rho, maskf, w3, wd, b=None, x=None, *, niter=0,
     return _outputs(x, r, niter, want_resid)
 
 
+_TC_INDEX = {}
+
+
+def _tc_index(nd, device):
+    """Flat w3 indices of the tensor-core table, (nd, 8 o, 8 q, 8 nd):
+    for element offset o and quad point q, the weight of component cb at
+    the element's node m (m = mz*4 + my*2 + mx), which is the neighbour
+    d - 1 = m - o of the node; the other weights of w3 are zero by the
+    stencil plan."""
+    key = (nd, device)
+    if key not in _TC_INDEX:
+        idx = np.empty((nd, 8, 8, 8 * nd), np.int64)
+        for ca, o, q, cb, m in np.ndindex(nd, 8, 8, nd, 8):
+            dz = (m >> 2) - (o >> 2) + 1
+            dy = ((m >> 1) & 1) - ((o >> 1) & 1) + 1
+            dx = (m & 1) - (o & 1) + 1
+            idx[ca, o, q, cb * 8 + m] = ((ca * 64 + o * 8 + q) * 27 * nd
+                                         + cb * 27 + dz * 9 + dy * 3 + dx)
+        _TC_INDEX[key] = torch.as_tensor(idx, device=device)
+    return _TC_INDEX[key]
+
+
+def tc_table(w3):
+    """The tensor-core body's weights: the structurally nonzero ones of
+    ``w3`` (nd, 64, 27 nd), rounded to bf16, as (nd, 8 o, 8 q, ks) —
+    the contraction 8 nd zero-padded to a multiple of 16 plus 8
+    (``csrc/otf_3d.cu`` ``TcShape``: a row stride whose fragment loads
+    hit distinct shared-memory banks)."""
+    nd = w3.shape[0]
+    k = 8 * nd
+    out = w3.new_zeros((nd, 8, 8, -(-k // 16) * 16 + 8), dtype=torch.bfloat16)
+    out[..., :k] = w3.reshape(-1)[_tc_index(nd, w3.device)]
+    return out
+
+
+_TABLES = {}
+
+
+def _device_tables(w3, wd, bf16):
+    """The kernels' weight tables, built once per (w3, wd): the tensor-core
+    body's ``(tc_table(w3), rnd(wd) | N)``, or the f32 body's one table
+    ``compact w3 | wd | N`` (``_compact_index``).  A level's tables are
+    fixed, and rebuilding them took longer on the host than a pass takes
+    on the card.  Keyed by address and version; the entry holds w3 and wd,
+    so no other tensor takes their address while it is cached."""
+    key = (w3.data_ptr(), w3._version, wd.data_ptr(), wd._version, bf16)
+    hit = _TABLES.get(key)
+    if hit is None:
+        if len(_TABLES) >= 32:
+            _TABLES.pop(next(iter(_TABLES)))
+        nd = w3.shape[0]
+        N = _shape_vals(w3).reshape(-1)
+        if bf16:
+            tabs = (tc_table(w3), torch.cat([_bf16(wd).reshape(-1), N]))
+        else:
+            tabs = (torch.cat([w3.reshape(-1)[_compact_index(nd, w3.device)],
+                               wd.reshape(-1), N]),)
+        hit = _TABLES[key] = (w3, wd, tabs)
+    return hit[2]
+
+
 def _otf_apply_3d_cuda(rho, maskf, w3, wd, b, x, *, niter, want_resid,
                        neg_resid, omega, p, mxu_bf16):
     nd = _check(rho, maskf, w3, wd, b, x, niter, want_resid)
@@ -193,20 +254,24 @@ def _otf_apply_3d_cuda(rho, maskf, w3, wd, b, x, *, niter, want_resid,
         if t is not None and not t.is_contiguous():
             raise ValueError("inputs must be contiguous")
     nz, ny, nx = rho.shape
-    # one table for the kernel's shared memory: compact w3 | wd | N
-    tables = torch.cat([w3.reshape(-1)[_compact_index(nd, w3.device)],
-                        wd.reshape(-1)])
-    if mxu_bf16:
-        tables = _bf16(tables)
-    tables = torch.cat([tables, _shape_vals(rho).reshape(-1)])
     stream = _cuda.stream_ptr(rho)
     ptr = lambda t: None if t is None else t.data_ptr()
+    if mxu_bf16:
+        # the bf16-operand smoother pass on the tensor cores
+        w3t, tab = _device_tables(w3, wd, True)
 
-    def step(xin, out, om, mode):
-        _cuda.launch("pyfem_otf_3d", rho.data_ptr(), maskf.data_ptr(),
-                     tables.data_ptr(), ptr(b), ptr(xin), out.data_ptr(),
-                     float(p), nd, nz, ny, nx, float(om), mode,
-                     int(bool(mxu_bf16)), stream)
+        def step(xin, out, om, mode):
+            _cuda.launch("pyfem_otf_3d_tc", rho.data_ptr(), maskf.data_ptr(),
+                         w3t.data_ptr(), tab.data_ptr(), ptr(b), ptr(xin),
+                         out.data_ptr(), float(p), nd, nz, ny, nx, float(om),
+                         mode, stream)
+    else:
+        (tables,) = _device_tables(w3, wd, False)
+
+        def step(xin, out, om, mode):
+            _cuda.launch("pyfem_otf_3d", rho.data_ptr(), maskf.data_ptr(),
+                         tables.data_ptr(), ptr(b), ptr(xin), out.data_ptr(),
+                         float(p), nd, nz, ny, nx, float(om), mode, 0, stream)
 
     # ping-pong: a pass reads every neighbour of its input, so it never
     # writes in place; the caller's x is never written
@@ -231,7 +296,9 @@ def otf_apply_3d(rho, maskf, w3, wd, b=None, x=None, *, niter=0,
     * b``), then optionally ``+-(b - A x)`` (``-A x`` when ``b`` is
     None).  ``niter=0``, ``x`` given, ``b=None``, ``neg_resid=True`` is
     the matvec ``A x``.  On the card each stencil pass is one launch of
-    ``csrc/otf_3d.cu``.
+    ``csrc/otf_3d.cu``: ``pyfem_otf_3d_tc`` (the product on the bf16
+    tensor cores) when ``mxu_bf16``, else ``pyfem_otf_3d`` (float32 on
+    the CUDA cores; on the tensor cores float32 would be TF32).
 
     Args:
         rho: (nz, ny, nx) nodal density.

@@ -2,7 +2,9 @@
 
 K1 and K2 on a 65x33 level; K3, K4 (every mode, f32 and bf16 planes)
 and K5 on a 17^3 level, in half-symmetric and full coefficient storage;
-K6 on a 17^3 level in every mode with f32 and bf16 operands; K7 and K8
+K6 on a 17^3 level in every mode with f32 and bf16 operands; K5's single
+pass (every call within its budget) and K6's tensor-core pass on a
+ragged 9x7x5 grid, nd=3 and nd=1; K7 and K8
 in every form (quad4, hex8, tet10, brick20; elasticity and Poisson) on
 jittered meshes, the determinism of the matrix-free operator and of a
 CG solve, ``kernel="cuda"`` never taking a plain version on a CUDA
@@ -336,11 +338,14 @@ def test_k6_matches_plain_on_card(otf_levels, physics, variant, bf16):
                                     omega=multigrid.smoothing_omegas(4, 3.0))),
     }[variant]
     kw.update(p=lv.p, mxu_bf16=bf16)
-    n0 = _cuda.launches["pyfem_otf_3d"]
+    # the bf16-operand passes run the tensor-core body, the f32 ones the
+    # CUDA-core body
+    entry = "pyfem_otf_3d_tc" if bf16 else "pyfem_otf_3d"
+    n0 = _cuda.launches[entry]
     got = otf3d.otf_apply_3d(lv.rho, lv.maskf, lv.w3, lv.wd, bb, xx, **kw)
     torch.cuda.synchronize()
     passes = kw["niter"] + (1 if kw.get("want_resid", True) else 0)
-    assert _cuda.launches["pyfem_otf_3d"] == n0 + passes
+    assert _cuda.launches[entry] == n0 + passes
     got = got if isinstance(got, tuple) else (got,)
     pairs, last = _k6_passes(lv, bb, xx, kw)
     torch.cuda.synchronize()
@@ -352,6 +357,94 @@ def test_k6_matches_plain_on_card(otf_levels, physics, variant, bf16):
             # a residual after damping sweeps is rounded at b's scale
             scale = max(scale, float(bb.abs().max()))
         assert float((k - r).abs().max()) <= TOL * scale
+
+
+# -- K5 single pass and K6 tensor cores on a ragged grid -------------------
+
+
+def _ragged_level(dev, physics, elem_path="uniform"):
+    from pyfem_gpu_testflight_tpu_torch import multigrid
+
+    nx, ny, nz = 9, 7, 5
+    a = multigrid.GMGAssembler3D(nx, ny, nz, 2.0, 1.5, 1.0, physics, p=3.0,
+                                 device=dev, elem_path=elem_path)
+    rng = np.random.default_rng(5)
+    rho = torch.as_tensor(rng.uniform(0.3, 1.0, (nz, ny, nx)),
+                          dtype=torch.float32, device=dev)
+    f = lambda: torch.as_tensor(rng.standard_normal((a.nd, nz, ny, nx)),
+                                dtype=torch.float32, device=dev)
+    return a, rho, f
+
+
+@pytest.mark.parametrize("physics", ["elasticity", "poisson"])
+@pytest.mark.parametrize("prec", ["f32", "bf16"])
+def test_k5_single_pass_matches_plain_on_card(dev, physics, prec):
+    """Every call within the budget is one launch of the single pass,
+    within 1e-5 of max|plain| (the residual of max|b|)."""
+    import itertools
+
+    from pyfem_gpu_testflight_tpu_torch import multigrid
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+    from pyfem_gpu_testflight_tpu_torch.ops import fused_assemble as fa
+    from pyfem_gpu_testflight_tpu_torch.ops import fused_smooth as fs
+
+    a, rho, f = _ragged_level(dev, physics)
+    st = a.static_levels[0]
+    ck, dk, lk = fa.assemble_pack_3d(rho, st.maskf, st.W, a.N, nd=a.nd,
+                                     p=3.0, lp_dtype=torch.bfloat16)
+    c = ck if prec == "f32" else lk
+    b, x0 = torch.where(st.mask, 0.0, f()), torch.where(st.mask, 0.0, f())
+    calls = 0
+    for niter, x0_zero, resid in itertools.product((1, 2, 3, 4),
+                                                   (True, False),
+                                                   (True, False)):
+        if not fs.single_pass_3d(c.shape[0], a.nd, niter, x0_zero, resid):
+            continue
+        kw = dict(niter=niter, want_resid=resid,
+                  omega=multigrid.smoothing_omegas(niter, 3.0))
+        x = None if x0_zero else x0
+        n0 = _cuda.launches["pyfem_sweeps_3d_fused"]
+        got = fs.fused_sweeps3d(c, dk, b, x, **kw)
+        ref = fs.fused_sweeps3d_plain(c, dk, b, x, **kw)
+        torch.cuda.synchronize()
+        assert _cuda.launches["pyfem_sweeps_3d_fused"] == n0 + 1
+        got = got if isinstance(got, tuple) else (got,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        assert _rel(got[0], ref[0]) <= TOL
+        if resid:
+            err = float((got[1] - ref[1]).abs().max())
+            assert err <= TOL * float(b.abs().max())
+        calls += 1
+    assert calls == 14
+
+
+@pytest.mark.parametrize("physics", ["elasticity", "poisson"])
+def test_k6_tensor_core_pass_matches_plain_on_card(dev, physics):
+    """Each bf16-operand pass (first sweep, sweep, residual, matvec) is
+    one launch of the tensor-core body, within 1e-5 of max|plain| (a
+    residual of max(|r|, |b|))."""
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+    from pyfem_gpu_testflight_tpu_torch.ops import otf3d
+
+    a, rho, f = _ragged_level(dev, physics, "otf")
+    _, lv = a.assemble(rho.reshape(-1))
+    b, x0 = torch.where(lv.mask, 0.0, f()), torch.where(lv.mask, 0.0, f())
+    args = (lv.rho, lv.maskf, lv.w3, lv.wd)
+    for bb, xx, kw in ((b, None, dict(niter=1, want_resid=False)),
+                       (b, x0, dict(niter=1, want_resid=False)),
+                       (b, x0, dict(niter=0)),
+                       (b, x0, dict(niter=0, neg_resid=True)),
+                       (None, x0, dict(niter=0, neg_resid=True))):
+        kw.update(p=lv.p, omega=0.55, mxu_bf16=True)
+        n0 = _cuda.launches["pyfem_otf_3d_tc"]
+        got = otf3d.otf_apply_3d(*args, bb, xx, **kw)
+        ref = otf3d.otf_apply_3d_plain(*args, bb, xx, **kw)
+        torch.cuda.synchronize()
+        assert _cuda.launches["pyfem_otf_3d_tc"] == n0 + 1
+        scale = float(ref.abs().max())
+        if kw["niter"] == 0 and bb is not None:
+            scale = max(scale, float(bb.abs().max()))
+        assert float((got - ref).abs().max()) <= TOL * scale
 
 
 # -- K7 / K8: element stiffness; the general-mesh CG path ----------------

@@ -243,3 +243,18 @@ def test_k6_wrapper_and_argument_checks():
         with pytest.raises(ValueError):
             bad()
     assert lt.can_fuse3d(6, True, True) and not lt.can_fuse3d(0, True, True)
+    # the tensor-core body's weights: every nonzero weight of w3 once, in
+    # bf16, the contraction zero-padded
+    w3t = otf3d.tc_table(lt.w3)
+    assert w3t.dtype == torch.bfloat16 and tuple(w3t.shape) == (1, 8, 8, 24)
+    assert not w3t[..., 8:].any()
+    w3b = lt.w3.to(torch.bfloat16)
+    assert int((w3t != 0).sum()) == int((w3b != 0).sum())
+    assert torch.allclose(w3t.double().abs().sum(), w3b.double().abs().sum())
+    # the card's tables are built once per (w3, wd), again after a change
+    w3, wd = lt.w3.clone(), lt.wd.clone()
+    tabs = otf3d._device_tables(w3, wd, True)
+    assert otf3d._device_tables(w3, wd, True) is tabs
+    assert torch.equal(tabs[0], w3t)
+    w3.mul_(2.0)
+    assert torch.equal(otf3d._device_tables(w3, wd, True)[0], 2 * w3t)

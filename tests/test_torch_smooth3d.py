@@ -14,12 +14,24 @@ from the JAX ``Stencil3D.matvec`` on full planes, on a JAX-assembled
   ``_kernel3d``) in every mode against the JAX ``fused_sweep_3d`` on the
   same full planes, its Pallas kernel in interpret mode, float32 to 2e-6
   of max (summation order); K5 on full planes equals K5 on the kept
-  planes of the same operator (1e-12).
+  planes of the same operator (1e-12);
+* K5's dispatch rule (``single_pass_3d``: the single-pass entry for half
+  storage within ``SWEEP3_BUDGET`` stencil passes, else the per-sweep
+  one) against the JAX ``Level.can_fuse3d`` (its 3D rule) and
+  ``halo_sweeps_3d``, and
+  the port counterparts of the JAX gates
+  ``test_fused_multi_sweep3d_matches_per_sweep`` and
+  ``test_gmg3d_pcg_fused_multi_matches_per_sweep_solve``
+  (``tests/test_pallas_smooth.py``) at 9^3 in float32, with their
+  tolerances (the plain versions here; the card runs the kernels in
+  ``tests/test_torch_cuda.py``).
 
 On the full-precision side the JAX reference reads the JAX package's
 own eliminated planes; the bf16 variants read the full planes rebuilt
 from the bf16-rounded kept planes (identical values on both sides).
 """
+
+import itertools
 
 import numpy as np
 import jax
@@ -28,6 +40,7 @@ import pytest
 import torch
 
 from pyfem_gpu_testflight_tpu import multigrid as jmg
+from pyfem_gpu_testflight_tpu.ops import pallas_smooth as jps
 
 from pyfem_gpu_testflight_tpu_torch import multigrid as tmg
 from pyfem_gpu_testflight_tpu_torch.ops import fused_smooth as fs
@@ -212,3 +225,85 @@ def test_k4_k5_argument_checks(level):
         fs.fused_sweeps3d(c[:14], d, b, None, niter=2)  # nd=1 storage
     with pytest.raises(ValueError):
         fs.fused_sweeps3d(c, d, b, None, niter=3, omega=(0.5, 0.6))
+
+
+@pytest.mark.parametrize("sym", [True, False])
+def test_k5_dispatch_rule_matches_jax_budget(sym):
+    """Which K5 entry each call takes, beside the JAX package's rule for
+    its single-pass kernel (a sym-storage level with tz = 4)."""
+    from types import SimpleNamespace
+
+    assert fs.SWEEP3_BUDGET == min(4, jps.SWEEP3_ZEXT)
+    nk = len(fs.sym_planes_3d(ND)) if sym else ND * ND * 27
+    jlv = SimpleNamespace(pallas3=True, nd=ND, tz=4, coeff_lp_k=None,
+                          coeff_k=np.zeros((1, nk, 8, 128), np.float32))
+    for niter, x0_zero, want_resid in itertools.product(
+            range(1, 7), (True, False), (True, False)):
+        consumed = fs.halo_sweeps_3d(niter, x0_zero, want_resid)
+        assert consumed == jps.halo_sweeps_3d(niter, x0_zero, want_resid)
+        single = fs.single_pass_3d(nk, ND, niter, x0_zero, want_resid)
+        assert single == (sym and 1 <= consumed <= 4)
+        assert single == jmg.Level.can_fuse3d(jlv, niter, x0_zero,
+                                              want_resid)
+    # the V-cycle's calls at nu = 2 take the single pass
+    assert fs.single_pass_3d(nk, ND, 2, True, True) == sym
+    assert fs.single_pass_3d(nk, ND, 2, False, False) == sym
+    assert fs.single_pass_3d(14, 1, 4, False, False)  # nd = 1, 4 passes
+
+
+def _level9(physics):
+    a = tmg.GMGAssembler3D(9, 9, 9, 1.0, 1.0, 1.0, physics, p=3.0,
+                           dtype=torch.float32, device="cpu")
+    rng = np.random.default_rng(3)
+    rho = torch.as_tensor(rng.uniform(0.3, 1.0, 9 ** 3), dtype=torch.float32)
+    gmg, lv0 = a.assemble(rho)
+    b = torch.as_tensor(rng.standard_normal((a.nd, 9, 9, 9)),
+                        dtype=torch.float32)
+    return gmg, lv0, torch.where(lv0.mask, 0.0, b)
+
+
+@pytest.mark.parametrize("physics", ["elasticity", "poisson"])
+def test_k5_single_pass_calls_match_per_sweep(physics):
+    """Port counterpart of test_fused_multi_sweep3d_matches_per_sweep:
+    K5's calls equal the per-sweep K4 sequence on the same data."""
+    _gmg, lv0, b = _level9(physics)
+    nk = lv0.coeff.shape[0]
+    omega = 0.6
+    for niter in (2, 3):
+        assert fs.single_pass_3d(nk, lv0.nd, niter, True, True)
+        x_f, r_f = lv0.presmooth_resid3d(b, niter, omega)
+        x_s = omega * lv0.inv_diag * b
+        for _ in range(niter - 1):
+            x_s = lv0.sweep3d(b, x_s, omega)
+        r_s = lv0.resid3d(b, x_s)
+        assert float((x_f - x_s).abs().max()) < 1e-5 * float(
+            x_s.abs().max())
+        assert float((r_f - r_s).abs().max()) < 1e-5 * float(
+            r_s.abs().max())
+        assert fs.single_pass_3d(nk, lv0.nd, niter, False, False)
+        x_pf = lv0.postsmooth3d(b, x_f, niter, omega)
+        x_ps = x_f
+        for _ in range(niter):
+            x_ps = lv0.sweep3d(b, x_ps, omega)
+        assert float((x_pf - x_ps).abs().max()) < 1e-5 * float(
+            x_ps.abs().max())
+    assert not fs.single_pass_3d(nk, lv0.nd, fs.SWEEP3_BUDGET + 1, False,
+                                 False)
+
+
+def test_gmg3d_pcg_single_pass_matches_per_sweep_solve(monkeypatch):
+    """Port counterpart of
+    test_gmg3d_pcg_fused_multi_matches_per_sweep_solve: the GMG-PCG solve
+    through K5's calls reproduces the one through per-sweep K4 (the
+    V-cycle's fallback when ``can_fuse3d`` is false)."""
+    sols = []
+    for per_sweep in (False, True):
+        if per_sweep:
+            monkeypatch.setattr(tmg.Level3D, "can_fuse3d",
+                                lambda self, *a: False)
+        gmg, lv0, b = _level9("elasticity")
+        x, k, _ = tmg.pcg(lv0.matvec, gmg.apply, b, rtol=1e-7, maxiter=100)
+        sols.append((x.numpy(), int(k)))
+    (x_f, k_f), (x_s, k_s) = sols
+    assert abs(k_f - k_s) <= 2
+    assert np.abs(x_f - x_s).max() / np.abs(x_s).max() < 5e-4

@@ -7,7 +7,7 @@ Gates against the JAX package:
   included (1e-10);
 * the structured ``k_dv_sens`` (scatter-free, on an attached uniform
   grid) equals the generic einsum + segment-sum route and the JAX one
-  (1e-12), in 2D and, port against port, in 3D;
+  (1e-12), in 2D and 3D;
 * the host loop (``TopoProblem`` + ``MMA``) at 65x33 with the direct
   solver stays inside the 2% compliance envelope that
   tests/test_topo_trajectory.py commits (its numbers copied here);
@@ -125,8 +125,15 @@ def test_structured_k_dv_sens_3d_matches_generic():
     rng = np.random.default_rng(2)
     rho = rng.uniform(0.3, 1.0, n ** 3)
     phi, psi = rng.standard_normal((2, ms.ndof))
-    assert _rel(ms.k_dv_sens(rho, phi, psi), mg.k_dv_sens(rho, phi, psi)) \
-        <= 1e-12
+    s = ms.k_dv_sens(rho, phi, psi)
+    assert _rel(s, mg.k_dv_sens(rho, phi, psi)) <= 1e-12
+    # the JAX package's structured route (GMGAssembler3D.dv_sens)
+    jm = fem.LinearElasticity("hex8", X, conn, fixed, None, force, p=3.0)
+    jm.attach_structured_grid(n, n, n)
+    assert jm._use_structured_sens(rho, phi, psi)
+    s_ref = jm.k_dv_sens(jnp.asarray(rho), jnp.asarray(phi),
+                         jnp.asarray(psi))
+    assert _rel(s, s_ref) <= 1e-12
 
 
 # compliance per MMA iteration of tests/test_topo_trajectory.py (65x33
