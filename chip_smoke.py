@@ -960,9 +960,23 @@ def phase_kernels_3d(dev):
         ref = ref if isinstance(ref, tuple) else (ref,)
         errs = [rel_err(g, r) for g, r in zip(got, ref)]
         worst = max([worst] + [e[0] for e in errs])
-        log(f"K5 {name}: rel " + ", ".join(f"{e[1]:.2e}" for e in errs))
+        ms = cuda_ms(lambda: fs.fused_sweeps3d(*a, **kw), 20)
+        pms = cuda_ms(lambda: fs.fused_sweeps3d_plain(*a, **kw), 3)
+        log(f"K5 {name}: rel " + ", ".join(f"{e[1]:.2e}" for e in errs)
+            + f"; kernel {ms:.4f} ms, plain {pms:.4f} ms")
         check(all(e[1] <= REL_TOL for e in errs),
               f"K5 {name} within {REL_TOL:g}")
+        if name == "presmooth_resid_bf16":
+            # the function reads the planes once; the per-sweep form
+            # reads them halo_sweeps_3d(2, True, True) = 2 times
+            b_ms, b_by = bound(nbytes(lk, dk, b) + 2 * nbytes(b),
+                               2 * 243 * 2 * n3)
+            dms = device_ms(lambda: fs.fused_sweeps3d(*a, **kw))
+            res["K5"] = dict(ms=ms, plain_ms=pms, bound_ms=b_ms,
+                             bound_by=b_by, library_ms=None, device_ms=dms)
+            log(f"K5 {name}: bound {b_ms:.4f} ms ({b_by}); stencil "
+                f"passes {fs.halo_sweeps_3d(2, True, True)}; device time "
+                f"(profiler) {dms:.4f} ms")
     # nu=4 Chebyshev-node sweeps: the residual is damped below b, so its
     # rounding is measured against max|b| (as K2's niter=8 check)
     kw = dict(niter=4, want_resid=True,
@@ -975,139 +989,7 @@ def phase_kernels_3d(dev):
         f"max|r|, {rr[0] / bmax:.2e} of max|b|")
     check(ex[1] <= REL_TOL and rr[0] <= REL_TOL * bmax,
           f"K5 nu4_cheby x and r within {REL_TOL:g} (r of max|b|)")
-    res["K5 checks"] = max(worst, ex[0], rr[0])
-    return res
-
-
-def phase_kernels_k5_single(dev, build_log):
-    """Phase 3a, K5's single pass (``pyfem_sweeps_3d_fused``): every call
-    within its budget (nu = 1..4, from x0 = 0 or a given x, with and
-    without the residual) against the plain version at 65^3 and 9x7x5,
-    nd=3 and nd=1, on f32 and bf16 planes; then the bf16
-    presmooth+residual at 65^3 timed against the per-sweep form on the
-    same inputs, in turns."""
-    import torch
-    from pyfem_gpu_testflight_tpu_torch import multigrid
-    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
-    from pyfem_gpu_testflight_tpu_torch.ops import fused_assemble as fa
-    from pyfem_gpu_testflight_tpu_torch.ops import fused_smooth as fs
-
-    rng = np.random.default_rng(SEED + 11)
-    worst, res = 0.0, {}
-    for (nx, ny, nz), physics in (((N3, N3, N3), "elasticity"),
-                                  ((9, 7, 5), "elasticity"),
-                                  ((9, 7, 5), "poisson")):
-        a = multigrid.GMGAssembler3D(nx, ny, nz, (nx - 1) / (ny - 1), 1.0,
-                                     (nz - 1) / (ny - 1), physics, p=3.0,
-                                     device=dev)
-        st, nd = a.static_levels[0], a.nd
-        rho = torch.as_tensor(rng.uniform(0.2, 1.0, (nz, ny, nx)),
-                              dtype=torch.float32, device=dev)
-        ck, dk, lk = fa.assemble_pack_3d(rho, st.maskf, st.W, a.N, nd=nd,
-                                         p=3.0, lp_dtype=torch.bfloat16)
-        field = lambda: torch.as_tensor(rng.standard_normal((nd, nz, ny, nx)),
-                                        dtype=torch.float32, device=dev)
-        b = torch.where(st.mask, 0.0, field())
-        x0 = torch.where(st.mask, 0.0, field())
-        bmax = float(b.abs().max())
-        tag = f"K5 single pass {nx}x{ny}x{nz} nd={nd}"
-        for (cname, c), niter, x0_zero, resid in itertools.product(
-                (("f32", ck), ("bf16", lk)), (1, 2, 3, 4), (True, False),
-                (True, False)):
-            if not fs.single_pass_3d(c.shape[0], nd, niter, x0_zero, resid):
-                continue
-            kw = dict(niter=niter, want_resid=resid,
-                      omega=multigrid.smoothing_omegas(niter, 3.0))
-            x = None if x0_zero else x0
-            n0 = _cuda.launches["pyfem_sweeps_3d_fused"]
-            got = fs.fused_sweeps3d(c, dk, b, x, **kw)
-            ref = fs.fused_sweeps3d_plain(c, dk, b, x, **kw)
-            torch.cuda.synchronize()
-            got = got if isinstance(got, tuple) else (got,)
-            ref = ref if isinstance(ref, tuple) else (ref,)
-            ex = rel_err(got[0], ref[0])
-            # the residual is damped below b: its rounding is at b's scale
-            er = float((got[1] - ref[1]).abs().max()) if resid else 0.0
-            worst = max(worst, ex[0], er)
-            name = (f"{tag} {cname} nu={niter} "
-                    f"{'x0=0' if x0_zero else 'x0 given'}"
-                    f"{' +resid' if resid else ''}")
-            log(f"{name}: x rel {ex[1]:.2e}"
-                + (f", r {er / bmax:.2e} of max|b|" if resid else ""))
-            check(_cuda.launches["pyfem_sweeps_3d_fused"] == n0 + 1
-                  and ex[1] <= REL_TOL and er <= REL_TOL * bmax,
-                  f"{name}: one launch, within {REL_TOL:g} of max|plain| "
-                  f"(r of max|b|)")
-        if (nx, ny, nz) != (N3, N3, N3):
-            continue
-        om2 = multigrid.smoothing_omegas(2, 3.0)
-        kw = dict(niter=2, want_resid=True, neg_resid=False, omega=om2)
-        one = lambda: fs._sweeps3d_single_pass(lk, dk, b, None, **kw)
-        per = lambda: fs._sweeps3d_per_sweep(lk, dk, b, None, **kw)
-        # in turns: per-sweep, single, single, per-sweep
-        t = [cuda_ms(f, 20) for f in (per, one, one, per)]
-        ms, per_ms = min(t[1], t[2]), min(t[0], t[3])
-        pms = cuda_ms(lambda: fs.fused_sweeps3d_plain(
-            lk, dk, b, None, niter=2, want_resid=True, omega=om2), 3)
-        # the function reads the kept planes, invd and b once and writes
-        # x and r; 243 FMAs per node and stencil pass, 2 passes
-        b_ms, b_by = bound(nbytes(lk, dk, b) + 2 * nbytes(b),
-                           2 * 243 * 2 * rho.numel())
-        regs = [v for k, v in ptxas_table(build_log).items()
-                if "sweeps_3d_coop_kernelILi3E13__nv_bfloat16" in k]
-        # device time alone: the CUDA-event times above include the host's
-        # launch work whenever the host is slower than the card
-        d = [device_ms(f) for f in (per, one, one, per)]
-        # the lesser of each pair's measured times (0.0: not measured)
-        best = lambda a, b: min([v for v in (a, b) if v > 0] or [0.0])
-        dev1, dev_per = best(d[1], d[2]), best(d[0], d[3])
-        log(f"K5 presmooth+resid bf16 {N3}^3: single pass {t[1]:.4f} / "
-            f"{t[2]:.4f} ms, per-sweep form {t[0]:.4f} / {t[3]:.4f} ms on "
-            f"the same inputs (in turns, CUDA events); device time (profiler) "
-            f"single pass {d[1]:.4f} / {d[2]:.4f} ms, per-sweep {d[0]:.4f} / "
-            f"{d[3]:.4f} ms; plain {pms:.4f} ms, bound {b_ms:.4f} ms "
-            f"({b_by}); ptxas {regs}")
-        # a target of the design, reported (not a gate of the smoke run)
-        log(f"K5 single pass faster than the per-sweep form (bf16 "
-            f"presmooth+resid at {N3}^3, same run): CUDA events "
-            f"{'met' if ms < per_ms else 'NOT met'}, device time "
-            f"{verdict(dev1 < dev_per, dev1 * dev_per)}")
-        post = dict(niter=2, want_resid=False, neg_resid=False,
-                    omega=om2[::-1])
-        tp = [cuda_ms(f, 20) for f in (
-            lambda: fs._sweeps3d_per_sweep(lk, dk, b, x0, **post),
-            lambda: fs._sweeps3d_single_pass(lk, dk, b, x0, **post))]
-        log(f"K5 postsmooth bf16 {N3}^3: per-sweep {tp[0]:.4f} ms, single "
-            f"pass {tp[1]:.4f} ms")
-        res["K5"] = dict(ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
-                         library_ms=None, per_sweep_ms=per_ms,
-                         device_ms=dev1, per_sweep_device_ms=dev_per,
-                         postsmooth_ms=tp[1], postsmooth_per_sweep_ms=tp[0],
-                         ptxas=regs[0] if regs else None)
-    # the coarser smoothing levels of bench 3D: one launch against three
-    for n in (33, 17, 9, 5):
-        a = multigrid.GMGAssembler3D(n, n, n, 1.0, 1.0, 1.0, "elasticity",
-                                     p=3.0, device=dev)
-        st = a.static_levels[0]
-        rho = torch.as_tensor(rng.uniform(0.2, 1.0, (n, n, n)),
-                              dtype=torch.float32, device=dev)
-        _c, dk, lk = fa.assemble_pack_3d(rho, st.maskf, st.W, a.N, nd=3,
-                                         p=3.0, lp_dtype=torch.bfloat16)
-        b = torch.where(st.mask, 0.0, torch.as_tensor(
-            rng.standard_normal((3, n, n, n)), dtype=torch.float32,
-            device=dev))
-        kw = dict(niter=2, want_resid=True, neg_resid=False,
-                  omega=multigrid.smoothing_omegas(2, 3.0))
-        fns = (lambda: fs._sweeps3d_per_sweep(lk, dk, b, None, **kw),
-               lambda: fs._sweeps3d_single_pass(lk, dk, b, None, **kw))
-        t = [cuda_ms(f, 50) for f in fns]
-        d = [device_ms(f) for f in fns]
-        log(f"K5 presmooth+resid bf16 {n}^3: per-sweep (3 launches) "
-            f"{t[0]:.4f} ms, device {d[0]:.4f} ms; single pass (1 launch) "
-            f"{t[1]:.4f} ms, device {d[1]:.4f} ms")
-        res["K5"][f"single_vs_per_sweep_ms_{n}"] = t[::-1]
-        res["K5"][f"single_vs_per_sweep_device_ms_{n}"] = d[::-1]
-    res["K5"]["max_abs_err"] = worst
+    res["K5"]["max_abs_err"] = max(worst, ex[0], rr[0])
     return res
 
 
@@ -1149,11 +1031,9 @@ def phase_kernels_otf(dev, build_log):
     (``k6_passes``), and each whole call equal to its passes; the bf16
     calls run the tensor-core body (``pyfem_otf_3d_tc``), the f32 ones the
     CUDA-core body.  Then one sweep pass at 65^3 timed on both bodies,
-    in turns, and on the CUDA-core body with bf16 operands (the earlier
-    form of the bf16 pass)."""
+    in turns."""
     import torch
     from pyfem_gpu_testflight_tpu_torch import multigrid
-    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
     from pyfem_gpu_testflight_tpu_torch.ops import fused_assemble as fa
     from pyfem_gpu_testflight_tpu_torch.ops import otf3d
 
@@ -1246,37 +1126,34 @@ def phase_kernels_otf(dev, build_log):
                     f"{2 * nd * (64 * 27 * nd + 64) * n3 / 1e9:.2f}), "
                     f"torch.sparse.mm (f32 CSR) {lib:.4f} ms")
         # one sweep pass from a given x: f32 (CUDA cores) and bf16
-        # operands (tensor cores) in turns, and the bf16 operands on the
-        # CUDA-core body as it ran them before
+        # operands (tensor cores) in turns
         args = (lv.rho, lv.maskf, lv.w3, lv.wd, b, x0)
         sw = dict(niter=1, want_resid=False, omega=0.5, p=lv.p)
         f32 = lambda: otf3d.otf_apply_3d(*args, mxu_bf16=False, **sw)
         tc = lambda: otf3d.otf_apply_3d(*args, mxu_bf16=True, **sw)
         t = [cuda_ms(f, 20) for f in (f32, tc, tc, f32)]
-        tab = torch.cat([otf3d._bf16(torch.cat([
-            lv.w3.reshape(-1)[otf3d._compact_index(nd, dev)],
-            lv.wd.reshape(-1)])), otf3d._shape_vals(rho).reshape(-1)])
-        out = torch.empty_like(x0)
-        old = cuda_ms(lambda: _cuda.launch(
-            "pyfem_otf_3d", lv.rho.data_ptr(), lv.maskf.data_ptr(),
-            tab.data_ptr(), b.data_ptr(), x0.data_ptr(), out.data_ptr(),
-            float(lv.p), nd, nz, ny, nx, 0.5, 0, 1, _cuda.stream_ptr(b)), 20)
         pms = cuda_ms(lambda: otf3d.otf_apply_3d_plain(
             *args, mxu_bf16=True, **sw), 3)
         io = nbytes(rho, lv.maskf, lv.w3, lv.wd, b, x0) + nbytes(x0)
         f_ms, f_by = bound(io, flops)
-        # dense, as the TPU kernel counts its matmuls, on the bf16 tensor
-        # cores
-        dense = 2 * nd * (64 * 27 * nd + 64) * n3
-        t_ms, t_by = bound(io, dense, BF16_FLOP_S)
+        # what the pass needs: the structurally nonzero products (8 nd
+        # weights per (ca, o, q)) on the bf16 tensor cores; in f32 on the
+        # CUDA cores, which run beside them, sum_j B_j Z_j and the inverse
+        # diagonal (nd * 64 each) and the material (64) per node
+        tc_ops = 2 * nd * nd * 512 * n3
+        cc_ops = 2 * (2 * nd * 64 + 64) * n3
+        t_b, t_o = io / HBM_BYTES_S, max(tc_ops / BF16_FLOP_S,
+                                         cc_ops / F32_FLOP_S)
+        t_ms, t_by = 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else \
+            "operations"
         regs = [v for k, v in ptxas_table(build_log).items()
                 if "otf_3d_tc_kernelILi3E" in k]
         log(f"K6 sweep pass {N3}^3: f32 (CUDA cores) {t[0]:.4f} / "
             f"{t[3]:.4f} ms, bound {f_ms:.4f} ms ({f_by}); bf16 operands "
             f"(tensor cores) {t[1]:.4f} / {t[2]:.4f} ms, bound {t_ms:.4f} ms "
-            f"({t_by}, {dense / 1e9:.2f} GFLOP dense at 989 TFLOP/s); the "
-            f"bf16 operands on the CUDA-core body (the earlier form) "
-            f"{old:.4f} ms; plain {pms:.4f} ms; ptxas {regs}")
+            f"({t_by}; {io / 1e6:.2f} MB, {tc_ops / 1e9:.2f} GFLOP bf16, "
+            f"{cc_ops / 1e9:.2f} GFLOP f32); plain {pms:.4f} ms; ptxas "
+            f"{regs}")
         ms = min(t[1], t[2])
         d = [device_ms(f) for f in (f32, tc)]
         log(f"K6 sweep pass {N3}^3, device time (profiler): f32 {d[0]:.4f} "
@@ -1287,7 +1164,6 @@ def phase_kernels_otf(dev, build_log):
         res["K6-tc"] = dict(ms=ms, plain_ms=pms, bound_ms=t_ms, bound_by=t_by,
                             library_ms=None, f32_pass_ms=min(t[0], t[3]),
                             device_ms=d[1], f32_pass_device_ms=d[0],
-                            cuda_core_bf16_ms=old,
                             ptxas=regs[0] if regs else None)
     res["K6"]["max_abs_err"] = worst
     res["K6-tc"]["max_abs_err"] = worst_tc
@@ -1317,8 +1193,7 @@ def solve_and_measure(step, args, names, label):
 
 
 # position of the grid's nz among each 3D entry point's arguments
-_NZ_ARG = {"pyfem_sweep_3d": 8, "pyfem_sweeps_3d": 13,
-           "pyfem_sweeps_3d_fused": 14, "pyfem_otf_3d": 8,
+_NZ_ARG = {"pyfem_sweep_3d": 8, "pyfem_sweeps_3d": 13, "pyfem_otf_3d": 8,
            "pyfem_otf_3d_tc": 9}
 
 
@@ -1528,7 +1403,7 @@ def phase_main_3d(dev, pt, multigrid, i2p, p2i, label="bench 3D",
         return p2i(x.reshape(-1), 3), k, rn, b, gmg
 
     names = ("pyfem_assemble_3d", "pyfem_sweep_3d", "pyfem_sweeps_3d",
-             "pyfem_sweeps_3d_fused", "pyfem_otf_3d", "pyfem_otf_3d_tc")
+             "pyfem_otf_3d", "pyfem_otf_3d_tc")
     (u, k, rn, b, gmg), counts, single_ms = solve_and_measure(
         step, (rho, rhs, rhs), names, label)
     log(f"{label}: {k} PCG iterations (JAX reference: 7), "
@@ -2049,9 +1924,6 @@ def main():
     # 3, 3a, 3b. kernels vs plain
     kres = phase_kernels(dev)
     kres.update(phase_kernels_3d(dev))
-    kres.update(phase_kernels_k5_single(dev, _cuda.build_log))
-    kres["K5"]["max_abs_err"] = max(kres["K5"]["max_abs_err"],
-                                    kres.pop("K5 checks"))
     kres.update(phase_kernels_otf(dev, _cuda.build_log))
     # 3c. element stiffness
     kres.update(phase_kernels_elem(dev, pt, _cuda.build_log))
@@ -2065,20 +1937,8 @@ def main():
     m3 = phase_main_3d(dev, pt, multigrid, i2p, p2i)
     c3 = m3["counts"]
     check(all(c3[k] > 0 for k in (
-        "pyfem_assemble_3d", "pyfem_sweep_3d", "pyfem_sweeps_3d_fused")),
+        "pyfem_assemble_3d", "pyfem_sweep_3d", "pyfem_sweeps_3d")),
         "bench 3D: K3, K4 and K5 launched")
-    # nu = 2: a presmooth+residual and a postsmooth call per smoothing
-    # level and V-cycle, k + 1 V-cycles (the initial one and one per
-    # iteration)
-    calls = 2 * (m3["k"] + 1)
-    fused = m3["by_level"].get("pyfem_sweeps_3d_fused", {})
-    check(c3["pyfem_sweeps_3d"] == 0
-          and c3["pyfem_sweeps_3d_fused"] == calls * (m3["nlevels"] - 1)
-          and len(fused) == m3["nlevels"] - 1
-          and set(fused.values()) == {calls},
-          f"bench 3D: every smoothing call is one single-pass K5 launch "
-          f"({calls} per level, {calls * (m3['nlevels'] - 1)} in all), the "
-          f"per-sweep entry none")
     mo = phase_main_3d(dev, pt, multigrid, i2p, p2i, "bench 3D otf",
                        elem_path="otf")
     co = mo["counts"]
@@ -2115,10 +1975,8 @@ def main():
     mf = phase_main_3d(dev, pt, multigrid, i2p, p2i, "bench 3D sym=False",
                        full=False, sym=False)
     check(mf["counts"]["pyfem_sweep_3d"] > 0
-          and mf["counts"]["pyfem_sweeps_3d"] > 0
-          and mf["counts"]["pyfem_sweeps_3d_fused"] == 0,
-          "bench 3D sym=False: K4 and K5 launched on full planes (K5's "
-          "per-sweep form: the single pass takes half storage)")
+          and mf["counts"]["pyfem_sweeps_3d"] > 0,
+          "bench 3D sym=False: K4 and K5 launched on full planes")
     log(f"bench 3D sym=False: {mf['k']} iterations, single-shot "
         f"{mf['single_ms']:.3f} ms, peak memory {mf['mem'] / 2**20:.1f} "
         f"MiB")
@@ -2180,11 +2038,9 @@ def main():
          c3["pyfem_sweep_3d"], "both bodies, one pass: _kernel3d_sym "
          "(timed, main path) and _kernel3d on full planes (full_form)"),
         ("K5", "fused_sweeps3d", "smooth_3d.cu", "pallas_smooth.py:972",
-         c3["pyfem_sweeps_3d_fused"], "single pass (pyfem_sweeps_3d_fused, "
-         "timed, main path): all sweeps and the residual of a smoothing "
-         "call in one cooperative launch, passes separated by grid-wide "
-         "barriers, half storage; the per-sweep form (per_sweep_form) "
-         "serves full storage and calls past the budget"),
+         c3["pyfem_sweeps_3d"], "per-sweep: one stencil pass per sweep "
+         "and one for the residual (not the single-pass z-blocked form); "
+         "reads either storage"),
         ("K6", "otf_apply_3d", "otf_3d.cu", "pallas_otf3d.py:265",
          co["pyfem_otf_3d"], "f32 body on the CUDA cores (pyfem_otf_3d): "
          "one stencil pass per launch, coefficients rebuilt per node from "
@@ -2255,21 +2111,14 @@ def main():
                             plain_ms=v["plain_ms"], bound_ms=v["bound_ms"],
                             bound_by=v["bound_by"], ptxas=v["ptxas"])
                 for k, v in kres.items() if k.startswith("K8 ")}
-        if key in ("K5", "K6-tc", "K7a", "K7b", "K8"):
+        if key in ("K6-tc", "K7a", "K7b", "K8"):
             row["ptxas"] = r["ptxas"]
         if key == "K5":
             row["device_ms"] = r["device_ms"]
-            row["per_sweep_form"] = dict(
-                ms=r["per_sweep_ms"], device_ms=r["per_sweep_device_ms"],
-                launches_bench_3d=c3["pyfem_sweeps_3d"],
-                launches_sym_false_path=mf["counts"]["pyfem_sweeps_3d"],
-                postsmooth_ms=r["postsmooth_per_sweep_ms"])
-            row["postsmooth_ms"] = r["postsmooth_ms"]
         if key == "K6-tc":
             row["device_ms"] = r["device_ms"]
             row["f32_pass_device_ms"] = r["f32_pass_device_ms"]
             row["f32_pass_ms"] = r["f32_pass_ms"]
-            row["cuda_core_bf16_pass_ms"] = r["cuda_core_bf16_ms"]
         if key == "K9":
             row["launches_per_mma_iteration"] = topo["k9_per_iter"]
             row["forms"] = r["forms"]

@@ -26,10 +26,8 @@
 // matmul operands are rounded to bf16: w3 and wd (rounded by the wrapper),
 // the shifted fields Y (rounded here on load) and B in the diagonal; the
 // final B * Z product keeps B in f32.  Two bodies:
-//   pyfem_otf_3d (otf_3d_kernel), the f32 body on the CUDA cores below;
-//     its bf16 = 1 form is the bf16 pass as it ran before the tensor-core
-//     body, kept as that body's yardstick; float32 on the tensor cores
-//     would be TF32;
+//   pyfem_otf_3d (otf_3d_kernel), the f32 body on the CUDA cores below
+//     (float32 on the tensor cores would be TF32);
 //   pyfem_otf_3d_tc (otf_3d_tc_kernel), the bf16-operand pass with Z on
 //     the tensor cores (mma.sync bf16, f32 accumulate), as the TPU kernel
 //     ran it on its matrix unit; see TcShape below.
@@ -113,7 +111,7 @@ __device__ __forceinline__ void tile_materials(
   }
 }
 
-template <int ND, bool BF16>
+template <int ND>
 __global__ void __launch_bounds__(NT)
     otf_3d_kernel(const float* __restrict__ rho,
                   const float* __restrict__ maskf,
@@ -151,7 +149,7 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
       for (int c = 0; c < ND; ++c) {
         const float v = in ? __ldg(x + c * plane + g) : 0.f;
-        s_x[c][lz][ly][lx] = BF16 ? bf16_round(v) : v;
+        s_x[c][lz][ly][lx] = v;
       }
     }
   }
@@ -228,7 +226,7 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
         const float bj = B[j / NQ][j % NQ];
-        d += s_wd[c * NJ + j] * (BF16 ? bf16_round(bj) : bj);
+        d += s_wd[c * NJ + j] * bj;
       }
       d = rowm[c] * d + (1.f - rowm[c]);
       const float invd = rowm[c] / (d == 0.f ? 1.f : d);
@@ -246,16 +244,11 @@ template <int ND>
 void launch_nd(const float* rho, const float* maskf, const float* tables,
                const float* b,
                const float* x, float* out, float p, int nz, int ny, int nx,
-               float omega, int mode, int bf16, cudaStream_t s) {
+               float omega, int mode, cudaStream_t s) {
   const dim3 block(TX, TY, TZ);
   const dim3 grid((nx + TX - 1) / TX, (ny + TY - 1) / TY, (nz + TZ - 1) / TZ);
-  if (bf16) {
-    otf_3d_kernel<ND, true><<<grid, block, 0, s>>>(
-        rho, maskf, tables, b, x, out, p, nz, ny, nx, omega, mode);
-  } else {
-    otf_3d_kernel<ND, false><<<grid, block, 0, s>>>(
-        rho, maskf, tables, b, x, out, p, nz, ny, nx, omega, mode);
-  }
+  otf_3d_kernel<ND><<<grid, block, 0, s>>>(rho, maskf, tables, b, x, out, p,
+                                           nz, ny, nx, omega, mode);
 }
 
 // The bf16-operand pass on the tensor cores (the TPU kernel's matmul on
@@ -486,8 +479,7 @@ int launch_tc(const float* rho, const float* maskf, const uint16_t* w3t,
 extern "C" int pyfem_otf_3d(const void* rho, const void* maskf,
                             const void* tables, const void* b, const void* x,
                             void* out, float p, int nd, int nz, int ny,
-                            int nx, float omega, int mode, int bf16,
-                            void* stream) {
+                            int nx, float omega, int mode, void* stream) {
   if ((nd != 1 && nd != 3) || mode < 0 || mode > 2 ||
       (mode != 0 && x == nullptr) || (x == nullptr && b == nullptr) ||
       reinterpret_cast<uintptr_t>(tables) % 16 != 0)
@@ -497,10 +489,10 @@ extern "C" int pyfem_otf_3d(const void* rho, const void* maskf,
   auto o = static_cast<float*>(out);
   if (nd == 3) {
     launch_nd<3>(f(rho), f(maskf), f(tables), f(b), f(x), o, p, nz, ny, nx,
-                 omega, mode, bf16, s);
+                 omega, mode, s);
   } else {
     launch_nd<1>(f(rho), f(maskf), f(tables), f(b), f(x), o, p, nz, ny, nx,
-                 omega, mode, bf16, s);
+                 omega, mode, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -28,13 +28,11 @@
 // elementwise first sweep from x0 = 0).  Coefficients are f32 or bf16
 // (loaded as bf16, arithmetic in f32); fields are f32.
 //
-// K4 (pyfem_sweep_3d) is one pass.  K5 has two forms, picked by a fixed
-// rule of the call (ops/fused_smooth.py::single_pass_3d):
-//   pyfem_sweeps_3d_fused, the single pass (half storage, at most
-//     SWEEP3_BUDGET = 4 stencil passes, the TPU kernel's budget): all
-//     sweeps and the residual in one launch (sweeps_3d_coop_kernel below);
-//   pyfem_sweeps_3d, the per-sweep form (full storage, longer calls): one
-//     pass per sweep into two ping-pong buffers and one for the residual.
+// K4 (pyfem_sweep_3d) is one pass.  K5 (pyfem_sweeps_3d) is the simple
+// per-sweep form: it launches one pass per sweep into two ping-pong
+// buffers and one for the residual.  The TPU kernel ran them all in one
+// coefficient pass with z ghost planes; the single-pass z-blocked form is
+// later work (ROADMAP.md).
 //
 // What bounds it on the H100: bytes.  A pass reads the 123 kept planes
 // once (492 B per node in f32, 246 B in bf16) and ~36 B of fields, and
@@ -48,11 +46,6 @@
 // the direct reads of the neighbouring threads, so device memory sees
 // each coefficient about once per pass.  The bf16 copy halves the
 // dominant coefficient bytes of the smoother passes.
-// Measured at 65^3 (chip_smoke.py phase 3a; PERF.md): a bf16 pass takes
-// about as long as an f32 one, so bytes do not bound it; its load
-// instructions and their latency (the registers a thread holds leave few
-// warps per SM) likely do.
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
@@ -63,64 +56,16 @@ __device__ __forceinline__ float load_coeff(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
 
-// The half-storage 27-point product at one node: ax[a] += (A x)[a](i)
-// over the kept planes of sym_planes_3d and their partners.  cv(si, oz,
-// oy, ox) is kept plane si's coefficient at the node offset (oz, oy, ox),
-// xv(c, d) is x[c] at the neighbour d = dz*9 + dy*3 + dx (0 off the
-// grid); v{z,y,x}[o]
-// says whether the neighbour at offset o - 1 lies inside the grid (it
-// guards the partner's coefficient read, which x's zeros do not keep in
-// bounds).
-template <int ND, typename CV, typename XV>
-__device__ __forceinline__ void sym_stencil(CV cv, const bool (&vz)[3],
-                                            const bool (&vy)[3],
-                                            const bool (&vx)[3], XV xv,
-                                            float (&ax)[ND]) {
-  int si = 0;  // storage slot of the kept plane (constant once unrolled)
-#pragma unroll
-  for (int a = 0; a < ND; ++a) {
-#pragma unroll
-    for (int bb = 0; bb < ND; ++bb) {
-#pragma unroll
-      for (int dz = 0; dz < 2; ++dz) {  // dz = 2 planes are not stored
-#pragma unroll
-        for (int dy = 0; dy < 3; ++dy) {
-#pragma unroll
-          for (int dx = 0; dx < 3; ++dx) {
-            bool self_pair = false;
-            if (dz == 1) {  // sym_planes_3d's rule for the dz = 1 half
-              const int k2 = (a * ND + bb) * 9 + dy * 3 + dx;
-              const int p2 = (bb * ND + a) * 9 + (2 - dy) * 3 + (2 - dx);
-              if (p2 < k2) continue;
-              self_pair = p2 == k2;
-            }
-            ax[a] += cv(si, 0, 0, 0) * xv(bb, dz * 9 + dy * 3 + dx);
-            if (!self_pair && vz[2 - dz] && vy[2 - dy] && vx[2 - dx]) {
-              // partner (bb, a, 2 - d) at this node: the kept value of
-              // node i - (d - 1) times x[a] there
-              ax[bb] += cv(si, 1 - dz, 1 - dy, 1 - dx) *
-                        xv(a, (2 - dz) * 9 + (2 - dy) * 3 + (2 - dx));
-            }
-            ++si;
-          }
-        }
-      }
-    }
-  }
-}
-
-// One stencil pass at one node.  LDG: x is read through the read-only
-// cache (__ldg), which is right only where no thread of the launch writes
-// it; the single-pass K5 writes the fields it reads later in the launch.
-template <int ND, bool FULL, bool LDG, typename CT>
-__device__ __forceinline__ void node_pass(const CT* __restrict__ coeff,
-                                          const float* __restrict__ invd,
-                                          const float* __restrict__ b,
-                                          const float* x, float* out,
-                                          int node, int nz, int ny, int nx,
-                                          float omega, int mode) {
-  auto ldx = [](const float* p) { return LDG ? __ldg(p) : *p; };
+template <int ND, bool FULL, typename CT>
+__global__ void sweep_3d_kernel(const CT* __restrict__ coeff,
+                                const float* __restrict__ invd,
+                                const float* __restrict__ b,
+                                const float* __restrict__ x,
+                                float* __restrict__ out, int nz, int ny,
+                                int nx, float omega, int mode) {
   const int n = nz * ny * nx;
+  const int node = blockIdx.x * blockDim.x + threadIdx.x;
+  if (node >= n) return;
   const int ix = node % nx;
   const int iy = (node / nx) % ny;
   const int iz = node / (nx * ny);
@@ -146,8 +91,8 @@ __device__ __forceinline__ void node_pass(const CT* __restrict__ coeff,
           for (int dx = 0; dx < 3; ++dx) {
             xv[c][dz * 9 + dy * 3 + dx] =
                 (vz[dz] && vy[dy] && vx[dx])
-                    ? ldx(x + c * plane + node + (dz - 1) * sz +
-                          (dy - 1) * nx + (dx - 1))
+                    ? __ldg(x + c * plane + node + (dz - 1) * sz +
+                            (dy - 1) * nx + (dx - 1))
                     : 0.f;
           }
         }
@@ -166,12 +111,39 @@ __device__ __forceinline__ void node_pass(const CT* __restrict__ coeff,
         }
       }
     } else {
-      sym_stencil<ND>(
-          [&](int si, int oz, int oy, int ox) {
-            return load_coeff(coeff + si * plane + node + oz * sz +
-                              oy * nx + ox);
-          },
-          vz, vy, vx, [&](int c, int d) { return xv[c][d]; }, ax);
+      int si = 0;  // storage slot of the kept plane (constant once unrolled)
+#pragma unroll
+      for (int a = 0; a < ND; ++a) {
+#pragma unroll
+        for (int bb = 0; bb < ND; ++bb) {
+#pragma unroll
+          for (int dz = 0; dz < 2; ++dz) {  // dz = 2 planes are not stored
+#pragma unroll
+            for (int dy = 0; dy < 3; ++dy) {
+#pragma unroll
+              for (int dx = 0; dx < 3; ++dx) {
+                bool self_pair = false;
+                if (dz == 1) {  // sym_planes_3d's rule for the dz = 1 half
+                  const int k2 = (a * ND + bb) * 9 + dy * 3 + dx;
+                  const int p2 = (bb * ND + a) * 9 + (2 - dy) * 3 + (2 - dx);
+                  if (p2 < k2) continue;
+                  self_pair = p2 == k2;
+                }
+                const CT* cp = coeff + si * plane + node;
+                ax[a] += load_coeff(cp) * xv[bb][dz * 9 + dy * 3 + dx];
+                if (!self_pair && vz[2 - dz] && vy[2 - dy] && vx[2 - dx]) {
+                  // partner (bb, a, 2 - d) at this node: the kept value of
+                  // node i - (d - 1) times x[a] there
+                  ax[bb] += load_coeff(cp + (1 - dz) * sz + (1 - dy) * nx +
+                                       (1 - dx)) *
+                            xv[a][(2 - dz) * 9 + (2 - dy) * 3 + (2 - dx)];
+                }
+                ++si;
+              }
+            }
+          }
+        }
+      }
     }
   }
 #pragma unroll
@@ -179,7 +151,7 @@ __device__ __forceinline__ void node_pass(const CT* __restrict__ coeff,
     const long long i = c * plane + node;
     const float r = (b != nullptr ? __ldg(b + i) : 0.f) - ax[c];
     if (mode == 0) {
-      const float xc = x != nullptr ? ldx(x + i) : 0.f;
+      const float xc = x != nullptr ? __ldg(x + i) : 0.f;
       out[i] = xc + omega * __ldg(invd + i) * r;
     } else if (mode == 1) {
       out[i] = r;
@@ -187,19 +159,6 @@ __device__ __forceinline__ void node_pass(const CT* __restrict__ coeff,
       out[i] = -r;
     }
   }
-}
-
-template <int ND, bool FULL, typename CT>
-__global__ void sweep_3d_kernel(const CT* __restrict__ coeff,
-                                const float* __restrict__ invd,
-                                const float* __restrict__ b,
-                                const float* __restrict__ x,
-                                float* __restrict__ out, int nz, int ny,
-                                int nx, float omega, int mode) {
-  const int node = blockIdx.x * blockDim.x + threadIdx.x;
-  if (node < nz * ny * nx)
-    node_pass<ND, FULL, true>(coeff, invd, b, x, out, node, nz, ny, nx,
-                              omega, mode);
 }
 
 template <int ND, bool FULL>
@@ -253,101 +212,6 @@ int pass(const void* coeff, int coeff_bf16, int full, const void* invd,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K5, single pass: all stencil passes of one smoothing call in one
-// launch.  The blocks stay resident (a cooperative launch, as many as fit
-// on the card at once) and run the passes one after another with a
-// grid-wide barrier between them: the elementwise first sweep from x0 =
-// 0, the damped sweeps, the residual.  Every pass does exactly the
-// per-sweep form's work, without its launches; warps take 32-node chunks
-// of a pass from a counter (ctr[j]), so the pass ends with one chunk of
-// tail and not a whole round of the resident threads.  (Walking alternate
-// passes backwards, to start each on the coefficients still in L2 from
-// the last, was slower.)  Level l of the call (0: the input or the first
-// sweep, jx: the final iterate, jx + 1: the residual) goes to xout, r, or
-// the scratch fields s0 / s1 in turn; x is read with plain loads, as the
-// launch writes it (node_pass).
-struct Omegas {
-  float w[8];
-};
-
-constexpr int COOP_THREADS = 128;
-
-template <int ND, typename CT>
-__global__ void __launch_bounds__(COOP_THREADS, 4)
-    sweeps_3d_coop_kernel(const CT* __restrict__ coeff,
-                          const float* __restrict__ invd,
-                          const float* __restrict__ b, const float* x0,
-                          float* xout, float* r, float* s0, float* s1,
-                          int* ctr, Omegas om, int niter, int rmode, int nz,
-                          int ny, int nx) {
-  auto grid = cooperative_groups::this_grid();
-  const int n = nz * ny * nx;
-  const int lane = threadIdx.x & 31;
-  const int x0_zero = x0 == nullptr ? 1 : 0;
-  const int jx = niter - x0_zero;  // the level of the final iterate
-  const int npass = jx + (rmode != -1 ? 1 : 0);
-  auto level = [&](int l) {
-    return l == jx ? xout : (l == jx + 1 ? r : (l % 2 ? s1 : s0));
-  };
-  const float* in = x0;
-  if (x0_zero) {
-    float* out = level(0);
-    for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < ND * n;
-         i += gridDim.x * blockDim.x)
-      out[i] = om.w[0] * __ldg(invd + i) * __ldg(b + i);
-    in = out;
-    grid.sync();
-  }
-  for (int j = 1; j <= npass; ++j) {
-    float* out = level(j);
-    const bool sweep = j <= jx;
-    const float w = sweep ? om.w[j - 1 + x0_zero] : 0.f;
-    for (;;) {
-      int chunk = 0;
-      if (lane == 0) chunk = atomicAdd(ctr + j - 1, 1);
-      chunk = __shfl_sync(0xffffffffu, chunk, 0);
-      if (chunk * 32 >= n) break;
-      const int t = chunk * 32 + lane;
-      if (t < n)
-        node_pass<ND, false, false>(coeff, invd, b, in, out, t, nz, ny, nx,
-                                    w, sweep ? 0 : rmode);
-    }
-    in = out;
-    if (j < npass) grid.sync();
-  }
-}
-
-template <int ND, typename CT>
-int launch_coop(const void* coeff, const float* invd, const float* b,
-                const float* x0, float* xout, float* r, float* s0, float* s1,
-                int* ctr, Omegas om, int niter, int rmode, int nz, int ny,
-                int nx, cudaStream_t s) {
-  auto k = sweeps_3d_coop_kernel<ND, CT>;
-  static int resident = 0;  // blocks of this kernel the card holds at once
-  if (resident == 0) {
-    int dev = 0, nsm = 0, per_sm = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k,
-                                                        COOP_THREADS, 0);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    resident = per_sm * nsm;
-  }
-  const int n = nz * ny * nx;
-  const int blocks =
-      max(1, min(resident, (n + COOP_THREADS - 1) / COOP_THREADS));
-  const CT* c = static_cast<const CT*>(coeff);
-  void* args[] = {&c,  &invd,  &b,     &x0, &xout, &r,  &s0, &s1,
-                  &ctr, &om, &niter, &rmode, &nz, &ny,   &nx};
-  const cudaError_t e = cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(k), dim3(blocks), dim3(COOP_THREADS), args, 0,
-      s);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 // K4: one sweep (mode 0), residual (1), negated residual (2).
@@ -387,58 +251,4 @@ extern "C" int pyfem_sweeps_3d(const void* coeff, int coeff_bf16, int full,
     return pass(coeff, coeff_bf16, full, invd, b, x, r, nd, nz, ny, nx, 0.f,
                 rmode, s);
   return 0;
-}
-
-// K5 in one launch, on half storage (the kept planes of sym_planes_3d):
-// niter sweeps from x0 (nullptr = 0) with per-sweep damping omegas[0..niter)
-// (host memory) into xout, then the residual into r with rmode 1 or 2
-// (rmode -1: none, r unused).  halo_sweeps_3d(niter, x0 == nullptr,
-// rmode != -1), the stencil passes, must be 1..4 (the budget of
-// ops/fused_smooth.py::single_pass_3d).  s0 and s1 are scratch fields for
-// the levels before the final iterate (unused when niter - (x0 == nullptr)
-// is 0; s1 also unused when it is 1); ctr holds the passes' 4 chunk
-// counters, zero on entry (zeroing them in the kernel, before a grid-wide
-// barrier, made the call slower).  No output may alias an input.
-extern "C" int pyfem_sweeps_3d_fused(const void* coeff, int coeff_bf16,
-                                     const void* invd, const void* b,
-                                     const void* x0, void* xout, void* r,
-                                     void* s0, void* s1, void* ctr,
-                                     const float* omegas, int niter,
-                                     int rmode, int nd, int nz, int ny,
-                                     int nx, void* stream) {
-  const int jx = niter - (x0 == nullptr ? 1 : 0);
-  const int npass = jx + (rmode != -1 ? 1 : 0);
-  if (niter < 1 || niter > 8 || npass < 1 || npass > 4 || b == nullptr ||
-      invd == nullptr || xout == nullptr ||
-      (rmode != -1 && rmode != 1 && rmode != 2) ||
-      (rmode != -1 && r == nullptr) || (jx >= 1 && s0 == nullptr) ||
-      (jx >= 2 && s1 == nullptr) || ctr == nullptr)
-    return static_cast<int>(cudaErrorInvalidValue);
-  Omegas om{};
-  for (int i = 0; i < niter; ++i) om.w[i] = omegas[i];
-  auto f = [](const void* p) { return static_cast<const float*>(p); };
-  auto o = [](void* p) { return static_cast<float*>(p); };
-  int* ct = static_cast<int*>(ctr);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (nd == 3) {
-    return coeff_bf16
-               ? launch_coop<3, __nv_bfloat16>(coeff, f(invd), f(b), f(x0),
-                                               o(xout), o(r), o(s0), o(s1),
-                                               ct, om, niter, rmode, nz, ny, nx,
-                                               s)
-               : launch_coop<3, float>(coeff, f(invd), f(b), f(x0), o(xout),
-                                       o(r), o(s0), o(s1), ct, om, niter, rmode,
-                                       nz, ny, nx, s);
-  }
-  if (nd == 1) {
-    return coeff_bf16
-               ? launch_coop<1, __nv_bfloat16>(coeff, f(invd), f(b), f(x0),
-                                               o(xout), o(r), o(s0), o(s1),
-                                               ct, om, niter, rmode, nz, ny, nx,
-                                               s)
-               : launch_coop<1, float>(coeff, f(invd), f(b), f(x0), o(xout),
-                                       o(r), o(s0), o(s1), ct, om, niter, rmode,
-                                       nz, ny, nx, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -17,10 +17,9 @@ Port of the 2D and 3D (uniform and on-the-fly element paths) parts of
   BC-eliminated in PyTorch;
 * smoothing is damped Jacobi with per-sweep Chebyshev-node factors:
   kernel K2 in 2D, which also supplies the residuals and the operator
-  matvec; in 3D kernel K5 runs each smoothing call (sweeps + residual,
-  in one launch within its sweep budget) and kernel K4 the operator
-  matvec (``ops.fused_smooth``), or K6 all three on an OTF level (its
-  bf16-operand smoother passes on the tensor cores);
+  matvec; in 3D kernel K5 runs each smoothing call (sweeps + residual)
+  and kernel K4 the operator matvec (``ops.fused_smooth``), or K6 all
+  three on an OTF level;
 * the design sensitivity d(phi^T K psi)/drho on the fine uniform grid
   is scatter-free (:func:`_dv_sens_uniform`, ``GMGAssembler.dv_sens``);
 * prolongation is bi/trilinear interpolation in reshape/interleave
@@ -312,14 +311,10 @@ class Level3D:
                                            neg_resid=True)
 
     def can_fuse3d(self, niter, x0_zero, want_resid):
-        """True when one K5 call covers the smoothing call: any
-        ``niter >= 1``.
+        """True when K5 covers the smoothing call: any ``niter >= 1``.
 
-        Which of K5's two entries runs it is ``fused_smooth.
-        single_pass_3d``'s fixed rule: the single pass for half storage
-        within ``SWEEP3_BUDGET`` stencil passes (the JAX package's
-        ``can_fuse3d``), the per-sweep form otherwise (where the JAX
-        V-cycle falls back to single sweeps).
+        The port's K5 runs one stencil pass per sweep, so it has neither
+        the TPU kernel's z ghost-plane budget nor its VMEM guard.
         """
         return niter >= 1
 

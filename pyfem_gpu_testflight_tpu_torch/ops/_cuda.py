@@ -69,14 +69,9 @@ _SIGNATURES = {
     # rmode, nd, nz, ny, nx, stream
     "pyfem_sweeps_3d": (_P, _I, _I, _P, _P, _P, _P, _P, _P, _FP, _I, _I, _I,
                         _I, _I, _I, _P),
-    # coeff, coeff_bf16, invd, b, x0, xout, r, s0, s1, ctr, omegas, niter,
-    # rmode, nd, nz, ny, nx, stream
-    "pyfem_sweeps_3d_fused": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _FP,
-                              _I, _I, _I, _I, _I, _I, _P),
     # rho, maskf, tables (w3 | wd | N), b, x, out, p, nd, nz, ny, nx,
-    # omega, mode, bf16, stream
-    "pyfem_otf_3d": (_P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _F, _I, _I,
-                     _P),
+    # omega, mode, stream
+    "pyfem_otf_3d": (_P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _F, _I, _P),
     # rho, maskf, w3t (bf16), tab (wd | N), b, x, out, p, nd, nz, ny, nx,
     # omega, mode, stream
     "pyfem_otf_3d_tc": (_P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _F,

@@ -47,8 +47,6 @@ __all__ = [
     "fused_sweeps_2d_plain",
     "sym_planes_3d",
     "halo_sweeps_3d",
-    "SWEEP3_BUDGET",
-    "single_pass_3d",
     "full_planes_3d",
     "as_full_planes_3d",
     "is_full_storage_3d",
@@ -259,9 +257,8 @@ def fused_sweeps_2d(coeff, invd, b=None, x=None, *, niter=2,
 # x[b][i + d - 1] to y[a][i]; unless it is its own partner, its partner
 # (b, a, 2 - dz, 2 - dy, 2 - dx) adds, at node j, the stored
 # coefficient of node j - (d - 1) times x[a][j - (d - 1)].  Off-grid
-# neighbours read as 0.  The TPU packed layouts (``_nyp8`` rows,
-# ``SWEEP3_ZEXT`` trailing planes) are not ported; K5's single pass keeps
-# the TPU kernel's ghost-plane budget (:data:`SWEEP3_BUDGET`).
+# neighbours read as 0.  The TPU z-tiling, halo planes, ``_nyp8`` rows
+# and ``SWEEP3_ZEXT`` trailing planes are not ported.
 
 
 @functools.lru_cache(maxsize=None)
@@ -303,21 +300,6 @@ def halo_sweeps_3d(niter, x0_zero, want_resid):
     TPU kernel spent the same count as z ghost planes).
     """
     return (niter - (1 if x0_zero else 0)) + (1 if want_resid else 0)
-
-
-# Stencil passes one launch of K5's single-pass form covers: the JAX
-# package's min(tz, SWEEP3_ZEXT = 4), where each pass consumed one z ghost
-# plane.  Covers nu <= 4 with the residual, the V-cycle's calls.
-SWEEP3_BUDGET = 4
-
-
-def single_pass_3d(nk, nd, niter, x0_zero, want_resid):
-    """True when one launch of K5's single-pass form covers the call:
-    half-symmetric storage (``nk`` kept planes, as the TPU kernel
-    asserts) and ``1 <= halo_sweeps_3d(...) <= SWEEP3_BUDGET``.  Every
-    other call takes the per-sweep form (one launch per stencil pass)."""
-    consumed = halo_sweeps_3d(niter, x0_zero, want_resid)
-    return nk == len(sym_planes_3d(nd)) and 1 <= consumed <= SWEEP3_BUDGET
 
 
 def full_planes_3d(coeff, nd):
@@ -477,53 +459,24 @@ def fused_sweeps3d_plain(coeff, invd, b, x=None, *, niter=2,
     return x, (-r if neg_resid else r)
 
 
-def _sweeps3d_launch_args(coeff, invd, b, x, niter, want_resid, neg_resid,
-                          omega):
+def _fused_sweeps3d_cuda(coeff, invd, b, x, *, niter, want_resid,
+                         neg_resid, omega):
     _sweeps3d_args(b, niter)
     nd, nz, ny, nx = _check3d(coeff, invd, b, x)
     ptr = _sweep3d_ptrs(coeff, invd, b, x)
-    r = torch.empty_like(b) if want_resid else None
-    rmode = (-1 if not want_resid else
-             _MODE_NEG_RESID if neg_resid else _MODE_RESID)
-    oms = (ctypes.c_float * niter)(*_omega_seq(omega, niter))
-    return nd, (nz, ny, nx), ptr, r, rmode, oms
-
-
-def _sweeps3d_single_pass(coeff, invd, b, x, *, niter, want_resid,
-                          neg_resid, omega):
-    """K5's single pass: one launch of ``pyfem_sweeps_3d_fused``."""
-    nd, (nz, ny, nx), ptr, r, rmode, oms = _sweeps3d_launch_args(
-        coeff, invd, b, x, niter, want_resid, neg_resid, omega)
-    if not single_pass_3d(coeff.shape[0], nd, niter, x is None, want_resid):
-        raise ValueError("the single pass takes half storage and at most "
-                         f"{SWEEP3_BUDGET} stencil passes")
-    xo = torch.empty_like(b)
-    # the levels before the final iterate, in turn; the passes' counters
-    s = torch.empty((2,) + tuple(b.shape), dtype=b.dtype, device=b.device)
-    ctr = torch.zeros(4, dtype=torch.int32, device=b.device)
-    _cuda.launch("pyfem_sweeps_3d_fused", coeff.data_ptr(),
-                 int(coeff.dtype == torch.bfloat16), invd.data_ptr(),
-                 b.data_ptr(), ptr(x), xo.data_ptr(), ptr(r),
-                 s[0].data_ptr(), s[1].data_ptr(), ctr.data_ptr(), oms, niter,
-                 rmode, nd, nz, ny, nx, _cuda.stream_ptr(b))
-    return (xo, r) if want_resid else xo
-
-
-def _sweeps3d_per_sweep(coeff, invd, b, x, *, niter, want_resid, neg_resid,
-                        omega):
-    """K5's per-sweep form: ``pyfem_sweeps_3d`` launches one stencil pass
-    per sweep and one for the residual, on either storage."""
-    nd, (nz, ny, nx), ptr, r, rmode, oms = _sweeps3d_launch_args(
-        coeff, invd, b, x, niter, want_resid, neg_resid, omega)
+    oms = _omega_seq(omega, niter)
     # ping-pong buffers: a sweep reads every neighbour of its input, so
     # it can never write in place; the caller's x is never written
     bufs = [torch.empty_like(b) for _ in range(min(niter, 2))]
+    r = torch.empty_like(b) if want_resid else None
+    rmode = (-1 if not want_resid else
+             _MODE_NEG_RESID if neg_resid else _MODE_RESID)
     _cuda.launch("pyfem_sweeps_3d", coeff.data_ptr(),
                  int(coeff.dtype == torch.bfloat16),
                  int(is_full_storage_3d(coeff, nd)), invd.data_ptr(),
                  b.data_ptr(), ptr(x), bufs[0].data_ptr(),
-                 bufs[-1].data_ptr(), ptr(r), oms, niter, rmode, nd, nz, ny,
-                 nx, _cuda.stream_ptr(b))
+                 bufs[-1].data_ptr(), ptr(r), (ctypes.c_float * niter)(*oms),
+                 niter, rmode, nd, nz, ny, nx, _cuda.stream_ptr(b))
     xo = bufs[(niter - 1) % 2]
     return (xo, r) if want_resid else xo
 
@@ -534,14 +487,12 @@ def fused_sweeps3d(coeff, invd, b, x=None, *, niter=2, want_resid=False,
 
     ``niter`` sweeps x <- x + omega_i * invd * (b - A x) from x (or from
     x0 = 0 when ``x`` is None: the first sweep is then ``omega_0 * invd
-    * b``), then optionally ``+-(b - A x)``.  On the card, by the fixed
-    rule :func:`single_pass_3d` (half storage, at most
-    :data:`SWEEP3_BUDGET` stencil passes), one launch of
-    ``csrc/smooth_3d.cu``'s ``pyfem_sweeps_3d_fused`` runs the whole
-    call, its passes separated by grid-wide barriers; every other call
-    (full storage, more passes) takes ``pyfem_sweeps_3d``, which launches
-    one stencil pass per sweep and one for the residual, so any
-    ``niter >= 1`` is accepted.
+    * b``), then optionally ``+-(b - A x)``.  On the card this is one
+    call of ``csrc/smooth_3d.cu``'s ``pyfem_sweeps_3d``, which launches
+    one stencil pass per sweep and one for the residual
+    (:func:`halo_sweeps_3d` passes plus the elementwise first sweep), so
+    any ``niter >= 1`` is accepted; the single-pass z-blocked form is
+    ROADMAP work.
 
     Args:
         coeff: (nk, nz, ny, nx) sym or full planes, f32 or bf16.
@@ -559,12 +510,7 @@ def fused_sweeps3d(coeff, invd, b, x=None, *, niter=2, want_resid=False,
     kw = dict(niter=int(niter), want_resid=want_resid,
               neg_resid=neg_resid, omega=omega)
     if coeff.device.type == "cuda":
-        _sweeps3d_args(b, kw["niter"])
-        nd = _check3d(coeff, invd, b, x)[0]
-        single = single_pass_3d(coeff.shape[0], nd, kw["niter"], x is None,
-                                want_resid)
-        return (_sweeps3d_single_pass if single else _sweeps3d_per_sweep)(
-            coeff, invd, b, x, **kw)
+        return _fused_sweeps3d_cuda(coeff, invd, b, x, **kw)
     if coeff.device.type == "cpu":
         return fused_sweeps3d_plain(coeff, invd, b, x, **kw)
     raise ValueError(f"unsupported device {coeff.device}")

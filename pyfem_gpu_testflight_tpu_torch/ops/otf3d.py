@@ -271,7 +271,7 @@ def _otf_apply_3d_cuda(rho, maskf, w3, wd, b, x, *, niter, want_resid,
         def step(xin, out, om, mode):
             _cuda.launch("pyfem_otf_3d", rho.data_ptr(), maskf.data_ptr(),
                          tables.data_ptr(), ptr(b), ptr(xin), out.data_ptr(),
-                         float(p), nd, nz, ny, nx, float(om), mode, 0, stream)
+                         float(p), nd, nz, ny, nx, float(om), mode, stream)
 
     # ping-pong: a pass reads every neighbour of its input, so it never
     # writes in place; the caller's x is never written

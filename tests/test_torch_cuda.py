@@ -2,9 +2,9 @@
 
 K1 and K2 on a 65x33 level; K3, K4 (every mode, f32 and bf16 planes)
 and K5 on a 17^3 level, in half-symmetric and full coefficient storage;
-K6 on a 17^3 level in every mode with f32 and bf16 operands; K5's single
-pass (every call within its budget) and K6's tensor-core pass on a
-ragged 9x7x5 grid, nd=3 and nd=1; K7 and K8
+K6 on a 17^3 level in every mode with f32 and bf16 operands; K5 (nu =
+1..4, from x0 = 0 or a given x, with and without the residual) and K6's
+tensor-core pass on a ragged 9x7x5 grid, nd=3 and nd=1; K7 and K8
 in every form (quad4, hex8, tet10, brick20; elasticity and Poisson) on
 jittered meshes, the determinism of the matrix-free operator and of a
 CG solve, ``kernel="cuda"`` never taking a plain version on a CUDA
@@ -359,7 +359,7 @@ def test_k6_matches_plain_on_card(otf_levels, physics, variant, bf16):
         assert float((k - r).abs().max()) <= TOL * scale
 
 
-# -- K5 single pass and K6 tensor cores on a ragged grid -------------------
+# -- K5 and K6's tensor cores on a ragged grid -----------------------------
 
 
 def _ragged_level(dev, physics, elem_path="uniform"):
@@ -378,9 +378,9 @@ def _ragged_level(dev, physics, elem_path="uniform"):
 
 @pytest.mark.parametrize("physics", ["elasticity", "poisson"])
 @pytest.mark.parametrize("prec", ["f32", "bf16"])
-def test_k5_single_pass_matches_plain_on_card(dev, physics, prec):
-    """Every call within the budget is one launch of the single pass,
-    within 1e-5 of max|plain| (the residual of max|b|)."""
+def test_k5_ragged_matches_plain_on_card(dev, physics, prec):
+    """Every smoothing call of nu = 1..4 is one call of K5, within 1e-5
+    of max|plain| (the residual of max|b|)."""
     import itertools
 
     from pyfem_gpu_testflight_tpu_torch import multigrid
@@ -398,16 +398,14 @@ def test_k5_single_pass_matches_plain_on_card(dev, physics, prec):
     for niter, x0_zero, resid in itertools.product((1, 2, 3, 4),
                                                    (True, False),
                                                    (True, False)):
-        if not fs.single_pass_3d(c.shape[0], a.nd, niter, x0_zero, resid):
-            continue
         kw = dict(niter=niter, want_resid=resid,
                   omega=multigrid.smoothing_omegas(niter, 3.0))
         x = None if x0_zero else x0
-        n0 = _cuda.launches["pyfem_sweeps_3d_fused"]
+        n0 = _cuda.launches["pyfem_sweeps_3d"]
         got = fs.fused_sweeps3d(c, dk, b, x, **kw)
         ref = fs.fused_sweeps3d_plain(c, dk, b, x, **kw)
         torch.cuda.synchronize()
-        assert _cuda.launches["pyfem_sweeps_3d_fused"] == n0 + 1
+        assert _cuda.launches["pyfem_sweeps_3d"] == n0 + 1
         got = got if isinstance(got, tuple) else (got,)
         ref = ref if isinstance(ref, tuple) else (ref,)
         assert _rel(got[0], ref[0]) <= TOL
@@ -415,7 +413,7 @@ def test_k5_single_pass_matches_plain_on_card(dev, physics, prec):
             err = float((got[1] - ref[1]).abs().max())
             assert err <= TOL * float(b.abs().max())
         calls += 1
-    assert calls == 14
+    assert calls == 16
 
 
 @pytest.mark.parametrize("physics", ["elasticity", "poisson"])

@@ -15,10 +15,10 @@ from the JAX ``Stencil3D.matvec`` on full planes, on a JAX-assembled
   same full planes, its Pallas kernel in interpret mode, float32 to 2e-6
   of max (summation order); K5 on full planes equals K5 on the kept
   planes of the same operator (1e-12);
-* K5's dispatch rule (``single_pass_3d``: the single-pass entry for half
-  storage within ``SWEEP3_BUDGET`` stencil passes, else the per-sweep
-  one) against the JAX ``Level.can_fuse3d`` (its 3D rule) and
-  ``halo_sweeps_3d``, and
+* K5's coverage: ``halo_sweeps_3d`` equals the JAX one, and the port's
+  ``Level3D.can_fuse3d`` holds for every call the JAX ``Level.can_fuse3d``
+  (its 3D rule) covers, and past its z budget too (the port's K5 runs
+  one stencil pass per launch, so it has no budget); and
   the port counterparts of the JAX gates
   ``test_fused_multi_sweep3d_matches_per_sweep`` and
   ``test_gmg3d_pcg_fused_multi_matches_per_sweep_solve``
@@ -229,26 +229,29 @@ def test_k4_k5_argument_checks(level):
 
 @pytest.mark.parametrize("sym", [True, False])
 def test_k5_dispatch_rule_matches_jax_budget(sym):
-    """Which K5 entry each call takes, beside the JAX package's rule for
-    its single-pass kernel (a sym-storage level with tz = 4)."""
+    """Which smoothing calls one K5 call covers, beside the JAX package's
+    rule for its single-pass kernel (a level with tz = 4): the same
+    stencil-pass count, and every call the JAX kernel takes (sym storage
+    within its z budget) is one K5 call here, as is every longer call and
+    every call on full storage."""
     from types import SimpleNamespace
 
-    assert fs.SWEEP3_BUDGET == min(4, jps.SWEEP3_ZEXT)
     nk = len(fs.sym_planes_3d(ND)) if sym else ND * ND * 27
     jlv = SimpleNamespace(pallas3=True, nd=ND, tz=4, coeff_lp_k=None,
                           coeff_k=np.zeros((1, nk, 8, 128), np.float32))
+    lv = SimpleNamespace()
+    jax_calls = 0
     for niter, x0_zero, want_resid in itertools.product(
             range(1, 7), (True, False), (True, False)):
         consumed = fs.halo_sweeps_3d(niter, x0_zero, want_resid)
         assert consumed == jps.halo_sweeps_3d(niter, x0_zero, want_resid)
-        single = fs.single_pass_3d(nk, ND, niter, x0_zero, want_resid)
-        assert single == (sym and 1 <= consumed <= 4)
-        assert single == jmg.Level.can_fuse3d(jlv, niter, x0_zero,
-                                              want_resid)
-    # the V-cycle's calls at nu = 2 take the single pass
-    assert fs.single_pass_3d(nk, ND, 2, True, True) == sym
-    assert fs.single_pass_3d(nk, ND, 2, False, False) == sym
-    assert fs.single_pass_3d(14, 1, 4, False, False)  # nd = 1, 4 passes
+        jax_fused = jmg.Level.can_fuse3d(jlv, niter, x0_zero, want_resid)
+        assert jax_fused == (sym and 1 <= consumed <= min(4, jps.SWEEP3_ZEXT))
+        assert tmg.Level3D.can_fuse3d(lv, niter, x0_zero, want_resid)
+        jax_calls += jax_fused
+    # sym storage: the calls of 1..4 stencil passes
+    assert jax_calls == (15 if sym else 0)
+    assert not tmg.Level3D.can_fuse3d(lv, 0, True, True)
 
 
 def _level9(physics):
@@ -265,12 +268,12 @@ def _level9(physics):
 @pytest.mark.parametrize("physics", ["elasticity", "poisson"])
 def test_k5_single_pass_calls_match_per_sweep(physics):
     """Port counterpart of test_fused_multi_sweep3d_matches_per_sweep:
-    K5's calls equal the per-sweep K4 sequence on the same data."""
+    one K5 call per smoothing call equals the sequence of single K4
+    sweeps and residual on the same data."""
     _gmg, lv0, b = _level9(physics)
-    nk = lv0.coeff.shape[0]
     omega = 0.6
     for niter in (2, 3):
-        assert fs.single_pass_3d(nk, lv0.nd, niter, True, True)
+        assert lv0.can_fuse3d(niter, True, True)
         x_f, r_f = lv0.presmooth_resid3d(b, niter, omega)
         x_s = omega * lv0.inv_diag * b
         for _ in range(niter - 1):
@@ -280,21 +283,19 @@ def test_k5_single_pass_calls_match_per_sweep(physics):
             x_s.abs().max())
         assert float((r_f - r_s).abs().max()) < 1e-5 * float(
             r_s.abs().max())
-        assert fs.single_pass_3d(nk, lv0.nd, niter, False, False)
+        assert lv0.can_fuse3d(niter, False, False)
         x_pf = lv0.postsmooth3d(b, x_f, niter, omega)
         x_ps = x_f
         for _ in range(niter):
             x_ps = lv0.sweep3d(b, x_ps, omega)
         assert float((x_pf - x_ps).abs().max()) < 1e-5 * float(
             x_ps.abs().max())
-    assert not fs.single_pass_3d(nk, lv0.nd, fs.SWEEP3_BUDGET + 1, False,
-                                 False)
 
 
 def test_gmg3d_pcg_single_pass_matches_per_sweep_solve(monkeypatch):
     """Port counterpart of
     test_gmg3d_pcg_fused_multi_matches_per_sweep_solve: the GMG-PCG solve
-    through K5's calls reproduces the one through per-sweep K4 (the
+    through K5's calls reproduces the one through single K4 sweeps (the
     V-cycle's fallback when ``can_fuse3d`` is false)."""
     sols = []
     for per_sweep in (False, True):
