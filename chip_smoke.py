@@ -30,11 +30,16 @@ Phases:
 3a. 3D kernels vs plain, in half-symmetric and full coefficient storage
    (K3 at 65^3 and 9x7x5 for nd=3 and nd=1, K4 in every mode on f32 and
    bf16 planes, K5 presmooth+resid and postsmooth on bf16 and nu=4),
-   with times and the CSR matvec time;
+   with times and the CSR matvec time; then the stencil passes on every
+   level of bench 3D, 65^3 down to 5^3 (``pass_levels``: device time,
+   each against its plain version) and ptxas's registers and spills of
+   ``sweep_3d_kernel``;
 3b. K6, the on-the-fly operator, vs plain at 65^3 (nd=3) and 9x7x5
    (nd=3 and nd=1): matvec, presmooth+resid and postsmooth (nu=2) with
    f32 and bf16 operands, presmooth+resid nu=4, compared pass by pass
    (``k6_passes``), with times, the flop bound and the CSR matvec time;
+   the f32 body's device time on every level and ptxas's registers of
+   ``otf_3d_kernel``;
 3c. K7a/K7b (quad4 at 1025x513, 17x9 and a ragged 13x7) and K8 (hex8 at
    65^3, tet10 and brick20 on the 33^3 lattice, elasticity and Poisson)
    vs plain on jittered meshes, with times, both bounds and ptxas's
@@ -52,10 +57,13 @@ Phases:
    ``torch.profiler``);
 4a. the 3D bench configuration (``bench.py --config 3d``: 65^3, p=0,
    rho=1, Chebyshev-node nu=2, bf16 smoother copy, flexible PCG, rtol
-   1e-6, coarsest 3^3 solved densely), the same measures, and the peak
-   device memory of one assemble+solve;
+   1e-6, coarsest 3^3 solved densely), the same measures, the peak
+   device memory of one assemble+solve, and the float32 solution within
+   ``SOL64_TOL`` (max-abs, of max) of the float64-outer solution, where
+   the same PCG on the bf16 operator (the control) is not (4a-4c);
 4b. the same with ``elem_path="otf"`` (K6 on every level but the
-   coarsest): iterations and solution against 4a's, the same measures;
+   coarsest): iterations against 4a's and the solution's difference from
+   4a's, the same measures;
 4c. the same with ``sym=False`` (all 243 planes): iterations, true
    residual, K4/K5 launches on full planes;
 4d. the 2D bench configuration with ``elem_path="cuda"`` (K7a on every
@@ -95,6 +103,15 @@ Phases:
    float64-outer solve, and a run resumed at iteration 2 against the
    uninterrupted one, bit for bit;
 
+``python3 chip_smoke.py --pass-levels [--root DIR]`` runs only
+``pass_levels`` on the package under DIR (default: this checkout), so a
+checkout of another commit is timed on the same inputs in the same call;
+``--solution-floor [--root DIR]`` likewise runs only ``solution_floor``,
+the readings ``SOL64_TOL`` is set from.
+The short kernels' times (K1, K1-sym, K2, K2-sym, K7, K8, K9) are CUDA
+events over back-to-back wrapper calls, with the profiler's device time
+beside them.
+
 Float32 accuracy: the operator is ill-conditioned enough that a float32
 solve stalls at the float32 rounding floor of its operator, about
 u32 * || |A| |x| || / ||b|| in relative residual (u32 = 2^-24; measured
@@ -126,12 +143,20 @@ NX, NY = 1025, 513  # bench.py's headline grid, 1,051,650 dof
 N3 = 65             # bench.py --config 3d: 65^3 nodes, 823,875 dof
 REL_TOL = 1e-5      # kernel vs plain, relative to max|plain|
 FLOOR_FACTOR = 4.0  # float32 true residual <= this x its rounding floor
+# bench 3D's float32 solution against its float64-outer solution, max-abs
+# of max.  Set from ``--solution-floor`` on an H100 (PERF.md section 2):
+# the 24 sound readings (3 routes x 4 loads, this package's kernels and
+# the previous commit's) lie in 9.6e-5..1.83e-3 (7.3e-4 at most on the
+# bench load) and the same PCG on a bf16 operator, the control, reads
+# 0.39 or more
+SOL64_TOL = 2e-3
 HBM_BYTES_S = 3.35e12  # H100 SXM device memory rate
 F32_FLOP_S = 67e12     # H100 SXM float32 rate outside the tensor cores
 F64_FLOP_S = 34e12     # H100 SXM float64 rate outside the tensor cores
 BF16_FLOP_S = 989e12   # H100 SXM dense bf16 rate on the tensor cores
 FAILS = []
 DEVICE_MS = {}  # main path label -> device time of one assemble+solve
+PASS_TIMES = {}  # level n -> {stencil pass: device ms} (pass_levels)
 
 
 def log(*a):
@@ -175,17 +200,19 @@ def dev_us(row):
                    getattr(row, "self_cuda_time_total", 0.0))
 
 
-def device_ms(fn, reps=20):
+def device_ms(fn, reps=20, sessions=3):
     """Milliseconds of device time per call, from ``torch.profiler`` (the
-    kernels' own time, whatever the host's speed).  A session that
-    records no device time at all (seen now and then on the card) is
-    repeated, up to three times; 0.0 means not measured."""
+    kernels' own time, whatever the host's speed): the median over
+    ``sessions`` profiler sessions of ``reps`` calls each.  A session that
+    records no device time (seen now and then on the card) is left out;
+    None when none records any (not measured)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    got = []
+    for _ in range(sessions):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -193,8 +220,13 @@ def device_ms(fn, reps=20):
             torch.cuda.synchronize()
         total = sum(dev_us(r) for r in prof.key_averages())
         if total > 0:
-            return total / reps / 1e3
-    return 0.0
+            got.append(total / reps / 1e3)
+    return float(np.median(got)) if got else None
+
+
+def fms(v):
+    """A time in ms for the log, or "not measured" (None)."""
+    return "not measured" if v is None else f"{v:.4f}"
 
 
 def verdict(met, measured=True):
@@ -535,18 +567,20 @@ def phase_kernels_elem(dev, pt, build_log):
             if i:
                 continue
             ms = cuda_ms(fk, 20)
+            dms = device_ms(fk)
             pms = cuda_ms(fp, 3)
             flops = stiffness_flops(et.nnodes, et.nquads, nd, et.ndims,
                                     m.nelems)
             b_ms, b_by = bound(nbytes(XeT, cqT, got), flops)
             reg = [v for k, v in regs.items() if tag in k]
-            res[key] = dict(max_abs_err=ea, ms=ms, plain_ms=pms,
-                            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            res[key] = dict(max_abs_err=ea, ms=ms, device_ms=dms,
+                            plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
+                            library_ms=None,
                             ptxas=reg[0] if reg else "not found",
                             bytes_ms=1e3 * nbytes(XeT, cqT, got) / HBM_BYTES_S,
                             flops_ms=1e3 * flops / F32_FLOP_S)
-            log(f"{tagd}: kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
-                f"{b_ms:.4f} ms ({b_by}; bytes {res[key]['bytes_ms']:.4f} "
+            log(f"{tagd}: kernel {ms:.4f} ms (device {fms(dms)}), plain "
+                f"{pms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; bytes {res[key]['bytes_ms']:.4f} "
                 f"ms, operations {res[key]['flops_ms']:.4f} ms at "
                 f"{flops / 1e9:.2f} GFLOP), library none; ptxas "
                 f"{res[key]['ptxas']}")
@@ -594,12 +628,15 @@ def phase_kernels(dev):
             res["K1"] = dict(max_abs_err=max(ea, ia),
                              ms=cuda_ms(lambda: fa.assemble_pack_2d(
                                  *args, **kw), 50),
+                             device_ms=device_ms(lambda: fa.assemble_pack_2d(
+                                 *args, **kw)),
                              plain_ms=cuda_ms(
                                  lambda: fa.assemble_pack_2d_plain(
                                      *args, **kw), 10),
                              bound_ms=b_ms, bound_by=b_by, library_ms=None)
             fine = (ck, dk, lk, st.mask)
-    log(f"K1 {NX}x{NY}: kernel {res['K1']['ms']:.4f} ms, plain "
+    log(f"K1 {NX}x{NY}: kernel {res['K1']['ms']:.4f} ms (device "
+        f"{fms(res['K1']['device_ms'])}), plain "
         f"{res['K1']['plain_ms']:.4f} ms, bound {res['K1']['bound_ms']:.4f} "
         f"ms ({res['K1']['bound_by']})")
 
@@ -645,8 +682,10 @@ def phase_kernels(dev):
                                     (NY, NX), xr)
             log(f"K2 matvec_f32: torch.sparse.mm (f32 CSR) {lib:.4f} ms, "
                 f"bound {b_ms:.4f} ms ({b_by})")
-            res["K2"] = dict(ms=ms, plain_ms=pms, bound_ms=b_ms,
-                             bound_by=b_by, library_ms=lib)
+            dms = device_ms(lambda: fs.fused_sweeps_2d(*a, **kw))
+            log(f"K2 matvec_f32: device time {fms(dms)} ms")
+            res["K2"] = dict(ms=ms, device_ms=dms, plain_ms=pms,
+                             bound_ms=b_ms, bound_by=b_by, library_ms=lib)
     # 8 Chebyshev-node sweeps damp the residual far below b, so its
     # rounding is measured against max|b|, the scale it is computed at
     kw = dict(niter=8, want_resid=True,
@@ -703,12 +742,14 @@ def phase_kernels_k9(dev):
             forms[name] = dict(
                 max_abs_err=ea,
                 ms=cuda_ms(lambda: sm.stencil_matvec_2d(c, u), 50),
+                device_ms=device_ms(lambda: sm.stencil_matvec_2d(c, u)),
                 plain_ms=cuda_ms(lambda: sm.stencil_matvec_2d_plain(c, u),
                                  10),
                 bound_ms=b_ms, bound_by=b_by,
                 library_ms=library_matvec_ms(c, (ny, nx), u, dtype=dt))
             f = forms[name]
-            log(f"K9 {name} {NX}x{NY}: rel {er:.2e}; kernel {f['ms']:.4f} ms, "
+            log(f"K9 {name} {NX}x{NY}: rel {er:.2e}; kernel {f['ms']:.4f} ms "
+                f"(device {fms(f['device_ms'])}), "
                 f"plain {f['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
                 f"torch.sparse.mm ({str(dt)[6:]} CSR) {f['library_ms']:.4f} "
                 f"ms")
@@ -760,11 +801,14 @@ def phase_kernels_sym2d(dev):
                     2 * (ck.shape[0] * 16 + 64) * rho.numel())
                 res["K1-sym"].update(
                     ms=cuda_ms(lambda: fa.assemble_pack_2d(*args, **kw), 50),
+                    device_ms=device_ms(
+                        lambda: fa.assemble_pack_2d(*args, **kw)),
                     plain_ms=cuda_ms(
                         lambda: fa.assemble_pack_2d_plain(*args, **kw), 10),
                     bound_ms=b_ms, bound_by=b_by, library_ms=None)
                 r = res["K1-sym"]
-                log(f"K1-sym {tag}: kernel {r['ms']:.4f} ms, plain "
+                log(f"K1-sym {tag}: kernel {r['ms']:.4f} ms (device "
+                    f"{fms(r['device_ms'])}), plain "
                     f"{r['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
             field = lambda: torch.as_tensor(
                 rng.standard_normal((nd, ny, nx)), dtype=torch.float32,
@@ -811,10 +855,13 @@ def phase_kernels_sym2d(dev):
                                        2 * 72 * nx * ny)
                     lib = library_matvec_ms(fs.full_planes_2d(ck, 2),
                                             (ny, nx), xr)
-                    log(f"K2-sym matvec_f32: bound {b_ms:.4f} ms ({b_by}), "
-                        f"torch.sparse.mm (f32 CSR) {lib:.4f} ms")
-                    res["K2-sym"].update(ms=ms, plain_ms=pms, bound_ms=b_ms,
-                                         bound_by=b_by, library_ms=lib)
+                    dms = device_ms(lambda: fs.fused_sweeps_2d(*va, **vkw))
+                    log(f"K2-sym matvec_f32: device time {fms(dms)} ms, bound "
+                        f"{b_ms:.4f} ms ({b_by}), torch.sparse.mm (f32 CSR) "
+                        f"{lib:.4f} ms")
+                    res["K2-sym"].update(ms=ms, device_ms=dms, plain_ms=pms,
+                                         bound_ms=b_ms, bound_by=b_by,
+                                         library_ms=lib)
             kw8 = dict(niter=8, want_resid=True,
                        omega=multigrid.smoothing_omegas(8, 2.3))
             (xk, rk), (xp, rp) = (fs.fused_sweeps_2d(ck, dk, b, None, **kw8),
@@ -828,9 +875,21 @@ def phase_kernels_sym2d(dev):
     return res
 
 
-def phase_kernels_3d(dev):
+def short_ptxas(build_log, kernel):
+    """ptxas's registers and spills of each instance of ``kernel``, keyed
+    by its template arguments (mangled)."""
+    out = {}
+    for k, v in ptxas_table(build_log).items():
+        if kernel + "I" in k:
+            out[k.split(kernel, 1)[1].split("EEv", 1)[0] + "E"] = v
+    return out
+
+
+def phase_kernels_3d(dev, build_log):
     """Phase 3a: K3, K4 and K5 against their plain versions on the card,
-    in half-symmetric (``sym``) and full coefficient storage."""
+    in half-symmetric (``sym``) and full coefficient storage; then the
+    stencil pass on every level of bench 3D (``pass_levels``) and
+    ptxas's registers of its kernel."""
     import torch
     from pyfem_gpu_testflight_tpu_torch import multigrid
     from pyfem_gpu_testflight_tpu_torch.ops import fused_assemble as fa
@@ -874,10 +933,12 @@ def phase_kernels_3d(dev):
             r = dict(
                 max_abs_err=max(ea, ia),
                 ms=cuda_ms(lambda: fa.assemble_pack_3d(*args, **kw), 20),
+                device_ms=device_ms(lambda: fa.assemble_pack_3d(*args, **kw)),
                 plain_ms=cuda_ms(lambda: fa.assemble_pack_3d_plain(
                     *args, **kw), 3),
                 bound_ms=b_ms, bound_by=b_by, library_ms=None)
-            log(f"K3 {form} {N3}^3: kernel {r['ms']:.4f} ms, plain "
+            log(f"K3 {form} {N3}^3: kernel {r['ms']:.4f} ms (device "
+                f"{fms(r['device_ms'])}), plain "
                 f"{r['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
             res["K3" if sym else "K3 full"] = r
             fine[form] = (ck, dk, lk, st.mask)
@@ -924,10 +985,12 @@ def phase_kernels_3d(dev):
         r = dict(
             max_abs_err=worst,
             ms=cuda_ms(lambda: fs.fused_sweep_3d(*a, **kw), 50),
+            device_ms=device_ms(lambda: fs.fused_sweep_3d(*a, **kw)),
             plain_ms=cuda_ms(lambda: fs.fused_sweep_3d_plain(*a, **kw), 5),
             bound_ms=b_ms, bound_by=b_by, library_ms=lib)
         res["K4" if form == "sym" else "K4 full"] = r
-        log(f"K4 matvec_{form}_f32 {N3}^3: kernel {r['ms']:.4f} ms, plain "
+        log(f"K4 matvec_{form}_f32 {N3}^3: kernel {r['ms']:.4f} ms (device "
+            f"{fms(r['device_ms'])}), plain "
             f"{r['plain_ms']:.4f} ms, torch.sparse.mm (f32 CSR) "
             f"{lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     # one sweep pass on f32 and on bf16 planes, device time: what bounds
@@ -937,7 +1000,7 @@ def phase_kernels_3d(dev):
     d = [device_ms(lambda: fs.fused_sweep_3d(*a, **kw))
          for a, kw in ((a32, kw32), (a16, kw16))]
     log(f"K4 sweep pass {N3}^3, device time (profiler): f32 planes "
-        f"{d[0]:.4f} ms, bf16 planes {d[1]:.4f} ms")
+        f"{fms(d[0])} ms, bf16 planes {fms(d[1])} ms")
     res["K4"]["sweep_device_ms"] = dict(f32=d[0], bf16=d[1])
 
     ck, dk, lk, _m = fine["sym"]
@@ -976,7 +1039,7 @@ def phase_kernels_3d(dev):
                              bound_by=b_by, library_ms=None, device_ms=dms)
             log(f"K5 {name}: bound {b_ms:.4f} ms ({b_by}); stencil "
                 f"passes {fs.halo_sweeps_3d(2, True, True)}; device time "
-                f"(profiler) {dms:.4f} ms")
+                f"(profiler) {fms(dms)} ms")
     # nu=4 Chebyshev-node sweeps: the residual is damped below b, so its
     # rounding is measured against max|b| (as K2's niter=8 check)
     kw = dict(niter=4, want_resid=True,
@@ -990,7 +1053,149 @@ def phase_kernels_3d(dev):
     check(ex[1] <= REL_TOL and rr[0] <= REL_TOL * bmax,
           f"K5 nu4_cheby x and r within {REL_TOL:g} (r of max|b|)")
     res["K5"]["max_abs_err"] = max(worst, ex[0], rr[0])
+    times, _w = pass_levels(dev)
+    PASS_TIMES.update(times)
+    for n in PASS_LEVELS:
+        t = times[n]
+        log(f"3D stencil pass {n}^3, device time (profiler): sweep on bf16 "
+            f"sym planes {fms(t['sweep_sym_bf16'])} ms, f32 sym "
+            f"{fms(t['sweep_sym_f32'])}, bf16 full {fms(t['sweep_full_bf16'])}; "
+            f"f32 sym matvec {fms(t['matvec_sym_f32'])}; K5 bf16 "
+            f"presmooth+resid {fms(t['k5_presmooth_resid_bf16'])} ms")
+    regs = short_ptxas(build_log, "sweep_3d_kernel")
+    log(f"ptxas sweep_3d_kernel: {regs}")
+    levels = {n: {k: v for k, v in times[n].items() if not k.startswith("k6")}
+              for n in PASS_LEVELS}
+    res["K4"].update(levels_device_ms=levels, ptxas=regs)
+    res["K5"]["levels_device_ms"] = {
+        n: times[n]["k5_presmooth_resid_bf16"] for n in PASS_LEVELS}
     return res
+
+
+# bench 3D's levels (65^3 down to 5^3, coarsest 3^3 dense)
+PASS_LEVELS = (65, 33, 17, 9, 5)
+
+
+def pass_levels(dev):
+    """Device time per call (``torch.profiler``) on every level of bench
+    3D of the stencil passes it runs: K4's sweep pass on bf16 and f32
+    half-storage planes and on bf16 full planes, K4's f32 matvec, K5's
+    bf16 presmooth+residual (two passes and the elementwise first sweep)
+    and K6's f32 matvec and sweep pass, each held against its plain
+    version (a residual of max|b|).  It uses only the package's public
+    functions, so ``--pass-levels --root DIR`` times a parent checkout's
+    kernels on the same inputs.  Returns {n: {name: ms}} and the worst
+    error relative to max|plain|."""
+    import torch
+    from pyfem_gpu_testflight_tpu_torch import multigrid
+    from pyfem_gpu_testflight_tpu_torch.ops import fused_assemble as fa
+    from pyfem_gpu_testflight_tpu_torch.ops import fused_smooth as fs
+    from pyfem_gpu_testflight_tpu_torch.ops import otf3d
+
+    rng = np.random.default_rng(SEED + 30)
+    times, worst = {}, 0.0
+    for n in PASS_LEVELS:
+        shape = (3, n, n, n)
+        a = multigrid.GMGAssembler3D(n, n, n, 1.0, 1.0, 1.0, "elasticity",
+                                     p=3.0, device=dev)
+        st = a.static_levels[0]
+        rho = torch.as_tensor(rng.uniform(0.2, 1.0, (n, n, n)),
+                              dtype=torch.float32, device=dev)
+        args = (rho, st.maskf, st.W, a.N)
+        kw = dict(nd=3, p=3.0, lp_dtype=torch.bfloat16)
+        ck, dk, lk = fa.assemble_pack_3d(*args, **kw)
+        _cf, _df, lkf = fa.assemble_pack_3d(*args, sym=False, **kw)
+        del _cf, _df
+        field = lambda: torch.as_tensor(rng.standard_normal(shape),
+                                        dtype=torch.float32, device=dev)
+        b = torch.where(st.mask, 0.0, field())
+        x0 = torch.where(st.mask, 0.0, field())
+        ao = multigrid.GMGAssembler3D(n, n, n, 1.0, 1.0, 1.0, "elasticity",
+                                      p=3.0, device=dev, elem_path="otf")
+        _g, lv = ao.assemble(rho.reshape(-1))
+        ov = (lv.rho, lv.maskf, lv.w3, lv.wd)
+        om2 = multigrid.smoothing_omegas(2, 3.0)
+        sweep = dict(mode="sweep", omega=0.5)
+        calls = {
+            "sweep_sym_bf16": (fs.fused_sweep_3d, fs.fused_sweep_3d_plain,
+                               (lk, dk, b, x0), sweep),
+            "sweep_sym_f32": (fs.fused_sweep_3d, fs.fused_sweep_3d_plain,
+                              (ck, dk, b, x0), sweep),
+            "sweep_full_bf16": (fs.fused_sweep_3d, fs.fused_sweep_3d_plain,
+                                (lkf, dk, b, x0), sweep),
+            "matvec_sym_f32": (fs.fused_sweep_3d, fs.fused_sweep_3d_plain,
+                               (ck, None, None, x0),
+                               dict(mode="matvec", neg_resid=True)),
+            "k5_presmooth_resid_bf16": (
+                fs.fused_sweeps3d, fs.fused_sweeps3d_plain,
+                (lk, dk, b, None), dict(niter=2, want_resid=True,
+                                        omega=om2)),
+            "k6_matvec_f32": (otf3d.otf_apply_3d, otf3d.otf_apply_3d_plain,
+                              ov + (None, x0),
+                              dict(niter=0, neg_resid=True, p=lv.p)),
+            "k6_sweep_f32": (otf3d.otf_apply_3d, otf3d.otf_apply_3d_plain,
+                             ov + (b, x0), dict(niter=1, want_resid=False,
+                                                omega=0.5, p=lv.p)),
+        }
+        times[n] = {}
+        bmax = float(b.abs().max())
+        for name, (fn, plain, fa_args, fkw) in calls.items():
+            got, ref = fn(*fa_args, **fkw), plain(*fa_args, **fkw)
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            ref = ref if isinstance(ref, tuple) else (ref,)
+            for i, (g, r) in enumerate(zip(got, ref)):
+                scale = float(r.abs().max())
+                if i == 1:  # a residual after sweeps: of max|b|
+                    scale = max(scale, bmax)
+                worst = max(worst, float((g - r).abs().max()) / scale)
+            times[n][name] = device_ms(lambda: fn(*fa_args, **fkw))
+    check(worst <= REL_TOL, f"stencil passes on every level within "
+          f"{REL_TOL:g} of max|plain| (worst {worst:.2e})")
+    return times, worst
+
+
+def run_solution_floor():
+    """``python3 chip_smoke.py --solution-floor [--root DIR]``: only
+    :func:`solution_floor`, on the package under DIR (default: this
+    checkout); prints the card and one JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    if "--root" in sys.argv:
+        sys.path.insert(0, sys.argv[sys.argv.index("--root") + 1])
+    import pyfem_gpu_testflight_tpu_torch as pt
+    from pyfem_gpu_testflight_tpu_torch import multigrid
+    from pyfem_gpu_testflight_tpu_torch.ops.dia import (
+        interleave_to_planar as i2p,
+    )
+
+    log(card_line())
+    errs = solution_floor(torch.device("cuda", 0), pt, multigrid, i2p)
+    log(json.dumps({"package": pt.__file__, "solution_errors": errs}))
+    return 0
+
+
+def run_pass_levels():
+    """``python3 chip_smoke.py --pass-levels [--root DIR]``: only
+    :func:`pass_levels`, on the package under DIR (default: this
+    checkout); prints the card and one JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    if "--root" in sys.argv:
+        sys.path.insert(0, sys.argv[sys.argv.index("--root") + 1])
+    import pyfem_gpu_testflight_tpu_torch as pt
+
+    log(card_line())
+    times, worst = pass_levels(torch.device("cuda", 0))
+    log(json.dumps({"package": pt.__file__, "worst_rel_err": worst,
+                    "device_ms": times}))
+    return 1 if FAILS else 0
 
 
 def k6_passes(lv, b, x, kw):
@@ -1120,7 +1325,9 @@ def phase_kernels_otf(dev, build_log):
                                         tuple(rho.shape), xx)
                 del full
                 res["K6"] = dict(ms=ms, plain_ms=pms, bound_ms=b_ms,
-                                 bound_by=b_by, library_ms=lib)
+                                 bound_by=b_by, library_ms=lib,
+                                 device_ms=device_ms(
+                                     lambda: otf3d.otf_apply_3d(*args, **kw)))
                 log(f"K6 matvec_f32 {N3}^3: bound {b_ms:.4f} ms ({b_by}; "
                     f"{flops / 1e9:.2f} GFLOP, dense TPU count "
                     f"{2 * nd * (64 * 27 * nd + 64) * n3 / 1e9:.2f}), "
@@ -1156,17 +1363,28 @@ def phase_kernels_otf(dev, build_log):
             f"{regs}")
         ms = min(t[1], t[2])
         d = [device_ms(f) for f in (f32, tc)]
-        log(f"K6 sweep pass {N3}^3, device time (profiler): f32 {d[0]:.4f} "
-            f"ms, bf16 operands (tensor cores) {d[1]:.4f} ms")
+        log(f"K6 sweep pass {N3}^3, device time (profiler): f32 {fms(d[0])} "
+            f"ms, bf16 operands (tensor cores) {fms(d[1])} ms")
         log(f"K6 bf16 sweep pass at most half the f32 pass (same run): CUDA "
             f"events {'met' if ms <= 0.5 * min(t[0], t[3]) else 'NOT met'}, "
-            f"device time {verdict(d[1] <= 0.5 * d[0], d[0] * d[1])}")
+            f"device time {verdict(None not in d and d[1] <= 0.5 * d[0], None not in d)}")
         res["K6-tc"] = dict(ms=ms, plain_ms=pms, bound_ms=t_ms, bound_by=t_by,
                             library_ms=None, f32_pass_ms=min(t[0], t[3]),
                             device_ms=d[1], f32_pass_device_ms=d[0],
                             ptxas=regs[0] if regs else None)
     res["K6"]["max_abs_err"] = worst
     res["K6-tc"]["max_abs_err"] = worst_tc
+    # the f32 body on every level (timed by pass_levels in phase 3a)
+    for n in PASS_LEVELS:
+        t = PASS_TIMES[n]
+        log(f"K6 f32 body {n}^3, device time (profiler): matvec "
+            f"{fms(t['k6_matvec_f32'])} ms, sweep pass {fms(t['k6_sweep_f32'])} "
+            f"ms")
+    regs = short_ptxas(build_log, "otf_3d_kernel")
+    log(f"ptxas otf_3d_kernel: {regs}")
+    res["K6"].update(ptxas=regs, levels_device_ms={
+        n: {k: PASS_TIMES[n][k] for k in ("k6_matvec_f32", "k6_sweep_f32")}
+        for n in PASS_LEVELS})
     return res
 
 
@@ -1438,13 +1656,98 @@ def phase_main_3d(dev, pt, multigrid, i2p, p2i, label="bench 3D",
     log(f"{label} float64 outer PCG, float32 kernel V-cycle: {ka} "
         f"iterations, true residual {true_a:.3e}")
     check(true_a <= 1e-5, f"{label} float64-outer true residual <= 1e-5")
+    err64, ctl64 = solution_errors(gmg, gmg.levels[0], b, x, xa)
+    log(f"{label}: the float32 solution's max-abs error against the "
+        f"float64-outer one {err64:.3e} of max; control, the same PCG on "
+        f"the bf16 operator: {ctl64:.3e}")
+    check(err64 <= SOL64_TOL, f"{label} float32 solution within "
+          f"{SOL64_TOL:g} of the float64-outer solution")
+    check(not ctl64 <= SOL64_TOL, f"{label} control: the PCG on the bf16 "
+          f"operator is not within {SOL64_TOL:g}")
     out = dict(counts=counts, single_ms=single_ms, u=u, k=k, mem=mem,
+               err64=err64,
                ch=None, levels=[type(lv).__name__ for lv in gmg.levels],
                by_level=by_level, nlevels=len(gmg.levels))
     if full:
         out["ch"] = chained_ms(step, rho, rhs, u)
         log(f"{label}: chained {out['ch']:.3f} ms/solve over 10")
         breakdown(label, step, (rho, rhs, rhs), asm, rho, b, single_ms)
+    return out
+
+
+def bf16_operator(lv):
+    """A level's PCG operator in bf16, the control of
+    :func:`solution_errors`: the smoother's bf16 planes (assembled
+    levels) or K6's bf16 tensor-core pass (on-the-fly levels)."""
+    from pyfem_gpu_testflight_tpu_torch.ops import fused_smooth as fs
+    from pyfem_gpu_testflight_tpu_torch.ops import otf3d
+
+    if getattr(lv, "coeff_lp", None) is not None:
+        return lambda u: fs.fused_sweep_3d(lv.coeff_lp, x=u, mode="matvec",
+                                           neg_resid=True)
+    return lambda u: otf3d.otf_apply_3d(
+        lv.rho, lv.maskf, lv.w3, lv.wd, None, u, niter=0, want_resid=True,
+        neg_resid=True, p=lv.p, mxu_bf16=True)
+
+
+def solution_errors(gmg, lv0, b, x, xa):
+    """(err, control): the max-abs error, of max|xa|, of the float32 PCG
+    solution ``x`` against the float64-outer one ``xa``, and of the same
+    PCG (rtol 1e-6, the V-cycle as preconditioner) run on the level's
+    bf16 operator (:func:`bf16_operator`), which ``SOL64_TOL`` must tell
+    from a sound solve."""
+    from pyfem_gpu_testflight_tpu_torch import multigrid
+
+    scale = float(xa.abs().max())
+    err = float((x.double() - xa).abs().max()) / scale
+    xc, _k, _rn = multigrid.pcg(bf16_operator(lv0), gmg.apply, b, rtol=1e-6,
+                                maxiter=200, flexible=True)
+    return err, float((xc.double() - xa).abs().max()) / scale
+
+
+def solution_floor(dev, pt, multigrid, i2p, seeds=(1, 2, 3)):
+    """``--solution-floor``: :func:`solution_errors` of bench 3D's three
+    routes (assembled half storage, ``sym=False``, ``elem_path="otf"``)
+    for its own load and for seeded standard-normal loads on the free
+    dofs, the float64-outer solution solved once per load.  Uses only the
+    package's public functions, so ``--root DIR`` reads another
+    checkout's kernels on the same inputs.  Returns {route: {load:
+    [err, control]}}."""
+    import torch
+
+    n = N3
+    conn, X, fixed, force, L = problem(n, n, n)
+    model = pt.LinearElasticity("hex8", X, conn, fixed, None, force, p=0.0,
+                                dtype=torch.float32, device=dev)
+    rho = torch.ones(model.nnodes, dtype=torch.float32, device=dev)
+    mv64, _mvabs, _ = f64_operator_3d(n, L, rho, 0.0, dev)
+    rhs = i2p(model.compute_rhs(), 3).reshape(3, n, n, n)
+    out, ref = {}, {}
+    for route, kw in (("assembled", {}), ("sym=False", dict(sym=False)),
+                      ("otf", dict(elem_path="otf"))):
+        asm = multigrid.GMGAssembler3D(
+            n, n, n, *L, "elasticity", p=0.0, dtype=torch.float32,
+            device=dev, nu_pre=2, nu_post=2, min_n=3, coarse_dense_max=4096,
+            smoother_dtype=torch.bfloat16, omega="cheby", **kw)
+        gmg, lv0 = asm.assemble(rho)
+        out[route] = {}
+        for seed in (None,) + tuple(seeds):
+            load = "bench" if seed is None else f"seed {seed}"
+            if seed is None:
+                f = rhs
+            else:
+                f = torch.as_tensor(
+                    np.random.default_rng(SEED + 40 + seed).standard_normal(
+                        (3, n, n, n)), dtype=torch.float32, device=dev)
+            b = torch.where(lv0.mask, 0.0, f)
+            if load not in ref:
+                ref[load] = accuracy_solve(gmg, mv64, b)[0]
+            x, _k, _rn = multigrid.pcg_gmg(gmg, lv0, b, rtol=1e-6,
+                                           maxiter=200, flexible=True)
+            out[route][load] = list(solution_errors(gmg, lv0, b, x,
+                                                    ref[load]))
+            log(f"{route} {load}: float32 solution {out[route][load][0]:.3e}"
+                f", bf16-operator control {out[route][load][1]:.3e}")
     return out
 
 
@@ -1923,7 +2226,7 @@ def main():
 
     # 3, 3a, 3b. kernels vs plain
     kres = phase_kernels(dev)
-    kres.update(phase_kernels_3d(dev))
+    kres.update(phase_kernels_3d(dev, _cuda.build_log))
     kres.update(phase_kernels_otf(dev, _cuda.build_log))
     # 3c. element stiffness
     kres.update(phase_kernels_elem(dev, pt, _cuda.build_log))
@@ -1954,24 +2257,25 @@ def main():
           f"bench 3D otf: the tensor-core entry runs all {passes} bf16 "
           f"smoother passes, the float32 entry only the {mo['k']} PCG "
           f"matvecs at {N3}^3")
-    # the earlier K5 and K6 forms' device times on the same paths, as
-    # PERF.md records them: 15.6 and 22.7 ms
+    # the previous kernels' device times on the same paths, as PERF.md
+    # section 6 records them:
+    # 14.6-15.6 and 15.9 ms
     log(f"device time of one assemble+solve: bench 3D "
-        f"{DEVICE_MS.get('bench 3D', float('nan')):.3f} ms (earlier forms: "
-        f"15.6 ms), bench 3D otf "
-        f"{DEVICE_MS.get('bench 3D otf', float('nan')):.3f} ms (earlier "
-        f"forms: 22.7 ms) ({card})")
+        f"{DEVICE_MS.get('bench 3D', float('nan')):.3f} ms (previous "
+        f"kernels: 14.6-15.6 ms), bench 3D otf "
+        f"{DEVICE_MS.get('bench 3D otf', float('nan')):.3f} ms (previous "
+        f"kernels: 15.9 ms) ({card})")
     check(mo["levels"][:-1] == ["OTFLevel"] * (len(mo["levels"]) - 1),
           "bench 3D otf: every level but the coarsest is on the fly")
     check(mo["k"] <= 8 and abs(mo["k"] - m3["k"]) <= 2,
           "bench 3D otf: <= 8 iterations, within 2 of the assembled route")
     du = float((mo["u"] - m3["u"]).abs().max() / m3["u"].abs().max())
     log(f"bench 3D otf vs assembled: {mo['k']} vs {m3['k']} iterations, "
-        f"solution rel diff {du:.3e}; peak memory {mo['mem'] / 2**20:.1f} "
-        f"vs {m3['mem'] / 2**20:.1f} MiB; single-shot "
-        f"{mo['single_ms']:.3f} vs {m3['single_ms']:.3f} ms, chained "
-        f"{mo['ch']:.3f} vs {m3['ch']:.3f} ms/solve")
-    check(du <= 5e-4, "bench 3D otf solution within 5e-4 of assembled")
+        f"solution rel diff {du:.3e}, max-abs errors against the "
+        f"float64-outer solution {mo['err64']:.3e} vs {m3['err64']:.3e}; "
+        f"peak memory {mo['mem'] / 2**20:.1f} vs {m3['mem'] / 2**20:.1f} "
+        f"MiB; single-shot {mo['single_ms']:.3f} vs {m3['single_ms']:.3f} "
+        f"ms, chained {mo['ch']:.3f} vs {m3['ch']:.3f} ms/solve")
     mf = phase_main_3d(dev, pt, multigrid, i2p, p2i, "bench 3D sym=False",
                        full=False, sym=False)
     check(mf["counts"]["pyfem_sweep_3d"] > 0
@@ -2100,6 +2404,7 @@ def main():
             f = kres[f"{key} full"]
             row["full_form"] = dict(
                 max_abs_err=f["max_abs_err"], ms=f["ms"],
+                device_ms=f["device_ms"],
                 plain_ms=f["plain_ms"], bound_ms=f["bound_ms"],
                 bound_by=f["bound_by"], library_ms=f["library_ms"],
                 launches_sym_false_path=mf["counts"][
@@ -2108,15 +2413,16 @@ def main():
             row["launches_5d"] = g5d["st"]["launches"]
             row["forms"] = {
                 k[3:]: dict(max_abs_err=v["max_abs_err"], ms=v["ms"],
+                            device_ms=v["device_ms"],
                             plain_ms=v["plain_ms"], bound_ms=v["bound_ms"],
                             bound_by=v["bound_by"], ptxas=v["ptxas"])
                 for k, v in kres.items() if k.startswith("K8 ")}
-        if key in ("K6-tc", "K7a", "K7b", "K8"):
-            row["ptxas"] = r["ptxas"]
-        if key == "K5":
+        for extra in ("ptxas", "levels_device_ms"):
+            if extra in r:
+                row[extra] = r[extra]
+        if "device_ms" in r:
             row["device_ms"] = r["device_ms"]
         if key == "K6-tc":
-            row["device_ms"] = r["device_ms"]
             row["f32_pass_device_ms"] = r["f32_pass_device_ms"]
             row["f32_pass_ms"] = r["f32_pass_ms"]
         if key == "K9":
@@ -2141,4 +2447,6 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(run_pass_levels() if "--pass-levels" in sys.argv else
+             run_solution_floor() if "--solution-floor" in sys.argv else
+             main())

@@ -32,34 +32,38 @@
 //     the tensor cores (mma.sync bf16, f32 accumulate), as the TPU kernel
 //     ran it on its matrix unit; see TcShape below.
 //
-// What bounds it on the H100: operations.  Counted as the TPU kernel
-// does its dense matmuls, a pass is nd * (64 * 27 * nd + 64) = 15,744
-// MACs per node at nd=3: 8.6 GFLOP at 65^3, ~129 us at 67 TFLOP/s (f32,
-// no tensor cores).  This kernel skips the weights that are zero by the
-// stencil plan (an element must hold both nodes: sum over d of the
-// elements holding node i and i + d - 1 is 64, so 8 * 64 = 512 MACs per
-// (ca, cb) pair), ~4,900 MACs per node with the Y products: 2.7 GFLOP,
+// What bounds the f32 body on the H100: operations.  Counted as the TPU
+// kernel does its dense matmuls, a pass is nd * (64 * 27 * nd + 64) =
+// 15,744 MACs per node at nd=3: 8.6 GFLOP at 65^3, ~129 us at 67 TFLOP/s
+// (f32, no tensor cores).  The weights that are zero by the stencil plan
+// (an element must hold both nodes) need no work: 8 nd weights per
+// (ca, o, q), ~4,900 MACs per node with the B * Z epilogue, 2.7 GFLOP,
 // ~40 us.  The bytes are rho, the mask, x and the output, ~40 B per node
 // (~11 MB, ~3 us); all bounds at the H100 SXM's published peaks.
-// Predicted before its first chip run: ~100-150 us per f32 pass at 65^3
-// (a third of the f32 rate), no faster than K4's f32 matvec on stored
-// planes (104 us on an NVIDIA H100 80GB HBM3 at a 700 W power limit).
-// What the design does about it: a block owns a 16 x 8 x 2 node tile (256
-// threads, one node each).  It stages in shared memory the density tile
-// and the x tile, each with a one-node halo, and the weights: only the
-// structurally nonzero ones (nd^2 * 512 floats, 18 KB at nd=3), in the
-// order the unrolled loop consumes them (the wrapper gathers them,
-// ops/otf3d.py::_compact_index), so each group of 8 quad-point weights is
-// two broadcast float4 loads at compile-time offsets.  (A first version
-// read the full 62 KB w3 table from constant memory: 1.92 ms per f32 pass
-// at 65^3 on an NVIDIA H100 80GB HBM3 at 700 W, the per-node walk over a
-// table far larger than the per-SM constant cache.)
-// It computes the RAMP material at the 8 quad points of each of the
-// 3 x 9 x 17 elements touching the tile once, with explicitly rounded
-// operations in the plain version's order, so B is bit-identical to the
-// plain version's and so is its bf16 rounding; then each thread keeps its
-// 64 B values in registers and loops over the 27 * nd neighbour terms,
-// rebuilding each coefficient with the loop fully unrolled.
+// The earlier body held one node per thread and its 64 B values in
+// registers and rebuilt each of the 81 coefficients from weights read as
+// broadcast float4s from shared memory: 16 bytes to every lane for 4 FMAs.
+// At 128 bytes a cycle that return path alone takes ~150 us at 65^3, and
+// the body took 0.144 ms, 28% of its bound (NVIDIA H100 80GB HBM3, 700 W;
+// PERF.md section 6).
+// What this design does about it: fewer shared-memory bytes per FMA.  It
+// takes the tensor-core body's per-offset form to the CUDA cores,
+// register-tiled.  For each element offset o, Z[o][q] = sum_k W_o[ca][q][k]
+// x_e[k] over the element's 8 nodes times nd (k = 8 nd), then acc[ca] +=
+// sum_q B_(o,q) Z[o][q]; W_o is the same for every node of the uniform
+// grid.  A quad of threads shares 4 nodes along x and lane l takes the
+// quad points 2 l, 2 l + 1 of every component: per (o, k) one float4 of x
+// (4 nodes) and 2 nd weights as float4s feed 4 x 2 nd FMAs, 2 bytes a
+// FMA against 4.  A quad sum by shuffles closes each node.  A block owns
+// a 16 x 4 x 2 node tile (128 threads) and stages in shared memory
+// (dynamic) the weights in the order the lanes read them (ops/otf3d.py::
+// f32_table), three copies of the x tile shifted by -1, 0, +1 in x (so
+// the 4 nodes' neighbour values are always one aligned float4), the
+// density tile with a one-node halo, and the RAMP material at the 8 quad
+// points of each of the 3 x 5 x 17 elements touching the tile, computed
+// once with explicitly rounded operations in the plain version's order,
+// so B is bit-identical to the plain version's and so is its bf16
+// rounding.  The diagonal (mode 0) is wd . B per node, each B read once.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cstdint>
@@ -77,16 +81,21 @@ __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// RAMP material at the quad points of each element touching the tile
-// whose low corner is (z0, y0, x0); element (z0 - 1 + lz, y0 - 1 + ly,
-// x0 - 1 + lx) has its low corner at s_rho[lz][ly][lx] (the density tile
-// with its one-node halo, 0 off the grid); 0 for elements past the grid.
-__device__ __forceinline__ void tile_materials(
-    const float* s_N, const float (*s_rho)[RY][RX],
-    float (*s_cq)[EZ][EY][EX], int x0, int y0, int z0, int nz, int ny,
-    int nx, float p, int tid) {
-  for (int i = tid; i < EZ * EY * EX; i += NT) {
-    const int lx = i % EX, ly = (i / EX) % EY, lz = i / (EX * EY);
+// RAMP material at the quad points of each element touching a tile whose
+// low corner is (z0, y0, x0): EZ_ x EY_ x EX_ elements, element (z0 - 1 +
+// lz, y0 - 1 + ly, x0 - 1 + lx) with its low corner at entry (lz, ly, lx)
+// of s_rho (the density tile with its one-node halo, (EZ_ + 1) x (EY_ + 1)
+// x (EX_ + 1), 0 off the grid), into s_cq[q][lz][ly][lx]; 0 for elements
+// past the grid.  NT_ threads.
+template <int EZ_, int EY_, int EX_, int NT_>
+__device__ __forceinline__ void tile_materials(const float* s_N,
+                                               const float* s_rho,
+                                               float* s_cq, int x0, int y0,
+                                               int z0, int nz, int ny, int nx,
+                                               float p, int tid) {
+  constexpr int RY_ = EY_ + 1, RX_ = EX_ + 1;
+  for (int i = tid; i < EZ_ * EY_ * EX_; i += NT_) {
+    const int lx = i % EX_, ly = (i / EX_) % EY_, lz = i / (EX_ * EY_);
     const int ez = z0 - 1 + lz, ey = y0 - 1 + ly, ex = x0 - 1 + lx;
     const bool valid = ez >= 0 && ez < nz - 1 && ey >= 0 && ey < ny - 1 &&
                        ex >= 0 && ex < nx - 1;
@@ -100,155 +109,236 @@ __device__ __forceinline__ void tile_materials(
         // hex8 local node m at (dz, dy, dx): (0,0,0) (0,0,1) (0,1,1)
         // (0,1,0) (1,0,0) (1,0,1) (1,1,1) (1,1,0)
         const int mz = m >> 2, my = (m >> 1) & 1, mx = (m ^ (m >> 1)) & 1;
-        const float t = __fmul_rn(s_N[q * 8 + m],
-                                  s_rho[lz + mz][ly + my][lx + mx]);
+        const float t =
+            __fmul_rn(s_N[q * 8 + m],
+                      s_rho[((lz + mz) * RY_ + ly + my) * RX_ + lx + mx]);
         s = m == 0 ? t : __fadd_rn(s, t);
       }
-      s_cq[q][lz][ly][lx] =
+      s_cq[i + q * EZ_ * EY_ * EX_] =
           valid ? __fdiv_rn(s, __fadd_rn(1.f, __fmul_rn(p, __fsub_rn(1.f, s))))
                 : 0.f;
     }
   }
 }
 
+// The f32 body.  A quad of threads shares QN = 4 nodes along x; its lane l
+// takes the quad points 2 l and 2 l + 1 of every component.  Per element
+// offset o and contraction index k = (cb, m) a thread reads the 4 nodes'
+// x values as one float4 (from one of three copies of the x tile shifted
+// by -1, 0, +1 in x, so the 4 values are 16-byte aligned for any
+// neighbour offset) and its 2 nd weights as float4s, and does 4 x 2 nd
+// FMAs; then sum_q B Z per node, a quad sum by shuffles, and lane l
+// finishes node l.  A block owns a 16 x 4 x 2 node tile (128 threads).
+constexpr int QN = 4;
+constexpr int FTX = 16, FTY = 4, FTZ = 2;
+constexpr int FNT = FTX / QN * 4 * FTY * FTZ;  // threads: 4 lanes a quad
+constexpr int FRX = FTX + 2, FRY = FTY + 2, FRZ = FTZ + 2;  // + halo
+constexpr int FEX = FTX + 1, FEY = FTY + 1, FEZ = FTZ + 1;  // elements
+
 template <int ND>
-__global__ void __launch_bounds__(NT)
+struct F32Shape {
+  static constexpr int K = 8 * ND;            // (cb, m) per offset
+  static constexpr int NO = 2 * ND;           // a lane's outputs (ca, qq)
+  static constexpr int WS = (NO + 3) / 4 * 4;  // padded to float4s
+  static constexpr int NW = 8 * K * 4 * WS;    // weights [o][k][l][WS]
+  static constexpr int NTAB = NW + ND * NJ + NQ * 8;  // | wd | N
+  static constexpr int XS = FRZ * FRY * FTX;   // one shifted x copy, one cb
+  static constexpr int RT = FRZ * FRY * FRX;   // the density tile
+  static constexpr int CQ = NQ * FEZ * FEY * FEX;
+  // bytes of dynamic shared memory: tables | x copies | rho | cq
+  static constexpr int SMEM = 4 * (NTAB + 3 * ND * XS + RT + CQ);
+};
+
+template <int ND>
+__global__ void __launch_bounds__(FNT)
     otf_3d_kernel(const float* __restrict__ rho,
                   const float* __restrict__ maskf,
                   const float* __restrict__ tables,
                   const float* __restrict__ b, const float* __restrict__ x,
                   float* __restrict__ out, float p, int nz, int ny, int nx,
                   float omega, int mode) {
-  // tables: compact w3 (ND * ND * 512) | wd (ND * 64) | N (64)
-  constexpr int NW = ND * ND * 512, NTAB = NW + ND * NJ + NQ * 8;
-  __shared__ __align__(16) float s_tab[NTAB];
-  const float* s_w = s_tab;
-  const float* s_wd = s_tab + NW;
-  const float* s_N = s_tab + NW + ND * NJ;
-  __shared__ float s_rho[RZ][RY][RX];
-  __shared__ float s_cq[NQ][EZ][EY][EX];
-  __shared__ float s_x[ND][RZ][RY][RX];
-  const int tx = threadIdx.x, ty = threadIdx.y, tz = threadIdx.z;
-  const int tid = tx + TX * (ty + TY * tz);
-  const int x0 = blockIdx.x * TX, y0 = blockIdx.y * TY, z0 = blockIdx.z * TZ;
+  using S = F32Shape<ND>;
+  extern __shared__ __align__(16) float s_f[];
+  const float* s_w = s_f;
+  const float* s_wd = s_f + S::NW;
+  const float* s_N = s_wd + ND * NJ;
+  float* s_xs = s_f + S::NTAB;  // [3 shifts][ND][FRZ][FRY][FTX]
+  float* s_rho = s_xs + 3 * ND * S::XS;
+  float* s_cq = s_rho + S::RT;  // [NQ][FEZ][FEY][FEX]
+  const int tid = threadIdx.x;
+  const int l = tid & 3, quad = tid >> 2;
+  const int qx = quad % (FTX / QN), qy = (quad / (FTX / QN)) % FTY,
+            qz = quad / (FTX / QN * FTY);
+  const int x0 = blockIdx.x * FTX, y0 = blockIdx.y * FTY,
+            z0 = blockIdx.z * FTZ;
   const long long plane = static_cast<long long>(nz) * ny * nx;
   const long long sz = static_cast<long long>(ny) * nx;
 
-  for (int i = tid; i < NTAB / 4; i += NT)
-    reinterpret_cast<float4*>(s_tab)[i] =
+  for (int i = tid; i < S::NTAB / 4; i += FNT)
+    reinterpret_cast<float4*>(s_f)[i] =
         __ldg(reinterpret_cast<const float4*>(tables) + i);
-  // density and iterate on the tile + a one-node halo, 0 off the grid
-  for (int i = tid; i < RZ * RY * RX; i += NT) {
-    const int lx = i % RX, ly = (i / RX) % RY, lz = i / (RX * RY);
+  // the density on the tile + a one-node halo, 0 off the grid
+  for (int i = tid; i < S::RT; i += FNT) {
+    const int lx = i % FRX, ly = (i / FRX) % FRY, lz = i / (FRX * FRY);
     const int gx = x0 + lx - 1, gy = y0 + ly - 1, gz = z0 + lz - 1;
     const bool in = gx >= 0 && gx < nx && gy >= 0 && gy < ny && gz >= 0 &&
                     gz < nz;
+    s_rho[i] =
+        in ? __ldg(rho + gz * sz + static_cast<long long>(gy) * nx + gx)
+           : 0.f;
+  }
+  // x as three copies: entry j of copy s is x at x0 + j + s - 1
+  for (int i = tid; i < 3 * S::XS; i += FNT) {
+    const int s = i / S::XS, r = i - s * S::XS;
+    const int j = r % FTX, ly = (r / FTX) % FRY, lz = r / (FTX * FRY);
+    const int gx = x0 + j + s - 1, gy = y0 + ly - 1, gz = z0 + lz - 1;
+    const bool in = x != nullptr && gx >= 0 && gx < nx && gy >= 0 &&
+                    gy < ny && gz >= 0 && gz < nz;
     const long long g = gz * sz + static_cast<long long>(gy) * nx + gx;
-    s_rho[lz][ly][lx] = in ? __ldg(rho + g) : 0.f;
-    if (x != nullptr) {
 #pragma unroll
-      for (int c = 0; c < ND; ++c) {
-        const float v = in ? __ldg(x + c * plane + g) : 0.f;
-        s_x[c][lz][ly][lx] = v;
-      }
-    }
+    for (int c = 0; c < ND; ++c)
+      s_xs[(s * ND + c) * S::XS + r] = in ? __ldg(x + c * plane + g) : 0.f;
   }
   __syncthreads();
-
-  tile_materials(s_N, s_rho, s_cq, x0, y0, z0, nz, ny, nx, p, tid);
+  tile_materials<FEZ, FEY, FEX, FNT>(s_N, s_rho, s_cq, x0, y0, z0, nz, ny,
+                                     nx, p, tid);
   __syncthreads();
 
-  const int ix = x0 + tx, iy = y0 + ty, iz = z0 + tz;
-  if (ix >= nx || iy >= ny || iz >= nz) return;
-  const long long node = iz * sz + static_cast<long long>(iy) * nx + ix;
-
-  float B[8][NQ];  // B[o][q]: element node - o, o = az*4 + ay*2 + ax
-#pragma unroll
-  for (int o = 0; o < 8; ++o) {
+  // B of node u of the quad at element offset o, quad point q
+  auto bq = [&](int q, int o, int u) {
     const int az = o >> 2, ay = (o >> 1) & 1, ax = o & 1;
+    return s_cq[((q * FEZ + qz + 1 - az) * FEY + qy + 1 - ay) * FEX +
+                QN * qx + u + 1 - ax];
+  };
+  // acc[u][ca] = sum_o sum_(q of this lane) B Z[o][q], Z = W_o[ca][q] . x_e
+  float acc[QN][ND];
 #pragma unroll
-    for (int q = 0; q < NQ; ++q)
-      B[o][q] = s_cq[q][tz + 1 - az][ty + 1 - ay][tx + 1 - ax];
-  }
-  float rowm[ND], acc[ND];
+  for (int u = 0; u < QN; ++u)
 #pragma unroll
-  for (int c = 0; c < ND; ++c) {
-    rowm[c] = __ldg(maskf + c * plane + node);
-    acc[c] = 0.f;
-  }
-
+    for (int c = 0; c < ND; ++c) acc[u][c] = 0.f;
   if (x != nullptr) {
-    int off = 0;  // position in the compact weights (constant once unrolled)
+    // o stays a loop: unrolled, the compiler hoists the shared-memory
+    // loads of all 8 offsets and runs out of registers
+#pragma unroll 1
+    for (int o = 0; o < 8; ++o) {
+      const int az = o >> 2, ay = (o >> 1) & 1, ax = o & 1;
+      float z[QN][S::NO];
 #pragma unroll
-    for (int cb = 0; cb < ND; ++cb) {
+      for (int u = 0; u < QN; ++u)
 #pragma unroll
-      for (int dz = 0; dz < 3; ++dz) {
+        for (int w = 0; w < S::NO; ++w) z[u][w] = 0.f;
 #pragma unroll
-        for (int dy = 0; dy < 3; ++dy) {
+      for (int k = 0; k < S::K; ++k) {
+        const int cb = k / 8, m = k % 8;
+        const int mz = m >> 2, my = (m >> 1) & 1, mx = m & 1;
+        // the 4 nodes' neighbour m - o: copy mx - ax + 1
+        const float4 xv = *reinterpret_cast<const float4*>(
+            s_xs + ((mx - ax + 1) * ND + cb) * S::XS +
+            ((qz + 1 + mz - az) * FRY + qy + 1 + my - ay) * FTX + QN * qx);
+        const float xu[QN] = {xv.x, xv.y, xv.z, xv.w};
+        const float* wrow = s_w + ((o * S::K + k) * 4 + l) * S::WS;
 #pragma unroll
-          for (int dx = 0; dx < 3; ++dx) {
-            const float y = s_x[cb][tz + dz][ty + dy][tx + dx];
+        for (int w4 = 0; w4 < S::WS / 4; ++w4) {
+          const float4 wv = *reinterpret_cast<const float4*>(wrow + 4 * w4);
+          const float ww[4] = {wv.x, wv.y, wv.z, wv.w};
 #pragma unroll
-            for (int ca = 0; ca < ND; ++ca) {
-              float c = 0.f;
+          for (int e = 0; e < 4; ++e) {
+            if (4 * w4 + e >= S::NO) continue;
 #pragma unroll
-              for (int o = 0; o < 8; ++o) {
-                const int az = o >> 2, ay = (o >> 1) & 1, ax = o & 1;
-                const int bz = az + dz - 1, by = ay + dy - 1, bx = ax + dx - 1;
-                if (bz < 0 || bz > 1 || by < 0 || by > 1 || bx < 0 || bx > 1)
-                  continue;  // the element does not hold both nodes: w = 0
-                const float4 w0 = *reinterpret_cast<const float4*>(s_w + off);
-                const float4 w1 =
-                    *reinterpret_cast<const float4*>(s_w + off + 4);
-                c += w0.x * B[o][0] + w0.y * B[o][1] + w0.z * B[o][2] +
-                     w0.w * B[o][3] + w1.x * B[o][4] + w1.y * B[o][5] +
-                     w1.z * B[o][6] + w1.w * B[o][7];
-                off += 8;
-              }
-              acc[ca] += c * y;
-            }
+            for (int u = 0; u < QN; ++u) z[u][4 * w4 + e] += ww[e] * xu[u];
           }
         }
       }
-    }
 #pragma unroll
-    for (int c = 0; c < ND; ++c)
-      acc[c] = rowm[c] * acc[c] +
-               (1.f - rowm[c]) * __ldg(x + c * plane + node);
+      for (int qq = 0; qq < 2; ++qq) {
+#pragma unroll
+        for (int u = 0; u < QN; ++u) {
+          const float bv = bq(2 * l + qq, o, u);
+#pragma unroll
+          for (int ca = 0; ca < ND; ++ca) acc[u][ca] += bv * z[u][ca * 2 + qq];
+        }
+      }
+    }
+  }
+  // the quad's sum over its lanes' quad points; lane l keeps node l
+  float mine[ND];
+#pragma unroll
+  for (int c = 0; c < ND; ++c) {
+    mine[c] = 0.f;
+#pragma unroll
+    for (int u = 0; u < QN; ++u) {
+      float v = acc[u][c];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      if (u == l) mine[c] = v;
+    }
   }
 
+  const int ix = x0 + QN * qx + l, iy = y0 + qy, iz = z0 + qz;
+  if (ix >= nx || iy >= ny || iz >= nz) return;
+  const long long node = iz * sz + static_cast<long long>(iy) * nx + ix;
+  // the diagonal wd . B of this node, each B read once
+  float dg[ND];
+#pragma unroll
+  for (int c = 0; c < ND; ++c) dg[c] = 0.f;
+  if (mode == 0) {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const float bj = bq(j % NQ, j / NQ, l);
+#pragma unroll
+      for (int c = 0; c < ND; ++c) dg[c] += s_wd[c * NJ + j] * bj;
+    }
+  }
 #pragma unroll
   for (int c = 0; c < ND; ++c) {
     const long long i = c * plane + node;
-    const float r = (b != nullptr ? __ldg(b + i) : 0.f) - acc[c];
+    float d;
+    const float rowm = __ldg(maskf + i);
+    const float xc = s_xs[(1 * ND + c) * S::XS +
+                          ((qz + 1) * FRY + qy + 1) * FTX + QN * qx + l];
+    float a = 0.f;
+    if (x != nullptr) a = rowm * mine[c] + (1.f - rowm) * xc;
+    const float res = (b != nullptr ? __ldg(b + i) : 0.f) - a;
     if (mode == 0) {
-      float d = 0.f;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const float bj = B[j / NQ][j % NQ];
-        d += s_wd[c * NJ + j] * bj;
-      }
-      d = rowm[c] * d + (1.f - rowm[c]);
-      const float invd = rowm[c] / (d == 0.f ? 1.f : d);
-      const float xc = x != nullptr ? __ldg(x + i) : 0.f;
-      out[i] = xc + omega * invd * r;
+      d = rowm * dg[c] + (1.f - rowm);
+      const float invd = rowm / (d == 0.f ? 1.f : d);
+      out[i] = xc + omega * invd * res;
     } else if (mode == 1) {
-      out[i] = r;
+      out[i] = res;
     } else {
-      out[i] = -r;
+      out[i] = -res;
     }
   }
 }
 
+// Raises a kernel's dynamic shared-memory limit to smem once per card
+// (raised[device]), not on every launch: the solves are host-bound.
+int allow_smem(const void* kern, int smem, bool* raised) {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const bool kept = dev >= 0 && dev < 16;
+  if (kept && raised[dev]) return 0;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (kept) raised[dev] = true;
+  return 0;
+}
+
 template <int ND>
-void launch_nd(const float* rho, const float* maskf, const float* tables,
-               const float* b,
-               const float* x, float* out, float p, int nz, int ny, int nx,
-               float omega, int mode, cudaStream_t s) {
-  const dim3 block(TX, TY, TZ);
-  const dim3 grid((nx + TX - 1) / TX, (ny + TY - 1) / TY, (nz + TZ - 1) / TZ);
-  otf_3d_kernel<ND><<<grid, block, 0, s>>>(rho, maskf, tables, b, x, out, p,
-                                           nz, ny, nx, omega, mode);
+int launch_nd(const float* rho, const float* maskf, const float* tables,
+              const float* b, const float* x, float* out, float p, int nz,
+              int ny, int nx, float omega, int mode, cudaStream_t s) {
+  constexpr int smem = F32Shape<ND>::SMEM;
+  static bool raised[16] = {};
+  const int e = allow_smem(reinterpret_cast<const void*>(otf_3d_kernel<ND>),
+                           smem, raised);
+  if (e != 0) return e;
+  const dim3 grid((nx + FTX - 1) / FTX, (ny + FTY - 1) / FTY,
+                  (nz + FTZ - 1) / FTZ);
+  otf_3d_kernel<ND><<<grid, FNT, smem, s>>>(rho, maskf, tables, b, x, out, p,
+                                            nz, ny, nx, omega, mode);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The bf16-operand pass on the tensor cores (the TPU kernel's matmul on
@@ -335,7 +425,8 @@ __global__ void __launch_bounds__(NT)
     }
   }
   __syncthreads();
-  tile_materials(s_N, s_rho, s_cq, x0, y0, z0, nz, ny, nx, p, tid);
+  tile_materials<EZ, EY, EX, NT>(s_N, &s_rho[0][0][0], &s_cq[0][0][0][0],
+                                 x0, y0, z0, nz, ny, nx, p, tid);
   __syncthreads();
 
   if (x != nullptr) {
@@ -459,10 +550,10 @@ int launch_tc(const float* rho, const float* maskf, const uint16_t* w3t,
               float p, int nz, int ny, int nx, float omega, int mode,
               cudaStream_t s) {
   constexpr int smem = TcShape<ND>::SMEM;
-  const cudaError_t e = cudaFuncSetAttribute(
-      otf_3d_tc_kernel<ND>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
+  static bool raised[16] = {};
+  const int e = allow_smem(
+      reinterpret_cast<const void*>(otf_3d_tc_kernel<ND>), smem, raised);
+  if (e != 0) return e;
   const dim3 block(TX, TY, TZ);
   const dim3 grid((nx + TX - 1) / TX, (ny + TY - 1) / TY, (nz + TZ - 1) / TZ);
   otf_3d_tc_kernel<ND><<<grid, block, smem, s>>>(
@@ -473,8 +564,9 @@ int launch_tc(const float* rho, const float* maskf, const uint16_t* w3t,
 }  // namespace
 
 // One stencil pass: mode 0 (sweep; x == nullptr: the elementwise first
-// sweep), 1 (residual), 2 (negated residual); tables = the compact w3 |
-// wd | N as one 16-byte aligned f32 array.  Returns cudaGetLastError() of
+// sweep), 1 (residual), 2 (negated residual); tables = the f32 body's
+// weights (ops/otf3d.py::f32_table) | wd | N as one 16-byte aligned f32
+// array.  Returns cudaGetLastError() of
 // the launch.
 extern "C" int pyfem_otf_3d(const void* rho, const void* maskf,
                             const void* tables, const void* b, const void* x,
@@ -487,14 +579,11 @@ extern "C" int pyfem_otf_3d(const void* rho, const void* maskf,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto f = [](const void* q) { return static_cast<const float*>(q); };
   auto o = static_cast<float*>(out);
-  if (nd == 3) {
-    launch_nd<3>(f(rho), f(maskf), f(tables), f(b), f(x), o, p, nz, ny, nx,
-                 omega, mode, s);
-  } else {
-    launch_nd<1>(f(rho), f(maskf), f(tables), f(b), f(x), o, p, nz, ny, nx,
-                 omega, mode, s);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (nd == 3)
+    return launch_nd<3>(f(rho), f(maskf), f(tables), f(b), f(x), o, p, nz,
+                        ny, nx, omega, mode, s);
+  return launch_nd<1>(f(rho), f(maskf), f(tables), f(b), f(x), o, p, nz, ny,
+                      nx, omega, mode, s);
 }
 
 // The bf16-operand pass on the tensor cores (the mxu_bf16 calls): w3t =

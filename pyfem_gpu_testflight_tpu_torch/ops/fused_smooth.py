@@ -394,9 +394,30 @@ def _sweep3d_ptrs(coeff, invd, b, x):
     return lambda t: None if t is None else t.data_ptr()
 
 
+# dynamic shared memory one block of csrc/smooth_3d.cu may use (227 KiB)
+_SMEM_MAX = 227 * 1024
+
+
+def sweep3d_smem(nd, nx):
+    """Bytes of the x window a block of ``sweep_3d_kernel`` stages in
+    shared memory (csrc/smooth_3d.cu ``launch_body``): 3 planes of nd
+    components, each a padded window of ~2 nx + 137 floats."""
+    wl = 128 + 2 * ((128 + nx - 2) // nx) + 2 * (nx + 2) + 3
+    return 4 * 3 * nd * ((wl + 3) // 4 * 4)
+
+
+def _check_window(nd, nx):
+    if sweep3d_smem(nd, nx) > _SMEM_MAX:
+        raise ValueError(
+            f"nx={nx} is too wide for the 3D stencil pass on the card: its "
+            f"x window takes {sweep3d_smem(nd, nx)} B of shared memory, a "
+            f"block may use {_SMEM_MAX} (nx <= 3159 at nd=3, 9615 at nd=1)")
+
+
 def _fused_sweep_3d_cuda(coeff, invd, b, x, *, mode, neg_resid, omega):
     _sweep3d_args(mode, invd, b, x)
     nd, nz, ny, nx = _check3d(coeff, invd, b, x)
+    _check_window(nd, nx)
     ptr = _sweep3d_ptrs(coeff, invd, b, x)
     cmode = (_MODE_SWEEP if mode == "sweep" else
              _MODE_NEG_RESID if neg_resid else _MODE_RESID)
@@ -463,6 +484,7 @@ def _fused_sweeps3d_cuda(coeff, invd, b, x, *, niter, want_resid,
                          neg_resid, omega):
     _sweeps3d_args(b, niter)
     nd, nz, ny, nx = _check3d(coeff, invd, b, x)
+    _check_window(nd, nx)
     ptr = _sweep3d_ptrs(coeff, invd, b, x)
     oms = _omega_seq(omega, niter)
     # ping-pong buffers: a sweep reads every neighbour of its input, so

@@ -47,7 +47,8 @@ from . import _cuda
 from .fused_assemble import assembly_weights3d, shifted_materials_3d
 from .fused_smooth import _MODE_NEG_RESID, _MODE_RESID, _MODE_SWEEP, _omega_seq
 
-__all__ = ["otf_weights", "otf_apply_3d", "otf_apply_3d_plain", "tc_table"]
+__all__ = ["otf_weights", "otf_apply_3d", "otf_apply_3d_plain", "tc_table",
+           "f32_table"]
 
 
 def otf_weights(plan, Kq, nd, nq):
@@ -77,32 +78,6 @@ def _shape_vals(ref):
             get_element("hex8").shape_vals, dtype=ref.dtype, device=ref.device
         ).contiguous()
     return _HEX8_N[key]
-
-
-_COMPACT = {}
-
-
-def _compact_index(nd, device):
-    """Flat w3 indices of the structurally nonzero weights, in the order
-    ``csrc/otf_3d.cu`` consumes them: (cb, d, ca, o, q) with o over the
-    element offsets that hold both node i and node i + d - 1 (the other
-    weights are zero by the stencil plan); nd*nd*512 entries."""
-    key = (nd, device)
-    if key not in _COMPACT:
-        idx = []
-        for cb in range(nd):
-            for d in range(27):
-                dz, dy, dx = d // 9, (d // 3) % 3, d % 3
-                for ca in range(nd):
-                    for o in range(8):
-                        az, ay, ax = o >> 2, (o >> 1) & 1, o & 1
-                        if not all(0 <= a + e - 1 <= 1 for a, e in
-                                   ((az, dz), (ay, dy), (ax, dx))):
-                            continue
-                        idx += [(ca * 64 + o * 8 + q) * 27 * nd + cb * 27 + d
-                                for q in range(8)]
-        _COMPACT[key] = torch.as_tensor(idx, device=device)
-    return _COMPACT[key]
 
 
 def _bf16(t):
@@ -188,7 +163,8 @@ _TC_INDEX = {}
 
 
 def _tc_index(nd, device):
-    """Flat w3 indices of the tensor-core table, (nd, 8 o, 8 q, 8 nd):
+    """Flat w3 indices of the per-offset tables (``tc_table``,
+    ``f32_table``), (nd, 8 o, 8 q, 8 nd):
     for element offset o and quad point q, the weight of component cb at
     the element's node m (m = mz*4 + my*2 + mx), which is the neighbour
     d - 1 = m - o of the node; the other weights of w3 are zero by the
@@ -219,13 +195,28 @@ def tc_table(w3):
     return out
 
 
+def f32_table(w3):
+    """The f32 body's weights: the structurally nonzero ones of ``w3``
+    (nd, 64, 27 nd) as (8 o, 8 nd k, 4 l, ws) in w3's dtype, k = (cb, m)
+    over the 8 nodes m of the element node - o, entry (ca, qq) = ca * 2 +
+    qq holding the weight of quad point q = 2 l + qq, zero-padded to ws =
+    2 nd rounded up to 4 (``csrc/otf_3d.cu`` ``otf_3d_kernel``: lane l of
+    a quad of threads reads its 2 nd weights of (o, k) as float4s)."""
+    nd = w3.shape[0]
+    t = w3.reshape(-1)[_tc_index(nd, w3.device)]  # (ca, o, q, k)
+    t = t.reshape(nd, 8, 4, 2, 8 * nd).permute(1, 4, 2, 0, 3)
+    out = w3.new_zeros((8, 8 * nd, 4, -(-2 * nd // 4) * 4))
+    out[..., :2 * nd] = t.reshape(8, 8 * nd, 4, 2 * nd)
+    return out
+
+
 _TABLES = {}
 
 
 def _device_tables(w3, wd, bf16):
     """The kernels' weight tables, built once per (w3, wd): the tensor-core
     body's ``(tc_table(w3), rnd(wd) | N)``, or the f32 body's one table
-    ``compact w3 | wd | N`` (``_compact_index``).  A level's tables are
+    ``f32_table(w3) | wd | N``.  A level's tables are
     fixed, and rebuilding them took longer on the host than a pass takes
     on the card.  Keyed by address and version; the entry holds w3 and wd,
     so no other tensor takes their address while it is cached."""
@@ -234,13 +225,12 @@ def _device_tables(w3, wd, bf16):
     if hit is None:
         if len(_TABLES) >= 32:
             _TABLES.pop(next(iter(_TABLES)))
-        nd = w3.shape[0]
         N = _shape_vals(w3).reshape(-1)
         if bf16:
             tabs = (tc_table(w3), torch.cat([_bf16(wd).reshape(-1), N]))
         else:
-            tabs = (torch.cat([w3.reshape(-1)[_compact_index(nd, w3.device)],
-                               wd.reshape(-1), N]),)
+            tabs = (torch.cat([f32_table(w3).reshape(-1), wd.reshape(-1),
+                               N]),)
         hit = _TABLES[key] = (w3, wd, tabs)
     return hit[2]
 

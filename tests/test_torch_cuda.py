@@ -445,6 +445,129 @@ def test_k6_tensor_core_pass_matches_plain_on_card(dev, physics):
         assert float((got - ref).abs().max()) <= TOL * scale
 
 
+# -- the 3D stencil pass (K4, K5's passes) and K6's f32 body, ragged ------
+
+# grids that cut a block's chunk of 128 nodes of a plane at every kind of
+# edge: 3^3 (one chunk a plane), 9x7x5 and 13x11x7 (a chunk ends inside
+# a row), 67x65x37 (rows of 67 across chunks); 33^3 is the level whose
+# f32 half-storage pass takes the 168-register instance on an H100
+_PASS_GRIDS = [(3, 3, 3), (9, 7, 5), (13, 11, 7), (33, 33, 33),
+               (67, 65, 37)]
+
+
+@pytest.mark.parametrize("shape", _PASS_GRIDS)
+@pytest.mark.parametrize("physics", ["elasticity", "poisson"])
+@pytest.mark.parametrize("sym", [True, False])
+def test_stencil_pass_3d_matches_plain_on_card(dev, shape, physics, sym):
+    """Every mode of one stencil pass (sweep, residual, negated residual,
+    matvec both signs, the elementwise first sweep from x = None), on f32
+    and bf16 planes in either storage, is one launch within 1e-5 of
+    max|plain| (a residual of max(|r|, |b|))."""
+    from pyfem_gpu_testflight_tpu_torch import multigrid
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+    from pyfem_gpu_testflight_tpu_torch.ops import fused_assemble as fa
+    from pyfem_gpu_testflight_tpu_torch.ops import fused_smooth as fs
+
+    nx, ny, nz = shape
+    a = multigrid.GMGAssembler3D(nx, ny, nz, 2.0, 1.5, 1.0, physics, p=3.0,
+                                 device=dev)
+    st = a.static_levels[0]
+    rng = np.random.default_rng(7)
+    rho = torch.as_tensor(rng.uniform(0.3, 1.0, (nz, ny, nx)),
+                          dtype=torch.float32, device=dev)
+    f = lambda: torch.as_tensor(rng.standard_normal((a.nd, nz, ny, nx)),
+                                dtype=torch.float32, device=dev)
+    ck, dk, lk = fa.assemble_pack_3d(rho, st.maskf, st.W, a.N, nd=a.nd,
+                                     p=3.0, lp_dtype=torch.bfloat16, sym=sym)
+    assert fs.is_full_storage_3d(ck, a.nd) == (not sym)
+    b, x0 = torch.where(st.mask, 0.0, f()), torch.where(st.mask, 0.0, f())
+    xr = f()
+    for c in (ck, lk):
+        for args, kw in (((c, dk, b, x0), dict(mode="sweep", omega=0.5)),
+                         ((c, None, b, x0), dict(mode="resid")),
+                         ((c, None, b, x0), dict(mode="resid",
+                                                 neg_resid=True)),
+                         ((c, None, None, xr), dict(mode="matvec",
+                                                    neg_resid=True)),
+                         ((c, None, None, xr), dict(mode="matvec"))):
+            n0 = _cuda.launches["pyfem_sweep_3d"]
+            got = fs.fused_sweep_3d(*args, **kw)
+            ref = fs.fused_sweep_3d_plain(*args, **kw)
+            torch.cuda.synchronize()
+            assert _cuda.launches["pyfem_sweep_3d"] == n0 + 1
+            scale = float(ref.abs().max())
+            if kw["mode"] == "resid":
+                scale = max(scale, float(b.abs().max()))
+            assert float((got - ref).abs().max()) <= TOL * scale
+        # x = None: the elementwise first sweep, then one stencil sweep
+        kw = dict(niter=2, want_resid=True, omega=(0.6, 0.4))
+        got = fs.fused_sweeps3d(c, dk, b, None, **kw)
+        ref = fs.fused_sweeps3d_plain(c, dk, b, None, **kw)
+        torch.cuda.synchronize()
+        assert _rel(got[0], ref[0]) <= TOL
+        assert float((got[1] - ref[1]).abs().max()) <= TOL * float(
+            b.abs().max())
+
+
+@pytest.mark.parametrize("nd", [1, 3])
+def test_stencil_pass_3d_refuses_a_window_past_shared_memory(dev, nd):
+    """A grid one node wider than the x window a block can stage (nx =
+    3160 at nd = 3, 9616 at nd = 1) is refused with the limit named, by
+    both entry points, before any launch."""
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+    from pyfem_gpu_testflight_tpu_torch.ops import fused_smooth as fs
+
+    nx = 3160 if nd == 3 else 9616
+    z = lambda *s: torch.zeros(s, dtype=torch.float32, device=dev)
+    c, x = z(nd * nd * 27, 1, 1, nx), z(nd, 1, 1, nx)
+    n0 = (_cuda.launches["pyfem_sweep_3d"], _cuda.launches["pyfem_sweeps_3d"])
+    with pytest.raises(ValueError, match="too wide"):
+        fs.fused_sweep_3d(c, x=x, mode="matvec")
+    with pytest.raises(ValueError, match="too wide"):
+        fs.fused_sweeps3d(c, x, x, None, niter=1)
+    assert (_cuda.launches["pyfem_sweep_3d"],
+            _cuda.launches["pyfem_sweeps_3d"]) == n0
+
+
+@pytest.mark.parametrize("shape", [(9, 7, 5), (13, 11, 7), (17, 9, 11)])
+@pytest.mark.parametrize("physics", ["elasticity", "poisson"])
+def test_k6_f32_body_matches_plain_on_card(dev, shape, physics):
+    """Each float32 pass of K6 (first sweep, sweep, residual both signs,
+    matvec) is one launch of the f32 body, within 1e-5 of max|plain| (a
+    residual of max(|r|, |b|)); 17x9x11 cuts every edge of its 16 x 4 x 2
+    node tile and of a quad's 4 nodes."""
+    from pyfem_gpu_testflight_tpu_torch import multigrid
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+    from pyfem_gpu_testflight_tpu_torch.ops import otf3d
+
+    nx, ny, nz = shape
+    a = multigrid.GMGAssembler3D(nx, ny, nz, 2.0, 1.5, 1.0, physics, p=3.0,
+                                 device=dev, elem_path="otf")
+    rng = np.random.default_rng(9)
+    rho = torch.as_tensor(rng.uniform(0.3, 1.0, (nz, ny, nx)),
+                          dtype=torch.float32, device=dev)
+    f = lambda: torch.as_tensor(rng.standard_normal((a.nd, nz, ny, nx)),
+                                dtype=torch.float32, device=dev)
+    _, lv = a.assemble(rho.reshape(-1))
+    b, x0 = torch.where(lv.mask, 0.0, f()), torch.where(lv.mask, 0.0, f())
+    args = (lv.rho, lv.maskf, lv.w3, lv.wd)
+    for bb, xx, kw in ((b, None, dict(niter=1, want_resid=False)),
+                       (b, x0, dict(niter=1, want_resid=False)),
+                       (b, x0, dict(niter=0)),
+                       (b, x0, dict(niter=0, neg_resid=True)),
+                       (None, x0, dict(niter=0, neg_resid=True))):
+        kw.update(p=lv.p, omega=0.55, mxu_bf16=False)
+        n0 = _cuda.launches["pyfem_otf_3d"]
+        got = otf3d.otf_apply_3d(*args, bb, xx, **kw)
+        ref = otf3d.otf_apply_3d_plain(*args, bb, xx, **kw)
+        torch.cuda.synchronize()
+        assert _cuda.launches["pyfem_otf_3d"] == n0 + 1
+        scale = float(ref.abs().max())
+        if kw["niter"] == 0 and bb is not None:
+            scale = max(scale, float(bb.abs().max()))
+        assert float((got - ref).abs().max()) <= TOL * scale
+
+
 # -- K7 / K8: element stiffness; the general-mesh CG path ----------------
 
 

@@ -308,3 +308,14 @@ def test_gmg3d_pcg_single_pass_matches_per_sweep_solve(monkeypatch):
     (x_f, k_f), (x_s, k_s) = sols
     assert abs(k_f - k_s) <= 2
     assert np.abs(x_f - x_s).max() / np.abs(x_s).max() < 5e-4
+
+
+def test_sweep3d_window_fits_a_block_up_to_its_stated_width():
+    """The 3D stencil pass stages an x window of ~2 nx + 137 floats per
+    plane and component in shared memory; it fits a block's 227 KiB up to
+    nx = 3159 at nd = 3 and 9615 at nd = 1, the limits its wrapper states
+    when it refuses a wider grid."""
+    lim = 227 * 1024
+    assert fs.sweep3d_smem(3, 65) == 4 * 3 * 3 * 272
+    assert fs.sweep3d_smem(3, 3159) <= lim < fs.sweep3d_smem(3, 3160)
+    assert fs.sweep3d_smem(1, 9615) <= lim < fs.sweep3d_smem(1, 9616)
