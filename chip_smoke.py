@@ -33,7 +33,7 @@ Phases:
    with times and the CSR matvec time; then the stencil passes on every
    level of bench 3D, 65^3 down to 5^3 (``pass_levels``: device time,
    each against its plain version) and ptxas's registers and spills of
-   ``sweep_3d_kernel``;
+   ``sweep_3d_kernel`` and ``assemble_3d_kernel``;
 3b. K6, the on-the-fly operator, vs plain at 65^3 (nd=3) and 9x7x5
    (nd=3 and nd=1): matvec, presmooth+resid and postsmooth (nu=2) with
    f32 and bf16 operands, presmooth+resid nu=4, compared pass by pass
@@ -81,6 +81,7 @@ Phases:
 5c. ``LinearElasticity("hex8", kernel="cuda", float32).solve(
    method="cg", rtol=1e-6)`` on the jittered 65^3 mesh: K8 launches,
    CG iterations and host read-backs, element_jacobian and solve time,
+   element_jacobian handing out K8's own buffer (no layout copy),
    where a CG iteration goes, float64 true residual against the
    ``kernel="einsum"`` solve's and the float32 floor, bit-identity of
    two solves, peak memory, K8 against its plain version on the
@@ -107,7 +108,11 @@ Phases:
 ``pass_levels`` on the package under DIR (default: this checkout), so a
 checkout of another commit is timed on the same inputs in the same call;
 ``--solution-floor [--root DIR]`` likewise runs only ``solution_floor``,
-the readings ``SOL64_TOL`` is set from.
+the readings ``SOL64_TOL`` is set from; ``--assembly-kernels [--root
+DIR]`` only ``assembly_kernels``: K3 on every level of bench 3D (65^3
+down to 3^3) in both storages at nd 3 and 1, every K8 form on phase
+3c's inputs and ``element_jacobian(kernel="cuda")`` on 5c's model, each
+held against its plain version and timed by device time.
 The short kernels' times (K1, K1-sym, K2, K2-sym, K7, K8, K9) are CUDA
 events over back-to-back wrapper calls, with the profiler's device time
 beside them.
@@ -521,12 +526,16 @@ def ptxas_table(log):
 ELEM_FORMS = (
     ("K7a", "quad4", "quad", "stiffness_quad4_kernelILb1E"),
     ("K7b", "quad4", "quad", "stiffness_quad4_kernelILb0E"),
-    ("K8 hex8 elasticity", "hex8", "block", "ILi8ELi8ELb1E"),
-    ("K8 hex8 poisson", "hex8", "block", "ILi8ELi8ELb0E"),
-    ("K8 tet10 elasticity", "tet10", "tet", "ILi10ELi5ELb1E"),
-    ("K8 tet10 poisson", "tet10", "tet", "ILi10ELi5ELb0E"),
-    ("K8 brick20 elasticity", "brick20", "brick20", "ILi20ELi27ELb1E"),
-    ("K8 brick20 poisson", "brick20", "brick20", "ILi20ELi27ELb0E"),
+    ("K8 hex8 elasticity", "hex8", "block",
+     "stiffness_3d_kernelILi8ELi8ELb1E"),
+    ("K8 hex8 poisson", "hex8", "block", "poisson_elem_kernelILi8ELi8E"),
+    ("K8 tet10 elasticity", "tet10", "tet",
+     "stiffness_3d_kernelILi10ELi5ELb1E"),
+    ("K8 tet10 poisson", "tet10", "tet", "poisson_elem_kernelILi10ELi5E"),
+    ("K8 brick20 elasticity", "brick20", "brick20",
+     "stiffness_3d_kernelILi20ELi27ELb1E"),
+    ("K8 brick20 poisson", "brick20", "brick20",
+     "stiffness_3d_kernelILi20ELi27ELb0E"),
 )
 
 
@@ -925,11 +934,8 @@ def phase_kernels_3d(dev, build_log):
         check(torch.equal(lk, ck.to(torch.bfloat16)),
               f"{tag} bf16 copy == its f32 planes rounded")
         if (nx, ny, nz, nd) == (N3, N3, N3, 3):
-            # per node: ~2,300 (sym) / ~4,600 (full) weight FMAs over the
-            # planes + 512 for the material at 64 quad points, 2 flops each
-            fmas = 2300 if sym else 4608
             b_ms, b_by = bound(nbytes(rho, st.maskf, st.W, a.N, ck, dk, lk),
-                               2 * (fmas + 512) * rho.numel())
+                               k3_flops(nd, sym, rho.numel()))
             r = dict(
                 max_abs_err=max(ea, ia),
                 ms=cuda_ms(lambda: fa.assemble_pack_3d(*args, **kw), 20),
@@ -1062,6 +1068,9 @@ def phase_kernels_3d(dev, build_log):
             f"{fms(t['sweep_sym_f32'])}, bf16 full {fms(t['sweep_full_bf16'])}; "
             f"f32 sym matvec {fms(t['matvec_sym_f32'])}; K5 bf16 "
             f"presmooth+resid {fms(t['k5_presmooth_resid_bf16'])} ms")
+    k3regs = short_ptxas(build_log, "assemble_3d_kernel")
+    log(f"ptxas assemble_3d_kernel: {k3regs}")
+    res["K3"]["ptxas"] = k3regs
     regs = short_ptxas(build_log, "sweep_3d_kernel")
     log(f"ptxas sweep_3d_kernel: {regs}")
     levels = {n: {k: v for k, v in times[n].items() if not k.startswith("k6")}
@@ -1070,6 +1079,136 @@ def phase_kernels_3d(dev, build_log):
     res["K5"]["levels_device_ms"] = {
         n: times[n]["k5_presmooth_resid_bf16"] for n in PASS_LEVELS}
     return res
+
+
+def k3_flops(nd, sym, nnodes):
+    """float32 operations K3 needs: per node one multiply-add per
+    structurally nonzero weight of its stored planes (512 per (a, b)
+    block in full storage: an element must hold both nodes; in half
+    storage those of the kept planes), and per element (about one per
+    node) 64 for the materials at its 8 points."""
+    from pyfem_gpu_testflight_tpu_torch.ops.fused_smooth import sym_planes_3d
+
+    planes = ([(dz, dy, dx) for (_k, _a, _b, dz, dy, dx, _s)
+               in sym_planes_3d(nd)] if sym else
+              [(d // 9, d // 3 % 3, d % 3) for d in range(27)] * nd * nd)
+    w = sum(8 * (2 if dz == 1 else 1) * (2 if dy == 1 else 1)
+            * (2 if dx == 1 else 1) for dz, dy, dx in planes)
+    return 2 * (w + 64) * nnodes
+
+
+# bench 3D's levels with K3: 65^3 down to the coarsest, 3^3
+ASSEMBLY_LEVELS = (65, 33, 17, 9, 5, 3)
+
+
+def assembly_kernels(dev):
+    """Device time per call (``torch.profiler``, the median of three
+    sessions of 20 calls) of K3 on every level of bench 3D in half and
+    full storage at nd 3 (elasticity) and 1 (Poisson), with the bf16
+    copy as bench 3D asks for it; of every K8 form on phase 3c's inputs
+    (hex8 at 65^3, tet10 and brick20 on the 33^3 lattice, jittered); and
+    of ``element_jacobian(kernel="cuda")`` on 5c's model (K8 and the
+    layout the operator reads), with its CUDA-event time.  Each kernel
+    is held against its plain version (planes and free inverse diagonal,
+    the bf16 copy equal to its planes rounded).  Uses only the package's
+    public functions, so ``--assembly-kernels --root DIR`` times a
+    parent checkout on the same inputs.  Returns ({"K3": {n: {form: ms}},
+    "K8": {form: ms}, "element_jacobian_5c": {...}, "bound_ms": {...}},
+    worst error relative to max|plain|)."""
+    import torch
+    import pyfem_gpu_testflight_tpu_torch as pt
+    from pyfem_gpu_testflight_tpu_torch import multigrid
+    from pyfem_gpu_testflight_tpu_torch.ops import fused_assemble as fa
+
+    rng = np.random.default_rng(SEED + 50)
+    out = {"K3": {}, "K8": {}, "bound_ms": {}}
+    worst = 0.0
+    for n in ASSEMBLY_LEVELS:
+        rho = torch.as_tensor(rng.uniform(0.2, 1.0, (n, n, n)),
+                              dtype=torch.float32, device=dev)
+        out["K3"][n] = {}
+        for physics in ("elasticity", "poisson"):
+            a = multigrid.GMGAssembler3D(n, n, n, 1.0, 1.0, 1.0, physics,
+                                         p=3.0, device=dev)
+            st = a.static_levels[0]
+            args = (rho, st.maskf, st.W, a.N)
+            for sym in (True, False):
+                kw = dict(nd=a.nd, p=3.0, lp_dtype=torch.bfloat16, sym=sym)
+                got = fa.assemble_pack_3d(*args, **kw)
+                ref = fa.assemble_pack_3d_plain(*args, **kw)
+                torch.cuda.synchronize()
+                form = f"{'sym' if sym else 'full'} nd={a.nd}"
+                worst = max(worst, rel_err(got[0], ref[0])[1],
+                            rel_err(got[1], ref[1], st.maskf > 0)[1])
+                check(torch.equal(got[2], got[0].to(torch.bfloat16)),
+                      f"K3 {form} {n}^3: bf16 copy == its f32 planes "
+                      f"rounded")
+                out["bound_ms"][f"K3 {form} {n}"] = bound(
+                    nbytes(*args, *got), k3_flops(a.nd, sym, rho.numel()))
+                del got, ref
+                out["K3"][n][form] = device_ms(
+                    lambda: fa.assemble_pack_3d(*args, **kw))
+    models = {}
+    for key, etype, ctype, _tag in ELEM_FORMS:
+        if not key.startswith("K8 "):
+            continue
+        physics = "poisson" if "poisson" in key else "elasticity"
+        if etype not in models:
+            dims = (N3,) * 3 if etype == "hex8" else (33,) * 3
+            conn, X, fixed, force = elem_problem(dims, ctype, SEED + 30)
+            m = pt.LinearElasticity(etype, X, conn, fixed, None, force,
+                                    p=3.0, dtype=torch.float32, device=dev,
+                                    kernel="cuda")
+            models[etype] = (m, torch.as_tensor(
+                density(etype, X, SEED + 31), dtype=torch.float32,
+                device=dev))
+        m, rho = models[etype]
+        fk, fp, (XeT, cqT) = stiffness_pair(m, etype, physics, rho)
+        got, ref = fk(), fp()
+        torch.cuda.synchronize()
+        worst = max(worst, rel_err(got, ref)[1])
+        check(torch.equal(got, fk()), f"{key}: repeat call bit-identical")
+        et = pt.get_element(etype)
+        out["bound_ms"][key] = bound(nbytes(XeT, cqT, got), stiffness_flops(
+            et.nnodes, et.nquads, et.ndims if physics == "elasticity" else 1,
+            et.ndims, m.nelems))
+        del got, ref
+        out["K8"][key[3:]] = device_ms(fk)
+    del models
+    mesh = elem_problem((N3,) * 3, "block", SEED + 40)
+    rho = np.random.default_rng(SEED + 41).uniform(0.3, 1.0, len(mesh[1]))
+    m = make_model(pt, "elasticity", "hex8", mesh, torch.float32, "cuda",
+                   dev)
+    ej = lambda: m.element_jacobian(rho)  # noqa: E731
+    out["element_jacobian_5c"] = dict(ms=cuda_ms(ej, 5),
+                                      device_ms=device_ms(ej, reps=5))
+    check(worst <= REL_TOL, f"K3 and K8 within {REL_TOL:g} of max|plain| "
+          f"(worst {worst:.2e})")
+    return out, worst
+
+
+def run_assembly_kernels():
+    """``python3 chip_smoke.py --assembly-kernels [--root DIR]``: only
+    :func:`assembly_kernels`, on the package under DIR (default: this
+    checkout); prints the card and one JSON line with ptxas's registers
+    and spills of K3's and K8's instances."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    if "--root" in sys.argv:
+        sys.path.insert(0, sys.argv[sys.argv.index("--root") + 1])
+    import pyfem_gpu_testflight_tpu_torch as pt
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+
+    log(card_line())
+    out, worst = assembly_kernels(torch.device("cuda", 0))
+    out["ptxas"] = {k: short_ptxas(_cuda.build_log, k)
+                    for k in ("assemble_3d_kernel", "stiffness_3d_kernel",
+                              "poisson_elem_kernel")}
+    log(json.dumps({"package": pt.__file__, "worst_rel_err": worst, **out}))
+    return 1 if FAILS else 0
 
 
 # bench 3D's levels (65^3 down to 5^3, coarsest 3^3 dense)
@@ -1845,6 +1984,18 @@ def phase_general(dev, pt, label, physics, etype="hex8", dims=(N3,) * 3):
     del got, ref
     log(f"{label}: {key} on this solve's inputs vs plain: rel {rel_k:.2e} "
         f"(abs {err:.2e})")
+    if etype != "quad4":
+        # element_jacobian reshapes K8's KeT into the operator's layout:
+        # the transposed view of a contiguous (nelems, ndpe, ndpe) buffer,
+        # so that reshape is the buffer itself
+        from pyfem_gpu_testflight_tpu_torch.ops import element_kernels as ek
+
+        KeT = fk()
+        nn = m.nnodes_per_elem * m.ndof_per_node
+        Ke = ek.untranspose(KeT, nn, nn)
+        check(Ke.data_ptr() == KeT.data_ptr() and Ke.is_contiguous(),
+              f"{label}: element_jacobian takes K8's buffer, no layout copy")
+        del KeT, Ke
     check(rel_k <= REL_TOL, f"{label}: kernel within {REL_TOL:g} of plain "
           f"on the main path's inputs")
     # where a CG iteration goes: the matrix-free operator and its parts
@@ -1880,7 +2031,8 @@ def phase_general(dev, pt, label, physics, etype="hex8", dims=(N3,) * 3):
     del Ke64, m64
     rel = float(torch.linalg.norm(u.double() - ue.double())
                 / torch.linalg.norm(ue.double()))
-    log(f"{label}: element_jacobian {ej_ms:.3f} ms (kernel + layout copy); "
+    log(f"{label}: element_jacobian {ej_ms:.3f} ms (RAMP at the points, "
+        f"kernel, the operator's layout); "
         f"peak device memory of one solve {mem / 2**20:.1f} MiB above "
         f"{base / 2**20:.1f} MiB")
     log(f"{label}: float64 true residual kernel=cuda {true:.3e}, "
@@ -2337,7 +2489,9 @@ def main():
          c2["pyfem_smooth_2d"], "one stencil pass per sweep"),
         ("K3", "assemble_pack_3d", "assemble_3d.cu", "pallas_assemble.py:584",
          c3["pyfem_assemble_3d"], "both storages, one pass: half-symmetric "
-         "123 planes (timed, main path) and full 243 planes (full_form)"),
+         "123 planes (timed, main path) and full 243 planes (full_form); "
+         "compacted weights in shared memory, materials staged once per "
+         "element, two x-adjacent nodes a thread"),
         ("K4", "fused_sweep_3d", "smooth_3d.cu", "pallas_smooth.py:697",
          c3["pyfem_sweep_3d"], "both bodies, one pass: _kernel3d_sym "
          "(timed, main path) and _kernel3d on full planes (full_form)"),
@@ -2366,9 +2520,10 @@ def main():
         ("K8", "elasticity_stiffness_3d / poisson_stiffness_3d",
          "stiffness_3d.cu", "pallas_stiffness3d.py:231",
          g5c["st"]["launches"],
-         "thread per (element, row block): hex8 elasticity one row node "
-         "(timed, main path 5c), hex8 Poisson the whole element, "
-         "tet10/brick20 one row (forms)"),
+         "a block per element group: geometry once per element in shared "
+         "memory, a thread per node pair of the upper triangle, mirrored, "
+         "Ke written element-major (hex8 elasticity timed, main path 5c; "
+         "forms)"),
     )
     cs = m2s["counts"]
     rows += (
@@ -2449,4 +2604,5 @@ def main():
 if __name__ == "__main__":
     sys.exit(run_pass_levels() if "--pass-levels" in sys.argv else
              run_solution_floor() if "--solution-floor" in sys.argv else
-             main())
+             run_assembly_kernels() if "--assembly-kernels" in sys.argv
+             else main())

@@ -210,7 +210,9 @@ class FEModel:
 
     def _untranspose_ke(self, KeT):
         """Kernel layout (ndpe^2, nelems) -> contiguous (nelems, ndpe,
-        ndpe), the layout the matrix-free operator reads."""
+        ndpe), the layout the matrix-free operator reads.  K8's KeT is
+        the transposed view of that buffer on the card, so this copies
+        nothing there; K7's KeT and the plain versions' are copied."""
         from ..ops.element_kernels import untranspose
 
         nn = self.nnodes_per_elem * self.ndof_per_node

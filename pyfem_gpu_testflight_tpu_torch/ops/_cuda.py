@@ -57,9 +57,9 @@ _SIGNATURES = {
     "pyfem_smooth_2d_sym": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
     # coeff, u, out, nd, ny, nx, f64, stream
     "pyfem_stencil_2d": (_P, _P, _P, _I, _I, _I, _I, _P),
-    # rho, maskf, W, N, p, nd, nz, ny, nx, full, coeff, invd, coeff_lp,
-    # stream
-    "pyfem_assemble_3d": (_P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _P, _P,
+    # rho, maskf, table, table floats, p, nd, nz, ny, nx, full, coeff,
+    # invd, coeff_lp, stream
+    "pyfem_assemble_3d": (_P, _P, _P, _I, _F, _I, _I, _I, _I, _I, _P, _P,
                           _P, _P),
     # coeff, coeff_bf16, full, invd, b, x, out, nd, nz, ny, nx, omega,
     # mode, stream

@@ -10,11 +10,14 @@ quadratic elements) with its signatures and element-minor layouts
 
 A CPU tensor takes the ``*_plain`` version (the einsum path of
 ``ops.stiffness`` through a layout transpose); a CUDA tensor launches
-``csrc/stiffness_3d.cu`` (float32) or raises.  The kernel splits each
-element's output rows over threads (hex8 elasticity: one row node per
-thread; hex8 Poisson: the whole element; tet10/brick20: one row), and
-reads the quadratic elements' derivative table (:func:`element_table`)
-from shared memory.
+``csrc/stiffness_3d.cu`` (float32) or raises.  The kernel computes each
+element's geometry once (a block takes a group of elements, with the
+derivative table of :func:`element_table` in shared memory), splits the
+upper triangle of Ke over threads by node pair (hex8 and tet10 Poisson:
+a thread takes an element), mirrors it, and writes Ke element-major,
+``(nelems, ndpe, ndpe)`` contiguous, the layout the matrix-free operator
+reads: on the card ``KeT`` is the transposed view of that buffer, so
+``KeT.t()`` is contiguous and reshaping it copies nothing.
 """
 
 from __future__ import annotations
@@ -45,7 +48,9 @@ _tables = {}  # (etype, device) -> (nq, 3nn+1) float32 table
 def element_table(etype, device):
     """(nq, 3*nn + 1) float32: per quad point q the derivatives dN
     (column n*3 + k) and the weight w_q (last column) — the table the
-    JAX kernel kept in SMEM, here the kernel's shared-memory copy."""
+    JAX kernel kept in SMEM for its quadratic elements, here the
+    kernel's shared-memory copy (hex8 Poisson folds it into constants,
+    as the JAX kernel did for hex8)."""
     key = (etype, torch.device(device))
     if key not in _tables:
         et = get_element(etype)
@@ -100,13 +105,12 @@ def _launch(XeT, cq, mu, lam, etype, elastic):
         raise ValueError("inputs must be contiguous")
     if ndpe * ndpe * E >= 2**63 or E >= 2**31:
         raise ValueError("too many elements")
-    tab = None if etype == "hex8" else element_table(etype, XeT.device)
-    KeT = torch.empty((ndpe * ndpe, E), dtype=XeT.dtype, device=XeT.device)
+    tab = element_table(etype, XeT.device)
+    Ke = torch.empty((E, ndpe, ndpe), dtype=XeT.dtype, device=XeT.device)
     _cuda.launch("pyfem_stiffness_3d", XeT.data_ptr(), cq.data_ptr(),
-                 None if tab is None else tab.data_ptr(), float(mu),
-                 float(lam), int(elastic), nn, E, KeT.data_ptr(),
-                 _cuda.stream_ptr(XeT))
-    return KeT
+                 tab.data_ptr(), float(mu), float(lam), int(elastic), nn, E,
+                 Ke.data_ptr(), _cuda.stream_ptr(XeT))
+    return Ke.view(E, ndpe * ndpe).t()
 
 
 def elasticity_stiffness_3d(XeT, cq, mu, lam, etype="hex8"):
@@ -120,7 +124,9 @@ def elasticity_stiffness_3d(XeT, cq, mu, lam, etype="hex8"):
         etype: "hex8" | "tet10" | "brick20".
 
     Returns:
-        KeT: ((3*nn)^2, nelems) with row r*(3*nn) + s = Ke[:, r, s].
+        KeT: ((3*nn)^2, nelems) with row r*(3*nn) + s = Ke[:, r, s]; on
+        the card the transposed view of a contiguous (nelems, 3*nn,
+        3*nn) Ke.
     """
     return _launch(XeT, cq, mu, lam, etype, True)
 
@@ -134,7 +140,8 @@ def poisson_stiffness_3d(XeT, kq, etype="hex8"):
     """3D Poisson element stiffness for hex8 / tet10 / brick20 (K8).
 
     Returns:
-        KeT: (nn*nn, nelems) with row n*nn+m = Ke[:, n, m].
+        KeT: (nn*nn, nelems) with row n*nn+m = Ke[:, n, m]; on the card
+        the transposed view of a contiguous (nelems, nn, nn) Ke.
     """
     return _launch(XeT, kq, 0.0, 0.0, etype, False)
 

@@ -46,6 +46,7 @@ __all__ = [
     "assembly_weights3d",
     "assemble_pack_3d",
     "assemble_pack_3d_plain",
+    "k3_table",
     "shifted_materials_3d",
 ]
 
@@ -273,6 +274,55 @@ def assemble_pack_3d_plain(rho, maskf, W, N, *, nd, p, lp_dtype=None,
     return coeff, invd, coeff.to(lp_dtype)
 
 
+def _k3_rows(nd, sym):
+    """Rows ``k_full * 8 + o`` of W (as (nd*nd*27*8, nq)) that K3 reads,
+    in the order its plane loop consumes them: per (a, b, dz)
+    block of the 9 (dy, dx) planes, element offset o outermost, then each
+    stored plane of the block (``sym_planes_3d``'s, or all) whose element
+    o holds both the node and its neighbour (the other weights are zero
+    by the stencil plan)."""
+    stored = (set(k for (k, *_r) in sym_planes_3d(nd)) if sym
+              else set(range(nd * nd * 27)))
+    rows = []
+    for blk in range(nd * nd * 3):  # (a * nd + b) * 3 + dz
+        dz = blk % 3
+        for o in range(8):
+            az, ay, ax = o >> 2, (o >> 1) & 1, o & 1
+            for pl in range(9):
+                k = blk * 9 + pl
+                dy, dx = divmod(pl, 3)
+                if k in stored and all(0 <= a + d - 1 <= 1 for a, d in
+                                       ((az, dz), (ay, dy), (ax, dx))):
+                    rows.append(k * 8 + o)
+    return rows
+
+
+def k3_table(W, N, nd, sym):
+    """The table ``csrc/assemble_3d.cu`` stages in shared memory: the
+    structurally nonzero weights of W (nd*nd*27, 8, nq) in consumption
+    order (:func:`_k3_rows`, nq consecutive per row), then N (8, 8), flat
+    in W's dtype: 512 weights per (a, b) block in full storage."""
+    rows = torch.as_tensor(_k3_rows(nd, sym), device=W.device)
+    return torch.cat([W.reshape(-1, W.shape[-1])[rows].reshape(-1),
+                      N.reshape(-1)])
+
+
+_K3_TABLES = {}
+
+
+def _k3_device_table(W, N, nd, sym):
+    """:func:`k3_table`, built once per level and storage: keyed by W's
+    and N's address and version; the entry holds W and N, so no other
+    tensor takes their address while it is cached."""
+    key = (W.data_ptr(), W._version, N.data_ptr(), N._version, nd, sym)
+    hit = _K3_TABLES.get(key)
+    if hit is None:
+        if len(_K3_TABLES) >= 32:
+            _K3_TABLES.pop(next(iter(_K3_TABLES)))
+        hit = _K3_TABLES[key] = (W, N, k3_table(W, N, nd, sym).contiguous())
+    return hit[2]
+
+
 def _assemble_pack_3d_cuda(rho, maskf, W, N, *, nd, p, lp_dtype, sym):
     _check3d(rho, maskf, W, N, nd)
     if rho.dtype != torch.float32:
@@ -283,15 +333,16 @@ def _assemble_pack_3d_cuda(rho, maskf, W, N, *, nd, p, lp_dtype, sym):
         if not t.is_contiguous():
             raise ValueError("inputs must be contiguous")
     nz, ny, nx = rho.shape
+    tab = _k3_device_table(W, N, nd, sym)
     nk = len(sym_planes_3d(nd)) if sym else nd * nd * 27
     coeff = torch.empty((nk, nz, ny, nx), dtype=rho.dtype, device=rho.device)
     invd = torch.empty((nd, nz, ny, nx), dtype=rho.dtype, device=rho.device)
     lp = (None if lp_dtype is None else
           torch.empty((nk, nz, ny, nx), dtype=lp_dtype, device=rho.device))
     _cuda.launch(
-        "pyfem_assemble_3d", rho.data_ptr(), maskf.data_ptr(), W.data_ptr(),
-        N.data_ptr(), float(p), nd, nz, ny, nx, int(not sym),
-        coeff.data_ptr(), invd.data_ptr(),
+        "pyfem_assemble_3d", rho.data_ptr(), maskf.data_ptr(),
+        tab.data_ptr(), tab.numel(), float(p), nd, nz, ny, nx,
+        int(not sym), coeff.data_ptr(), invd.data_ptr(),
         None if lp is None else lp.data_ptr(), _cuda.stream_ptr(rho),
     )
     return (coeff, invd) if lp is None else (coeff, invd, lp)

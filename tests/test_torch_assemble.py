@@ -23,7 +23,7 @@ from pyfem_gpu_testflight_tpu import multigrid as jmg
 from pyfem_gpu_testflight_tpu_torch import multigrid as tmg
 from pyfem_gpu_testflight_tpu_torch.ops import fused_assemble as fa
 
-torch.set_num_threads(2)
+import torch_threads  # noqa: F401  (one torch thread per worker)
 
 # the port's entry points default to the CUDA card; these tests run on CPU
 DEV = "cpu"

@@ -12,8 +12,17 @@ full-storage form (``sym=False``) equals all 243 (27) eliminated planes
 to the same tolerance.  The bf16 copy equals its own float64 planes
 rounded.  The per-level unit
 matrices and K3 weights of ``GMGAssembler3D`` equal the JAX
-assembler's (1e-14 in float64, exactly in float32).
+assembler's (1e-14 in float64, exactly in float32).  The table the CUDA
+kernel stages (``fused_assemble.k3_table``: the structurally nonzero
+weights in the order its unrolled plane loop consumes them, then N),
+contracted in the kernel's order (per (a, b, dz) block of 9 planes,
+element offset o outermost), equals the dense weights of the
+JAX package's ``assembly_weights3d`` applied to the same random
+materials (nd 3 and 1, both storages, 1e-12 in float64).  The
+assemblers are built once per module (``_assemblers``).
 """
+
+import functools
 
 import numpy as np
 import jax
@@ -28,7 +37,7 @@ from pyfem_gpu_testflight_tpu_torch import multigrid as tmg
 from pyfem_gpu_testflight_tpu_torch.ops import fused_assemble as fa
 from pyfem_gpu_testflight_tpu_torch.ops import fused_smooth as fs
 
-torch.set_num_threads(1)
+import torch_threads  # noqa: F401  (one torch thread per worker)
 
 # the port's entry points default to the CUDA card; these tests run on CPU
 DEV = "cpu"
@@ -38,6 +47,7 @@ _DTYPES = {"float64": (torch.float64, jnp.float64),
            "float32": (torch.float32, jnp.float32)}
 
 
+@functools.lru_cache(maxsize=None)
 def _assemblers(physics, dtype):
     tdt, jdt = _DTYPES[dtype]
     ja = jmg.GMGAssembler3D(NX, NY, NZ, *L, physics, p=3.0, dtype=jdt)
@@ -133,3 +143,42 @@ def test_k3_wrapper_takes_plain_path_on_cpu():
         fa.assemble_pack_3d(rho.double(), st.maskf, st.W, ta.N, nd=3, p=3.0)
     with pytest.raises(ValueError):
         fa.assemble_pack_3d(rho, st.maskf, st.W, ta.N, nd=2, p=3.0)
+
+
+@pytest.mark.parametrize("sym", [True, False])
+@pytest.mark.parametrize("physics", ["elasticity", "poisson"])
+def test_k3_table_contracted_as_the_kernel_matches_dense_weights(physics,
+                                                                sym):
+    ja, ta = _assemblers(physics, "float64")
+    op, _xe, _conn, _mask, _shape, Kq, _pal, _otf = ja.static_levels[0]
+    nd = ja.nd
+    W = np.asarray(jpa.assembly_weights3d(op.plan, np.asarray(Kq), nd, 8))
+    tab = fa.k3_table(torch.as_tensor(W), ta.N, nd, sym).numpy()
+    planes = ([k for (k, *_r) in fs.sym_planes_3d(nd)] if sym
+              else list(range(nd * nd * 27)))
+    # 8 o x 8 q materials of 64 random nodes; dense: every weight of W
+    S = np.random.default_rng(2).uniform(0.1, 1.0, (64, 8, 8))
+    dense = np.einsum("koq,noq->kn", W[planes], S)
+    # the kernel: per (a, b, dz) block of 9 (dy, dx) planes, per element
+    # offset o, per stored plane of the block whose element o holds both
+    # the node and its neighbour, the next 8 weights against Cq[o][0..7]
+    got = np.zeros_like(dense)
+    slot = {k: i for i, k in enumerate(planes)}
+    wi = 0
+    for blk in range(nd * nd * 3):
+        for o in range(8):
+            a = (o >> 2, (o >> 1) & 1, o & 1)
+            for pl in range(9):
+                k = blk * 9 + pl
+                d = (blk % 3, pl // 3, pl % 3)
+                if k in slot and all(0 <= ai + di - 1 <= 1
+                                     for ai, di in zip(a, d)):
+                    got[slot[k]] += S[:, o] @ tab[wi:wi + 8]
+                    wi += 8
+    assert wi == tab.size - 64
+    assert np.array_equal(tab[wi:], ta.N.numpy().reshape(-1))
+    assert np.abs(got - dense).max() <= 1e-12 * np.abs(dense).max()
+    # every structurally nonzero weight of the stored planes, once
+    assert np.count_nonzero(tab[:wi]) == np.count_nonzero(W[planes])
+    if not sym:
+        assert wi == 512 * nd * nd

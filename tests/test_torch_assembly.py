@@ -34,7 +34,7 @@ from pyfem_gpu_testflight_tpu_torch import assembly as tas
 from pyfem_gpu_testflight_tpu_torch import bcs as tbcs
 from pyfem_gpu_testflight_tpu_torch import solvers as tsol
 
-torch.set_num_threads(2)
+import torch_threads  # noqa: F401  (one torch thread per worker)
 DEV = "cpu"
 
 

@@ -2,6 +2,10 @@
 
 K1 and K2 on a 65x33 level; K3, K4 (every mode, f32 and bf16 planes)
 and K5 on a 17^3 level, in half-symmetric and full coefficient storage;
+K3 on every level of bench 3D (65^3..3^3) and on ragged and wide grids,
+both storages, nd 3 and 1; K8 on a ragged last element group and one
+element in every form, and ``element_jacobian(kernel="cuda")`` handing
+out K8's buffer with no layout copy;
 K6 on a 17^3 level in every mode with f32 and bf16 operands; K5 (nu =
 1..4, from x0 = 0 or a given x, with and without the residual) and K6's
 tensor-core pass on a ragged 9x7x5 grid, nd=3 and nd=1; K7 and K8
@@ -445,6 +449,50 @@ def test_k6_tensor_core_pass_matches_plain_on_card(dev, physics):
         assert float((got - ref).abs().max()) <= TOL * scale
 
 
+# -- K3 on every level of bench 3D and on ragged grids ---------------------
+
+# bench 3D's levels 65^3..3^3; 9x7x5 and 13x11x7 (a block's 128 slots end
+# inside a row, odd rows so float2 / bf16x2 stores alternate with
+# scalars); 600x3x2 (rows of 300 slots cut into blocks of their own, so
+# the shared boxes stay 256 nodes wide: K3 has no width limit)
+_K3_GRIDS = [(n, n, n) for n in (65, 33, 17, 9, 5, 3)] + [
+    (9, 7, 5), (13, 11, 7), (600, 3, 2)]
+
+
+@pytest.mark.parametrize("shape", _K3_GRIDS)
+@pytest.mark.parametrize("physics", ["elasticity", "poisson"])
+@pytest.mark.parametrize("sym", [True, False])
+def test_k3_every_level_and_ragged_grid_on_card(dev, shape, physics, sym):
+    """K3 in either storage, nd 3 and 1: one launch, planes and free
+    inverse diagonal within 1e-5 of max|plain|, 0 at fixed dofs, the bf16
+    copy its f32 planes rounded, a repeat call bit-identical."""
+    from pyfem_gpu_testflight_tpu_torch import multigrid
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+    from pyfem_gpu_testflight_tpu_torch.ops import fused_assemble as fa
+
+    nx, ny, nz = shape
+    a = multigrid.GMGAssembler3D(nx, ny, nz, 2.0, 1.5, 1.0, physics, p=3.0,
+                                 device=dev)
+    st = a.static_levels[0]
+    rho = torch.as_tensor(np.random.default_rng(9).uniform(
+        0.2, 1.0, (nz, ny, nx)), dtype=torch.float32, device=dev)
+    args = (rho, st.maskf, st.W, a.N)
+    kw = dict(nd=a.nd, p=3.0, lp_dtype=torch.bfloat16, sym=sym)
+    n0 = _cuda.launches["pyfem_assemble_3d"]
+    ck, dk, lk = fa.assemble_pack_3d(*args, **kw)
+    cp, dp, _ = fa.assemble_pack_3d_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert _cuda.launches["pyfem_assemble_3d"] == n0 + 1
+    free = st.maskf > 0
+    assert ck.shape == cp.shape
+    assert _rel(ck, cp) <= TOL
+    assert _rel(dk[free], dp[free]) <= TOL
+    assert bool((dk[~free] == 0).all())
+    assert torch.equal(lk, ck.to(torch.bfloat16))
+    again = fa.assemble_pack_3d(*args, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(again, (ck, dk, lk)))
+
+
 # -- the 3D stencil pass (K4, K5's passes) and K6's f32 body, ragged ------
 
 # grids that cut a block's chunk of 128 nodes of a plane at every kind of
@@ -638,6 +686,75 @@ def test_k7_k8_match_plain_on_card(dev, case, physics):
     assert got.shape == ref.shape
     assert _rel(got, ref) <= TOL
     assert torch.equal(got, run(fns[0]))  # one thread per output: no atomics
+
+
+@pytest.mark.parametrize("physics", ["elasticity", "poisson"])
+@pytest.mark.parametrize("case", ["hex8", "tet10", "brick20"])
+def test_k8_ragged_group_and_layout_on_card(dev, case, physics):
+    """K8 on one element less than the mesh (a ragged last element group
+    for every group size but brick20's 1) and on one element:
+    within 1e-5 of max|plain|, KeT the transposed view of a contiguous
+    (nelems, ndpe, ndpe) buffer, a repeat call bit-identical."""
+    from pyfem_gpu_testflight_tpu_torch.elements import get_element
+    from pyfem_gpu_testflight_tpu_torch.ops import element_kernels as ek
+    from pyfem_gpu_testflight_tpu_torch.ops import element_kernels3d as ek3
+    from pyfem_gpu_testflight_tpu_torch.ops import stiffness
+
+    etype, kw = _STIFF_CASES[case]
+    conn, X, _f, _l = _jittered(kw, seed=11)
+    et = get_element(etype)
+    mu, lam = stiffness.lame_params(10.0, 0.3, et.ndims)
+    ndpe = et.nnodes * (3 if physics == "elasticity" else 1)
+    for E in (len(conn) - 1, 1):
+        Xe = torch.as_tensor(X[conn[:E]], dtype=torch.float32, device=dev)
+        XeT = ek.transpose_xe(Xe)
+        cq = torch.as_tensor(np.random.default_rng(E).uniform(
+            0.3, 1.0, (et.nquads, E)), dtype=torch.float32, device=dev)
+        if physics == "elasticity":
+            run = lambda f: f(XeT, cq, mu, lam, etype=etype)
+            fns = (ek3.elasticity_stiffness_3d,
+                   ek3.elasticity_stiffness_3d_plain)
+        else:
+            run = lambda f: f(XeT, cq, etype=etype)
+            fns = (ek3.poisson_stiffness_3d, ek3.poisson_stiffness_3d_plain)
+        got, ref = run(fns[0]), run(fns[1])
+        torch.cuda.synchronize()
+        assert got.shape == ref.shape == (ndpe * ndpe, E)
+        assert got.t().is_contiguous()
+        assert _rel(got, ref) <= TOL
+        assert torch.equal(got, run(fns[0]))
+
+
+@pytest.mark.parametrize("physics", ["elasticity", "poisson"])
+def test_element_jacobian_makes_no_layout_copy_on_card(dev, monkeypatch,
+                                                       physics):
+    """``element_jacobian(kernel="cuda")`` on hex8 returns K8's own
+    buffer as (nelems, ndpe, ndpe): the same address K8 wrote, no copy."""
+    import pyfem_gpu_testflight_tpu_torch as pt
+    from pyfem_gpu_testflight_tpu_torch.ops import element_kernels3d as ek3
+
+    conn, X, fixed, force = _jittered(_STIFF_CASES["hex8"][1], seed=12)
+    name = f"{physics}_stiffness_3d"
+    seen = []
+    real = getattr(ek3, name)
+
+    def spy(*a, **kw):
+        KeT = real(*a, **kw)
+        seen.append(KeT.data_ptr())
+        return KeT
+
+    monkeypatch.setattr(ek3, name, spy)
+    if physics == "elasticity":
+        m = pt.LinearElasticity("hex8", X, conn, fixed, None, force,
+                                dtype=torch.float32, device=dev,
+                                kernel="cuda")
+    else:
+        m = pt.LinearPoisson("hex8", X, conn, fixed[::3] // 3,
+                             dtype=torch.float32, device=dev, kernel="cuda")
+    Ke = m.element_jacobian(0.6)
+    ndpe = 8 * m.ndof_per_node
+    assert Ke.shape == (m.nelems, ndpe, ndpe) and Ke.is_contiguous()
+    assert seen == [Ke.data_ptr()]
 
 
 def test_elem_matvec_and_cg_are_deterministic_on_card(dev):

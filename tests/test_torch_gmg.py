@@ -33,7 +33,7 @@ from pyfem_gpu_testflight_tpu_torch.ops.dia import (
     interleave_to_planar, planar_to_interleave,
 )
 
-torch.set_num_threads(2)
+import torch_threads  # noqa: F401  (one torch thread per worker)
 
 # the port's entry points default to the CUDA card; these tests run on CPU
 DEV = "cpu"

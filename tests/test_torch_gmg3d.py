@@ -39,7 +39,7 @@ from pyfem_gpu_testflight_tpu_torch import multigrid as tmg
 from pyfem_gpu_testflight_tpu_torch.device import resolve_device
 from pyfem_gpu_testflight_tpu_torch.ops.dia import interleave_to_planar
 
-torch.set_num_threads(1)
+import torch_threads  # noqa: F401  (one torch thread per worker)
 
 # the port's entry points default to the CUDA card; these tests run on CPU
 DEV = "cpu"

@@ -30,7 +30,7 @@ from pyfem_gpu_testflight_tpu.ops.dia import interleave_to_planar as j_i2p
 from pyfem_gpu_testflight_tpu_torch import multigrid as tmg
 from pyfem_gpu_testflight_tpu_torch.ops.dia import interleave_to_planar
 
-torch.set_num_threads(2)
+import torch_threads  # noqa: F401  (one torch thread per worker)
 
 # the port's entry points default to the CUDA card; these tests run on CPU
 DEV = "cpu"

@@ -21,7 +21,7 @@ import pyfem_gpu_testflight_tpu as fem
 import pyfem_gpu_testflight_tpu_torch as pt
 from pyfem_gpu_testflight_tpu_torch import solvers as tsol
 
-torch.set_num_threads(2)
+import torch_threads  # noqa: F401  (one torch thread per worker)
 
 NX, NY, R0 = 33, 17, 0.05
 TOL = 1e-10

@@ -21,7 +21,7 @@ from pyfem_gpu_testflight_tpu.opt import mma as jmma
 
 from pyfem_gpu_testflight_tpu_torch.opt import mma as tmma
 
-torch.set_num_threads(2)
+import torch_threads  # noqa: F401  (one torch thread per worker)
 
 N = 500
 TOL = 1e-12

@@ -34,7 +34,7 @@ from pyfem_gpu_testflight_tpu import multigrid as jmg
 import pyfem_gpu_testflight_tpu_torch as pt
 from pyfem_gpu_testflight_tpu_torch import multigrid as tmg
 
-torch.set_num_threads(2)
+import torch_threads  # noqa: F401  (one torch thread per worker)
 DEV = "cpu"
 
 MESHES = {

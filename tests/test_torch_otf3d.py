@@ -49,7 +49,7 @@ from pyfem_gpu_testflight_tpu_torch.ops import otf3d
 
 from test_torch_gmg3d import _compiled_matvecs, _problem, solve_both
 
-torch.set_num_threads(1)
+import torch_threads  # noqa: F401  (one torch thread per worker)
 
 DEV = "cpu"  # the port's entry points default to the CUDA card
 N = 9

@@ -22,6 +22,8 @@ from pyfem_gpu_testflight_tpu.ops import pallas_otf3d as jotf
 from pyfem_gpu_testflight_tpu_torch import multigrid as tmg
 from pyfem_gpu_testflight_tpu_torch.ops import otf3d
 
+import torch_threads  # noqa: F401  (one torch thread per worker)
+
 
 def _jax_w3(nd):
     ta = tmg.GMGAssembler3D(5, 5, 5, 2.0, 1.0, 1.0,

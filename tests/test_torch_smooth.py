@@ -26,7 +26,7 @@ from pyfem_gpu_testflight_tpu import multigrid as jmg
 from pyfem_gpu_testflight_tpu_torch import multigrid as tmg
 from pyfem_gpu_testflight_tpu_torch.ops import fused_smooth as fs
 
-torch.set_num_threads(2)
+import torch_threads  # noqa: F401  (one torch thread per worker)
 
 NX, NY = 33, 17
 

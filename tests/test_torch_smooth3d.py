@@ -46,7 +46,7 @@ from pyfem_gpu_testflight_tpu_torch import multigrid as tmg
 from pyfem_gpu_testflight_tpu_torch.ops import fused_smooth as fs
 from pyfem_gpu_testflight_tpu_torch.ops.stencil import Stencil3D
 
-torch.set_num_threads(1)
+import torch_threads  # noqa: F401  (one torch thread per worker)
 
 NX, NY, NZ = 9, 7, 5
 ND = 3

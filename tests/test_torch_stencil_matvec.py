@@ -20,7 +20,7 @@ from pyfem_gpu_testflight_tpu.ops.stencil import Stencil2D as JStencil2D
 
 from pyfem_gpu_testflight_tpu_torch.ops import stencil_matvec as sm
 
-torch.set_num_threads(2)
+import torch_threads  # noqa: F401  (one torch thread per worker)
 
 TOL = 1e-13
 

@@ -13,8 +13,21 @@ quad4, 5x4x4 hex8, n=5 tet10 and brick20 node lattices):
   interpret-mode calls, ~15 s together); tet10 and brick20 are held in
   float32 to the JAX einsum path, which test_pallas_stiffness.py ties to
   the Pallas kernels;
-* the layout helpers of ``convert`` round-trip.
+* the layout helpers of ``convert`` round-trip;
+* K8's decomposition (csrc/stiffness_3d.cu), emulated in float64 NumPy:
+  the node pairs n <= m of the upper triangle (a thread each in the group
+  kernel; all of an element's in the per-element Poisson kernel), the
+  mirror of each 3x3 (1x1) block into the element-major tile, every
+  entry written once, and the
+  ``KeT`` the wrapper hands out as the transposed view of that buffer
+  (``untranspose`` of it copies nothing), equal within 3e-5 to the JAX
+  Pallas kernel in interpret mode for hex8 (both physics) and tet10 /
+  brick20 Poisson, and to the JAX einsum path for tet10 / brick20
+  elasticity (their interpret-mode calls take 11-44 s each);
+* ``element_jacobian(kernel="cuda")`` of tet10 / brick20 models on the
+  CPU equals the JAX package's element matrices in float32 (3e-5).
 
+The JAX Pallas outputs are computed once per module (``_jax_pallas``).
 The CUDA kernels themselves run only on the card
 (tests/test_torch_cuda.py, chip_smoke.py phase 3c).
 """
@@ -33,7 +46,7 @@ from pyfem_gpu_testflight_tpu_torch.ops import element_kernels as ek
 from pyfem_gpu_testflight_tpu_torch.ops import element_kernels3d as ek3
 from pyfem_gpu_testflight_tpu_torch.ops import stiffness as tst
 
-torch.set_num_threads(2)
+import torch_threads  # noqa: F401  (one torch thread per worker)
 
 # name: (etype, ProblemCreator args, jitter amplitude)
 MESHES = {
@@ -107,30 +120,145 @@ def test_stiffness_matches_jax_einsum_f64(name, physics):
         assert np.abs(got - ref).max() <= 1e-12 * scale, fn.__name__
 
 
-@pytest.mark.parametrize("physics", ["elasticity", "poisson"])
-@pytest.mark.parametrize("name", ["quad4", "hex8"])
-def test_stiffness_matches_jax_pallas_interpret_f32(name, physics):
+_PALLAS = {}  # (name, physics) -> Ke of the JAX Pallas kernel, seed 1
+
+
+def _jax_pallas(name, physics):
+    """The JAX Pallas kernel in interpret mode on the float32 seed-1
+    inputs of ``name``, as (nelems, ndpe, ndpe); each computed once per
+    module (an interpret-mode call takes 3-44 s)."""
     from pyfem_gpu_testflight_tpu.ops import pallas_stiffness as jp2
     from pyfem_gpu_testflight_tpu.ops import pallas_stiffness3d as jp3
 
+    if (name, physics) not in _PALLAS:
+        etype, Xe, cq, mulam = _inputs(name, seed=1)
+        XeT = jnp.asarray(ek.transpose_xe(torch.as_tensor(Xe)).numpy(),
+                          jnp.float32)
+        cqT = jnp.asarray(cq.T, jnp.float32)
+        if etype == "quad4":
+            KeT = (jp2.elasticity_stiffness_quad4(XeT, cqT, *mulam,
+                                                  tile=1024, interpret=True)
+                   if physics == "elasticity"
+                   else jp2.poisson_stiffness_quad4(XeT, cqT, tile=1024,
+                                                    interpret=True))
+        else:
+            KeT = (jp3.elasticity_stiffness_3d(XeT, cqT, *mulam,
+                                               etype=etype, interpret=True)
+                   if physics == "elasticity"
+                   else jp3.poisson_stiffness_3d(XeT, cqT, etype=etype,
+                                                 interpret=True))
+        _PALLAS[name, physics] = convert.ket_to_ke(np.asarray(KeT))
+    return _PALLAS[name, physics]
+
+
+@pytest.mark.parametrize("physics", ["elasticity", "poisson"])
+@pytest.mark.parametrize("name", ["quad4", "hex8"])
+def test_stiffness_matches_jax_pallas_interpret_f32(name, physics):
     etype, Xe, cq, mulam = _inputs(name, seed=1)
-    XeT = jnp.asarray(ek.transpose_xe(torch.as_tensor(Xe)).numpy(),
-                      jnp.float32)
-    cqT = jnp.asarray(cq.T, jnp.float32)
-    if etype == "quad4":
-        KeT = (jp2.elasticity_stiffness_quad4(XeT, cqT, *mulam, tile=1024,
-                                              interpret=True)
-               if physics == "elasticity"
-               else jp2.poisson_stiffness_quad4(XeT, cqT, tile=1024,
-                                                interpret=True))
-    else:
-        KeT = (jp3.elasticity_stiffness_hex8(XeT, cqT, *mulam,
-                                             interpret=True)
-               if physics == "elasticity"
-               else jp3.poisson_stiffness_hex8(XeT, cqT, interpret=True))
-    ref = convert.ket_to_ke(np.asarray(KeT))
+    ref = _jax_pallas(name, physics)
     got = _port_plain(etype, Xe, cq, mulam, physics, torch.float32)
     np.testing.assert_allclose(got, ref, rtol=3e-5, atol=3e-5)
+
+
+def _k8_pair(t, nn):
+    """The node pair (n, m), n <= m, of pair task t: the kernel's decode
+    of its row-major upper-triangle index."""
+    m, n = t, 0
+    while m >= nn - n:
+        m -= nn - n
+        n += 1
+    return n, m + n
+
+
+def _k8_emulated(etype, Xe, cq, mulam, physics):
+    """K8 as csrc/stiffness_3d.cu decomposes it, in float64 NumPy:
+    geometry once per element (centred coordinates, J, its inverse,
+    c = cq w detJ, the gradients G from ``element_table``), then per node
+    pair task the outer product A = sum_q (c G_n) G_m^T, the block
+    mu (A^T + tr(A) I) + lam A (Poisson: tr A), written at (n, m) and
+    mirrored to (m, n) in the element-major buffer (E, ndpe, ndpe).
+    Returns (buffer, KeT) with KeT the wrapper's transposed view; asserts
+    that every entry is written exactly once."""
+    et = pt.get_element(etype)
+    nn, nq = et.nnodes, et.nquads
+    nd = 3 if physics == "elasticity" else 1
+    ndpe = nd * nn
+    tab = ek3.element_table(etype, "cpu").double().numpy()
+    dn, w = tab[:, :3 * nn].reshape(nq, nn, 3), tab[:, 3 * nn]
+    xc = Xe - Xe.mean(axis=1, keepdims=True)          # (E, nn, 3)
+    J = np.einsum("qnk,enr->eqrk", dn, xc)
+    detJ, invJ = np.linalg.det(J), np.linalg.inv(J)   # invJ[m][l]
+    G = np.einsum("qnm,eqml->eqnl", dn, invJ)         # (E, nq, nn, 3)
+    c = cq * w[None] * detJ                            # (E, nq)
+    E = len(Xe)
+    buf = torch.full((E, ndpe, ndpe), float("nan"), dtype=torch.float64)
+    writes = np.zeros((ndpe, ndpe), int)
+    for t in range(nn * (nn + 1) // 2):
+        n, m = _k8_pair(t, nn)
+        A = np.einsum("eqi,eqj->eij", c[..., None] * G[:, :, n],
+                      G[:, :, m])                       # (E, 3, 3)
+        tr = np.trace(A, axis1=1, axis2=2)
+        for a in range(nd):
+            for b in range(nd):
+                if nd == 1:
+                    v = tr
+                else:
+                    v = (mulam[0] * (A[:, b, a] + (a == b) * tr)
+                         + mulam[1] * A[:, a, b])
+                r, s = n * nd + a, m * nd + b
+                buf[:, r, s] = torch.as_tensor(v)
+                writes[r, s] += 1
+                if n != m:
+                    buf[:, s, r] = torch.as_tensor(v)
+                    writes[s, r] += 1
+    assert (writes == 1).all()
+    return buf, buf.view(E, ndpe * ndpe).t()
+
+
+@pytest.mark.parametrize("physics", ["elasticity", "poisson"])
+@pytest.mark.parametrize("name", ["hex8", "tet10", "brick20"])
+def test_k8_index_map_matches_jax(name, physics):
+    etype, Xe, cq, mulam = _inputs(name, seed=1)
+    buf, KeT = _k8_emulated(etype, Xe, cq, mulam, physics)
+    nd = 3 if physics == "elasticity" else 1
+    ndpe = nd * pt.get_element(etype).nnodes
+    assert KeT.shape == (ndpe * ndpe, len(Xe))
+    # the operator's layout: untranspose of the view is the buffer itself
+    Ke = ek.untranspose(KeT, ndpe, ndpe)
+    assert Ke.data_ptr() == buf.data_ptr() and Ke.is_contiguous()
+    if etype == "hex8" or physics == "poisson":
+        ref = _jax_pallas(name, physics)
+    else:
+        ref = _jax_einsum(etype, Xe, cq, mulam, physics, jnp.float32)
+    np.testing.assert_allclose(Ke.numpy(), ref, rtol=3e-5, atol=3e-5)
+
+
+@pytest.mark.parametrize("physics", ["elasticity", "poisson"])
+@pytest.mark.parametrize("name", ["tet10", "brick20"])
+def test_element_jacobian_kernel_cuda_on_cpu_matches_jax(name, physics):
+    etype, kw, amp = MESHES[name]
+    c = pt.ProblemCreator(**kw)
+    conn, X, fixed, force = c.create_linear_elasticity_problem()
+    rng = np.random.RandomState(4)
+    X = X + amp * rng.randn(*X.shape)
+    rho = np.full(len(X), 0.7)  # RAMP stays off its pole (quadratic N < 0)
+    if physics == "elasticity":
+        args = (etype, X, conn, np.asarray(fixed), None, force)
+        mj = fem.LinearElasticity(*args, p=3.0, dtype=jnp.float32)
+        with pytest.warns(UserWarning):
+            mt = pt.LinearElasticity(*args, p=3.0, dtype=torch.float32,
+                                     device="cpu", kernel="cuda")
+    else:
+        args = (etype, X, conn, np.asarray(fixed)[::3] // 3)
+        mj = fem.LinearPoisson(*args, p=3.0, dtype=jnp.float32)
+        with pytest.warns(UserWarning):
+            mt = pt.LinearPoisson(*args, p=3.0, dtype=torch.float32,
+                                  device="cpu", kernel="cuda")
+    Ke = mt.element_jacobian(rho)
+    assert Ke.is_contiguous()
+    np.testing.assert_allclose(Ke.numpy(),
+                               np.asarray(mj.element_jacobian(rho)),
+                               rtol=3e-5, atol=3e-5)
 
 
 @pytest.mark.parametrize("physics", ["elasticity", "poisson"])

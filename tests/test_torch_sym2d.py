@@ -36,7 +36,7 @@ from pyfem_gpu_testflight_tpu_torch import multigrid as tmg
 from pyfem_gpu_testflight_tpu_torch.ops import fused_assemble as fa
 from pyfem_gpu_testflight_tpu_torch.ops import fused_smooth as fs
 
-torch.set_num_threads(2)
+import torch_threads  # noqa: F401  (one torch thread per worker)
 
 NX, NY = 33, 17
 TOL = 1e-12

@@ -34,7 +34,7 @@ from pyfem_gpu_testflight_tpu_torch import convert, mesh as tmesh
 from pyfem_gpu_testflight_tpu_torch import multigrid as tmg
 from pyfem_gpu_testflight_tpu_torch.models import base as tbase
 
-torch.set_num_threads(2)
+import torch_threads  # noqa: F401  (one torch thread per worker)
 
 # the port's entry points default to the CUDA card; these tests run on CPU
 DEV = "cpu"

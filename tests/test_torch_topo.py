@@ -32,7 +32,7 @@ from pyfem_gpu_testflight_tpu.opt import DeviceTopo as JDeviceTopo
 import pyfem_gpu_testflight_tpu_torch as pt
 from pyfem_gpu_testflight_tpu_torch.opt import MMA, DeviceTopo, TopoProblem
 
-torch.set_num_threads(2)
+import torch_threads  # noqa: F401  (one torch thread per worker)
 
 NX, NY = 33, 17
 
