@@ -109,10 +109,12 @@ Phases:
 checkout of another commit is timed on the same inputs in the same call;
 ``--solution-floor [--root DIR]`` likewise runs only ``solution_floor``,
 the readings ``SOL64_TOL`` is set from; ``--assembly-kernels [--root
-DIR]`` only ``assembly_kernels``: K3 on every level of bench 3D (65^3
+DIR]`` only ``assembly_kernels``: K1 on every level of bench 2D
+(1025x513 down to 9x5) in both storages at nd 2 and 1, bench 2D's and
+bench 2D sym's assemble+solve, K3 on every level of bench 3D (65^3
 down to 3^3) in both storages at nd 3 and 1, every K8 form on phase
 3c's inputs and ``element_jacobian(kernel="cuda")`` on 5c's model, each
-held against its plain version and timed by device time.
+kernel held against its plain version, all timed by device time.
 The short kernels' times (K1, K1-sym, K2, K2-sym, K7, K8, K9) are CUDA
 events over back-to-back wrapper calls, with the profiler's device time
 beside them.
@@ -598,7 +600,7 @@ def phase_kernels_elem(dev, pt, build_log):
     return res
 
 
-def phase_kernels(dev):
+def phase_kernels(dev, build_log):
     """Phase 3: each 2D kernel against its plain version on the card."""
     import torch
     from pyfem_gpu_testflight_tpu_torch import multigrid
@@ -631,9 +633,8 @@ def phase_kernels(dev):
               f"K1 {nx}x{ny} bf16 copy == its f32 planes rounded")
         check(lr <= 2.0 ** -8, f"K1 {nx}x{ny} bf16 copy within 1 bf16 ulp")
         if (nx, ny) == (NX, NY):
-            # per node: ~36 planes x 16 weights + 16 RAMP terms, 2 flops
             b_ms, b_by = bound(nbytes(rho, st.maskf, st.W, a.N, ck, dk, lk),
-                               2 * (36 * 16 + 64) * rho.numel())
+                               k1_flops(2, False, rho.numel()))
             res["K1"] = dict(max_abs_err=max(ea, ia),
                              ms=cuda_ms(lambda: fa.assemble_pack_2d(
                                  *args, **kw), 50),
@@ -642,7 +643,10 @@ def phase_kernels(dev):
                              plain_ms=cuda_ms(
                                  lambda: fa.assemble_pack_2d_plain(
                                      *args, **kw), 10),
-                             bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                             bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                             ptxas={k: short_ptxas(build_log, k) for k in
+                                    ("assemble_2d_kernel",
+                                     "assemble_2d_tiles")})
             fine = (ck, dk, lk, st.mask)
     log(f"K1 {NX}x{NY}: kernel {res['K1']['ms']:.4f} ms (device "
         f"{fms(res['K1']['device_ms'])}), plain "
@@ -807,7 +811,7 @@ def phase_kernels_sym2d(dev):
             if full:
                 b_ms, b_by = bound(
                     nbytes(rho, st.maskf, st.W, a.N, ck, dk, lk),
-                    2 * (ck.shape[0] * 16 + 64) * rho.numel())
+                    k1_flops(nd, True, rho.numel()))
                 res["K1-sym"].update(
                     ms=cuda_ms(lambda: fa.assemble_pack_2d(*args, **kw), 50),
                     device_ms=device_ms(
@@ -1097,13 +1101,76 @@ def k3_flops(nd, sym, nnodes):
     return 2 * (w + 64) * nnodes
 
 
+def k1_flops(nd, sym, nnodes):
+    """float32 operations K1 needs: per node one multiply-add per
+    structurally nonzero weight of its stored planes (64 per (a, b) block
+    in full storage: an element must hold both nodes; in half storage
+    those of the kept planes), and per element (about one per node) 16
+    for the materials at its 4 points."""
+    from pyfem_gpu_testflight_tpu_torch.ops.fused_smooth import sym_planes_2d
+
+    planes = ([(dy, dx) for (_k, _a, _b, dy, dx, _s) in sym_planes_2d(nd)]
+              if sym else [divmod(d, 3) for d in range(9)] * nd * nd)
+    w = sum(4 * (2 if dy == 1 else 1) * (2 if dx == 1 else 1)
+            for dy, dx in planes)
+    return 2 * (w + 16) * nnodes
+
+
 # bench 3D's levels with K3: 65^3 down to the coarsest, 3^3
 ASSEMBLY_LEVELS = (65, 33, 17, 9, 5, 3)
 
 
+def k1_levels(dev, rng):
+    """K1 on every level of bench 2D (1025x513 down to 9x5), in full and
+    half storage at nd 2 (elasticity) and 1 (Poisson), with the bf16 copy
+    as bench 2D asks for it: each held against its plain version (planes,
+    free inverse diagonal and 0 at fixed dofs, the bf16 copy equal to its
+    planes rounded, a repeat call bit-identical) and timed by device time.
+    Returns ({"nx x ny": {form: ms}}, {"K1 form nx": (bound_ms,
+    bound_by)}, worst error relative to max|plain|)."""
+    import torch
+    from pyfem_gpu_testflight_tpu_torch import multigrid
+    from pyfem_gpu_testflight_tpu_torch.ops import fused_assemble as fa
+
+    times, bounds, worst = {}, {}, 0.0
+    for physics in ("elasticity", "poisson"):
+        a = multigrid.GMGAssembler(NX, NY, 2.0, 1.0, physics, p=3.0,
+                                   device=dev, min_n=5)
+        for st in a.static_levels:
+            ny, nx = st.shape
+            rho = torch.as_tensor(rng.uniform(0.2, 1.0, (ny, nx)),
+                                  dtype=torch.float32, device=dev)
+            args = (rho, st.maskf, st.W, a.N)
+            lvl = times.setdefault(f"{nx}x{ny}", {})
+            for sym in (False, True):
+                kw = dict(nd=a.nd, p=3.0, lp_dtype=torch.bfloat16, sym=sym)
+                got = fa.assemble_pack_2d(*args, **kw)
+                ref = fa.assemble_pack_2d_plain(*args, **kw)
+                again = fa.assemble_pack_2d(*args, **kw)
+                torch.cuda.synchronize()
+                form = f"{'sym' if sym else 'full'} nd={a.nd}"
+                free = st.maskf > 0
+                worst = max(worst, rel_err(got[0], ref[0])[1],
+                            rel_err(got[1], ref[1], free)[1])
+                check(torch.equal(got[2], got[0].to(torch.bfloat16))
+                      and bool((got[1][~free] == 0).all())
+                      and all(torch.equal(x, y) for x, y in zip(got, again)),
+                      f"K1 {form} {nx}x{ny}: bf16 copy == its f32 planes "
+                      f"rounded, inv_diag 0 fixed, repeat call "
+                      f"bit-identical")
+                bounds[f"K1 {form} {nx}"] = bound(
+                    nbytes(*args, *got), k1_flops(a.nd, sym, rho.numel()))
+                del got, ref, again
+                lvl[form] = device_ms(lambda: fa.assemble_pack_2d(*args, **kw))
+    return times, bounds, worst
+
+
 def assembly_kernels(dev):
     """Device time per call (``torch.profiler``, the median of three
-    sessions of 20 calls) of K3 on every level of bench 3D in half and
+    sessions of 20 calls) of K1 on every level of bench 2D in full and
+    half storage at nd 2 and 1 (``k1_levels``), and of bench 2D's and
+    bench 2D sym's assemble+solve (median of three sessions of 5); of K3
+    on every level of bench 3D in half and
     full storage at nd 3 (elasticity) and 1 (Poisson), with the bf16
     copy as bench 3D asks for it; of every K8 form on phase 3c's inputs
     (hex8 at 65^3, tet10 and brick20 on the 33^3 lattice, jittered); and
@@ -1112,17 +1179,30 @@ def assembly_kernels(dev):
     is held against its plain version (planes and free inverse diagonal,
     the bf16 copy equal to its planes rounded).  Uses only the package's
     public functions, so ``--assembly-kernels --root DIR`` times a
-    parent checkout on the same inputs.  Returns ({"K3": {n: {form: ms}},
+    parent checkout on the same inputs.  Returns ({"K1": {"nx x ny":
+    {form: ms}}, "bench_2d_device_ms": {...}, "K3": {n: {form: ms}},
     "K8": {form: ms}, "element_jacobian_5c": {...}, "bound_ms": {...}},
     worst error relative to max|plain|)."""
     import torch
     import pyfem_gpu_testflight_tpu_torch as pt
     from pyfem_gpu_testflight_tpu_torch import multigrid
     from pyfem_gpu_testflight_tpu_torch.ops import fused_assemble as fa
+    from pyfem_gpu_testflight_tpu_torch.ops.dia import (
+        interleave_to_planar as i2p, planar_to_interleave as p2i,
+    )
 
     rng = np.random.default_rng(SEED + 50)
     out = {"K3": {}, "K8": {}, "bound_ms": {}}
-    worst = 0.0
+    out["K1"], out["bound_ms"], worst = k1_levels(dev, rng)
+    out["bench_2d_device_ms"] = {}
+    for label, route in (("bench 2D", {}), ("bench 2D sym", {"sym": True})):
+        _m, _a, rho, rhs, step, _L = bench2d(dev, pt, multigrid, i2p, p2i,
+                                             **route)
+        k = step(rho, rhs, rhs)[1]
+        out["bench_2d_device_ms"][label] = dict(
+            iterations=int(k), device_ms=device_ms(lambda: step(rho, rhs, rhs),
+                                              reps=5))
+        del step
     for n in ASSEMBLY_LEVELS:
         rho = torch.as_tensor(rng.uniform(0.2, 1.0, (n, n, n)),
                               dtype=torch.float32, device=dev)
@@ -1182,8 +1262,8 @@ def assembly_kernels(dev):
     ej = lambda: m.element_jacobian(rho)  # noqa: E731
     out["element_jacobian_5c"] = dict(ms=cuda_ms(ej, 5),
                                       device_ms=device_ms(ej, reps=5))
-    check(worst <= REL_TOL, f"K3 and K8 within {REL_TOL:g} of max|plain| "
-          f"(worst {worst:.2e})")
+    check(worst <= REL_TOL, f"K1, K3 and K8 within {REL_TOL:g} of "
+          f"max|plain| (worst {worst:.2e})")
     return out, worst
 
 
@@ -1191,7 +1271,7 @@ def run_assembly_kernels():
     """``python3 chip_smoke.py --assembly-kernels [--root DIR]``: only
     :func:`assembly_kernels`, on the package under DIR (default: this
     checkout); prints the card and one JSON line with ptxas's registers
-    and spills of K3's and K8's instances."""
+    and spills of K1's, K3's and K8's instances."""
     import torch
 
     if not torch.cuda.is_available():
@@ -1205,7 +1285,8 @@ def run_assembly_kernels():
     log(card_line())
     out, worst = assembly_kernels(torch.device("cuda", 0))
     out["ptxas"] = {k: short_ptxas(_cuda.build_log, k)
-                    for k in ("assemble_3d_kernel", "stiffness_3d_kernel",
+                    for k in ("assemble_2d_kernel", "assemble_2d_tiles",
+                              "assemble_3d_kernel", "stiffness_3d_kernel",
                               "poisson_elem_kernel")}
     log(json.dumps({"package": pt.__file__, "worst_rel_err": worst, **out}))
     return 1 if FAILS else 0
@@ -1643,10 +1724,11 @@ def breakdown(label, step, args, asm, rho, b, single_ms):
     return asm_ms
 
 
-def phase_main_2d(dev, pt, multigrid, i2p, p2i, label="bench 2D",
-                  **route):
-    """Phase 4 (4d with ``elem_path="cuda"``): the 2D bench configuration
-    through the port."""
+def bench2d(dev, pt, multigrid, i2p, p2i, **route):
+    """The 2D bench configuration (bench.py run_2d) through the package's
+    public functions: (model, assembler, rho, rhs, step, (Lx, Ly)), where
+    ``step(rho, rhs, chain)`` assembles the hierarchy and solves, and
+    returns (u, iterations, residual norm, b, gmg)."""
     import torch
 
     conn, X, fixed, force, (Lx, Ly) = problem(NX, NY)
@@ -1657,8 +1739,6 @@ def phase_main_2d(dev, pt, multigrid, i2p, p2i, label="bench 2D",
         device=dev, nu_pre=2, nu_post=2, min_n=5, coarse_dense_max=4096,
         smoother_dtype=torch.bfloat16, omega="cheby", **route,
     )
-    log(f"main path {label}: {model.ndof} dof, levels {asm.sizes}, route "
-        f"{route or 'uniform (K1)'}")
     rho = torch.ones(model.nnodes, dtype=torch.float32, device=dev)
     rhs = model.compute_rhs()
 
@@ -1669,6 +1749,20 @@ def phase_main_2d(dev, pt, multigrid, i2p, p2i, label="bench 2D",
         x, k, rn = multigrid.pcg_gmg(gmg, lv0, b, rtol=1e-6, maxiter=200,
                                      flexible=True)
         return p2i(x.reshape(-1), 2), k, rn, b, gmg
+
+    return model, asm, rho, rhs, step, (Lx, Ly)
+
+
+def phase_main_2d(dev, pt, multigrid, i2p, p2i, label="bench 2D",
+                  **route):
+    """Phase 4 (4d with ``elem_path="cuda"``): the 2D bench configuration
+    through the port."""
+    import torch
+
+    model, asm, rho, rhs, step, (Lx, Ly) = bench2d(dev, pt, multigrid, i2p,
+                                                    p2i, **route)
+    log(f"main path {label}: {model.ndof} dof, levels {asm.sizes}, route "
+        f"{route or 'uniform (K1)'}")
 
     (u, k, rn, b, gmg), counts, single_ms = solve_and_measure(
         step, (rho, rhs, rhs), ("pyfem_assemble_2d", "pyfem_smooth_2d",
@@ -1691,8 +1785,11 @@ def phase_main_2d(dev, pt, multigrid, i2p, p2i, label="bench 2D",
               f"{label}: K1-sym once per level ({len(gmg.levels)}), K2-sym "
               f"launched, no full-storage K1/K2 launch")
     elif route.get("elem_path", "uniform") == "uniform":
-        check(counts["pyfem_assemble_2d"] > 0 and counts["pyfem_smooth_2d"]
-              > 0, "K1 and K2 launched")
+        check(counts["pyfem_assemble_2d"] == len(gmg.levels)
+              and counts["pyfem_smooth_2d"] > 0
+              and counts["pyfem_assemble_2d_sym"] == 0,
+              f"{label}: K1 once per level ({len(gmg.levels)}), K2 "
+              f"launched, no K1-sym launch")
     else:
         check(counts["pyfem_elasticity_quad4"] == len(gmg.levels)
               and counts["pyfem_assemble_2d"] == 0
@@ -2377,7 +2474,7 @@ def main():
             log("  ptxas: " + line.strip())
 
     # 3, 3a, 3b. kernels vs plain
-    kres = phase_kernels(dev)
+    kres = phase_kernels(dev, _cuda.build_log)
     kres.update(phase_kernels_3d(dev, _cuda.build_log))
     kres.update(phase_kernels_otf(dev, _cuda.build_log))
     # 3c. element stiffness
@@ -2484,7 +2581,13 @@ def main():
     tpu = "pyfem_gpu_testflight_tpu/ops/"
     rows = (
         ("K1", "assemble_pack_2d", "assemble_2d.cu", "pallas_assemble.py:192",
-         c2["pyfem_assemble_2d"], "full 36-plane storage, one pass"),
+         c2["pyfem_assemble_2d"], "full 36-plane storage, one pass: "
+         "compacted weights in the constant bank (launch parameters), "
+         "materials staged once per element, two nodes a thread; from "
+         "65536 nodes at nd=2 each (a, b) block's planes staged in shared "
+         "memory and written as windows of whole 32-byte sectors, below "
+         "it (and at nd=1) 4 x 32-pair tiles storing directly (main path: "
+         "bench 2D, once per level)"),
         ("K2", "fused_sweeps_2d", "smooth_2d.cu", "pallas_smooth.py:369",
          c2["pyfem_smooth_2d"], "one stencil pass per sweep"),
         ("K3", "assemble_pack_3d", "assemble_3d.cu", "pallas_assemble.py:584",
@@ -2530,7 +2633,7 @@ def main():
         ("K1-sym", "assemble_pack_2d(sym=True)", "assemble_2d.cu",
          "pallas_assemble.py:192", cs["pyfem_assemble_2d_sym"],
          "half-symmetric storage, 19 of 36 planes (5 of 9 at nd=1), one "
-         "pass (main path: bench 2D sym, once per level)"),
+         "pass, K1's design (main path: bench 2D sym, once per level)"),
         ("K2-sym", "fused_sweeps_2d (sym planes)", "smooth_2d.cu",
          "pallas_smooth.py:369", cs["pyfem_smooth_2d_sym"],
          "half-symmetric storage, partner term by a shifted read, one "

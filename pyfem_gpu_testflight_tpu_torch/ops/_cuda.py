@@ -5,9 +5,10 @@ The sources in ``csrc/*.cu`` expose plain C entry points; at first use
 all in parallel, and links the objects into one shared library, keyed
 by a hash of the sources and flags, which is loaded with ``ctypes``.
 The library lands in ``build/pyfem_torch_kernels/`` at the root of the
-checkout; ptxas's register and spill report of the build is kept in
-:data:`build_log`.  Nothing is built or loaded at import: the CPU tests
-import every module on machines without ``nvcc``.
+checkout; ptxas's register and spill report of the build is kept beside
+it and in :data:`build_log` (also when another process built it).
+Nothing is built or loaded at import: the CPU tests import every module
+on machines without ``nvcc``.
 
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`launch` raises on a nonzero code and
@@ -47,10 +48,11 @@ _FP = ctypes.POINTER(ctypes.c_float)  # a host float array
 # C entry point -> argtypes (pointers and the stream as c_void_p: a
 # bare Python int would be passed as a 32-bit int and cut the pointer)
 _SIGNATURES = {
-    # rho, maskf, W, N, p, nd, ny, nx, coeff, invd, coeff_lp, stream
-    "pyfem_assemble_2d": (_P, _P, _P, _P, _F, _I, _I, _I, _P, _P, _P, _P),
+    # rho, maskf, table (HOST memory), table floats, p, nd, ny, nx, coeff,
+    # invd, coeff_lp, stream
+    "pyfem_assemble_2d": (_P, _P, _P, _I, _F, _I, _I, _I, _P, _P, _P, _P),
     # the same, half-symmetric storage (kept planes of sym_planes_2d)
-    "pyfem_assemble_2d_sym": (_P, _P, _P, _P, _F, _I, _I, _I, _P, _P, _P,
+    "pyfem_assemble_2d_sym": (_P, _P, _P, _I, _F, _I, _I, _I, _P, _P, _P,
                               _P),
     # coeff, coeff_bf16, invd, b, x, out, nd, ny, nx, omega, mode, stream
     "pyfem_smooth_2d": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
@@ -127,15 +129,16 @@ def _build(so):
             raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                                f"{' '.join(cmd)}\n{proc.stdout}"
                                f"{proc.stderr}")
-        os.replace(lib, so)  # atomic: concurrent builders never see half
         build_log = "".join(logs)
+        so.with_suffix(".log").write_text(build_log)
+        os.replace(lib, so)  # atomic: concurrent builders never see half
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
 def library():
     """The loaded kernel library, built on first call."""
-    global _lib
+    global _lib, build_log
     if _lib is not None:
         return _lib
     h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
@@ -144,6 +147,8 @@ def library():
     so = _BUILD_DIR / f"libpyfem_torch_kernels_{h.hexdigest()[:16]}.so"
     if not so.exists():
         _build(so)
+    elif not build_log and so.with_suffix(".log").exists():
+        build_log = so.with_suffix(".log").read_text()
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

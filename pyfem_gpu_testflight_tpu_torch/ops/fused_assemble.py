@@ -26,6 +26,8 @@ way).  The TPU packing (halo rows, 128-lane padding) is not ported.
 
 A CPU tensor takes the ``*_plain`` version; a CUDA tensor launches
 ``csrc/assemble_2d.cu`` (K1) or ``csrc/assemble_3d.cu`` (K3) or raises.
+Both kernels read W compacted to its structurally nonzero weights
+(:func:`k1_table`, :func:`k3_table`), built once per level and cached.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ __all__ = [
     "assembly_weights",
     "assemble_pack_2d",
     "assemble_pack_2d_plain",
+    "k1_table",
     "assembly_weights3d",
     "assemble_pack_3d",
     "assemble_pack_3d_plain",
@@ -125,6 +128,66 @@ def assemble_pack_2d_plain(rho, maskf, W, N, *, nd, p, lp_dtype=None,
     return coeff, invd, coeff.to(lp_dtype)
 
 
+def _holds(offset, delta):
+    """Element offset ``offset`` (per axis 0 or 1) holds both a node and
+    its neighbour ``delta - 1`` (per axis): else the plan puts no weight
+    there."""
+    return all(0 <= a + d - 1 <= 1 for a, d in zip(offset, delta))
+
+
+def _k1_rows(nd, sym):
+    """Rows ``k_full * 4 + o`` of W (as (nd*nd*9*4, nq)) that K1 reads, in
+    the order its plane loop consumes them: per (a, b) block of the 9
+    (dy, dx) planes, element offset o = ay*2 + ax outermost, then each
+    stored plane of the block (``sym_planes_2d``'s, or all) whose element
+    o holds both the node and its neighbour (the other weights are zero
+    by the stencil plan)."""
+    stored = (set(k for (k, *_r) in sym_planes_2d(nd)) if sym
+              else set(range(nd * nd * 9)))
+    rows = []
+    for blk in range(nd * nd):  # a * nd + b
+        for o in range(4):
+            for pl in range(9):
+                k = blk * 9 + pl
+                if k in stored and _holds((o >> 1, o & 1), divmod(pl, 3)):
+                    rows.append(k * 4 + o)
+    return rows
+
+
+def k1_table(W, N, nd, sym):
+    """The table ``csrc/assemble_2d.cu`` takes in its launch parameters
+    (the constant bank): the structurally nonzero weights of W (nd*nd*9,
+    4, nq) in consumption order (:func:`_k1_rows`, nq consecutive per
+    row), then N (4, 4), flat in W's dtype: 64 weights per (a, b) block in
+    full storage, 256 + 16 floats at nd=2."""
+    rows = torch.as_tensor(_k1_rows(nd, sym), device=W.device)
+    return torch.cat([W.reshape(-1, W.shape[-1])[rows].reshape(-1),
+                      N.reshape(-1)])
+
+
+_TABLES = {}
+
+
+def _cached_table(make, W, N, nd, sym):
+    """``make(W, N, nd, sym)``, built once per level and storage: keyed by
+    W's and N's address and version; the entry holds W and N, so no other
+    tensor takes their address while it is cached."""
+    key = (make, W.data_ptr(), W._version, N.data_ptr(), N._version, nd,
+           sym)
+    hit = _TABLES.get(key)
+    if hit is None:
+        if len(_TABLES) >= 64:
+            _TABLES.pop(next(iter(_TABLES)))
+        hit = _TABLES[key] = (W, N, make(W, N, nd, sym).contiguous())
+    return hit[2]
+
+
+def _k1_host_table(W, N, nd, sym):
+    """:func:`k1_table` in host memory: the one device-to-host copy of a
+    level, made at its first assembly."""
+    return k1_table(W, N, nd, sym).cpu()
+
+
 def _assemble_pack_2d_cuda(rho, maskf, W, N, *, nd, p, lp_dtype, sym):
     _check(rho, maskf, W, N, nd)
     if rho.dtype != torch.float32:
@@ -135,6 +198,7 @@ def _assemble_pack_2d_cuda(rho, maskf, W, N, *, nd, p, lp_dtype, sym):
         if not t.is_contiguous():
             raise ValueError("inputs must be contiguous")
     ny, nx = rho.shape
+    tab = _cached_table(_k1_host_table, W, N, nd, sym)
     nk = len(sym_planes_2d(nd)) if sym else nd * nd * 9
     coeff = torch.empty((nk, ny, nx), dtype=rho.dtype, device=rho.device)
     invd = torch.empty((nd, ny, nx), dtype=rho.dtype, device=rho.device)
@@ -142,10 +206,9 @@ def _assemble_pack_2d_cuda(rho, maskf, W, N, *, nd, p, lp_dtype, sym):
           torch.empty((nk, ny, nx), dtype=lp_dtype, device=rho.device))
     _cuda.launch(
         "pyfem_assemble_2d_sym" if sym else "pyfem_assemble_2d",
-        rho.data_ptr(), maskf.data_ptr(), W.data_ptr(),
-        N.data_ptr(), float(p), nd, ny, nx, coeff.data_ptr(),
-        invd.data_ptr(), None if lp is None else lp.data_ptr(),
-        _cuda.stream_ptr(rho),
+        rho.data_ptr(), maskf.data_ptr(), tab.data_ptr(), tab.numel(),
+        float(p), nd, ny, nx, coeff.data_ptr(), invd.data_ptr(),
+        None if lp is None else lp.data_ptr(), _cuda.stream_ptr(rho),
     )
     return (coeff, invd) if lp is None else (coeff, invd, lp)
 
@@ -291,8 +354,7 @@ def _k3_rows(nd, sym):
             for pl in range(9):
                 k = blk * 9 + pl
                 dy, dx = divmod(pl, 3)
-                if k in stored and all(0 <= a + d - 1 <= 1 for a, d in
-                                       ((az, dz), (ay, dy), (ax, dx))):
+                if k in stored and _holds((az, ay, ax), (dz, dy, dx)):
                     rows.append(k * 8 + o)
     return rows
 
@@ -307,22 +369,6 @@ def k3_table(W, N, nd, sym):
                       N.reshape(-1)])
 
 
-_K3_TABLES = {}
-
-
-def _k3_device_table(W, N, nd, sym):
-    """:func:`k3_table`, built once per level and storage: keyed by W's
-    and N's address and version; the entry holds W and N, so no other
-    tensor takes their address while it is cached."""
-    key = (W.data_ptr(), W._version, N.data_ptr(), N._version, nd, sym)
-    hit = _K3_TABLES.get(key)
-    if hit is None:
-        if len(_K3_TABLES) >= 32:
-            _K3_TABLES.pop(next(iter(_K3_TABLES)))
-        hit = _K3_TABLES[key] = (W, N, k3_table(W, N, nd, sym).contiguous())
-    return hit[2]
-
-
 def _assemble_pack_3d_cuda(rho, maskf, W, N, *, nd, p, lp_dtype, sym):
     _check3d(rho, maskf, W, N, nd)
     if rho.dtype != torch.float32:
@@ -333,7 +379,7 @@ def _assemble_pack_3d_cuda(rho, maskf, W, N, *, nd, p, lp_dtype, sym):
         if not t.is_contiguous():
             raise ValueError("inputs must be contiguous")
     nz, ny, nx = rho.shape
-    tab = _k3_device_table(W, N, nd, sym)
+    tab = _cached_table(k3_table, W, N, nd, sym)
     nk = len(sym_planes_3d(nd)) if sym else nd * nd * 27
     coeff = torch.empty((nk, nz, ny, nx), dtype=rho.dtype, device=rho.device)
     invd = torch.empty((nd, nz, ny, nx), dtype=rho.dtype, device=rho.device)

@@ -9,7 +9,13 @@ plain XLA path (the JAX package's own tests hold its Pallas kernel to
 that path).  Inverse diagonals are compared on free dofs only: the port
 stores ``rowm / diag`` (0 at fixed dofs), the XLA ``Level`` ``1 / diag``.
 The port's own ``Stencil2D``, the plain reference, is held to the JAX
-one method by method, and to plain K1.
+one method by method, and to plain K1.  The table the CUDA kernel takes
+in its launch parameters (``fused_assemble.k1_table``: the structurally
+nonzero weights in the order its unrolled plane loop consumes them, then
+N), contracted in the kernel's order (per (a, b) block of 9 planes,
+element offset o outermost), equals the dense weights of the JAX
+package's ``assembly_weights`` applied to the same random materials, as
+plain K1 applies them (nd 2 and 1, both storages, 1e-12 in float64).
 """
 
 import numpy as np
@@ -19,9 +25,11 @@ import pytest
 import torch
 
 from pyfem_gpu_testflight_tpu import multigrid as jmg
+from pyfem_gpu_testflight_tpu.ops import pallas_assemble as jpa
 
 from pyfem_gpu_testflight_tpu_torch import multigrid as tmg
 from pyfem_gpu_testflight_tpu_torch.ops import fused_assemble as fa
+from pyfem_gpu_testflight_tpu_torch.ops import fused_smooth as fs
 
 import torch_threads  # noqa: F401  (one torch thread per worker)
 
@@ -163,3 +171,44 @@ def test_hierarchy_levels_match_xla():
     jinv = np.asarray(jinv)
     tinv = gmg.levels[-1].dense_inv.numpy()
     assert np.abs(tinv - jinv).max() <= 1e-10 * np.abs(jinv).max()
+
+
+@pytest.mark.parametrize("sym", [False, True])
+@pytest.mark.parametrize("physics", ["elasticity", "poisson"])
+def test_k1_table_contracted_as_the_kernel_matches_dense_weights(physics,
+                                                                sym):
+    ja = jmg.GMGAssembler(NX, NY, 2.0, 1.0, physics, p=3.0,
+                          dtype=jnp.float64)
+    op, _xe, _conn, _mask, _shape, Kq, _pal = ja.static_levels[0]
+    nd = ja.nd
+    W = np.asarray(jpa.assembly_weights(op.plan, np.asarray(Kq), nd, 4))
+    N = np.array(ja.N)
+    tab = fa.k1_table(torch.as_tensor(W), torch.as_tensor(N), nd,
+                      sym).numpy()
+    planes = ([k for (k, *_r) in fs.sym_planes_2d(nd)] if sym
+              else list(range(nd * nd * 9)))
+    # 4 o x 4 q materials of 64 random nodes; dense: every weight of W,
+    # contracted as assemble_pack_2d_plain contracts it
+    S = np.random.default_rng(5).uniform(0.1, 1.0, (64, 4, 4))
+    dense = W[planes].reshape(len(planes), 16) @ S.reshape(64, 16).T
+    # the kernel: per (a, b) block of 9 (dy, dx) planes, per element
+    # offset o, per stored plane of the block whose element o holds both
+    # the node and its neighbour, the next 4 weights against Cq[o][0..3]
+    got = np.zeros_like(dense)
+    slot = {k: i for i, k in enumerate(planes)}
+    wi = 0
+    for blk in range(nd * nd):
+        for o in range(4):
+            for pl in range(9):
+                k = blk * 9 + pl
+                if k in slot and all(0 <= a + d - 1 <= 1 for a, d in
+                                     ((o >> 1, pl // 3), (o & 1, pl % 3))):
+                    got[slot[k]] += S[:, o] @ tab[wi:wi + 4]
+                    wi += 4
+    assert wi == tab.size - 16
+    assert np.array_equal(tab[wi:], N.reshape(-1))
+    assert np.abs(got - dense).max() <= 1e-12 * np.abs(dense).max()
+    # every structurally nonzero weight of the stored planes, once
+    assert np.count_nonzero(tab[:wi]) == np.count_nonzero(W[planes])
+    if not sym:
+        assert wi == 64 * nd * nd

@@ -1,7 +1,9 @@
 """PyTorch port: the CUDA kernels against their plain versions on the card.
 
-K1 and K2 on a 65x33 level; K3, K4 (every mode, f32 and bf16 planes)
-and K5 on a 17^3 level, in half-symmetric and full coefficient storage;
+K1 and K1-sym on every level of bench 2D (1025x513..9x5) and on ragged
+grids down to 3x3, nd 2 and 1; K2 on a 65x33 level; K3, K4 (every mode,
+f32 and bf16 planes) and K5 on a 17^3 level, in half-symmetric and full
+coefficient storage;
 K3 on every level of bench 3D (65^3..3^3) and on ragged and wide grids,
 both storages, nd 3 and 1; K8 on a ragged last element group and one
 element in every form, and ``element_jacobian(kernel="cuda")`` handing
@@ -13,8 +15,8 @@ in every form (quad4, hex8, tet10, brick20; elasticity and Poisson) on
 jittered meshes, the determinism of the matrix-free operator and of a
 CG solve, ``kernel="cuda"`` never taking a plain version on a CUDA
 tensor, the 2D ``elem_path="cuda"`` hierarchy against the uniform
-one, K9 (nd 1 and 2, float32 and float64), K1-sym and K2-sym (every
-mode) on 65x33, 17x9 and 13x7 grids, and three ``DeviceTopo``
+one, K9 (nd 1 and 2, float32 and float64), K2-sym (every mode) on
+65x33 and 13x7 grids, and three ``DeviceTopo``
 iterations at 65x33 with a bit-for-bit resume (chip_smoke.py phases
 3-3e and 7 hold them at full size).
 
@@ -64,22 +66,58 @@ def _rel(got, ref):
                  / ref.float().abs().max())
 
 
-def test_k1_matches_plain_on_card(level):
+# K1 / K1-sym grids (nx, ny): bench 2D's levels 1025x513..9x5 (nx and ny
+# odd, so every plane starts at another alignment); the tile form
+# (nd = 1, and below 65536 nodes): 3x3, even widths (4x3, 66x9), a row of
+# exactly one tile of 32 node pairs (64x5), one pair past it (66x9,
+# 130x7), a lone node closing each row (13x7, 2049x3), a tall strip
+# (3x600); the window form (nd = 2 from 65536 nodes) on ragged grids: an
+# even width (1000x70), odd and prime sizes (331x211), rows of 40000
+# nodes (40000x2) and rows of 3 (3x30000, a block spans 86 rows)
+_K1_GRIDS = [((1024 >> i) + 1, (512 >> i) + 1) for i in range(8)] + [
+    (3, 3), (4, 3), (13, 7), (64, 5), (66, 9), (130, 7), (2049, 3),
+    (3, 600), (1000, 70), (331, 211), (40000, 2), (3, 30000)]
+
+
+def _k1_case(dev, shape, nd, sym):
+    """K1 in one storage: one launch, planes and free inverse diagonal
+    within 1e-5 of max|plain|, 0 at fixed dofs, the bf16 copy its f32
+    planes rounded, a repeat call bit-identical."""
+    from pyfem_gpu_testflight_tpu_torch import multigrid
     from pyfem_gpu_testflight_tpu_torch.ops import _cuda
     from pyfem_gpu_testflight_tpu_torch.ops import fused_assemble as fa
+    from pyfem_gpu_testflight_tpu_torch.ops import fused_smooth as fs
 
-    a, st, rho, _ = level
+    nx, ny = shape
+    a = multigrid.GMGAssembler(nx, ny, 2.0, 1.0,
+                               "elasticity" if nd == 2 else "poisson",
+                               p=3.0, device=dev, min_n=nx + ny)
+    st = a.static_levels[0]
+    rho = torch.as_tensor(np.random.default_rng(4).uniform(
+        0.2, 1.0, (ny, nx)), dtype=torch.float32, device=dev)
     args = (rho, st.maskf, st.W, a.N)
-    n0 = _cuda.launches["pyfem_assemble_2d"]
-    ck, dk, lk = fa.assemble_pack_2d(*args, nd=2, p=3.0,
-                                     lp_dtype=torch.bfloat16)
-    cp, dp = fa.assemble_pack_2d_plain(*args, nd=2, p=3.0)
+    kw = dict(nd=nd, p=3.0, lp_dtype=torch.bfloat16, sym=sym)
+    name = "pyfem_assemble_2d_sym" if sym else "pyfem_assemble_2d"
+    n0 = _cuda.launches[name]
+    ck, dk, lk = fa.assemble_pack_2d(*args, **kw)
+    cp, dp, _ = fa.assemble_pack_2d_plain(*args, **kw)
     torch.cuda.synchronize()
-    assert _cuda.launches["pyfem_assemble_2d"] == n0 + 1
+    assert _cuda.launches[name] == n0 + 1
+    assert ck.shape == cp.shape
+    assert ck.shape[0] == (len(fs.sym_planes_2d(nd)) if sym else nd * nd * 9)
     free = st.maskf > 0
     assert _rel(ck, cp) <= TOL
     assert _rel(dk[free], dp[free]) <= TOL
+    assert bool((dk[~free] == 0).all())
     assert torch.equal(lk, ck.to(torch.bfloat16))
+    again = fa.assemble_pack_2d(*args, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(again, (ck, dk, lk)))
+
+
+@pytest.mark.parametrize("nd", [1, 2])
+@pytest.mark.parametrize("shape", _K1_GRIDS)
+def test_k1_matches_plain_on_card(dev, nd, shape):
+    _k1_case(dev, shape, nd, sym=False)
 
 
 @pytest.mark.parametrize("variant", ["pre_bf16", "post_f32", "matvec"])
@@ -853,31 +891,9 @@ def test_k9_matches_plain_on_card(dev, nd, dtype, shape):
 
 
 @pytest.mark.parametrize("nd", [1, 2])
-@pytest.mark.parametrize("shape", [(NY, NX), (9, 17), (7, 13)])
+@pytest.mark.parametrize("shape", _K1_GRIDS)
 def test_k1_sym_matches_plain_on_card(dev, nd, shape):
-    from pyfem_gpu_testflight_tpu_torch import multigrid
-    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
-    from pyfem_gpu_testflight_tpu_torch.ops import fused_assemble as fa
-
-    ny, nx = shape
-    a = multigrid.GMGAssembler(nx, ny, 2.0, 1.0,
-                               "elasticity" if nd == 2 else "poisson",
-                               p=3.0, device=dev)
-    st = a.static_levels[0]
-    rho = torch.as_tensor(np.random.default_rng(4).uniform(0.2, 1.0, shape),
-                          dtype=torch.float32, device=dev)
-    args = (rho, st.maskf, st.W, a.N)
-    kw = dict(nd=nd, p=3.0, lp_dtype=torch.bfloat16, sym=True)
-    n0 = _cuda.launches["pyfem_assemble_2d_sym"]
-    ck, dk, lk = fa.assemble_pack_2d(*args, **kw)
-    cp, dp, _ = fa.assemble_pack_2d_plain(*args, **kw)
-    torch.cuda.synchronize()
-    assert _cuda.launches["pyfem_assemble_2d_sym"] == n0 + 1
-    assert ck.shape[0] == (19 if nd == 2 else 5)
-    free = st.maskf > 0
-    assert _rel(ck, cp) <= TOL
-    assert _rel(dk[free], dp[free]) <= TOL
-    assert torch.equal(lk, ck.to(torch.bfloat16))
+    _k1_case(dev, shape, nd, sym=True)
 
 
 @pytest.mark.parametrize("nd", [1, 2])
