@@ -12,7 +12,10 @@ on K9, GMG state solves, MMA; ``opt.DeviceTopo``), the 3D hex8 GMG-PCG
 solve at 65^3 nodes (823,875 dof) on its assembled route, its
 on-the-fly route and with full coefficient storage, and the
 general-mesh element path (K8 element stiffness, matrix-free
-Jacobi-PCG) on a jittered 65^3 hex8 mesh — and checks the answers
+Jacobi-PCG) on a jittered 65^3 hex8 mesh, and the nonlinear Poisson
+Newton solve at 1025^2 (1,050,625 dof; GMRES on K9's tangent planes,
+a V-cycle of K1 levels and K2 smoothing as its preconditioner) — and
+checks the answers
 against float64 and scipy references.  Exits nonzero on any
 failure; on success the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -103,12 +106,27 @@ Phases:
    peak memory, the first iteration's float32 compliance against a
    float64-outer solve, and a run resumed at iteration 2 against the
    uninterrupted one, bit for bit;
+8. "newton": ``bench.py --config newton`` at its width (1025^2 quad4,
+   1,050,625 dof, float32, ``NonlinearPoisson.solve_nonlinear_fused(
+   method="gmg")``: tol 2e-2, GMRES rtol 1e-2 and at most 40 iterations,
+   at most 12 Newton iterations): Newton and GMRES iterations, the
+   float64 true residual ratio, K1/K2/K9 launches (K9's float32 and
+   float64 forms apart) and host read-backs, K1 on every level of the
+   iterate's coefficient field, K2 on its finest level and K9 on the
+   nonsymmetric tangent planes (float32) and the flux (float64) against
+   their plain versions, single-shot and chained times, CUDA-event
+   stage times of every Newton iteration, busy share, peak memory, and
+   the 257^2 float32 solution against a float64 direct Newton
+   (``NEWTON64_TOL``);
 
 ``python3 chip_smoke.py --pass-levels [--root DIR]`` runs only
 ``pass_levels`` on the package under DIR (default: this checkout), so a
 checkout of another commit is timed on the same inputs in the same call;
 ``--solution-floor [--root DIR]`` likewise runs only ``solution_floor``,
-the readings ``SOL64_TOL`` is set from; ``--assembly-kernels [--root
+the readings ``SOL64_TOL`` is set from; ``--newton-floor`` only phase
+8's 257^2 yardstick on four design vectors, the readings
+``NEWTON64_TOL`` is set from; ``--newton`` only phase 8;
+``--assembly-kernels [--root
 DIR]`` only ``assembly_kernels``: K1 on every level of bench 2D
 (1025x513 down to 9x5) in both storages at nd 2 and 1, bench 2D's and
 bench 2D sym's assemble+solve, K3 on every level of bench 3D (65^3
@@ -2339,6 +2357,397 @@ def phase_topo(dev, pt, i2p):
                 k9_per_iter=n_k9 / TOPO_ITERS, mem=mem, cg=cg)
 
 
+NEWTON_N = 1025      # bench.py --config newton: 1025^2 nodes, 1,050,625 dof
+NEWTON_YARD_N = 257  # the float64 yardstick's grid (host SuperLU tangents)
+# bench newton's contract (bench.py:230-260, :733-746): relative Newton
+# tolerance 2e-2 on the float64 true residual, GMRES rtol 1e-2 and at most
+# 40 iterations per tangent solve, at most 12 Newton iterations
+NEWTON_KW = dict(tol=2e-2, atol=0.0, lin_rtol=1e-2, lin_maxiter=40,
+                 max_iter=12, verbose=False)
+# the 257^2 float32 fused gmg solution against the float64 direct Newton
+# solution, rel L2.  Set from ``--newton-floor`` on an H100 (PERF.md
+# section 2): the bench design vector reads 1.53e-3, three seeded ones
+# 2.2e-4..4.1e-4, each after 5 Newton iterations
+NEWTON64_TOL = 3e-3
+
+
+def newton_model(pt, dev, n, dtype):
+    """bench newton's model (bench.py:240-253): the creator's Poisson
+    raster, ``attach_structured_grid`` with the bench's default
+    Chebyshev-node damping."""
+    conn, X, fixed = pt.ProblemCreator(n, n).create_poisson_problem()
+    m = pt.NonlinearPoisson("quad4", X, conn, fixed, dtype=dtype, device=dev)
+    return m.attach_structured_grid(n, n, omega="cheby")
+
+
+def newton_yardstick(dev, pt, xdv):
+    """The float32 fused gmg Newton at the bench contract against a
+    float64 ``solve_nonlinear(method="direct")`` (host SuperLU tangents,
+    tol 1e-10) at NEWTON_YARD_N^2: (rel L2 difference, Newton iterations
+    of each)."""
+    import torch
+
+    n = NEWTON_YARD_N
+    m64 = newton_model(pt, dev, n, torch.float64)
+    u64 = m64.solve_nonlinear(method="direct", xdv=xdv, tol=1e-10,
+                              verbose=False)
+    m32 = newton_model(pt, dev, n, torch.float32)
+    u32, k32, _rn = m32.solve_nonlinear_fused(method="gmg", xdv=xdv,
+                                              **NEWTON_KW)
+    err = float(torch.linalg.norm(u32.double() - u64)
+                / torch.linalg.norm(u64))
+    return err, k32
+
+
+def run_newton_floor():
+    """``python3 chip_smoke.py --newton-floor``: the 257^2 yardstick of
+    phase 8 on the bench design vector and three seeded ones, the
+    readings ``NEWTON64_TOL`` is set from; prints the card and one JSON
+    line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    import pyfem_gpu_testflight_tpu_torch as pt
+
+    log(card_line())
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(SEED + 8)
+    out = {}
+    for name, xdv in [("bench", np.ones(10) / 10)] + [
+            (f"seed{s}", rng.uniform(0.0, 1.0, 10)) for s in (1, 2, 3)]:
+        err, k = newton_yardstick(dev, pt, xdv)
+        log(f"newton yardstick {name}: rel L2 {err:.3e}, {k} Newton "
+            f"iterations (float32 fused gmg)")
+        out[name] = err
+    log(json.dumps({"newton_rel_l2": out}))
+    return 0
+
+
+def run_newton():
+    """``python3 chip_smoke.py --newton``: only phase 8 (with the kernel
+    build); prints the card and one JSON line of its kernel rows."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    import pyfem_gpu_testflight_tpu_torch as pt
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+
+    log(card_line())
+    t0 = time.time()
+    _cuda.library()
+    log(f"build: {time.time() - t0:.2f} s")
+    out = phase_newton(torch.device("cuda", 0), pt)
+    log(json.dumps({"newton_kernels": out["kernels"],
+                    "launches": out["counts"], "k9": out["k9"]}))
+    return 1 if FAILS else 0
+
+
+def phase_newton(dev, pt):
+    """Phase 8: ``bench.py --config newton`` (bench.py:213-316) on the
+    card: ``NonlinearPoisson("quad4", float32)`` on the 1025^2 creator
+    raster, ``attach_structured_grid`` (Chebyshev-node damping, the
+    bench's default), ``solve_nonlinear_fused(method="gmg", xdv=1/10,
+    tol=2e-2, atol=0, lin_rtol=1e-2, lin_maxiter=40, max_iter=12)``.
+    Checks convergence (<= 12 Newton iterations, the float64 true
+    residual ratio <= 2e-2), the kernels launched on the path (K1 once
+    per level per tangent solve, K2, K9 in float32 and float64) and K1,
+    K2 and K9 against their plain versions on the path's own inputs;
+    times single-shot (median of 3) and chained (depth 4 against 12, u0
+    = 0 * u_prev as bench.py:276-303), splits a Newton iteration into its
+    stages (CUDA events through the model's ``mark`` hook), and reads the
+    busy share, the peak memory and the float64 yardstick at 257^2."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from pyfem_gpu_testflight_tpu_torch import solvers
+    from pyfem_gpu_testflight_tpu_torch.models.nonlinear_poisson import hfunc
+    from pyfem_gpu_testflight_tpu_torch.multigrid import (
+        _restrict_nodal, smoothing_omegas,
+    )
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+    from pyfem_gpu_testflight_tpu_torch.ops import fused_assemble as fa
+    from pyfem_gpu_testflight_tpu_torch.ops import fused_smooth as fs
+    from pyfem_gpu_testflight_tpu_torch.ops import stencil_matvec as sm
+
+    n = NEWTON_N
+    t0 = time.time()
+    model = newton_model(pt, dev, n, torch.float32)
+    asm = model._gmg_newton
+    nlev = len(asm.static_levels)
+    xdv = torch.full((10,), 0.1, dtype=torch.float32, device=dev)
+    solve = lambda u0: model.solve_nonlinear_fused(method="gmg", xdv=xdv,
+                                                   u0=u0, **NEWTON_KW)
+    torch.cuda.synchronize()
+    log(f"newton: {model.ndof} dof, float32, levels {asm.sizes}, set-up "
+        f"{time.time() - t0:.2f} s")
+    t0 = time.time()
+    u, k, rn = solve(None)
+    torch.cuda.synchronize()
+    log(f"newton: first (cold) solve {time.time() - t0:.3f} s host clock")
+
+    # the counted run: every count zeroed just before, read just after;
+    # K9's two forms told apart by its float64 flag
+    names = ("pyfem_assemble_2d", "pyfem_smooth_2d", "pyfem_stencil_2d",
+             "pyfem_assemble_2d_sym", "pyfem_smooth_2d_sym")
+    k9 = {0: 0, 1: 0}
+    launch = _cuda.launch
+
+    def counting(name, *a):
+        launch(name, *a)
+        if name == "pyfem_stencil_2d":
+            k9[int(a[6])] += 1
+
+    rb0 = dict(solvers.readbacks)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    _cuda.reset_launches()
+    _cuda.launch = counting
+    try:
+        e0.record()
+        u, k, rn = solve(0.0 * u)
+        e1.record()
+        e1.synchronize()
+    finally:
+        _cuda.launch = launch
+    counts = {name: _cuda.launches[name] for name in names}
+    single0 = e0.elapsed_time(e1)
+    st = dict(model.last_solve_stats)
+    rb = {key: solvers.readbacks[key] - rb0[key] for key in rb0}
+    ratio = st["resnorms"][-1] / st["resnorms"][0]
+    r_end = float(model._uniform_residual_f64(xdv, u)[1])
+    r_0 = float(model._uniform_residual_f64(xdv, torch.zeros_like(u))[1])
+    log(f"newton: {k} Newton iterations, GMRES iterations per tangent "
+        f"solve {st['lin_iters']}, float64 residual norms "
+        f"{['%.4e' % v for v in st['resnorms']]}; true residual ratio "
+        f"{ratio:.4e} (recomputed {r_end / r_0:.4e}); read-backs: Newton "
+        f"{rb['newton']}, GMRES {rb['gmres']}; launches {counts}, K9 "
+        f"float32 {k9[0]}, float64 {k9[1]}; {single0:.1f} ms")
+    check(k <= 12 and bool(torch.isfinite(u).all())
+          and u.shape == (model.ndof,), "newton: converged within 12 "
+          "Newton iterations, solution finite, shape (ndof,)")
+    check(ratio <= 2e-2 and r_end / r_0 <= 2e-2,
+          "newton: float64 true residual ratio <= 2e-2")
+    check(counts["pyfem_assemble_2d"] == nlev * (k - 1)
+          and counts["pyfem_smooth_2d"] > 0 and k9[0] > 0 and k9[1] == k
+          and counts["pyfem_assemble_2d_sym"] == 0
+          and counts["pyfem_smooth_2d_sym"] == 0,
+          f"newton: K1 once per level ({nlev}) per tangent solve, K2 "
+          f"launched, K9 float32 launched and float64 once per Newton "
+          f"iteration, no half-storage launch")
+
+    # K1, K2, K9 against their plain versions on the path's inputs: the
+    # iterate's coefficient field on every level, the finest level's
+    # smoothing call on its residual, the eliminated nonsymmetric tangent
+    # planes and the float64 flux
+    res = {}
+    mask0 = asm.static_levels[0].mask
+    c = (hfunc(xdv, model.X) * (1.0 + u * u)).reshape(n, n).contiguous()
+    log(f"newton: coefficient field c = h(1+u^2) in [{float(c.min()):.4f}, "
+        f"{float(c.max()):.4f}]")
+    rho, worst = c, 0.0
+    for lv, stl in enumerate(asm.static_levels):
+        args = (rho, stl.maskf, stl.W, asm.N)
+        kw = dict(nd=1, p=0.0)
+        got = fa.assemble_pack_2d(*args, **kw)
+        ref = fa.assemble_pack_2d_plain(*args, **kw)
+        torch.cuda.synchronize()
+        free = stl.maskf > 0
+        (ea, er), (ia, ir) = rel_err(got[0], ref[0]), rel_err(got[1], ref[1],
+                                                               free)
+        worst = max(worst, ea, ia)
+        check(er <= REL_TOL and ir <= REL_TOL
+              and bool((got[1][~free] == 0).all()),
+              f"newton K1 level {stl.shape[1]}x{stl.shape[0]} on c: planes "
+              f"rel {er:.2e}, inv_diag rel {ir:.2e} within {REL_TOL:g}")
+        if lv == 0:
+            b_ms, b_by = bound(nbytes(*args, *got), k1_flops(1, False,
+                                                            rho.numel()))
+            res["K1"] = dict(ms=cuda_ms(lambda: fa.assemble_pack_2d(
+                *args, **kw), 50), device_ms=device_ms(
+                lambda: fa.assemble_pack_2d(*args, **kw)),
+                plain_ms=cuda_ms(lambda: fa.assemble_pack_2d_plain(
+                    *args, **kw), 10), bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+            fine = got
+        rho = _restrict_nodal(rho)
+    res["K1"]["max_abs_err"] = worst
+
+    r32, _ = model._uniform_residual_f64(xdv, u)
+    b = torch.where(mask0, 0.0, r32.reshape(1, n, n))
+    ck, dk = fine[0], fine[1]
+    worst = 0.0
+    om = smoothing_omegas(2, asm.cheb_lam, asm.cheb_frac)
+    for name, (a, kw) in {
+            "presmooth_resid": ((ck, dk, b, None),
+                                dict(niter=2, want_resid=True, omega=om)),
+            "matvec": ((ck, dk, None, b),
+                       dict(niter=0, want_resid=True, neg_resid=True))
+    }.items():
+        got = fs.fused_sweeps_2d(*a, **kw)
+        ref = fs.fused_sweeps_2d_plain(*a, **kw)
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        errs = [rel_err(g, r) for g, r in zip(got, ref)]
+        worst = max([worst] + [e[0] for e in errs])
+        check(all(e[1] <= REL_TOL for e in errs),
+              f"newton K2 {name} nd=1 {n}x{n} within {REL_TOL:g} (rel "
+              + ", ".join(f"{e[1]:.2e}" for e in errs) + ")")
+        if name == "matvec":
+            b_ms, b_by = bound(nbytes(ck, b) + nbytes(b), 2 * 9 * n * n)
+            res["K2"] = dict(
+                ms=cuda_ms(lambda: fs.fused_sweeps_2d(*a, **kw), 50),
+                device_ms=device_ms(lambda: fs.fused_sweeps_2d(*a, **kw)),
+                plain_ms=cuda_ms(lambda: fs.fused_sweeps_2d_plain(*a, **kw),
+                                 10), bound_ms=b_ms, bound_by=b_by,
+                library_ms=library_matvec_ms(ck.reshape(1, 1, 3, 3, n, n),
+                                             (n, n), b))
+    res["K2"]["max_abs_err"] = worst
+
+    cs, cr = model._uniform_tangent_coeffs(xdv, u.reshape(n, n))
+    ce = asm.static_levels[0].op.bc_eliminate(cs + cr, mask0)
+    asym = float((ce[0, 0, 1, 2, :, :-1] - ce[0, 0, 1, 0, :, 1:]).abs().max())
+    log(f"newton: tangent planes nonsymmetric by {asym:.3e} (east vs the "
+        f"east neighbour's west coefficient)")
+    check(asym > 0, "newton: the eliminated tangent planes are nonsymmetric")
+    for name, (cc, v) in (("nd1_f32_tangent", (ce, b)),
+                          ("nd1_f64_flux", (cs.double(),
+                                            u.double().reshape(1, n, n)))):
+        got = sm.stencil_matvec_2d(cc, v)
+        ref = sm.stencil_matvec_2d_plain(cc, v)
+        torch.cuda.synchronize()
+        ea, er = rel_err(got, ref)
+        check(er <= REL_TOL and got.dtype == v.dtype,
+              f"newton K9 {name} {n}x{n} within {REL_TOL:g} (rel {er:.2e})")
+        f64 = v.dtype == torch.float64
+        b_ms, b_by = bound(nbytes(cc, v, got), 2 * 9 * n * n,
+                           F64_FLOP_S if f64 else F32_FLOP_S)
+        res[f"K9 {name}"] = dict(
+            max_abs_err=ea, ms=cuda_ms(lambda: sm.stencil_matvec_2d(cc, v),
+                                       50),
+            device_ms=device_ms(lambda: sm.stencil_matvec_2d(cc, v)),
+            plain_ms=cuda_ms(lambda: sm.stencil_matvec_2d_plain(cc, v), 10),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=library_matvec_ms(cc, (n, n), v, dtype=v.dtype))
+    for key, r in res.items():
+        log(f"newton {key} nd=1 {n}x{n}: kernel {r['ms']:.4f} ms (device "
+            f"{fms(r['device_ms'])}), plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), one-call PyTorch "
+            + ("none" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms"))
+    del cs, cr, ce, fine, ck, dk
+
+    # times: single-shot (median of 3) and chained, u0 = 0 * u_prev
+    singles = []
+    for _ in range(3):
+        e0.record()
+        u, k, rn = solve(0.0 * u)
+        e1.record()
+        e1.synchronize()
+        singles.append(e0.elapsed_time(e1))
+    single = float(np.median(singles))
+
+    def chained(depth):
+        nonlocal u
+        e0.record()
+        for _ in range(depth):
+            u = solve(0.0 * u)[0]
+        e1.record()
+        e1.synchronize()
+        return e0.elapsed_time(e1)
+
+    t4, t12 = chained(4), chained(12)
+    ch = (t12 - t4) / 8
+    log(f"newton: single-shot {['%.1f' % v for v in singles]} ms (median "
+        f"{single:.1f}); chained depth 4 {t4:.1f} ms, 12 {t12:.1f} ms: "
+        f"{ch:.1f} ms/solve")
+
+    # one solve's Newton iterations split by stage (CUDA events)
+    events = []
+
+    def mark(stage):
+        events.append((stage, torch.cuda.Event(enable_timing=True)))
+        events[-1][1].record()
+
+    model.mark = mark
+    rb0 = dict(solvers.readbacks)
+    e0.record()
+    u, k, rn = solve(0.0 * u)
+    torch.cuda.synchronize()
+    model.mark = None
+    rbs = {key: solvers.readbacks[key] - rb0[key] for key in rb0}
+    per_it, prev, cur = [], e0, {}
+    for stage, ev in events:
+        cur[stage] = prev.elapsed_time(ev)
+        prev = ev
+        if stage in ("update",):
+            per_it.append(cur)
+            cur = {}
+    per_it.append(cur)  # the converged iteration: its residual only
+    lin = model.last_solve_stats["lin_iters"]
+    for i, d in enumerate(per_it):
+        log(f"newton iteration {i}: " + ", ".join(
+            f"{s_} {v:.2f} ms" for s_, v in d.items())
+            + (f" ({lin[i]} GMRES iterations)" if i < len(lin) else ""))
+    tot = {s_: sum(d.get(s_, 0.0) for d in per_it)
+           for s_ in ("residual", "tangent", "hierarchy", "gmres", "update")}
+    whole = sum(tot.values())
+    log(f"newton stages of one solve ({k} iterations, {sum(lin)} GMRES "
+        f"iterations, read-backs {rbs['newton']} Newton + {rbs['gmres']} "
+        f"GMRES): " + ", ".join(f"{s_} {v:.1f} ms ({100 * v / whole:.1f}%)"
+                               for s_, v in tot.items())
+        + f"; per GMRES iteration {tot['gmres'] / max(sum(lin), 1):.2f} ms")
+
+    # busy share and peak memory of one solve
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        u, k, rn = solve(0.0 * u)
+        torch.cuda.synchronize()
+    rows = [r for r in prof.key_averages() if dev_us(r) > 0]
+    busy_ms = sum(dev_us(r) for r in rows) / 1e3
+    if rows:
+        DEVICE_MS["newton"] = busy_ms
+        log(f"newton profile: {sum(r.count for r in rows)} device activities "
+            f"in one solve, device time {busy_ms:.3f} ms = "
+            f"{100 * busy_ms / single:.1f}% of the unprofiled single-shot "
+            f"{single:.1f} ms")
+        for r in sorted(rows, key=dev_us, reverse=True)[:8]:
+            log(f"  {dev_us(r) / 1e3:9.3f} ms {r.count:6d}x  {r.key[:90]}")
+        # the port's kernels by symbol, as the profiler names them
+        for sym in ("assemble_2d", "smooth_2d_kernel",
+                    "stencil_2d_kernel<1, float>",
+                    "stencil_2d_kernel<1, double>"):
+            hit = [r for r in rows if sym in r.key]
+            log(f"newton profile: {sym}: {sum(r.count for r in hit)} "
+                f"launches, {sum(dev_us(r) for r in hit) / 1e3:.3f} ms")
+    else:
+        log("newton profile: no device time recorded (busy share not "
+            "measured)")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    u, k, rn = solve(0.0 * u)
+    torch.cuda.synchronize()
+    mem = torch.cuda.max_memory_allocated() - base
+    log(f"newton: peak device memory of one solve {mem / 2**20:.1f} MiB "
+        f"above the {base / 2**20:.1f} MiB allocated before it")
+
+    # the float64 yardstick at 257^2
+    t0 = time.time()
+    err, k32 = newton_yardstick(dev, pt, np.ones(10) / 10)
+    log(f"newton yardstick {NEWTON_YARD_N}x{NEWTON_YARD_N}: float32 fused "
+        f"gmg ({k32} Newton iterations) vs float64 direct Newton: rel L2 "
+        f"{err:.3e} ({time.time() - t0:.1f} s)")
+    check(err <= NEWTON64_TOL, f"newton: the {NEWTON_YARD_N}^2 float32 "
+          f"solution within {NEWTON64_TOL:g} (rel L2) of the float64 one")
+    return dict(kernels=res, counts=counts, k9=k9, k=k, single=single,
+                ch=ch, mem=mem, ratio=ratio)
+
+
 def phase_direct(dev, pt):
     """Phase 6b: host scipy direct solves against the card's CG on small
     jittered meshes (quad4 257x129 both models; tet10 and brick20 on a
@@ -2575,6 +2984,8 @@ def main():
 
     # 7. topology optimization at the bench width
     topo = phase_topo(dev, pt, i2p)
+    # 8. the nonlinear Poisson Newton solve at the bench newton width
+    newton = phase_newton(dev, pt)
 
     # summary
     src = "pyfem_gpu_testflight_tpu_torch/csrc/"
@@ -2686,12 +3097,34 @@ def main():
         if key == "K9":
             row["launches_per_mma_iteration"] = topo["k9_per_iter"]
             row["forms"] = r["forms"]
+        # phase 8's counts (its main path: bench newton) and its nd=1
+        # forms at 1025^2 on the path's own inputs
+        nk = newton["kernels"]
+        if key == "K1":
+            row["launches_newton"] = newton["counts"]["pyfem_assemble_2d"]
+            row["newton_nd1"] = nk["K1"]
+        if key == "K2":
+            row["launches_newton"] = newton["counts"]["pyfem_smooth_2d"]
+            row["newton_nd1"] = nk["K2"]
+        if key == "K9":
+            row["launches_newton"] = dict(f32=newton["k9"][0],
+                                          f64=newton["k9"][1])
+            row["newton_nd1"] = {k_[3:]: v for k_, v in nk.items()
+                                 if k_.startswith("K9 ")}
+        if key in ("K1", "K2", "K9"):
+            row["max_abs_err"] = max([row["max_abs_err"]] + [
+                v["max_abs_err"] for k_, v in nk.items()
+                if k_.split()[0] == key])
         kernels.append(row)
     if FAILS:
         print("chip_smoke FAILED:\n  " + "\n  ".join(FAILS), file=sys.stderr)
         return 1
     log(f"topo: {topo['s_per_iter']:.4f} s per MMA iteration at "
         f"{NX}x{NY} ({card})")
+    log(f"newton: {newton['k']} Newton iterations, single-shot "
+        f"{newton['single']:.1f} ms, chained {newton['ch']:.1f} ms/solve, "
+        f"true residual ratio {newton['ratio']:.3e}, peak memory "
+        f"{newton['mem'] / 2**20:.1f} MiB at {NEWTON_N}x{NEWTON_N} ({card})")
     log(f"2D single-shot {s2:.3f} ms, chained {ch2:.3f} ms/solve; 3D "
         f"single-shot {m3['single_ms']:.3f} ms, chained {m3['ch']:.3f} "
         f"ms/solve; 3D otf single-shot {mo['single_ms']:.3f} ms, chained "
@@ -2708,4 +3141,6 @@ if __name__ == "__main__":
     sys.exit(run_pass_levels() if "--pass-levels" in sys.argv else
              run_solution_floor() if "--solution-floor" in sys.argv else
              run_assembly_kernels() if "--assembly-kernels" in sys.argv
+             else run_newton_floor() if "--newton-floor" in sys.argv
+             else run_newton() if "--newton" in sys.argv
              else main())

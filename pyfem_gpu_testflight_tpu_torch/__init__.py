@@ -9,8 +9,12 @@ Dirichlet-constrained operator, Jacobi-PCG or a host scipy direct solve
 (``solve(method="cg" | "direct")``), and 2D topology optimization — the
 compliance functionals and sensitivities, the ``Helmholtz`` density
 filter (kernel K9 on structured grids), MMA (``opt``) and the
-device-resident ``opt.DeviceTopo`` loop.  On CPU tensors each kernel's
-plain PyTorch version runs instead.
+device-resident ``opt.DeviceTopo`` loop — and the Newton-solved
+``NonlinearPoisson`` model: restarted GMRES (``solvers.gmres``) and
+``solvers.newton``, with GMRES on the exact tangent stencil (K9)
+right-preconditioned by a V-cycle (K1 levels, K2 smoothing) on
+structured grids.  On CPU tensors each kernel's plain PyTorch version
+runs instead.
 
 The package imports torch and never jax.  float32 is pinned to IEEE
 float32 at import (TF32 off, see ``ops.precision``).
@@ -24,9 +28,13 @@ from . import multigrid, opt  # noqa: E402
 from .elements import get_element  # noqa: E402
 from .io.vtk import to_vtk  # noqa: E402
 from .mesh import ProblemCreator  # noqa: E402
-from .models import Helmholtz, LinearElasticity, LinearPoisson  # noqa: E402
+from .models import (  # noqa: E402
+    Helmholtz, LinearElasticity, LinearPoisson, NonlinearPoisson,
+    NonlinearPoisson2D,
+)
 
 __version__ = "0.1.0"
 
 __all__ = ["Helmholtz", "LinearElasticity", "LinearPoisson",
-           "ProblemCreator", "get_element", "multigrid", "opt", "to_vtk"]
+           "NonlinearPoisson", "NonlinearPoisson2D", "ProblemCreator",
+           "get_element", "multigrid", "opt", "to_vtk"]

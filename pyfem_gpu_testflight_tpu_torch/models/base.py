@@ -3,11 +3,11 @@
 Port of ``pyfem_gpu_testflight_tpu/models/base.py``: the constructor's
 mesh, element-table and BC state, the lazy host sparsity ``pattern``,
 ``assemble_scipy``, the matrix-free ``matvec`` / ``diagonal``,
-``attach_structured_grid`` in 2D and 3D, the ``"gmg"``, ``"cg"`` and
-``"direct"`` branches of ``_solve_system``, the design sensitivity
-``d(phi^T K psi)/drho`` (the generic einsum route with a deterministic
-segment sum, and the scatter-free structured route of an attached
-uniform grid) and the volume functionals.  Every other method or
+``attach_structured_grid`` in 2D and 3D, the ``"gmg"``, ``"cg"``,
+``"gmres"`` and ``"direct"`` branches of ``_solve_system``, the design
+sensitivity ``d(phi^T K psi)/drho`` (the generic einsum route with a
+deterministic segment sum, and the scatter-free structured route of an
+attached uniform grid) and the volume functionals.  Every other method or
 branch raises ``NotImplementedError`` naming the ROADMAP.md slice that
 ports it.
 
@@ -35,7 +35,6 @@ KERNEL_ETYPES = ("quad4", "hex8", "tet10", "brick20")
 
 # solve method -> the ROADMAP.md slice (queue 1) that ports it
 _METHOD_SLICE = {
-    "gmres": "slice 4",
     "pmg": "slice 5",
     "amg": "slice 6",
     "sharded_gmg": "slice 8",
@@ -427,25 +426,26 @@ class FEModel:
             return (torch.as_tensor(solvers.direct_solve(K, b),
                                     device=self.device),
                     torch.as_tensor(b, device=self.device))
-        if method != "cg":
+        if method not in ("cg", "gmres"):
             raise ValueError(f"unknown solve method {method!r}")
         b = self.bc.constrain_rhs(rhs, lambda v: self.matvec(Ke, v))
         mask = self.bc.mask
         diag = self.diagonal(Ke)
         # unit entries at fixed dofs; guard unreferenced dofs (zero rows)
         inv_diag = 1.0 / torch.where(mask | (diag == 0), 1.0, diag)
-        n0 = solvers.readbacks["cg"]
-        res = solvers.cg(
+        n0 = solvers.readbacks[method]
+        # gmres: Jacobi on the right, for the nonsymmetric Newton tangents
+        res = (solvers.cg if method == "cg" else solvers.gmres)(
             assembly.bc_elem_matvec, (Ke, self.conn_dof, mask, self.segments),
             b, inv_diag=inv_diag, rtol=rtol, maxiter=maxiter,
         )
-        _check_converged("cg", res.resnorm,
+        _check_converged(method, res.resnorm,
                          rtol * float(torch.linalg.norm(b)), res.iters)
         # observable convergence info; readbacks: host syncs of the loop
         self.last_solve_stats = {
-            "method": "cg", "iters": int(res.iters),
+            "method": method, "iters": int(res.iters),
             "resnorm": float(res.resnorm),
-            "readbacks": solvers.readbacks["cg"] - n0,
+            "readbacks": solvers.readbacks[method] - n0,
         }
         return res.x, b
 

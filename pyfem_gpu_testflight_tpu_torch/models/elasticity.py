@@ -5,7 +5,7 @@ Port of ``LinearElasticity`` from
 pyfem.py:1667-2068): the constructor with its ``kernel`` option,
 ``element_jacobian`` (einsum path or the element kernels K7 / K8),
 ``compute_jacobian``, ``compute_rhs``, ``solve`` with ``method="cg"``,
-``"direct"`` or ``"gmg"``, and the optimization functionals
+``"gmres"``, ``"direct"`` or ``"gmg"``, and the optimization functionals
 ``compliance``, ``compliance_grad``, ``k_dv_sens``, ``volume`` and
 ``volume_grad`` (pyfem.py:1797-1920).  The stiffness is in Lamé form, algebraically
 identical to the reference's B^T C0 B einsum (pyfem.py:2016-2027).
@@ -111,7 +111,8 @@ class LinearElasticity(FEModel):
 
     def solve(self, method="cg", rho=1.0, rtol=1e-8, maxiter=None):
         """Static solve: ``"cg"`` (Jacobi-PCG on the matrix-free
-        operator), ``"direct"`` (host scipy) or ``"gmg"``."""
+        operator), ``"gmres"`` (Jacobi-GMRES on it), ``"direct"`` (host
+        scipy) or ``"gmg"``."""
         Ke = None if method == "gmg" else self.element_jacobian(rho)
         u, _ = self._solve_system(Ke, self.compute_rhs(), method, rtol,
                                   rho=rho, maxiter=maxiter)

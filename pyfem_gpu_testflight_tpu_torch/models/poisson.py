@@ -4,8 +4,8 @@ Port of ``LinearPoisson`` from ``pyfem_gpu_testflight_tpu/models/poisson.py``
 (reference pyfem.py:934-1329): the constructor with its ``kernel``
 option, ``compute_rhs`` (source term ``gfunc``), ``element_jacobian``
 (einsum path or the element kernels K7 / K8), ``compute_jacobian``,
-``solve`` with ``method="cg"``, ``"direct"`` or ``"gmg"``, and the
-optimization functionals ``compliance``, ``compliance_grad`` (with its
+``solve`` with ``method="cg"``, ``"gmres"``, ``"direct"`` or ``"gmg"``,
+and the optimization functionals ``compliance``, ``compliance_grad`` (with its
 adjoint solve for the unweighted objective), ``k_dv_sens``, ``volume``
 and ``volume_grad`` (pyfem.py:1032-1276).
 """
@@ -112,8 +112,8 @@ class LinearPoisson(FEModel):
     # -- solves --------------------------------------------------------------
 
     def solve(self, method="cg", rho=1.0, rtol=1e-8, maxiter=None):
-        """Static solve with Dirichlet BCs: ``"cg"``, ``"direct"`` or
-        ``"gmg"``."""
+        """Static solve with Dirichlet BCs: ``"cg"``, ``"gmres"``,
+        ``"direct"`` or ``"gmg"``."""
         Ke = None if method == "gmg" else self.element_jacobian(rho)
         u, _ = self._solve_system(Ke, self.compute_rhs(), method, rtol,
                                   rho=rho, maxiter=maxiter)

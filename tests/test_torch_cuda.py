@@ -17,8 +17,11 @@ CG solve, ``kernel="cuda"`` never taking a plain version on a CUDA
 tensor, the 2D ``elem_path="cuda"`` hierarchy against the uniform
 one, K9 (nd 1 and 2, float32 and float64), K2-sym (every mode) on
 65x33 and 13x7 grids, and three ``DeviceTopo``
-iterations at 65x33 with a bit-for-bit resume (chip_smoke.py phases
-3-3e and 7 hold them at full size).
+iterations at 65x33 with a bit-for-bit resume; K1 nd=1 on the Newton
+coefficient field c = h(1 + u^2) >= 1 on every level, K9 nd=1 on the
+nonsymmetric Newton tangent planes (float32) and the float64 flux, and
+the fused gmg Newton at 65^2 (chip_smoke.py phases 3-3e, 7 and 8 hold
+them at full size).
 
 Needs an NVIDIA Hopper card and nvcc; marked ``slow`` (deselected by the
 CPU tier) and skipped where CUDA is absent.  Run on the card with:
@@ -971,3 +974,93 @@ def test_device_topo_runs_on_card_and_resumes_bit_for_bit(dev, tmp_path):
     d_r, x_r = run(3, resume=ck)
     assert torch.equal(x_r, x3)
     assert [h["obj"] for h in d_r.history] == [h["obj"] for h in d3.history]
+
+
+def _newton_model(dev, n):
+    """A float32 NonlinearPoisson on the n x n creator raster, attached,
+    and a Newton-like iterate u (0 at the fixed dofs)."""
+    import pyfem_gpu_testflight_tpu_torch as pt
+
+    conn, X, fixed = pt.ProblemCreator(n, n).create_poisson_problem()
+    m = pt.NonlinearPoisson("quad4", X, conn, fixed, dtype=torch.float32,
+                            device=dev).attach_structured_grid(n, n)
+    x = m.X[:, 0]
+    u = torch.where(m.bc.mask, 0.0, -4.0 * torch.sin(2.5 * x) * (
+        1.0 + 0.1 * torch.cos(7.0 * m.X[:, 1])))
+    return m, m._xdv(np.ones(10) / 10), u
+
+
+@pytest.mark.parametrize("n", [1025, 65, 18])
+def test_k1_on_newton_coefficient_field_on_card(dev, n):
+    """K1 nd=1 at p=0 on c = h(x)(1 + u^2) >= 1 (so far K1 was held on
+    densities <= 1), on every level of the Newton hierarchy."""
+    from pyfem_gpu_testflight_tpu_torch.models.nonlinear_poisson import (
+        hfunc,
+    )
+    from pyfem_gpu_testflight_tpu_torch.multigrid import _restrict_nodal
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+    from pyfem_gpu_testflight_tpu_torch.ops import fused_assemble as fa
+
+    m, xdv, u = _newton_model(dev, n)
+    asm = m._gmg_newton
+    rho = (hfunc(xdv, m.X) * (1.0 + u * u)).reshape(n, n).contiguous()
+    assert float(rho.min()) >= 1.0 and float(rho.max()) > 4.0
+    for st in asm.static_levels:
+        args = (rho, st.maskf, st.W, asm.N)
+        n0 = _cuda.launches["pyfem_assemble_2d"]
+        ck, dk = fa.assemble_pack_2d(*args, nd=1, p=0.0)
+        cp, dp = fa.assemble_pack_2d_plain(*args, nd=1, p=0.0)
+        torch.cuda.synchronize()
+        assert _cuda.launches["pyfem_assemble_2d"] == n0 + 1
+        free = st.maskf > 0
+        assert _rel(ck, cp) <= TOL
+        assert _rel(dk[free], dp[free]) <= TOL
+        assert bool((dk[~free] == 0).all())
+        rho = _restrict_nodal(rho)
+
+
+@pytest.mark.parametrize("n", [1025, 65, 18])
+def test_k9_on_nonsymmetric_tangent_planes_on_card(dev, n):
+    """K9 nd=1 float32 on the eliminated (nonsymmetric) Newton tangent
+    planes, and float64 on the upcast SPD planes (the residual flux)."""
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+    from pyfem_gpu_testflight_tpu_torch.ops import stencil_matvec as sm
+
+    m, xdv, u = _newton_model(dev, n)
+    st = m._gmg_newton.static_levels[0]
+    cs, cr = m._uniform_tangent_coeffs(xdv, u.reshape(n, n))
+    ce = st.op.bc_eliminate(cs + cr, st.mask)
+    assert float((ce[0, 0, 1, 2, :, :-1] - ce[0, 0, 1, 0, :, 1:]).abs()
+                 .max()) > 0  # nonsymmetric
+    v = torch.as_tensor(np.random.default_rng(9).standard_normal((1, n, n)),
+                        dtype=torch.float32, device=dev)
+    for c, x in ((ce, v), (cs.double(), u.double().reshape(1, n, n))):
+        n0 = _cuda.launches["pyfem_stencil_2d"]
+        got = sm.stencil_matvec_2d(c, x)
+        ref = sm.stencil_matvec_2d_plain(c, x)
+        torch.cuda.synchronize()
+        assert _cuda.launches["pyfem_stencil_2d"] == n0 + 1
+        assert got.dtype == x.dtype and _rel(got, ref) <= TOL
+
+
+def test_newton_gmg_runs_on_card(dev):
+    """The fused gmg Newton at bench newton's contract on a 65^2 raster:
+    converged in <= 12 iterations at a float64 true residual ratio <=
+    2e-2, K1 once per level per tangent solve, K2 and both K9 forms
+    launched."""
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+
+    n = 65
+    m, xdv, _u = _newton_model(dev, n)
+    nlev = len(m._gmg_newton.static_levels)
+    _cuda.reset_launches()
+    u, k, rn = m.solve_nonlinear_fused(
+        method="gmg", xdv=xdv, tol=2e-2, atol=0.0, lin_rtol=1e-2,
+        lin_maxiter=40, max_iter=12, verbose=False)
+    torch.cuda.synchronize()
+    rns = m.last_solve_stats["resnorms"]
+    assert k <= 12 and rns[-1] <= 2e-2 * rns[0]
+    assert bool(torch.isfinite(u).all()) and rn.dtype == torch.float64
+    assert _cuda.launches["pyfem_assemble_2d"] == nlev * (k - 1)
+    assert _cuda.launches["pyfem_smooth_2d"] > 0
+    assert _cuda.launches["pyfem_stencil_2d"] > k

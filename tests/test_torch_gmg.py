@@ -132,12 +132,15 @@ def test_unported_branches_raise():
                             device=DEV)
     with pytest.raises(RuntimeError):
         m.solve(method="gmg")  # attach_structured_grid first
-    for method in ("gmres", "amg", "pmg", "sharded_gmg"):
+    for method in ("amg", "pmg", "sharded_gmg"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             m.solve(method=method)
-    # cg and direct are ported (tests/test_torch_models_cg.py)
+    # cg and direct are ported (tests/test_torch_models_cg.py), gmres too
+    # (tests/test_torch_gmres.py)
     u_cg, u_dir = m.solve(method="cg"), m.solve(method="direct")
     assert (u_cg - u_dir).abs().max() <= 1e-8 * u_dir.abs().max()
+    u_gm = m.solve(method="gmres", rtol=1e-12)
+    assert (u_gm - u_dir).abs().max() <= 1e-8 * u_dir.abs().max()
     with pytest.raises(ValueError, match="hex8"):
         m.attach_structured_grid(9, 5, 3)  # 3D gmg needs a hex8 model
     # compliance is ported (tests/test_torch_topo.py); complex-step
