@@ -14,7 +14,11 @@ on-the-fly route and with full coefficient storage, and the
 general-mesh element path (K8 element stiffness, matrix-free
 Jacobi-PCG) on a jittered 65^3 hex8 mesh, and the nonlinear Poisson
 Newton solve at 1025^2 (1,050,625 dof; GMRES on K9's tangent planes,
-a V-cycle of K1 levels and K2 smoothing as its preconditioner) — and
+a V-cycle of K1 levels and K2 smoothing as its preconditioner), and the
+p-multigrid solve of brick20 elasticity on the 65^3 lattice (411,840
+live dof; Chebyshev on the quadratic element operator, a corner-grid
+V-cycle on K3/K5 levels) with its ``kernel="cuda"`` (K8), Chebyshev
+corner smoother (K4) and tet10 33^3 lines — and
 checks the answers
 against float64 and scipy references.  Exits nonzero on any
 failure; on success the last line is
@@ -118,6 +122,22 @@ Phases:
    stage times of every Newton iteration, busy share, peak memory, and
    the 257^2 float32 solution against a float64 direct Newton
    (``NEWTON64_TOL``);
+9. "quadratic": ``bench.py --config quadratic`` at its width (brick20
+   on the 65^3 lattice, 411,840 live dof, float32, rho = 1, p = 0,
+   ``attach_pmg(65, 65, 65)``, rtol 1e-6; einsum element matrices, the
+   bench's): the live dof and element counts, PCG iterations (<= 12; the
+   JAX bench run took 10), ``cheb_lam`` (within 2% of the JAX run's
+   5.100), the recursive and the float64 true residual (<= 4x its float32
+   floor), the solution against a float64-outer solve (``PMG64_TOL``),
+   K3 on every corner level and K5 against their plain versions on the
+   path's inputs, K3/K4/K5 launches by corner level, the lattice matvec
+   against its bytes bound and the generic segment-sum route, stage
+   times (CUDA events), single-shot and chained times, a solve split
+   into set-up and PCG, busy share and peak memory; then the same model
+   with the Chebyshev corner smoother (K4 held against plain), with
+   ``kernel="cuda"`` (K8 once per solve, its Ke against the einsum Ke
+   and its plain version) and the tet10 lattice at 33^3 (cut from 65^3
+   for time: its six-class lattice route);
 
 ``python3 chip_smoke.py --pass-levels [--root DIR]`` runs only
 ``pass_levels`` on the package under DIR (default: this checkout), so a
@@ -126,6 +146,9 @@ checkout of another commit is timed on the same inputs in the same call;
 the readings ``SOL64_TOL`` is set from; ``--newton-floor`` only phase
 8's 257^2 yardstick on four design vectors, the readings
 ``NEWTON64_TOL`` is set from; ``--newton`` only phase 8;
+``--quadratic`` only phase 9; ``--quadratic-floor`` bench quadratic's
+float32 solution against its float64-outer one on the bench load and
+three seeded loads, the readings ``PMG64_TOL`` is set from;
 ``--assembly-kernels [--root
 DIR]`` only ``assembly_kernels``: K1 on every level of bench 2D
 (1025x513 down to 9x5) in both storages at nd 2 and 1, bench 2D's and
@@ -135,7 +158,9 @@ down to 3^3) in both storages at nd 3 and 1, every K8 form on phase
 kernel held against its plain version, all timed by device time.
 The short kernels' times (K1, K1-sym, K2, K2-sym, K7, K8, K9) are CUDA
 events over back-to-back wrapper calls, with the profiler's device time
-beside them.
+beside them.  Device time and busy shares sum the profiler's device
+rows only (``device_rows``: kernels, copies, sets); a PyTorch
+operator's own row repeats its kernels' time.
 
 Float32 accuracy: the operator is ill-conditioned enough that a float32
 solve stalls at the float32 rounding floor of its operator, about
@@ -225,6 +250,19 @@ def dev_us(row):
                    getattr(row, "self_cuda_time_total", 0.0))
 
 
+def device_rows(prof):
+    """The profiler's device activities (kernels, copies, sets): its rows
+    of device type CUDA.  An operator's row (device type CPU) repeats the
+    device time of the kernels it launched, so a sum over every row
+    counts each PyTorch operator's kernels twice (the port's own
+    kernels, launched outside any operator, once)."""
+    import torch
+
+    return [r for r in prof.key_averages()
+            if r.device_type == torch.autograd.DeviceType.CUDA
+            and dev_us(r) > 0]
+
+
 def device_ms(fn, reps=20, sessions=3):
     """Milliseconds of device time per call, from ``torch.profiler`` (the
     kernels' own time, whatever the host's speed): the median over
@@ -243,7 +281,7 @@ def device_ms(fn, reps=20, sessions=3):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total = sum(dev_us(r) for r in prof.key_averages())
+        total = sum(dev_us(r) for r in device_rows(prof))
         if total > 0:
             got.append(total / reps / 1e3)
     return float(np.median(got)) if got else None
@@ -1649,8 +1687,8 @@ def solve_and_measure(step, args, names, label):
 
 
 # position of the grid's nz among each 3D entry point's arguments
-_NZ_ARG = {"pyfem_sweep_3d": 8, "pyfem_sweeps_3d": 13, "pyfem_otf_3d": 8,
-           "pyfem_otf_3d_tc": 9}
+_NZ_ARG = {"pyfem_assemble_3d": 6, "pyfem_sweep_3d": 8,
+           "pyfem_sweeps_3d": 13, "pyfem_otf_3d": 8, "pyfem_otf_3d_tc": 9}
 
 
 def launches_by_level(step, args):
@@ -1726,7 +1764,7 @@ def breakdown(label, step, args, asm, rho, b, single_ms):
         step(*args)
         torch.cuda.synchronize()
 
-    rows = [r for r in prof.key_averages() if dev_us(r) > 0]
+    rows = device_rows(prof)
     busy_ms = sum(dev_us(r) for r in rows) / 1e3
     if not rows:
         log(f"{label} profile: no device time recorded (busy share not "
@@ -2305,9 +2343,7 @@ def phase_topo(dev, pt, i2p):
                              ProfilerActivity.CUDA]) as prof:
         state, _st = dt._step(*state, k, lb_v, ub_v)
         torch.cuda.synchronize()
-    dev_us = lambda r: getattr(r, "self_device_time_total",
-                               getattr(r, "self_cuda_time_total", 0.0))
-    rows = [r for r in prof.key_averages() if dev_us(r) > 0]
+    rows = device_rows(prof)
     busy_ms = sum(dev_us(r) for r in rows) / 1e3
     if rows:
         log(f"topo profile: {sum(r.count for r in rows)} device activities "
@@ -2707,7 +2743,7 @@ def phase_newton(dev, pt):
                              ProfilerActivity.CUDA]) as prof:
         u, k, rn = solve(0.0 * u)
         torch.cuda.synchronize()
-    rows = [r for r in prof.key_averages() if dev_us(r) > 0]
+    rows = device_rows(prof)
     busy_ms = sum(dev_us(r) for r in rows) / 1e3
     if rows:
         DEVICE_MS["newton"] = busy_ms
@@ -2746,6 +2782,504 @@ def phase_newton(dev, pt):
           f"solution within {NEWTON64_TOL:g} (rel L2) of the float64 one")
     return dict(kernels=res, counts=counts, k9=k9, k=k, single=single,
                 ch=ch, mem=mem, ratio=ratio)
+
+
+QUAD_N = 65       # bench.py --config quadratic: --n3d-quad 65, brick20
+QUAD_TET_N = 33   # the tet10 line: 33^3 (65^3 has 196,608 elements; cut)
+QUAD_RTOL = 1e-6  # bench.py's --rtol default
+# the JAX bench run (BENCH_r05.json, quadratic): 411,840 live dof of the
+# 65^3 lattice, 32,768 elements, 10 PCG iterations, cheb_lam 5.100
+QUAD_LIVE_DOF, QUAD_ELEMS = 411_840, 32_768
+QUAD_MAX_ITERS = 12
+QUAD_CHEB_LAM = 5.100
+# bench quadratic's float32 solution against the float64-outer solution
+# of the same system (flexible PCG, rtol 1e-10, the float32 PMG
+# preconditioner through casts), max-abs of max.  Set from
+# ``--quadratic-floor`` on an H100 (PERF.md section 2): the bench load
+# reads 1.52e-3, three seeded standard-normal loads 1.86e-3..2.78e-3
+PMG64_TOL = 4e-3
+
+
+def quadratic_model(pt, dev, et, n, dtype=None, kernel="einsum", pmg=True,
+                    **pmg_options):
+    """bench quadratic's model (bench.py:147-157): the creator's
+    elasticity problem on the n^3 ``et`` lattice ("brick20" or "tet"),
+    p = 0, ``attach_pmg(n, n, n)`` unless ``pmg`` is False."""
+    import torch
+
+    c = pt.ProblemCreator(n, n, n, element_type=et)
+    conn, X, fixed, force = c.create_linear_elasticity_problem()
+    m = pt.LinearElasticity("tet10" if et == "tet" else "brick20", X, conn,
+                            fixed, None, force, p=0.0,
+                            dtype=torch.float32 if dtype is None else dtype,
+                            device=dev, kernel=kernel)
+    return m.attach_pmg(n, n, n, **pmg_options) if pmg else m
+
+
+def pmg_f64_operator(pt, dev, et, n, pmg, rho):
+    """(A., |A|.): the float64 lattice operator of ``pmg``'s system and
+    its absolute value (the float32 floor), from a float64 twin model's
+    element matrices (einsum)."""
+    import torch
+
+    m64 = quadratic_model(pt, dev, et, n, torch.float64, pmg=False)
+    Ke64 = m64.element_jacobian(rho.double())
+    Kabs = Ke64.abs()
+    del m64
+    return (lambda v: pmg._afree(Ke64, v)), (lambda v: pmg._afree(Kabs, v))
+
+
+def pmg_outer64(pmg, mv64, rho, b, rtol=1e-10):
+    """float64 flexible PCG on ``mv64``, the float32 PMG preconditioner
+    of ``rho`` through casts: (x64, iterations)."""
+    import torch
+    from pyfem_gpu_testflight_tpu_torch import multigrid
+
+    _afree, pre32 = pmg.operators(rho)
+    pre = lambda r: pre32(r.to(torch.float32)).to(torch.float64)
+    x, k, _rn = multigrid.pcg(mv64, pre, b.to(torch.float64), rtol=rtol,
+                              maxiter=200, flexible=True)
+    return x, k
+
+
+def quadratic_floor(dev, pt, seeds=(1, 2, 3)):
+    """bench quadratic's float32 solution against the float64-outer one,
+    max-abs of max, on the bench load and on seeded standard-normal
+    loads (zero at fixed and dead dofs): {load: reading}."""
+    import torch
+
+    m = quadratic_model(pt, dev, "brick20", QUAD_N)
+    pmg = m._pmg
+    rho = torch.ones(m.nnodes, dtype=torch.float32, device=dev)
+    mv64, _ = pmg_f64_operator(pt, dev, "brick20", QUAD_N, pmg, rho)
+    loads = [("bench", m.compute_rhs())] + [
+        (f"seed{s}", torch.as_tensor(np.random.default_rng(s).standard_normal(
+            m.ndof), dtype=torch.float32, device=dev)) for s in seeds]
+    out = {}
+    for name, rhs in loads:
+        x32, b, k, _rn = pmg.solve(rho=rho, rhs=rhs, rtol=QUAD_RTOL)
+        x64, k64 = pmg_outer64(pmg, mv64, rho, b)
+        out[name] = float((x32.double() - x64).abs().max() / x64.abs().max())
+        log(f"quadratic floor {name}: float32 solution vs float64-outer "
+            f"{out[name]:.3e} (max-abs of max; {k} / {k64} PCG iterations)")
+    return out
+
+
+def run_quadratic_floor():
+    """``python3 chip_smoke.py --quadratic-floor``: the readings
+    ``PMG64_TOL`` is set from; prints the card and one JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    import pyfem_gpu_testflight_tpu_torch as pt
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+
+    log(card_line())
+    _cuda.library()
+    out = quadratic_floor(torch.device("cuda", 0), pt)
+    log(json.dumps({"pmg64_readings": out}))
+    return 0
+
+
+def run_quadratic():
+    """``python3 chip_smoke.py --quadratic``: only phase 9 (with the
+    kernel build); prints the card and one JSON line of its launches."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    import pyfem_gpu_testflight_tpu_torch as pt
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+
+    log(card_line())
+    t0 = time.time()
+    _cuda.library()
+    log(f"build: {time.time() - t0:.2f} s")
+    out = phase_quadratic(torch.device("cuda", 0), pt)
+    log(json.dumps({"quadratic_launches": out["launches"],
+                    "quadratic_kernels": out["kernels"]}))
+    return 1 if FAILS else 0
+
+
+# the kernels on phase 9's path, by the entry point each launches
+_QUAD_ENTRY = {"K3": "pyfem_assemble_3d", "K4": "pyfem_sweep_3d",
+               "K5": "pyfem_sweeps_3d", "K8": "pyfem_stiffness_3d"}
+
+
+def quadratic_line(dev, pt, label, model, rho):
+    """One p-multigrid line through the user's entry point: a cold solve
+    (it measures ``cheb_lam``), then ``model.solve(method="pmg")`` with
+    the counts zeroed just before and read just after; returns (u, b,
+    iterations, resnorm, counts, ms)."""
+    import torch
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+
+    t0 = time.time()
+    model.solve(method="pmg", rho=rho, rtol=QUAD_RTOL)
+    torch.cuda.synchronize()
+    log(f"{label}: first (cold) solve {time.time() - t0:.3f} s host clock, "
+        f"cheb_lam {model._pmg._cheb_lam:.4f}")
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    _cuda.reset_launches()
+    e0.record()
+    u = model.solve(method="pmg", rho=rho, rtol=QUAD_RTOL)
+    e1.record()
+    e1.synchronize()
+    counts = {k: _cuda.launches[k] for k in _QUAD_ENTRY.values()}
+    st = model.last_solve_stats
+    b = torch.where(model._pmg.mask_all, 0.0, model.compute_rhs())
+    bn = float(torch.linalg.norm(b))
+    log(f"{label}: {st['iters']} PCG iterations, ||r||/||b|| "
+        f"{st['resnorm'] / bn:.3e}, launches {counts}, "
+        f"{e0.elapsed_time(e1):.1f} ms")
+    check(st["resnorm"] <= QUAD_RTOL * bn and bool(torch.isfinite(u).all())
+          and u.shape == (model.ndof,),
+          f"{label}: PCG residual <= rtol, solution finite, shape (ndof,)")
+    return u, b, st["iters"], counts, e0.elapsed_time(e1)
+
+
+def single_and_chained(pmg, rho, x):
+    """bench.py:173-196 with CUDA events: single-shot (median of 3 after
+    the warm-up solves) and chained ((depth 12 - depth 4) / 8), each
+    solve's density formally dependent on the previous solution."""
+    import torch
+
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+
+    def chained(x):
+        return pmg.solve(rho=rho + 0.0 * x[0], rtol=QUAD_RTOL)[0]
+
+    singles = []
+    for _ in range(3):
+        e0.record()
+        x = chained(x)
+        e1.record()
+        e1.synchronize()
+        singles.append(e0.elapsed_time(e1))
+    runs = {}
+    for depth in (4, 12):
+        e0.record()
+        for _ in range(depth):
+            x = chained(x)
+        e1.record()
+        e1.synchronize()
+        runs[depth] = e0.elapsed_time(e1)
+    return singles, float(np.median(singles)), (runs[12] - runs[4]) / 8
+
+
+def solve_split(pmg, rho, b, reps=3):
+    """One solve split by CUDA events into its set-up (``operators``:
+    element matrices, inverse diagonal, corner hierarchy) and its PCG,
+    ``reps`` times: [(set-up ms, PCG ms, iterations)]."""
+    import torch
+    from pyfem_gpu_testflight_tpu_torch import multigrid
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    out = []
+    for _ in range(reps):
+        ev[0].record()
+        afree, precond = pmg.operators(rho)
+        ev[1].record()
+        _x, k, _rn = multigrid.pcg(afree, precond, b, rtol=QUAD_RTOL,
+                                   flexible=True)
+        ev[2].record()
+        ev[2].synchronize()
+        out.append((ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2]), k))
+    return out
+
+
+def phase_quadratic(dev, pt):
+    """Phase 9: ``bench.py --config quadratic`` (bench.py:134-212) on the
+    card: brick20 p-multigrid elasticity on the 65^3 lattice (411,840
+    live dof), float32, rho = 1, p = 0, rtol 1e-6, ``kernel="einsum"``
+    (the bench's), ``attach_pmg(65, 65, 65)``.  Checks the live dof and
+    element counts, <= 12 PCG iterations, cheb_lam within 2% of the JAX
+    run's 5.100, the recursive residual, the float64 true residual
+    within 4x its float32 floor and the solution within ``PMG64_TOL`` of
+    the float64-outer solve; holds K3 on every corner level and K5 on
+    the finest against their plain versions on the path's inputs; times
+    single-shot and chained solves, the stages of a solve and the
+    lattice matvec against its bytes bound and the generic route; reads
+    the busy share, the peak memory and the launches by level.  Then
+    the ``kernel="cuda"`` line (K8, its Ke against the einsum Ke), the
+    tet10 line at 33^3 (the 6-class lattice) and the Chebyshev corner
+    smoother line (``gmg_options=dict(smoother="chebyshev")``: K4)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from pyfem_gpu_testflight_tpu_torch import multigrid
+    from pyfem_gpu_testflight_tpu_torch.multigrid import _restrict_nodal
+    from pyfem_gpu_testflight_tpu_torch.ops import fused_assemble as fa
+    from pyfem_gpu_testflight_tpu_torch.ops import fused_smooth as fs
+    from pyfem_gpu_testflight_tpu_torch.ops.dia import interleave_to_planar
+
+    def timed(fn, reps=5):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        fn()
+        e0.record()
+        for _ in range(reps):
+            out = fn()
+        e1.record()
+        e1.synchronize()
+        return out, e0.elapsed_time(e1) / reps
+
+    n = QUAD_N
+    t0 = time.time()
+    model = quadratic_model(pt, dev, "brick20", n)
+    pmg = model._pmg
+    live = int((~pmg.mask_all).sum())
+    torch.cuda.synchronize()
+    log(f"quadratic: brick20 {n}^3 lattice, {model.nelems} elements, {live} "
+        f"live dof ({model.ndof} lattice dof), float32, corner levels "
+        f"{pmg.asm.sizes}, set-up {time.time() - t0:.2f} s")
+    check(live == QUAD_LIVE_DOF and model.nelems == QUAD_ELEMS,
+          f"quadratic: {QUAD_LIVE_DOF} live dof and {QUAD_ELEMS} elements "
+          f"(the JAX bench's counts)")
+    check(pmg._lat_off is not None, "quadratic: the lattice route is taken")
+    rho = torch.ones(model.nnodes, dtype=torch.float32, device=dev)
+    label = f"quadratic brick20 {n}^3"
+    u, b, k, counts, _ms = quadratic_line(dev, pt, label, model, rho)
+    lam = pmg._cheb_lam
+    nlev = len(pmg.asm.sizes)
+    log(f"{label}: {k} PCG iterations (JAX bench run: 10), cheb_lam "
+        f"{lam:.4f} (JAX bench run: {QUAD_CHEB_LAM})")
+    check(k <= QUAD_MAX_ITERS, f"{label}: <= {QUAD_MAX_ITERS} PCG iterations")
+    check(abs(lam - QUAD_CHEB_LAM) <= 0.02 * QUAD_CHEB_LAM,
+          f"{label}: cheb_lam within 2% of {QUAD_CHEB_LAM}")
+    check(counts["pyfem_assemble_3d"] == nlev
+          and counts["pyfem_sweeps_3d"] > 0
+          and counts["pyfem_stiffness_3d"] == 0,
+          f"{label}: K3 once per corner level ({nlev}), K5 launched, no K8 "
+          f"(einsum element matrices)")
+    step = lambda rho: model.solve(method="pmg", rho=rho, rtol=QUAD_RTOL)
+    by_level = launches_by_level(step, (rho,))
+    log(f"{label}: launches by entry point and corner level (nz: count) "
+        f"{by_level}")
+
+    # float64 true residual, float32 floor and the float64-outer solve
+    mv64, mvabs = pmg_f64_operator(pt, dev, "brick20", n, pmg, rho)
+    true, floor = residuals(mv64, mvabs, b, u)
+    log(f"{label}: float64 true residual {true:.3e} (float32 floor "
+        f"{floor:.3e}, ratio {true / floor:.2f})")
+    check(true <= FLOOR_FACTOR * floor,
+          f"{label}: true residual <= {FLOOR_FACTOR:g} x float32 floor")
+    x64, k64 = pmg_outer64(pmg, mv64, rho, b)
+    true64, _ = residuals(mv64, mvabs, b, x64)
+    err64 = float((u.double() - x64).abs().max() / x64.abs().max())
+    log(f"{label}: float64-outer flexible PCG (float32 PMG preconditioner): "
+        f"{k64} iterations, true residual {true64:.3e}; the float32 "
+        f"solution's max-abs error against it {err64:.3e} of max")
+    check(true64 <= 1e-5, f"{label}: float64-outer true residual <= 1e-5")
+    check(err64 <= PMG64_TOL, f"{label}: float32 solution within "
+          f"{PMG64_TOL:g} of the float64-outer solution")
+    del mv64, mvabs, x64
+
+    # K3 on every corner level, K5 on the finest, against plain
+    asm, res, worst3 = pmg.asm, {}, 0.0
+    rho_c = rho.reshape(pmg.shape)[::2, ::2, ::2].contiguous()
+    rl = rho_c
+    for li, st in enumerate(asm.static_levels):
+        args, kw = (rl, st.maskf, st.W, asm.N), dict(nd=3, p=0.0, sym=True)
+        got = fa.assemble_pack_3d(*args, **kw)
+        ref = fa.assemble_pack_3d_plain(*args, **kw)
+        torch.cuda.synchronize()
+        free = st.maskf > 0
+        (ea, er), (ia, ir) = rel_err(got[0], ref[0]), rel_err(got[1], ref[1],
+                                                               free)
+        worst3 = max(worst3, ea, ia)
+        check(er <= REL_TOL and ir <= REL_TOL,
+              f"{label} K3 corner level {st.shape[0]}^3: planes rel "
+              f"{er:.2e}, inv_diag rel {ir:.2e} within {REL_TOL:g}")
+        if li == 0:
+            lv0 = got
+        rl = _restrict_nodal(rl)
+    res["K3"] = dict(max_abs_err=worst3)
+    rg = interleave_to_planar(b, 3).reshape((3,) + pmg.shape)
+    bc = multigrid.restrict3d_il(rg, pmg.cshape)
+    bc = torch.where(asm.static_levels[0].mask, 0.0, bc).contiguous()
+    om = fs._omega_seq(asm.omega, 2)
+    a5 = (lv0[0], lv0[1], bc, None)
+    kw5 = dict(niter=2, want_resid=True, omega=om)
+    got = fs.fused_sweeps3d(*a5, **kw5)
+    ref = fs.fused_sweeps3d_plain(*a5, **kw5)
+    torch.cuda.synchronize()
+    errs = [rel_err(g, r) for g, r in zip(got, ref)]
+    check(all(e[1] <= REL_TOL for e in errs),
+          f"{label} K5 presmooth+resid on the {pmg.cshape[0]}^3 corner "
+          f"level within {REL_TOL:g} (rel "
+          + ", ".join(f"{e[1]:.2e}" for e in errs) + ")")
+    res["K5"] = dict(max_abs_err=max(e[0] for e in errs))
+
+    # the lattice matvec: time against its bytes bound and the generic
+    # segment-sum route on the same Ke, agreeing to rounding
+    Ke = model.element_jacobian(rho)
+    v = torch.as_tensor(np.random.default_rng(SEED + 9).standard_normal(
+        model.ndof), dtype=torch.float32, device=dev)
+    y_lat = pmg._lattice_matvec(Ke, v)
+    y_gen = model.matvec(Ke, v)
+    ea, er = rel_err(y_lat, y_gen)
+    check(er <= REL_TOL and torch.equal(y_lat, pmg._lattice_matvec(Ke, v)),
+          f"{label}: lattice matvec within {REL_TOL:g} of the generic "
+          f"route (rel {er:.2e}), bit-identical across two applies")
+    ue = v[model.conn_dof].unsqueeze(-1)
+    lat_ms = cuda_ms(lambda: pmg._lattice_matvec(Ke, v), 20)
+    gen_ms = cuda_ms(lambda: model.matvec(Ke, v), 20)
+    bmm_ms = cuda_ms(lambda: torch.bmm(Ke, ue), 20)
+    lat_dev = device_ms(lambda: pmg._lattice_matvec(Ke, v))
+    m = Ke.shape[1]
+    lb_ms, lb_by = bound(nbytes(Ke, v, y_lat), 2 * Ke.shape[0] * m * m)
+    log(f"{label}: lattice matvec {lat_ms:.4f} ms (device ms "
+        f"{fms(lat_dev)}; of it the batched Ke @ ue {bmm_ms:.4f} ms), "
+        f"bound {lb_ms:.4f} ms ({lb_by}; Ke {nbytes(Ke) / 1e6:.1f} MB), "
+        f"generic gather + segment sum {gen_ms:.4f} ms")
+    del y_gen, ue
+
+    # stages of one solve (CUDA events, each piece on its own)
+    inv = pmg._inv_diag(Ke)
+    r0 = b.clone()
+    st_ms = {}
+    _, st_ms["element_jacobian"] = timed(lambda: model.element_jacobian(rho))
+    _, st_ms["inv_diag"] = timed(lambda: pmg._inv_diag(Ke))
+    _, st_ms["corner hierarchy"] = timed(lambda: asm.assemble(rho_c))
+    _, st_ms["operators (all set-up)"] = timed(lambda: pmg.operators(rho))
+    _, st_ms["power_lam (first solve only)"] = timed(
+        lambda: pmg._power_lam(Ke, inv), 1)
+    gmg, clv0 = asm.assemble(rho_c)
+    afree, precond = pmg.operators(rho)
+    _, st_ms["fine operator apply"] = timed(lambda: afree(r0), 20)
+    z, st_ms["pre-Chebyshev leg (nu - 1 applies)"] = timed(
+        lambda: pmg._cheb(Ke, inv, lam, None, r0, pmg.nu))
+    _, st_ms["post-Chebyshev leg (nu applies)"] = timed(
+        lambda: pmg._cheb(Ke, inv, lam, z, r0, pmg.nu))
+    _, st_ms["corner V-cycle"] = timed(lambda: gmg.apply(bc))
+    _, st_ms["transfers (restrict + prolong)"] = timed(
+        lambda: multigrid.prolong3d_il(multigrid.restrict3d_il(
+            rg, pmg.cshape), pmg.shape))
+    _, st_ms["preconditioner"] = timed(lambda: precond(r0))
+    log(f"{label} stages (CUDA events, ms): " + ", ".join(
+        f"{s_} {v_:.3f}" for s_, v_ in st_ms.items())
+        + f"; a PCG iteration is {2 * (pmg.nu - 1) + 3} fine applies "
+        f"({pmg.nu - 1} + 1 + {pmg.nu} in the preconditioner, 1 PCG "
+        f"product), one corner V-cycle and the r.r read-back")
+    del Ke, inv, gmg, clv0, afree, precond
+
+    singles, single, ch = single_and_chained(pmg, rho, u)
+    log(f"{label}: single-shot {['%.1f' % s_ for s_ in singles]} ms (median "
+        f"{single:.1f}); chained {ch:.1f} ms/solve")
+    split = solve_split(pmg, rho, b)
+    log(f"{label}: a solve split (set-up ms, PCG ms, iterations): "
+        + ", ".join(f"({a_:.1f}, {p_:.1f}, {k_})" for a_, p_, k_ in split))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        pmg.solve(rho=rho, rtol=QUAD_RTOL)
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    busy = None
+    if rows:
+        busy = sum(dev_us(r) for r in rows) / 1e3
+        DEVICE_MS["quadratic"] = busy
+        every = sum(dev_us(r) for r in prof.key_averages()) / 1e3
+        log(f"{label} profile: {sum(r.count for r in rows)} device "
+            f"activities in one solve, device time {busy:.3f} ms = "
+            f"{100 * busy / single:.1f}% of the unprofiled single-shot "
+            f"{single:.1f} ms (the sum over every profiler row, operators' "
+            f"rows repeating their kernels: {every:.3f} ms)")
+        for r in sorted(rows, key=dev_us, reverse=True)[:8]:
+            log(f"  {dev_us(r) / 1e3:9.3f} ms {r.count:6d}x  {r.key[:90]}")
+    else:
+        log(f"{label} profile: no device time recorded (busy share not "
+            f"measured)")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    pmg.solve(rho=rho, rtol=QUAD_RTOL)
+    torch.cuda.synchronize()
+    mem = torch.cuda.max_memory_allocated() - base
+    log(f"{label}: peak device memory of one solve {mem / 2**20:.1f} MiB "
+        f"above the {base / 2**20:.1f} MiB allocated before it")
+    launches = {"brick20": counts}
+    out = dict(k=k, lam=lam, single=single, ch=ch, mem=mem, busy=busy,
+               err64=err64, true=true, floor=floor, by_level=by_level)
+
+    # the Chebyshev corner smoother on the same model: K4 residual passes
+    model.attach_pmg(n, n, n, gmg_options=dict(smoother="chebyshev"))
+    lab = f"quadratic brick20 {n}^3, corner smoother chebyshev"
+    _u, _b, kc, cc, _ms = quadratic_line(dev, pt, lab, model, rho)
+    check(cc["pyfem_sweep_3d"] > 0 and cc["pyfem_sweeps_3d"] == 0
+          and cc["pyfem_assemble_3d"] == nlev,
+          f"{lab}: K3 once per corner level, K4 launched, no K5")
+    lvc = model._pmg.asm.assemble(rho_c)[1]
+    x = torch.as_tensor(np.random.default_rng(SEED + 10).standard_normal(
+        tuple(bc.shape)), dtype=torch.float32, device=dev)
+    a4 = (lvc.coeff, None, bc, x)
+    got = fs.fused_sweep_3d(*a4, mode="resid")
+    ref = fs.fused_sweep_3d_plain(*a4, mode="resid")
+    torch.cuda.synchronize()
+    ea4, er4 = rel_err(got, ref)
+    check(er4 <= REL_TOL, f"{lab}: K4 resid pass on the {pmg.cshape[0]}^3 "
+          f"corner level within {REL_TOL:g} (rel {er4:.2e})")
+    res["K4"] = dict(max_abs_err=ea4)
+    _s, single_c, _ch = single_and_chained(model._pmg, rho, _u)
+    log(f"{lab}: {kc} PCG iterations (Jacobi corner smoother: {k}), "
+        f"single-shot {single_c:.1f} ms")
+    launches["brick20 corner chebyshev"] = cc
+    del model, pmg, _u, _b
+
+    # kernel="cuda": K8 element matrices
+    lab = f"quadratic brick20 {n}^3 kernel=cuda"
+    mc = quadratic_model(pt, dev, "brick20", n, kernel="cuda")
+    _u, _b, kk, ck, _ms = quadratic_line(dev, pt, lab, mc, rho)
+    check(ck["pyfem_stiffness_3d"] == 1 and abs(kk - k) <= 1,
+          f"{lab}: K8 once per solve, iterations within 1 of einsum's ({k})")
+    me = quadratic_model(pt, dev, "brick20", n, pmg=False)
+    Kc, Ke = mc.element_jacobian(rho), me.element_jacobian(rho)
+    ea8, er8 = rel_err(Kc, Ke)
+    check(er8 <= REL_TOL, f"{lab}: K8 Ke within {REL_TOL:g} of the einsum "
+          f"Ke (rel {er8:.2e})")
+    fk, fp, _inp = stiffness_pair(mc, "brick20", "elasticity", rho)
+    eap, erp = rel_err(fk(), fp())
+    check(erp <= REL_TOL, f"{lab}: K8 within {REL_TOL:g} of its plain "
+          f"version (rel {erp:.2e})")
+    res["K8"] = dict(max_abs_err=max(ea8, eap))
+    _s, single_k, _ch = single_and_chained(mc._pmg, rho, _u)
+    log(f"{lab}: {kk} PCG iterations, single-shot {single_k:.1f} ms "
+        f"(einsum: {single:.1f})")
+    launches["brick20 kernel=cuda"] = ck
+    del mc, me, Kc, Ke, _u, _b
+
+    # the tet10 line: the 6-class lattice at 33^3
+    nt = QUAD_TET_N
+    lab = f"quadratic tet10 {nt}^3"
+    mt = quadratic_model(pt, dev, "tet", nt)
+    log(f"{lab}: {mt.nelems} elements, "
+        f"{int((~mt._pmg.mask_all).sum())} live dof, corner levels "
+        f"{mt._pmg.asm.sizes}")
+    rt = torch.ones(mt.nnodes, dtype=torch.float32, device=dev)
+    ut, bt, kt, ctt, _ms = quadratic_line(dev, pt, lab, mt, rt)
+    check(mt._pmg._lat_off is not None and ctt["pyfem_assemble_3d"]
+          == len(mt._pmg.asm.sizes) and ctt["pyfem_sweeps_3d"] > 0,
+          f"{lab}: the 6-class lattice route, K3 once per corner level, "
+          f"K5 launched")
+    mv64, mvabs = pmg_f64_operator(pt, dev, "tet", nt, mt._pmg, rt)
+    true_t, floor_t = residuals(mv64, mvabs, bt, ut)
+    check(true_t <= FLOOR_FACTOR * floor_t,
+          f"{lab}: true residual {true_t:.3e} <= {FLOOR_FACTOR:g} x float32 "
+          f"floor {floor_t:.3e}")
+    _s, single_t, ch_t = single_and_chained(mt._pmg, rt, ut)
+    log(f"{lab}: {kt} PCG iterations, cheb_lam {mt._pmg._cheb_lam:.4f}, "
+        f"single-shot {single_t:.1f} ms, chained {ch_t:.1f} ms/solve")
+    launches["tet10"] = ctt
+    del mt, mv64, mvabs
+    out.update(launches=launches, kernels=res, k_cheb=kc,
+               single_cheb=single_c, k_cuda=kk, single_cuda=single_k,
+               k_tet=kt, single_tet=single_t)
+    return out
 
 
 def phase_direct(dev, pt):
@@ -2915,14 +3449,9 @@ def main():
           f"bench 3D otf: the tensor-core entry runs all {passes} bf16 "
           f"smoother passes, the float32 entry only the {mo['k']} PCG "
           f"matvecs at {N3}^3")
-    # the previous kernels' device times on the same paths, as PERF.md
-    # section 6 records them:
-    # 14.6-15.6 and 15.9 ms
-    log(f"device time of one assemble+solve: bench 3D "
-        f"{DEVICE_MS.get('bench 3D', float('nan')):.3f} ms (previous "
-        f"kernels: 14.6-15.6 ms), bench 3D otf "
-        f"{DEVICE_MS.get('bench 3D otf', float('nan')):.3f} ms (previous "
-        f"kernels: 15.9 ms) ({card})")
+    log(f"device time of one assemble+solve (device rows): bench 3D "
+        f"{DEVICE_MS.get('bench 3D', float('nan')):.3f} ms, bench 3D otf "
+        f"{DEVICE_MS.get('bench 3D otf', float('nan')):.3f} ms ({card})")
     check(mo["levels"][:-1] == ["OTFLevel"] * (len(mo["levels"]) - 1),
           "bench 3D otf: every level but the coarsest is on the fly")
     check(mo["k"] <= 8 and abs(mo["k"] - m3["k"]) <= 2,
@@ -2986,6 +3515,8 @@ def main():
     topo = phase_topo(dev, pt, i2p)
     # 8. the nonlinear Poisson Newton solve at the bench newton width
     newton = phase_newton(dev, pt)
+    # 9. p-multigrid on the bench quadratic lattice
+    quad = phase_quadratic(dev, pt)
 
     # summary
     src = "pyfem_gpu_testflight_tpu_torch/csrc/"
@@ -3115,6 +3646,15 @@ def main():
             row["max_abs_err"] = max([row["max_abs_err"]] + [
                 v["max_abs_err"] for k_, v in nk.items()
                 if k_.split()[0] == key])
+        # phase 9's counts (its main path: bench quadratic, and its
+        # kernel="cuda", Chebyshev corner smoother and tet10 lines) and
+        # the kernels held on its inputs
+        if key in _QUAD_ENTRY:
+            row["launches_quadratic"] = {
+                line: c[_QUAD_ENTRY[key]]
+                for line, c in quad["launches"].items()}
+            row["max_abs_err"] = max(row["max_abs_err"],
+                                     quad["kernels"][key]["max_abs_err"])
         kernels.append(row)
     if FAILS:
         print("chip_smoke FAILED:\n  " + "\n  ".join(FAILS), file=sys.stderr)
@@ -3125,6 +3665,11 @@ def main():
         f"{newton['single']:.1f} ms, chained {newton['ch']:.1f} ms/solve, "
         f"true residual ratio {newton['ratio']:.3e}, peak memory "
         f"{newton['mem'] / 2**20:.1f} MiB at {NEWTON_N}x{NEWTON_N} ({card})")
+    log(f"quadratic: brick20 {QUAD_N}^3, {quad['k']} PCG iterations, "
+        f"cheb_lam {quad['lam']:.4f}, single-shot {quad['single']:.1f} ms, "
+        f"chained {quad['ch']:.1f} ms/solve, peak memory "
+        f"{quad['mem'] / 2**20:.1f} MiB; tet10 {QUAD_TET_N}^3 "
+        f"{quad['k_tet']} iterations, {quad['single_tet']:.1f} ms ({card})")
     log(f"2D single-shot {s2:.3f} ms, chained {ch2:.3f} ms/solve; 3D "
         f"single-shot {m3['single_ms']:.3f} ms, chained {m3['ch']:.3f} "
         f"ms/solve; 3D otf single-shot {mo['single_ms']:.3f} ms, chained "
@@ -3139,6 +3684,8 @@ def main():
 
 if __name__ == "__main__":
     sys.exit(run_pass_levels() if "--pass-levels" in sys.argv else
+             run_quadratic_floor() if "--quadratic-floor" in sys.argv else
+             run_quadratic() if "--quadratic" in sys.argv else
              run_solution_floor() if "--solution-floor" in sys.argv else
              run_assembly_kernels() if "--assembly-kernels" in sys.argv
              else run_newton_floor() if "--newton-floor" in sys.argv

@@ -13,8 +13,9 @@ device-resident ``opt.DeviceTopo`` loop — and the Newton-solved
 ``NonlinearPoisson`` model: restarted GMRES (``solvers.gmres``) and
 ``solvers.newton``, with GMRES on the exact tangent stencil (K9)
 right-preconditioned by a V-cycle (K1 levels, K2 smoothing) on
-structured grids.  On CPU tensors each kernel's plain PyTorch version
-runs instead.
+structured grids — and the two-level p-multigrid of tet10/brick20
+lattices (``pmg``, ``attach_pmg`` / ``solve(method="pmg")``).  On CPU
+tensors each kernel's plain PyTorch version runs instead.
 
 The package imports torch and never jax.  float32 is pinned to IEEE
 float32 at import (TF32 off, see ``ops.precision``).
@@ -24,17 +25,41 @@ from .ops.precision import pin_fp32 as _pin_fp32
 
 _pin_fp32()
 
-from . import multigrid, opt  # noqa: E402
-from .elements import get_element  # noqa: E402
+from . import assembly, bcs, elements, mesh, multigrid, opt, pmg, solvers  # noqa: E402,E501
+from .bcs import DirichletBC  # noqa: E402
+from .elements import ElementType, get_element  # noqa: E402
 from .io.vtk import to_vtk  # noqa: E402
-from .mesh import ProblemCreator  # noqa: E402
+from .mesh import ProblemCreator, fix_orientation, structured_mesh  # noqa: E402,E501
 from .models import (  # noqa: E402
-    Helmholtz, LinearElasticity, LinearPoisson, NonlinearPoisson,
+    FEModel, Helmholtz, LinearElasticity, LinearPoisson, NonlinearPoisson,
     NonlinearPoisson2D,
 )
 
 __version__ = "0.1.0"
 
-__all__ = ["Helmholtz", "LinearElasticity", "LinearPoisson",
-           "NonlinearPoisson", "NonlinearPoisson2D", "ProblemCreator",
-           "get_element", "multigrid", "opt", "to_vtk"]
+# The JAX package's exports, less Assembler (slice 7), InpParser (slice
+# 6) and the timers time_this / timer_* (slice 7, utils/profile.py); plus
+# the port's own multigrid, opt, pmg and NonlinearPoisson2D.
+__all__ = [
+    "fix_orientation",
+    "DirichletBC",
+    "ElementType",
+    "FEModel",
+    "Helmholtz",
+    "LinearElasticity",
+    "LinearPoisson",
+    "NonlinearPoisson",
+    "NonlinearPoisson2D",
+    "ProblemCreator",
+    "assembly",
+    "bcs",
+    "elements",
+    "get_element",
+    "mesh",
+    "multigrid",
+    "opt",
+    "pmg",
+    "solvers",
+    "structured_mesh",
+    "to_vtk",
+]

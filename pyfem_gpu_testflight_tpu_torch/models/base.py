@@ -3,8 +3,9 @@
 Port of ``pyfem_gpu_testflight_tpu/models/base.py``: the constructor's
 mesh, element-table and BC state, the lazy host sparsity ``pattern``,
 ``assemble_scipy``, the matrix-free ``matvec`` / ``diagonal``,
-``attach_structured_grid`` in 2D and 3D, the ``"gmg"``, ``"cg"``,
-``"gmres"`` and ``"direct"`` branches of ``_solve_system``, the design
+``attach_structured_grid`` in 2D and 3D, ``attach_pmg``, the ``"gmg"``,
+``"pmg"``, ``"cg"``, ``"gmres"`` and ``"direct"`` branches of
+``_solve_system``, the design
 sensitivity ``d(phi^T K psi)/drho`` (the generic einsum route with a
 deterministic segment sum, and the scatter-free structured route of an
 attached uniform grid) and the volume functionals.  Every other method or
@@ -33,9 +34,12 @@ __all__ = ["FEModel", "ramp", "ramp_deriv"]
 # element types the element-stiffness kernels K7 / K8 take
 KERNEL_ETYPES = ("quad4", "hex8", "tet10", "brick20")
 
+# solve methods that build their operator from the density themselves,
+# so solve/compliance compute no element matrices for them
+OWN_OPERATOR = ("gmg", "pmg")
+
 # solve method -> the ROADMAP.md slice (queue 1) that ports it
 _METHOD_SLICE = {
-    "pmg": "slice 5",
     "amg": "slice 6",
     "sharded_gmg": "slice 8",
 }
@@ -324,14 +328,26 @@ class FEModel:
 
     # -- not ported in this slice -----------------------------------------
 
-    def attach_pmg(self, nnodes_x, nnodes_y, nnodes_z, **pmg_options):
-        _not_ported("FEModel.attach_pmg", "slice 5")
-
     def attach_sharded_grid(self, mesh, nnodes_x, nnodes_y, nnodes_z=None,
                             **gmg_options):
         _not_ported("FEModel.attach_sharded_grid", "slice 8")
 
-    # -- structured GMG ----------------------------------------------------
+    # -- structured GMG and p-multigrid -------------------------------------
+
+    def attach_pmg(self, nnodes_x, nnodes_y, nnodes_z, **pmg_options):
+        """Enable the p-multigrid path for structured quadratic meshes
+        (tet10/brick20 node lattices from ProblemCreator).
+
+        Matrix-free Chebyshev smoothing on the quadratic operator and a
+        hex8 GMG V-cycle on the linear corner sub-grid (see pmg.py);
+        afterwards ``solve(method="pmg")`` runs flexible PCG with it.
+        ``pmg_options`` go to :class:`~..pmg.PMG` (``nu``, ``cheb_lam``,
+        ``cheb_frac``, ``gmg_options``).
+        """
+        from ..pmg import PMG
+
+        self._pmg = PMG(self, nnodes_x, nnodes_y, nnodes_z, **pmg_options)
+        return self
 
     def attach_structured_grid(self, nnodes_x, nnodes_y, nnodes_z=None,
                                **gmg_options):
@@ -414,6 +430,21 @@ class FEModel:
             _not_ported(f"method={method!r}", _METHOD_SLICE[method])
         from .. import solvers
 
+        if method == "pmg":
+            if getattr(self, "_pmg", None) is None:
+                raise RuntimeError(
+                    "call attach_pmg(nx, ny, nz) before method='pmg'"
+                )
+            x, b, k, rn = self._pmg.solve(
+                rho=rho if rho is not None else 1.0, rhs=rhs, rtol=rtol,
+                maxiter=maxiter or 400,
+            )
+            _check_converged("pmg-pcg", rn,
+                             rtol * float(torch.linalg.norm(b)), k)
+            self.last_solve_stats = {
+                "method": "pmg", "iters": int(k), "resnorm": float(rn),
+            }
+            return x, b
         if method == "gmg":
             if getattr(self, "_gmg_asm", None) is None:
                 raise RuntimeError(

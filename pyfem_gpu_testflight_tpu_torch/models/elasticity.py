@@ -18,7 +18,7 @@ import torch
 
 from .. import assembly
 from ..ops import geometry, stiffness
-from .base import FEModel, ramp, ramp_deriv
+from .base import OWN_OPERATOR, FEModel, ramp, ramp_deriv
 
 __all__ = ["LinearElasticity"]
 
@@ -112,8 +112,9 @@ class LinearElasticity(FEModel):
     def solve(self, method="cg", rho=1.0, rtol=1e-8, maxiter=None):
         """Static solve: ``"cg"`` (Jacobi-PCG on the matrix-free
         operator), ``"gmres"`` (Jacobi-GMRES on it), ``"direct"`` (host
-        scipy) or ``"gmg"``."""
-        Ke = None if method == "gmg" else self.element_jacobian(rho)
+        scipy), ``"gmg"`` or ``"pmg"``."""
+        Ke = (None if method in OWN_OPERATOR
+              else self.element_jacobian(rho))
         u, _ = self._solve_system(Ke, self.compute_rhs(), method, rtol,
                                   rho=rho, maxiter=maxiter)
         return u
@@ -123,7 +124,8 @@ class LinearElasticity(FEModel):
     def compliance(self, rho, solver="cg"):
         """Compliance c = <rhs_bc, u> and state u (pyfem.py:1797-1834)."""
         rho = self._as_nodal(rho)
-        Ke = None if solver == "gmg" else self.element_jacobian(rho)
+        Ke = (None if solver in OWN_OPERATOR
+              else self.element_jacobian(rho))
         u, b = self._solve_system(Ke, self.compute_rhs(), solver, rho=rho)
         b = b.to(u.dtype)
         return torch.dot(b, u), u

@@ -16,7 +16,7 @@ import torch
 
 from .. import assembly
 from ..ops import geometry, stiffness
-from .base import FEModel, ramp, ramp_deriv
+from .base import OWN_OPERATOR, FEModel, ramp, ramp_deriv
 
 __all__ = ["LinearPoisson"]
 
@@ -113,8 +113,9 @@ class LinearPoisson(FEModel):
 
     def solve(self, method="cg", rho=1.0, rtol=1e-8, maxiter=None):
         """Static solve with Dirichlet BCs: ``"cg"``, ``"gmres"``,
-        ``"direct"`` or ``"gmg"``."""
-        Ke = None if method == "gmg" else self.element_jacobian(rho)
+        ``"direct"``, ``"gmg"`` or ``"pmg"``."""
+        Ke = (None if method in OWN_OPERATOR
+              else self.element_jacobian(rho))
         u, _ = self._solve_system(Ke, self.compute_rhs(), method, rtol,
                                   rho=rho, maxiter=maxiter)
         return u
@@ -125,7 +126,8 @@ class LinearPoisson(FEModel):
         """Thermal compliance c = <rhs_bc, u> (or mean(u)) and state u
         (pyfem.py:1032-1073)."""
         rho = self._as_nodal(rho)
-        Ke = None if solver == "gmg" else self.element_jacobian(rho)
+        Ke = (None if solver in OWN_OPERATOR
+              else self.element_jacobian(rho))
         u, b = self._solve_system(Ke, self.compute_rhs(), solver, rho=rho)
         if weighted:
             return torch.dot(b.to(u.dtype), u), u
@@ -141,7 +143,8 @@ class LinearPoisson(FEModel):
         if weighted:
             psi = u  # self-adjoint
         else:
-            Ke = None if solver == "gmg" else self.element_jacobian(rho)
+            Ke = (None if solver in OWN_OPERATOR
+                  else self.element_jacobian(rho))
             rhs = torch.ones(self.ndof, dtype=self.dtype, device=self.device)
             psi, _ = self._solve_system(Ke, rhs, solver, rho=rho)
             psi = psi / self.ndof

@@ -19,12 +19,16 @@ Port of the 2D and 3D (uniform and on-the-fly element paths) parts of
   kernel K2 in 2D, which also supplies the residuals and the operator
   matvec; in 3D kernel K5 runs each smoothing call (sweeps + residual)
   and kernel K4 the operator matvec (``ops.fused_smooth``), or K6 all
-  three on an OTF level;
+  three on an OTF level; or, with ``smoother="chebyshev"``, the
+  three-term Chebyshev recurrence, one residual pass of the same kernels
+  (K2 at ``niter=0``, K4, K6) per degree plus elementwise torch;
 * the design sensitivity d(phi^T K psi)/drho on the fine uniform grid
   is scatter-free (:func:`_dv_sens_uniform`, ``GMGAssembler.dv_sens``);
 * prolongation is bi/trilinear interpolation in reshape/interleave
   form, restriction its exact transpose (FEM Galerkin convention), so
-  the V-cycle is a symmetric preconditioner for CG;
+  the V-cycle is a symmetric preconditioner for CG; the strided-slice
+  and convolution forms of the same pair are exported too and can be
+  passed to :class:`GMG` as ``restrict_fn`` / ``prolong_fn``;
 * the coarsest level is solved by an explicit dense inverse;
 * coarse operators are rediscretized on coarse ProblemCreator grids,
   with nodal densities restricted by injection.
@@ -53,6 +57,14 @@ __all__ = [
     "GMG",
     "GMGAssembler",
     "GMGAssembler3D",
+    "prolong2d",
+    "restrict2d",
+    "prolong3d",
+    "restrict3d",
+    "prolong2d_conv",
+    "restrict2d_conv",
+    "prolong3d_conv",
+    "restrict3d_conv",
     "prolong2d_il",
     "restrict2d_il",
     "prolong_axis_il",
@@ -60,6 +72,8 @@ __all__ = [
     "prolong3d_il",
     "restrict3d_il",
     "smoothing_omegas",
+    "build_elasticity_gmg",
+    "build_poisson_gmg",
     "pcg",
     "pcg_gmg",
 ]
@@ -178,6 +192,142 @@ def prolong3d_il(c, fine_shape):
     return c
 
 
+def prolong2d(c, fine_shape):
+    """Bilinear prolongation (d, nyc, nxc) -> (d, nyf, nxf) by strided
+    slice assignment (the JAX ``prolong2d``); nyf = 2 nyc - 1, nxf =
+    2 nxc - 1.  The same operator as :func:`prolong2d_il`."""
+    nyf, nxf = fine_shape
+    f = c.new_zeros((c.shape[0], nyf, nxf))
+    f[:, 0::2, 0::2] = c
+    f[:, 1::2, 0::2] = 0.5 * (c[:, :-1] + c[:, 1:])
+    f[:, 0::2, 1::2] = 0.5 * (c[:, :, :-1] + c[:, :, 1:])
+    f[:, 1::2, 1::2] = 0.25 * (c[:, :-1, :-1] + c[:, 1:, :-1]
+                               + c[:, :-1, 1:] + c[:, 1:, 1:])
+    return f
+
+
+def restrict2d(f, coarse_shape):
+    """Restriction R = prolong2d^T exactly, by strided slices (the JAX
+    ``restrict2d``; FEM Galerkin convention, no 1/4 factor)."""
+    c = f[:, 0::2, 0::2].clone()
+    e = f[:, 1::2, 0::2]
+    c[:, :-1] += 0.5 * e
+    c[:, 1:] += 0.5 * e
+    e = f[:, 0::2, 1::2]
+    c[:, :, :-1] += 0.5 * e
+    c[:, :, 1:] += 0.5 * e
+    e = f[:, 1::2, 1::2]
+    c[:, :-1, :-1] += 0.25 * e
+    c[:, 1:, :-1] += 0.25 * e
+    c[:, :-1, 1:] += 0.25 * e
+    c[:, 1:, 1:] += 0.25 * e
+    return c
+
+
+def _avg(*terms):
+    s = terms[0]
+    for t in terms[1:]:
+        s = s + t
+    return s / len(terms)
+
+
+def prolong3d(c, fine_shape):
+    """Trilinear prolongation (d, nzc, nyc, nxc) -> (d, nzf, nyf, nxf) by
+    strided slice assignment (the JAX ``prolong3d``): each of the 8
+    parity cases is the average of the coarse nodes of its cell face,
+    edge or centre.  The same operator as :func:`prolong3d_il`."""
+    f = c.new_zeros((c.shape[0],) + tuple(fine_shape))
+    lo, hi = slice(None, -1), slice(1, None)
+    f[:, 0::2, 0::2, 0::2] = c
+    f[:, 1::2, 0::2, 0::2] = _avg(c[:, lo], c[:, hi])
+    f[:, 0::2, 1::2, 0::2] = _avg(c[:, :, lo], c[:, :, hi])
+    f[:, 0::2, 0::2, 1::2] = _avg(c[:, :, :, lo], c[:, :, :, hi])
+    f[:, 1::2, 1::2, 0::2] = _avg(c[:, lo, lo], c[:, hi, lo], c[:, lo, hi],
+                                  c[:, hi, hi])
+    f[:, 1::2, 0::2, 1::2] = _avg(c[:, lo, :, lo], c[:, hi, :, lo],
+                                  c[:, lo, :, hi], c[:, hi, :, hi])
+    f[:, 0::2, 1::2, 1::2] = _avg(c[:, :, lo, lo], c[:, :, hi, lo],
+                                  c[:, :, lo, hi], c[:, :, hi, hi])
+    f[:, 1::2, 1::2, 1::2] = _avg(
+        c[:, lo, lo, lo], c[:, hi, lo, lo], c[:, lo, hi, lo],
+        c[:, lo, lo, hi], c[:, hi, hi, lo], c[:, hi, lo, hi],
+        c[:, lo, hi, hi], c[:, hi, hi, hi],
+    )
+    return f
+
+
+def restrict3d(f, coarse_shape):
+    """Restriction R = prolong3d^T exactly, by strided slices (the JAX
+    ``restrict3d``; FEM Galerkin convention)."""
+    lo, hi = slice(None, -1), slice(1, None)
+    c = f[:, 0::2, 0::2, 0::2].clone()
+    e = f[:, 1::2, 0::2, 0::2]
+    c[:, lo] += 0.5 * e
+    c[:, hi] += 0.5 * e
+    e = f[:, 0::2, 1::2, 0::2]
+    c[:, :, lo] += 0.5 * e
+    c[:, :, hi] += 0.5 * e
+    e = f[:, 0::2, 0::2, 1::2]
+    c[:, :, :, lo] += 0.5 * e
+    c[:, :, :, hi] += 0.5 * e
+    e = f[:, 1::2, 1::2, 0::2]
+    for sz in (lo, hi):
+        for sy in (lo, hi):
+            c[:, sz, sy] += 0.25 * e
+    e = f[:, 1::2, 0::2, 1::2]
+    for sz in (lo, hi):
+        for sx in (lo, hi):
+            c[:, sz, :, sx] += 0.25 * e
+    e = f[:, 0::2, 1::2, 1::2]
+    for sy in (lo, hi):
+        for sx in (lo, hi):
+            c[:, :, sy, sx] += 0.25 * e
+    e = f[:, 1::2, 1::2, 1::2]
+    for sz in (lo, hi):
+        for sy in (lo, hi):
+            for sx in (lo, hi):
+                c[:, sz, sy, sx] += 0.125 * e
+    return c
+
+
+def _tent_kernel(ndim, like):
+    """(1, 1, 3, ..., 3) tent weights [0.5, 1, 0.5]^(x ndim)."""
+    t = torch.tensor([0.5, 1.0, 0.5], dtype=like.dtype, device=like.device)
+    w = t
+    for _ in range(ndim - 1):
+        w = w[..., None] * t
+    return w[None, None]
+
+
+def restrict2d_conv(f, coarse_shape):
+    """Restriction as one stride-2 convolution with the tent weights
+    (the JAX ``restrict2d_conv``); the same operator as
+    :func:`restrict2d`."""
+    out = F.conv2d(f[:, None], _tent_kernel(2, f), stride=2, padding=1)
+    return out.reshape((f.shape[0],) + tuple(coarse_shape))
+
+
+def prolong2d_conv(c, fine_shape):
+    """Prolongation as the transposed convolution (the JAX
+    ``prolong2d_conv``); the same operator as :func:`prolong2d`."""
+    out = F.conv_transpose2d(c[:, None], _tent_kernel(2, c), stride=2,
+                             padding=1)
+    return out.reshape((c.shape[0],) + tuple(fine_shape))
+
+
+def restrict3d_conv(f, coarse_shape):
+    """3D :func:`restrict2d_conv` (the JAX ``restrict3d_conv``)."""
+    out = F.conv3d(f[:, None], _tent_kernel(3, f), stride=2, padding=1)
+    return out.reshape((f.shape[0],) + tuple(coarse_shape))
+
+
+def prolong3d_conv(c, fine_shape):
+    """3D :func:`prolong2d_conv` (the JAX ``prolong3d_conv``)."""
+    out = F.conv_transpose3d(c[:, None], _tent_kernel(3, c), stride=2,
+                             padding=1)
+    return out.reshape((c.shape[0],) + tuple(fine_shape))
+
+
 # ---------------------------------------------------------------------------
 # Levels and the V-cycle
 # ---------------------------------------------------------------------------
@@ -237,6 +387,14 @@ class Level:
         return fused_smooth.fused_sweeps_2d(
             self._coeff_smooth, self.inv_diag, b, x0, niter=niter,
             omega=omega,
+        )
+
+    def resid(self, b, x):
+        """b - A x on the smoother's coefficients, K2 at ``niter=0`` (the
+        Chebyshev smoother's pass)."""
+        return fused_smooth.fused_sweeps_2d(
+            self._coeff_smooth, self.inv_diag, b, x, niter=0,
+            want_resid=True,
         )
 
     def postsmooth_resid(self, b, x0, niter, omega):
@@ -403,6 +561,7 @@ class OTFLevel:
         self.nd = int(nd)
         self.p = float(p)
         self.smoother_bf16 = bool(smoother_bf16)
+        self._inv_diag = None
 
     def _call(self, b, x, **kw):
         return otf3d.otf_apply_3d(self.rho, self.maskf, self.w3, self.wd, b,
@@ -435,6 +594,16 @@ class OTFLevel:
         """b - A x on the float32 operator (as the JAX OTFLevel), K6."""
         return self._call(b, x, niter=0, want_resid=True)
 
+    @property
+    def inv_diag(self):
+        """(nd, nz, ny, nx) inverse diagonal, 0 at fixed dofs, for the
+        Chebyshev smoother: one float32 K6 sweep from x0 = 0 with omega
+        1 on b = maskf, computed on first use."""
+        if self._inv_diag is None:
+            self._inv_diag = self._call(self.maskf, None, niter=1,
+                                        want_resid=False, omega=1.0)
+        return self._inv_diag
+
 
 def smoothing_omegas(nu, lam_max=3.0, frac=8.0):
     """Per-sweep damping factors for product-form Chebyshev smoothing.
@@ -458,13 +627,24 @@ class GMG:
     """V-cycle preconditioner over a list of Levels (fine -> coarse)."""
 
     def __init__(self, levels, nu_pre=2, nu_post=2, omega=0.7,
-                 coarse_iters=24, cheb_lam=2.2, cheb_frac=8.0):
+                 coarse_iters=24, restrict_fn=None, prolong_fn=None,
+                 smoother="jacobi", cheb_lam=2.2, cheb_frac=8.0):
         """omega: a damping factor, a tuple of per-sweep factors, or
         ``"cheby"`` — per-sweep reciprocals of Chebyshev nodes on
         [cheb_lam/cheb_frac, cheb_lam].  Post-smoothing applies the
         factors in reverse so the V-cycle stays symmetric (each Jacobi
         sweep is self-adjoint in the D-inner product, so the adjoint of
         the pre-sweep product is the reversed product).
+
+        smoother: ``"jacobi"`` (the damped sweeps above, fused in K2 /
+        K5 / K6) or ``"chebyshev"``, the three-term Chebyshev recurrence
+        of :meth:`_cheb_smooth` (``cheb_lam`` bounds the spectrum of
+        D^-1 A; ``omega`` and ``cheb_frac`` are not used).
+
+        restrict_fn, prolong_fn: grid transfers ``(field, shape) ->
+        field``; default the interleave forms (:func:`restrict2d_il` /
+        :func:`prolong2d_il`, 3D :func:`restrict3d_il` /
+        :func:`prolong3d_il`).
         """
         self.levels = list(levels)
         self.nu_pre = int(nu_pre)
@@ -472,15 +652,21 @@ class GMG:
         if isinstance(omega, str) and omega != "cheby":
             raise ValueError(f"omega={omega!r}: want a float, a tuple or "
                              f"'cheby'")
+        if smoother not in ("jacobi", "chebyshev"):
+            raise ValueError(f"smoother={smoother!r}: want 'jacobi' or "
+                             f"'chebyshev'")
         self.omega = omega
+        self.smoother = smoother
         self.coarse_iters = int(coarse_iters)
         self.cheb_lam = float(cheb_lam)
         self.cheb_frac = float(cheb_frac)
         self.dim = len(self.levels[0].shape)
         if self.dim == 2:
-            self.restrict_fn, self.prolong_fn = restrict2d_il, prolong2d_il
+            default_r, default_p = restrict2d_il, prolong2d_il
         else:
-            self.restrict_fn, self.prolong_fn = restrict3d_il, prolong3d_il
+            default_r, default_p = restrict3d_il, prolong3d_il
+        self.restrict_fn = restrict_fn or default_r
+        self.prolong_fn = prolong_fn or default_p
 
     def _omegas(self, niter, reverse=False):
         """Per-sweep damping tuple of length ``niter`` (reversed for
@@ -491,9 +677,40 @@ class GMG:
             seq = fused_smooth._omega_seq(self.omega, niter)
         return seq[::-1] if reverse else seq
 
+    def _resid(self, lv, b, x):
+        """b - A x on the level's smoother operator: K2 at ``niter=0``
+        (2D), K4 (3D) or K6 (an OTF level)."""
+        return lv.resid3d(b, x) if self.dim == 3 else lv.resid(b, x)
+
+    def _cheb_smooth(self, lv, x, b, degree):
+        """Chebyshev smoothing for A x ~= b on D^-1 A over [cheb_lam/30,
+        1.1 cheb_lam] (the JAX ``GMG._cheb_smooth``): one residual pass
+        of the level's kernel per degree, the recurrence in elementwise
+        torch.  ``x`` None starts from x0 = 0, whose residual is b
+        itself (no pass).  The inverse diagonal is 0 at fixed dofs, so
+        the JAX package's masking of the residual is implied."""
+        hi = 1.1 * self.cheb_lam
+        lo = self.cheb_lam / 30.0
+        theta = 0.5 * (hi + lo)
+        delta = 0.5 * (hi - lo)
+        sigma = theta / delta
+        invd = lv.inv_diag
+        d = invd * (b if x is None else self._resid(lv, b, x)) / theta
+        x = d if x is None else x + d
+        rho_old = 1.0 / sigma
+        for _ in range(int(degree) - 1):
+            rho = 1.0 / (2.0 * sigma - rho_old)
+            d = (rho * rho_old * d
+                 + (2.0 * rho / delta) * (invd * self._resid(lv, b, x)))
+            x = x + d
+            rho_old = rho
+        return x
+
     def _coarse_solve(self, lv, b):
         if lv.dense_inv is not None:
             return (lv.dense_inv @ b.reshape(-1)).reshape(b.shape)
+        if self.smoother == "chebyshev":
+            return self._cheb_smooth(lv, None, b, self.coarse_iters)
         sweeps = (fused_smooth.fused_sweeps_2d if self.dim == 2
                   else fused_smooth.fused_sweeps3d)
         return sweeps(
@@ -514,6 +731,11 @@ class GMG:
         lv = self.levels[k]
         if k == len(self.levels) - 1:
             return self._coarse_solve(lv, b)
+        if self.smoother == "chebyshev":
+            x = self._cheb_smooth(lv, None, b, self.nu_pre)
+            r = torch.where(lv.mask, 0.0, self._resid(lv, b, x))
+            x = self._coarse_correct(k, x, r)
+            return self._cheb_smooth(lv, x, b, self.nu_post)
         if self.dim == 3:
             return self._cycle3d(k, b)
         x, r = lv.presmooth_resid(b, self.nu_pre, self._omegas(self.nu_pre))
@@ -549,11 +771,13 @@ class GMG:
     def supports_apply_resid(self):
         """True when the fine level can supply A z with the V-cycle.
 
-        2D only: as in the JAX package, the 3D smoother emits no
-        trailing residual on the PCG operator, so :func:`pcg_gmg` takes
-        :func:`pcg` with the K4 matvec there.
+        2D Jacobi only, as in the JAX package: neither the 3D smoother
+        nor the Chebyshev recurrence emits a trailing residual on the
+        PCG operator, so :func:`pcg_gmg` takes :func:`pcg` with the
+        level's matvec there.
         """
-        return len(self.levels) > 1 and self.dim == 2
+        return (len(self.levels) > 1 and self.dim == 2
+                and self.smoother == "jacobi")
 
     def apply_resid(self, r):
         """One V-cycle returning (z, A z) with A z riding the postsmooth.
@@ -729,6 +953,8 @@ class GMGAssembler:
             with their inverse diagonal and optional bf16 copy, as the
             JAX ``Level.__init__`` does; K2 smooths them as on the
             uniform route.
+        smoother: the V-cycle's smoother, ``"jacobi"`` or
+            ``"chebyshev"`` (:class:`GMG`).
         sym: coefficient storage, the JAX package's ``pallas_sym``: all
             nd*nd*9 planes (False, the default in 2D, as in JAX) or the
             half-symmetric kept planes of ``fused_smooth.sym_planes_2d``
@@ -744,7 +970,7 @@ class GMGAssembler:
                  nu_post=2, omega=0.7, min_n=5, fine_mask=None,
                  coarse_dense=True, coarse_dense_max=4096,
                  smoother_dtype=None, cheb_lam=None, cheb_frac=8.0,
-                 elem_path="uniform", sym=False):
+                 elem_path="uniform", sym=False, smoother="jacobi"):
         """fine_mask: optional (nd, ny, nx) bool Dirichlet mask; coarse
         masks are derived by injection (default: clamp the x=0 column,
         matching ProblemCreator's problem factories).
@@ -772,7 +998,7 @@ class GMGAssembler:
         nd = self._setup("quad4", 2, physics, E, nu, p, dtype, device,
                          nu_pre, nu_post, omega, coarse_dense,
                          coarse_dense_max, smoother_dtype, cheb_lam,
-                         cheb_frac, 2.3)
+                         cheb_frac, 2.3, smoother)
         self.sizes = _grid_sizes(nx, ny, min_n=min_n)
         self.static_levels = []
         cur_mask = None
@@ -798,7 +1024,8 @@ class GMGAssembler:
 
     def _setup(self, element, dim, physics, E, nu, p, dtype, device, nu_pre,
                nu_post, omega, coarse_dense, coarse_dense_max,
-               smoother_dtype, cheb_lam, cheb_frac, cheb_lam_elasticity):
+               smoother_dtype, cheb_lam, cheb_frac, cheb_lam_elasticity,
+               smoother):
         """Options, material and element tables shared by 2D and 3D."""
         from .elements import get_element
         from .ops import stiffness
@@ -813,6 +1040,7 @@ class GMGAssembler:
         self.coarse_dense = bool(coarse_dense)
         self.coarse_dense_max = int(coarse_dense_max)
         self.smoother_dtype = smoother_dtype
+        self.smoother = smoother
         if cheb_lam is None:
             cheb_lam = cheb_lam_elasticity if physics == "elasticity" else 1.6
         self.cheb_lam = float(cheb_lam)
@@ -1003,8 +1231,8 @@ class GMGAssembler:
         ):
             levels[-1].dense_factor()
         gmg = GMG(levels, nu_pre=self.nu_pre, nu_post=self.nu_post,
-                  omega=self.omega, cheb_lam=self.cheb_lam,
-                  cheb_frac=self.cheb_frac)
+                  omega=self.omega, smoother=self.smoother,
+                  cheb_lam=self.cheb_lam, cheb_frac=self.cheb_frac)
         return gmg, levels[0]
 
 
@@ -1037,7 +1265,7 @@ class GMGAssembler3D(GMGAssembler):
                  nu_pre=2, nu_post=2, omega=0.6, min_n=3, coarse_dense=True,
                  coarse_dense_max=4096, elem_path="uniform",
                  smoother_dtype=None, cheb_lam=None, cheb_frac=8.0,
-                 fine_mask=None, sym=True):
+                 fine_mask=None, sym=True, smoother="jacobi"):
         """fine_mask: optional (nd, nz, ny, nx) bool Dirichlet mask;
         coarse masks by injection (default: clamp the x=0 face, the
         create_*_problem factories' layout).
@@ -1045,7 +1273,12 @@ class GMGAssembler3D(GMGAssembler):
         omega: a float, a per-sweep tuple, or ``"cheby"`` (see
         :func:`smoothing_omegas`).  The JAX package's TPU knobs
         (``pallas_smooth``, ``pallas_tz`` and the rest) have no meaning
-        here and are not taken; ``pallas_sym`` is ``sym``.
+        here and are not taken (a ``TypeError``); ``pallas_sym`` is
+        ``sym``.
+
+        smoother: ``"jacobi"`` or ``"chebyshev"`` (:class:`GMG`).  The
+        Chebyshev recurrence runs on OTF levels too (K6 residual passes;
+        the JAX package builds assembled levels instead under it).
         """
         from .mesh import ProblemCreator
 
@@ -1062,7 +1295,7 @@ class GMGAssembler3D(GMGAssembler):
         nd = self._setup("hex8", 3, physics, E, nu, p, dtype, device,
                          nu_pre, nu_post, omega, coarse_dense,
                          coarse_dense_max, smoother_dtype, cheb_lam,
-                         cheb_frac, 3.0)
+                         cheb_frac, 3.0, smoother)
         self.sizes = _grid_sizes_3d(nx, ny, nz, min_n=min_n)
         self.static_levels = []
         cur_mask = None
@@ -1096,6 +1329,36 @@ class GMGAssembler3D(GMGAssembler):
         return OTFLevel(rho_grid, st.maskf, st.mask, *st.otf, st.shape,
                         self.nd, self.p,
                         smoother_bf16=self.smoother_dtype is not None)
+
+
+def build_elasticity_gmg(nx, ny, Lx, Ly, E=10.0, nu=0.3, p=0.0, rho=None,
+                         dtype=torch.float32, nu_pre=2, nu_post=2, omega=0.7,
+                         min_n=5, device=None):
+    """GMG hierarchy for the left-edge-clamped plane-stress problem (the
+    JAX ``build_elasticity_gmg``).
+
+    Returns:
+        (gmg, fine_level): use ``fine_level.matvec`` as the operator and
+        ``gmg.apply`` as the preconditioner.
+    """
+    asm = GMGAssembler(nx, ny, Lx, Ly, "elasticity", E=E, nu=nu, p=p,
+                       dtype=dtype, device=device, nu_pre=nu_pre,
+                       nu_post=nu_post, omega=omega, min_n=min_n)
+    if rho is None:
+        rho = torch.ones(nx * ny, dtype=dtype, device=asm.device)
+    return asm.assemble(rho)
+
+
+def build_poisson_gmg(nx, ny, Lx, Ly, p=0.0, rho=None, dtype=torch.float32,
+                      nu_pre=2, nu_post=2, omega=0.8, min_n=5, device=None):
+    """GMG hierarchy for the left-edge-fixed Poisson problem (the JAX
+    ``build_poisson_gmg``)."""
+    asm = GMGAssembler(nx, ny, Lx, Ly, "poisson", p=p, dtype=dtype,
+                       device=device, nu_pre=nu_pre, nu_post=nu_post,
+                       omega=omega, min_n=min_n)
+    if rho is None:
+        rho = torch.ones(nx * ny, dtype=dtype, device=asm.device)
+    return asm.assemble(rho)
 
 
 # ---------------------------------------------------------------------------

@@ -20,8 +20,11 @@ one, K9 (nd 1 and 2, float32 and float64), K2-sym (every mode) on
 iterations at 65x33 with a bit-for-bit resume; K1 nd=1 on the Newton
 coefficient field c = h(1 + u^2) >= 1 on every level, K9 nd=1 on the
 nonsymmetric Newton tangent planes (float32) and the float64 flux, and
-the fused gmg Newton at 65^2 (chip_smoke.py phases 3-3e, 7 and 8 hold
-them at full size).
+the fused gmg Newton at 65^2; p-multigrid at 17^3 (tet10, brick20: K3
+and K5 launched, against a float64 plain-version solve), its lattice
+matvec bit-identical across two applies, and one ``smoother="chebyshev"``
+V-cycle (2D, 3D, 3D on the fly) against its plain version
+(chip_smoke.py phases 3-3e and 7-9 hold them at full size).
 
 Needs an NVIDIA Hopper card and nvcc; marked ``slow`` (deselected by the
 CPU tier) and skipped where CUDA is absent.  Run on the card with:
@@ -1064,3 +1067,98 @@ def test_newton_gmg_runs_on_card(dev):
     assert _cuda.launches["pyfem_assemble_2d"] == nlev * (k - 1)
     assert _cuda.launches["pyfem_smooth_2d"] > 0
     assert _cuda.launches["pyfem_stencil_2d"] > k
+
+
+# -- p-multigrid (tet10 / brick20 lattices) and the Chebyshev smoother ------
+
+
+def _pmg_model(dev, et, n, dtype=torch.float32):
+    import pyfem_gpu_testflight_tpu_torch as pt
+
+    conn, X, fixed, force = pt.ProblemCreator(
+        n, n, n, element_type=et).create_linear_elasticity_problem()
+    m = pt.LinearElasticity("tet10" if et == "tet" else "brick20", X, conn,
+                            fixed, None, force, dtype=dtype, device=dev)
+    return m.attach_pmg(n, n, n)
+
+
+@pytest.mark.parametrize("et", ["tet", "brick20"])
+def test_pmg_runs_on_card(dev, et):
+    """pmg at 17^3 in float32 on the card: K3 once per corner level and
+    K5 launched (the corner V-cycle's Jacobi smoothing; K4 runs only
+    under ``gmg_options=dict(smoother="chebyshev")``), the solution
+    within 1e-3 (rel L2) of the float64 plain-version solve on the CPU,
+    iterations within 1 of it."""
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+
+    n = 17
+    m = _pmg_model(dev, et, n)
+    nlev = len(m._pmg.asm.sizes)
+    _cuda.reset_launches()
+    u = m.solve(method="pmg", rtol=1e-6)
+    torch.cuda.synchronize()
+    k = m.last_solve_stats["iters"]
+    assert _cuda.launches["pyfem_assemble_3d"] == nlev
+    assert _cuda.launches["pyfem_sweeps_3d"] > 0
+    ref = _pmg_model("cpu", et, n, torch.float64)
+    u64 = ref.solve(method="pmg", rtol=1e-6)
+    assert abs(k - ref.last_solve_stats["iters"]) <= 1
+    err = float(torch.linalg.norm(u.double().cpu() - u64)
+                / torch.linalg.norm(u64))
+    assert bool(torch.isfinite(u).all()) and err <= 1e-3, err
+
+
+@pytest.mark.parametrize("et", ["tet", "brick20"])
+def test_pmg_lattice_matvec_is_deterministic_on_card(dev, et):
+    m = _pmg_model(dev, et, 17)
+    pmg = m._pmg
+    assert pmg._lat_off is not None
+    rho = np.random.default_rng(9).uniform(0.3, 1.0, m.nnodes)
+    Ke = m.element_jacobian(rho)
+    v = torch.as_tensor(np.random.default_rng(10).standard_normal(m.ndof),
+                        dtype=torch.float32, device=dev)
+    y1 = pmg._lattice_matvec(Ke, v)
+    y2 = pmg._lattice_matvec(Ke, v)
+    assert torch.equal(y1, y2)
+    assert _rel(y1, m.matvec(Ke, v)) <= TOL
+
+
+def _on_cpu(level):
+    """A copy of a multigrid level with every tensor on the CPU."""
+    import copy
+
+    out = copy.copy(level)
+    for k, v in vars(level).items():
+        if torch.is_tensor(v):
+            setattr(out, k, v.cpu())
+    return out
+
+
+@pytest.mark.parametrize("route", ["2d", "3d", "3d otf"])
+def test_chebyshev_gmg_matches_plain_on_card(dev, route):
+    """One ``smoother="chebyshev"`` V-cycle on the card (K2 at niter=0,
+    K4, or K6 residual passes) against the same V-cycle on the same
+    levels moved to the CPU (the kernels' plain versions), float32."""
+    from pyfem_gpu_testflight_tpu_torch import multigrid
+
+    if route == "2d":
+        a = multigrid.GMGAssembler(NX, NY, 2.0, 1.0, "elasticity", p=3.0,
+                                   device=dev, smoother="chebyshev")
+        n = NX * NY
+    else:
+        a = multigrid.GMGAssembler3D(
+            17, 17, 17, 1.0, 1.0, 1.0, "elasticity", p=3.0, device=dev,
+            smoother="chebyshev",
+            elem_path="otf" if route == "3d otf" else "uniform")
+        n = 17 ** 3
+    rho = torch.as_tensor(np.random.default_rng(11).uniform(0.3, 1.0, n),
+                          dtype=torch.float32, device=dev)
+    gmg, lv0 = a.assemble(rho)
+    r = torch.as_tensor(np.random.default_rng(12).standard_normal(
+        tuple(lv0.mask.shape)), dtype=torch.float32, device=dev)
+    r = torch.where(lv0.mask, 0.0, r)
+    got = gmg.apply(r)
+    plain = multigrid.GMG([_on_cpu(lv) for lv in gmg.levels],
+                          smoother="chebyshev", cheb_lam=gmg.cheb_lam)
+    torch.cuda.synchronize()
+    assert _rel(got.cpu(), plain.apply(r.cpu())) <= TOL

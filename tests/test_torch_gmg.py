@@ -11,7 +11,7 @@ Gates:
 * at 33x17 ``LinearElasticity.solve(method="gmg")`` gives the same
   compliance p^T u as the JAX package's ``solve(method="direct")``
   (1e-10 relative);
-* branches of the model not ported yet raise.
+* branches of the model not ported yet raise (``pmg`` runs).
 
 The JAX side runs its XLA path (``pallas_smooth=False``) under
 ``jax.jit``; the port runs K1/K2's plain versions (CPU tensors).
@@ -132,9 +132,18 @@ def test_unported_branches_raise():
                             device=DEV)
     with pytest.raises(RuntimeError):
         m.solve(method="gmg")  # attach_structured_grid first
-    for method in ("amg", "pmg", "sharded_gmg"):
+    for method in ("amg", "sharded_gmg"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             m.solve(method=method)
+    # pmg is ported (tests/test_torch_pmg.py): attach_pmg and the solve run
+    conn3, X3, fixed3, force3 = pt.ProblemCreator(
+        5, 5, 5, element_type="brick20").create_linear_elasticity_problem()
+    mq = pt.LinearElasticity("brick20", X3, conn3, fixed3, None, force3,
+                             device=DEV)
+    u_pmg = mq.attach_pmg(5, 5, 5).solve(method="pmg", rtol=1e-10)
+    u_qd = mq.solve(method="direct")
+    assert mq.last_solve_stats["method"] == "pmg"
+    assert (u_pmg - u_qd).abs().max() <= 1e-8 * u_qd.abs().max()
     # cg and direct are ported (tests/test_torch_models_cg.py), gmres too
     # (tests/test_torch_gmres.py)
     u_cg, u_dir = m.solve(method="cg"), m.solve(method="direct")
