@@ -18,7 +18,9 @@ a V-cycle of K1 levels and K2 smoothing as its preconditioner), and the
 p-multigrid solve of brick20 elasticity on the 65^3 lattice (411,840
 live dof; Chebyshev on the quadratic element operator, a corner-grid
 V-cycle on K3/K5 levels) with its ``kernel="cuda"`` (K8), Chebyshev
-corner smoother (K4) and tet10 33^3 lines — and
+corner smoother (K4) and tet10 33^3 lines, and 3D topology optimization
+at 65x33x33 and 129x65x65 (K3 levels, K5 smoothing, K4 the state
+operator and the Helmholtz filter's product; ``opt.DeviceTopo``) — and
 checks the answers
 against float64 and scipy references.  Exits nonzero on any
 failure; on success the last line is
@@ -138,6 +140,25 @@ Phases:
    ``kernel="cuda"`` (K8 once per solve, its Ke against the einsum Ke
    and its plain version) and the tet10 lattice at 33^3 (cut from 65^3
    for time: its six-class lattice route);
+10. "topo3d": ``bench.py --config topo --topo-3d`` at its width (65x33x33
+   hex8 block cantilever, 212,355 state dof, 70,785 design variables,
+   p=3, float32, Chebyshev-node nu=2, bf16 smoother copy, half-symmetric
+   storage, flexible PCG rtol 1e-6, Helmholtz r0=0.01 rtol 1e-6 on K4 at
+   nd=1, ``DeviceTopo(fixed_volume=0.4)``), 2 warm-up and 40 timed MMA
+   iterations (the bench's counts): s/iteration, state and filter
+   iteration counts, K3/K4/K5 launches per iteration (K4's state
+   operator and filter apart) and host read-backs, CUDA-event stage
+   times, busy share, peak memory, compliance and the final volume
+   (<= 0.405), the first iteration's float32 compliance against a
+   float64-outer solve, a run resumed at iteration 2 against the
+   uninterrupted one bit for bit, K4's nd=1 full-storage form on the
+   filter's planes against plain with its times, bound and
+   ``torch.sparse.mm`` time, K3 on every level and K5 on the fine level
+   against plain on the loop's final density; then the same at n = 65
+   (129x65x65,
+   1,635,075 state dof; 2 + 10 iterations), and the 3D einsum route
+   (``elem_path="einsum"``) at 33^3 in both storages beside the uniform
+   route;
 
 ``python3 chip_smoke.py --pass-levels [--root DIR]`` runs only
 ``pass_levels`` on the package under DIR (default: this checkout), so a
@@ -146,7 +167,8 @@ checkout of another commit is timed on the same inputs in the same call;
 the readings ``SOL64_TOL`` is set from; ``--newton-floor`` only phase
 8's 257^2 yardstick on four design vectors, the readings
 ``NEWTON64_TOL`` is set from; ``--newton`` only phase 8;
-``--quadratic`` only phase 9; ``--quadratic-floor`` bench quadratic's
+``--quadratic`` only phase 9; ``--topo3d`` only phase 10;
+``--quadratic-floor`` bench quadratic's
 float32 solution against its float64-outer one on the bench load and
 three seeded loads, the readings ``PMG64_TOL`` is set from;
 ``--assembly-kernels [--root
@@ -228,12 +250,27 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps):
-    """Mean milliseconds per call from CUDA events (after a warm-up)."""
+def cuda_ms(fn, reps, between=None):
+    """Mean milliseconds per call from CUDA events (after a warm-up).
+    With ``between`` (e.g. :func:`l2_flush`), it runs before each call,
+    outside the timed span: each call is timed alone by its own events,
+    and the median is returned.  ``between`` must keep the card busy
+    longer than the host takes to launch ``fn``, so that the span holds
+    the call's device work and not the host's launch."""
     import torch
 
     fn()
     torch.cuda.synchronize()
+    if between is not None:
+        ev = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+        for a, b in ev:
+            between()
+            a.record()
+            fn()
+            b.record()
+        torch.cuda.synchronize()
+        return float(np.median([a.elapsed_time(b) for a, b in ev]))
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     t0.record()
@@ -263,28 +300,71 @@ def device_rows(prof):
             and dev_us(r) > 0]
 
 
-def device_ms(fn, reps=20, sessions=3):
+def device_ms(fn, reps=20, sessions=3, between=None):
     """Milliseconds of device time per call, from ``torch.profiler`` (the
     kernels' own time, whatever the host's speed): the median over
     ``sessions`` profiler sessions of ``reps`` calls each.  A session that
     records no device time (seen now and then on the card) is left out;
-    None when none records any (not measured)."""
+    None when none records any (not measured).  ``between`` runs before
+    each call; the device rows that a session of ``reps`` calls of it
+    alone records are left out of the sum (None when no such session
+    records any: its rows could not be told apart).  A session whose
+    rows of ``between`` sum to less than its ``floor_ms`` a call (the
+    least time its work can take) lost records, and is left out."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    skip = set()
+    for _ in range(sessions if between is not None else 0):
+        with profile(activities=acts) as prof:
+            for _ in range(reps):
+                between()
+            torch.cuda.synchronize()
+        skip = {r.key for r in device_rows(prof)}
+        if skip:
+            break
+    if between is not None and not skip:
+        return None
+    floor = getattr(between, "floor_ms", 0.0)
     fn()
     torch.cuda.synchronize()
     got = []
     for _ in range(sessions):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=acts) as prof:
             for _ in range(reps):
+                if between is not None:
+                    between()
                 fn()
             torch.cuda.synchronize()
-        total = sum(dev_us(r) for r in device_rows(prof))
+        rows = device_rows(prof)
+        total = sum(dev_us(r) for r in rows if r.key not in skip)
+        extra = sum(dev_us(r) for r in rows if r.key in skip)
+        if extra / reps / 1e3 < floor:
+            continue
         if total > 0:
             got.append(total / reps / 1e3)
     return float(np.median(got)) if got else None
+
+
+def l2_flush(dev):
+    """A callable that evicts the card's L2 cache (50 MB on the H100) by
+    writing a 1 GiB buffer, so that the call timed after it reads its
+    operands from device memory, as its bytes bound assumes.  The write
+    (~0.3 ms) outlasts the host's launch of a kernel wrapper (~0.04 ms),
+    so the card runs the timed call as soon as the flush ends.  Its
+    ``floor_ms`` is 90% of the write's time at the card's memory rate:
+    a profiler session that records less of it lost records (its rows
+    have read 0.10-0.33 ms a flush from one run to the next)."""
+    import torch
+
+    buf = torch.empty(256 << 20, dtype=torch.float32, device=dev)
+
+    def flush():
+        buf.fill_(1.0)
+
+    flush.floor_ms = 0.9e3 * nbytes(buf) / HBM_BYTES_S
+    return flush
 
 
 def fms(v):
@@ -353,18 +433,20 @@ def f64_operator(nx, ny, Lx, Ly, rho, p, dev):
 
 
 def f64_operator_3d(n, L, rho, p, dev):
-    """float64 3D planes by the plain path: (A., |A|., full planes)."""
+    """float64 3D planes by the plain path: (A., |A|., full planes) on
+    the n^3 grid, or on an (nx, ny, nz) one."""
     import torch
     from pyfem_gpu_testflight_tpu_torch import multigrid
     from pyfem_gpu_testflight_tpu_torch.ops import fused_assemble as fa
     from pyfem_gpu_testflight_tpu_torch.ops import fused_smooth as fs
 
-    a = multigrid.GMGAssembler3D(n, n, n, *L, "elasticity", p=p,
+    nx, ny, nz = (n, n, n) if np.ndim(n) == 0 else n
+    a = multigrid.GMGAssembler3D(nx, ny, nz, *L, "elasticity", p=p,
                                  dtype=torch.float64, device=dev)
     st = a.static_levels[0]
     c, _ = fa.assemble_pack_3d_plain(
-        rho.to(dtype=torch.float64, device=dev).reshape(n, n, n), st.maskf,
-        st.W, a.N, nd=3, p=p,
+        rho.to(dtype=torch.float64, device=dev).reshape(nz, ny, nx),
+        st.maskf, st.W, a.N, nd=3, p=p,
     )
     c = fs.full_planes_3d(c, 3)
     ca = c.abs()
@@ -2214,6 +2296,62 @@ def phase_general(dev, pt, label, physics, etype="hex8", dims=(N3,) * 3):
 TOPO_WARMUP, TOPO_ITERS = 2, 20  # bench.py --topo-iters defaults to 40
 
 
+def topo_stages(dt, label, k):
+    """The six stages of an MMA iteration of ``dt`` (a ``DeviceTopo``
+    after its timed run), by CUDA events between its ``mark`` calls over
+    three iterations from the run's end state, then one more iteration
+    under the profiler.  Returns (stage -> mean ms, mean iteration ms,
+    device busy % from device rows or None)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    lb_v, ub_v = dt._init_state()[1:3]
+    state = dt.state
+    stage_ms, step_ms = {}, []
+    for _ in range(3):
+        events = []
+
+        def record(stage):
+            events.append((stage, torch.cuda.Event(enable_timing=True)))
+            events[-1][1].record()
+
+        dt.mark = record
+        e0 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        state, _st = dt._step(*state, k, lb_v, ub_v)
+        k += 1
+        torch.cuda.synchronize()
+        prev = e0
+        for stage, e in events:
+            stage_ms.setdefault(stage, []).append(prev.elapsed_time(e))
+            prev = e
+        step_ms.append(e0.elapsed_time(prev))
+    dt.mark = None
+    stages = {st_: float(np.mean(v)) for st_, v in stage_ms.items()}
+    step = float(np.mean(step_ms))
+    log(f"{label}: one iteration's stages (CUDA events, mean of 3): "
+        + ", ".join(f"{st_} {v:.3f} ms" for st_, v in stages.items())
+        + f"; whole iteration {step:.3f} ms")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        dt._step(*state, k, lb_v, ub_v)
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    if not rows:
+        log(f"{label} profile: no device time recorded (busy share not "
+            f"measured)")
+        return stages, step, None
+    busy_ms = sum(dev_us(r) for r in rows) / 1e3
+    log(f"{label} profile: {sum(r.count for r in rows)} device activities "
+        f"in one iteration, device time {busy_ms:.3f} ms = "
+        f"{100 * busy_ms / step:.1f}% of the unprofiled iteration's "
+        f"{step:.3f} ms")
+    for r in sorted(rows, key=dev_us, reverse=True)[:8]:
+        log(f"  {dev_us(r) / 1e3:9.3f} ms {r.count:6d}x  {r.key[:90]}")
+    return stages, step, 100 * busy_ms / step
+
+
 def phase_topo(dev, pt, i2p):
     """Phase 7: topology optimization at the width of ``bench.py --config
     topo`` (bench.py:319-428): 1025x513 quad4 cantilever, p=3,
@@ -2228,7 +2366,6 @@ def phase_topo(dev, pt, i2p):
     uninterrupted one."""
     import torch
     from pathlib import Path
-    from torch.profiler import ProfilerActivity, profile
     from pyfem_gpu_testflight_tpu_torch import solvers
     from pyfem_gpu_testflight_tpu_torch.ops import _cuda
     from pyfem_gpu_testflight_tpu_torch.opt import DeviceTopo
@@ -2311,50 +2448,7 @@ def phase_topo(dev, pt, i2p):
                   for p in per_it),
           "topo: K9 launched in every iteration, K1 once per level")
 
-    # the six stages of an iteration (CUDA events between them), then
-    # the same step under the profiler
-    lb_v, ub_v = dt._init_state()[1:3]
-    state, k = dt.state, TOPO_ITERS
-    stage_ms, step_ms = {}, []
-    for _ in range(3):
-        events = []
-
-        def record(stage):
-            events.append((stage, torch.cuda.Event(enable_timing=True)))
-            events[-1][1].record()
-
-        dt.mark = record
-        e0 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        state, _st = dt._step(*state, k, lb_v, ub_v)
-        k += 1
-        torch.cuda.synchronize()
-        prev = e0
-        for stage, e in events:
-            stage_ms.setdefault(stage, []).append(prev.elapsed_time(e))
-            prev = e
-        step_ms.append(e0.elapsed_time(prev))
-    dt.mark = None
-    log("topo: one iteration's stages (CUDA events, mean of 3): " + ", ".join(
-        f"{st_} {np.mean(v):.3f} ms" for st_, v in stage_ms.items())
-        + f"; whole iteration {np.mean(step_ms):.3f} ms")
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        state, _st = dt._step(*state, k, lb_v, ub_v)
-        torch.cuda.synchronize()
-    rows = device_rows(prof)
-    busy_ms = sum(dev_us(r) for r in rows) / 1e3
-    if rows:
-        log(f"topo profile: {sum(r.count for r in rows)} device activities "
-            f"in one iteration, device time {busy_ms:.3f} ms = "
-            f"{100 * busy_ms / np.mean(step_ms):.1f}% of the unprofiled "
-            f"iteration's {np.mean(step_ms):.3f} ms")
-        for r in sorted(rows, key=dev_us, reverse=True)[:8]:
-            log(f"  {dev_us(r) / 1e3:9.3f} ms {r.count:6d}x  {r.key[:90]}")
-    else:
-        log("topo profile: no device time recorded (busy share not "
-            "measured)")
+    topo_stages(dt, "topo", TOPO_ITERS)
 
     # the first iteration's float32 compliance against a float64-outer
     # solve of the same density
@@ -3282,6 +3376,419 @@ def phase_quadratic(dev, pt):
     return out
 
 
+TOPO3D_N = 33         # bench.py --topo-3d --n3d-topo 33: 65x33x33 nodes
+TOPO3D_SCALE_N = 65   # the scale line: 129x65x65, 1,635,075 state dof
+TOPO3D_WARMUP = 2
+TOPO3D_ITERS = 40     # bench.py's --topo-iters
+TOPO3D_SCALE_ITERS = 10
+TOPO3D_EINSUM_N = 33  # the 3D einsum route's line: 33^3
+TOPO3D_NAMES = ("pyfem_assemble_3d", "pyfem_sweep_3d", "pyfem_sweeps_3d")
+
+
+def topo3d_setup(dev, pt, n):
+    """``bench.py --config topo --topo-3d --n3d-topo n`` (bench.py:337-360,
+    the reference's topo.py:150-152 block cantilever): (2n-1) x n x n hex8
+    nodes, ``LinearElasticity(p=3, float32)``, ``attach_structured_grid(
+    nu_pre=2, nu_post=2, min_n=3, bf16 smoother copy, omega="cheby")``
+    (half-symmetric storage, the JAX 3D default), ``Helmholtz(r0=0.01,
+    rtol=1e-6)`` on its structured grid; returns (model, filter, a
+    ``DeviceTopo(fixed_volume=0.4, rtol=1e-6, maxiter=200)`` factory,
+    lengths)."""
+    import torch
+    from pyfem_gpu_testflight_tpu_torch.opt import DeviceTopo
+
+    nx, ny, nz = 2 * n - 1, n, n
+    conn, X, fixed, force, L = problem(nx, ny, nz)
+    model = pt.LinearElasticity("hex8", X, conn, fixed, None, force, p=3.0,
+                                dtype=torch.float32, device=dev)
+    model.attach_structured_grid(nx, ny, nz, nu_pre=2, nu_post=2, min_n=3,
+                                 smoother_dtype=torch.bfloat16,
+                                 omega="cheby")
+    filtr = pt.Helmholtz(0.01, "hex8", X, conn, dtype=torch.float32,
+                         rtol=1e-6, device=dev)
+    filtr.attach_structured_grid(nx, ny, nz)
+    make = lambda: DeviceTopo(model, filtr, fixed_volume=0.4, rtol=1e-6,
+                              maxiter=200)
+    return model, filtr, make, L
+
+
+def k4_filter_form(dev, filtr, x, label):
+    """K4 at nd=1 on the filter's 27 full-storage planes (K and R) and
+    the run's final design: against its plain version (<= REL_TOL of
+    max|plain|), CUDA-event and device time, the bytes bound and the
+    ``torch.sparse.mm`` time of the same product.  At 65x33x33 the
+    operands (8.2 MB) stay in the L2 cache across back-to-back calls, so
+    the kernel is timed with the L2 flushed before each call (``ms``,
+    ``device_ms``; held against the device-memory bound) and, for the
+    record, back to back (``l2_warm_ms``)."""
+    import torch
+    from pyfem_gpu_testflight_tpu_torch.ops import fused_smooth as fs
+
+    shape = filtr._st_shape
+    xr = x.reshape((1,) + shape).contiguous()
+    worst = 0.0
+    for name, c in (("K", filtr._coeffK), ("R", filtr._coeffR)):
+        got = fs.fused_sweep_3d(c, x=xr, mode="matvec", neg_resid=True)
+        ref = fs.fused_sweep_3d_plain(c, x=xr, mode="matvec", neg_resid=True)
+        torch.cuda.synchronize()
+        ea, er = rel_err(got, ref)
+        worst = max(worst, ea)
+        log(f"{label}: K4 nd=1 full-storage matvec on the filter's {name} "
+            f"planes: max-abs {ea:.2e}, rel {er:.2e}")
+        check(er <= REL_TOL, f"{label}: K4 nd=1 filter product ({name}) "
+              f"within {REL_TOL:g} of plain")
+    c = filtr._coeffK
+    run = lambda: fs.fused_sweep_3d(c, x=xr, mode="matvec", neg_resid=True)
+    nn = xr.numel()
+    # per node: one FMA per plane (27); coefficients and x read once, y
+    # written once
+    b_ms, b_by = bound(nbytes(c, xr) + nbytes(xr), 2 * 27 * nn)
+    flush = l2_flush(dev)
+    r = dict(
+        max_abs_err=worst, ms=cuda_ms(run, 50, between=flush),
+        device_ms=device_ms(run, between=flush), l2_warm_ms=cuda_ms(run, 50),
+        flush_device_ms=device_ms(flush),
+        plain_ms=cuda_ms(lambda: fs.fused_sweep_3d_plain(
+            c, x=xr, mode="matvec", neg_resid=True), 5),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=library_matvec_ms(c.reshape((1, 1, 3, 3, 3) + shape),
+                                     shape, xr))
+    del flush
+    log(f"{label}: K4 nd=1 filter matvec {'x'.join(map(str, shape[::-1]))}: "
+        f"kernel {r['ms']:.4f} ms (device {fms(r['device_ms'])}; L2 flushed "
+        f"before each call; the flush alone {fms(r['flush_device_ms'])}), "
+        f"back to back {r['l2_warm_ms']:.4f} ms, plain "
+        f"{r['plain_ms']:.4f} ms, torch.sparse.mm (f32 CSR) "
+        f"{r['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return r
+
+
+def topo3d_kernels(model, rho, label):
+    """K3, K4 and K5 at every shape the loop gives them, on its final
+    density and the state load, against their plain versions (<= REL_TOL
+    of max|plain|): K3 on every level of the state hierarchy (half
+    storage with the bf16 copy, as the loop assembles it); K4's nd=3
+    matvec on every level's float32 half planes (the PCG operator runs
+    on the fine one); K5's presmooth + residual (from x0 = 0) and
+    postsmooth (from the presmooth's iterate) on the bf16 copy of every
+    level the V-cycle smooths, with its Chebyshev-node factors, on the
+    load restricted as the V-cycle restricts it.  The V-cycle's residual
+    rides K5, so no bf16 K4 form runs on this path.  Returns each
+    kernel's worst max-abs error."""
+    import torch
+    from pyfem_gpu_testflight_tpu_torch import multigrid
+    from pyfem_gpu_testflight_tpu_torch.ops import fused_assemble as fa
+    from pyfem_gpu_testflight_tpu_torch.ops import fused_smooth as fs
+    from pyfem_gpu_testflight_tpu_torch.ops.dia import interleave_to_planar
+
+    asm = model._gmg_asm
+    rl = rho.reshape(model._gmg_shape).contiguous()
+    worst = dict(K3=0.0, K4=0.0, K5=0.0)
+    for st in asm.static_levels:
+        args = (rl, st.maskf, st.W, asm.N)
+        kw = dict(nd=3, p=asm.p, lp_dtype=torch.bfloat16, sym=True)
+        got = fa.assemble_pack_3d(*args, **kw)
+        ref = fa.assemble_pack_3d_plain(*args, **kw)
+        torch.cuda.synchronize()
+        (ea, er), (ia, ir) = rel_err(got[0], ref[0]), rel_err(
+            got[1], ref[1], st.maskf > 0)
+        worst["K3"] = max(worst["K3"], ea, ia)
+        check(er <= REL_TOL and ir <= REL_TOL,
+              f"{label}: K3 level {'x'.join(map(str, st.shape[::-1]))} "
+              f"planes rel {er:.2e}, inv_diag rel {ir:.2e} within "
+              f"{REL_TOL:g}")
+        rl = multigrid._restrict_nodal(rl)
+    gmg, _lv0 = asm.assemble(rho)
+    b = interleave_to_planar(model.compute_rhs(), 3).reshape(
+        (3,) + model._gmg_shape)
+    for k, lv in enumerate(gmg.levels):
+        if k:
+            b = torch.where(lv.mask, 0.0, gmg.restrict_fn(b, lv.shape))
+        b = torch.where(lv.mask, 0.0, b).contiguous()
+        at = f"{label}: level {'x'.join(map(str, lv.shape[::-1]))}"
+        mv = dict(mode="matvec", neg_resid=True)
+        e4 = rel_err(fs.fused_sweep_3d(lv.coeff, x=b, **mv),
+                     fs.fused_sweep_3d_plain(lv.coeff, x=b, **mv))
+        worst["K4"] = max(worst["K4"], e4[0])
+        check(e4[1] <= REL_TOL, f"{at} K4 nd=3 half-storage matvec (f32) "
+              f"rel {e4[1]:.2e} within {REL_TOL:g}")
+        if lv.dense_inv is not None:  # the coarsest: a dense solve
+            continue
+        pre = (lv.coeff_lp, lv.inv_diag, b, None)
+        kw5 = dict(niter=gmg.nu_pre, want_resid=True,
+                   omega=gmg._omegas(gmg.nu_pre))
+        got = fs.fused_sweeps3d(*pre, **kw5)
+        ref = fs.fused_sweeps3d_plain(*pre, **kw5)
+        post = (lv.coeff_lp, lv.inv_diag, b, ref[0])
+        kwp = dict(niter=gmg.nu_post, omega=gmg._omegas(gmg.nu_post,
+                                                        reverse=True))
+        got = tuple(got) + (fs.fused_sweeps3d(*post, **kwp),)
+        ref = tuple(ref) + (fs.fused_sweeps3d_plain(*post, **kwp),)
+        torch.cuda.synchronize()
+        errs = [rel_err(g, r) for g, r in zip(got, ref)]
+        worst["K5"] = max([worst["K5"]] + [e[0] for e in errs])
+        check(all(e[1] <= REL_TOL for e in errs),
+              f"{at} K5 presmooth x, its residual and postsmooth (bf16 "
+              f"planes) rel " + ", ".join(f"{e[1]:.2e}" for e in errs)
+              + f" within {REL_TOL:g}")
+    return worst
+
+
+def topo3d_line(dev, pt, i2p, n, iters, label, resume_check=False):
+    """One line of phase 10 at --n3d-topo n: ``TOPO3D_WARMUP`` warm-up and
+    ``iters`` timed MMA iterations through ``DeviceTopo.optimize``, with
+    the measures phase 7 takes in 2D, K4's filter form, and (contract
+    line) a 4-iteration run resumed at 2 against the uninterrupted one."""
+    import torch
+    from pathlib import Path
+    from pyfem_gpu_testflight_tpu_torch import solvers
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+
+    t0 = time.time()
+    model, filtr, make, L = topo3d_setup(dev, pt, n)
+    nx, ny, nz = 2 * n - 1, n, n
+    dt = make()
+    torch.cuda.synchronize()
+    nlev = len(model._gmg_asm.sizes)
+    log(f"{label}: {nx}x{ny}x{nz} nodes, {model.ndof} state dof, "
+        f"{model.nnodes} design variables, levels {model._gmg_asm.sizes}, "
+        f"set-up {time.time() - t0:.2f} s")
+    t0 = time.time()
+    dt.optimize(max_iterations=TOPO3D_WARMUP, verbose=False,
+                log_every=TOPO3D_WARMUP)
+    torch.cuda.synchronize()
+    log(f"{label}: {TOPO3D_WARMUP}-iteration warm-up {time.time() - t0:.2f} s")
+
+    # the timed run: launches and read-backs snapshotted at every stage
+    snaps = []
+
+    def snapshot(stage):
+        snaps.append((stage, dict(
+            {k: _cuda.launches[k] for k in TOPO3D_NAMES},
+            **solvers.readbacks)))
+
+    dt.history.clear()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    snapshot("start")
+    dt.mark = snapshot
+    log_every = max(1, iters // 4)
+    x, rho = dt.optimize(max_iterations=iters, verbose=False,
+                         log_every=log_every)
+    torch.cuda.synchronize()
+    mem = torch.cuda.max_memory_allocated() - base
+    dt.mark = None
+    per_it, cur = [], {}
+    for (_s, a), (stage, b) in zip(snaps, snaps[1:]):
+        cur[stage] = {k: b[k] - a[k] for k in b}
+        if stage == "mma_update":
+            per_it.append(cur)
+            cur = {}
+    tot = lambda it, k: sum(d[k] for d in it.values())
+    k3 = [tot(it, "pyfem_assemble_3d") for it in per_it]
+    k4s = [it["state_pcg"]["pyfem_sweep_3d"] for it in per_it]
+    k4f = [it["filter_fwd"]["pyfem_sweep_3d"]
+           + it["filter_bwd"]["pyfem_sweep_3d"] for it in per_it]
+    k5 = [tot(it, "pyfem_sweeps_3d") for it in per_it]
+    reads = [tot(it, "pcg") + tot(it, "cg") for it in per_it]
+    hist = dt.history
+    cg = [h["cg_iters"] for h in hist]
+    fi = [h["filter_iters"] for h in hist]
+    objs = [h["obj"] for h in hist]
+    # filter products per iteration: R once forward and once backward, and
+    # one per PCG iteration of each solve, which runs whole blocks of
+    # CHECK_EVERY (iterations past convergence masked)
+    blocks = lambda k: max(1, -(-k // solvers.CHECK_EVERY))
+    k4f_want = [2 + solvers.CHECK_EVERY * (blocks(f) + blocks(b))
+                for f, b in fi]
+    vol = float(model.volume(rho))
+    log(f"{label}: {iters} timed MMA iterations in {dt.elapsed:.3f} s, "
+        f"{dt.s_per_iter:.4f} s/iteration (CUDA-synchronized; steady "
+        f"{dt.steady_s_per_iter:.4f}); compliance {objs[0]:.6e} -> "
+        f"{objs[-1]:.6e}, volume {vol:.5f}")
+    log(f"{label}: state PCG iterations {cg}")
+    log(f"{label}: filter PCG iterations (fwd, bwd) {fi}")
+    log(f"{label}: launches per iteration K3 {k3}, K4 state operator "
+        f"{k4s}, K4 filter {k4f}, K5 {k5}")
+    log(f"{label}: host read-backs per iteration {reads} (state PCG r.r "
+        f"per PCG iteration, filter flag per 16; plus {iters // log_every} "
+        f"stats drains in all); peak device memory {mem / 2**20:.1f} MiB "
+        f"above the {base / 2**20:.1f} MiB allocated before the run")
+    check(len(hist) == iters and all(np.isfinite(objs))
+          and all(0 < c <= 200 for c in cg),
+          f"{label}: {iters} iterations, finite history, every state solve "
+          f"converged (the drain checks each)")
+    check(len(per_it) == iters and all(k == nlev for k in k3)
+          and all(a == c + 1 for a, c in zip(k4s, cg))
+          and all(k == 2 * (nlev - 1) * (c + 1) for k, c in zip(k5, cg))
+          and k4f == k4f_want,
+          f"{label}: K3 once per level, K4 once per PCG iteration (+1, the "
+          f"warm start's residual) and in every filter product ({k4f_want}"
+          f": the R products and {solvers.CHECK_EVERY} per block of filter "
+          f"PCG iterations), K5 twice per V-cycle level")
+
+    stages, step_ms, busy = topo_stages(dt, label, iters)
+
+    # the first iteration's float32 compliance against a float64-outer
+    # solve of the same state system
+    x0 = torch.full((model.nnodes,), 0.95, dtype=torch.float32, device=dev)
+    rho0 = torch.clamp(filtr.apply(x0), min=dt.rho_floor)
+    gmg, lv0 = model._gmg_asm.assemble(rho0)
+    b = torch.where(lv0.mask, 0.0,
+                    i2p(model.compute_rhs(), 3).reshape(3, nz, ny, nx))
+    mv64, mvabs, c64p = f64_operator_3d((nx, ny, nz), L, rho0, 3.0, dev)
+    xa, ka, _ = accuracy_solve(gmg, mv64, b)
+    true_a, _ = residuals(mv64, mvabs, b, xa)
+    c64 = float(torch.dot(b.double().reshape(-1), xa.reshape(-1)))
+    rel64 = abs(objs[0] - c64) / abs(c64)
+    log(f"{label}: first iteration compliance float32 {objs[0]:.8e}, "
+        f"float64-outer ({ka} iterations, true residual {true_a:.2e}) "
+        f"{c64:.8e}: rel diff {rel64:.3e}")
+    check(true_a <= 1e-5, f"{label}: float64-outer true residual <= 1e-5")
+    del mv64, mvabs, c64p, gmg, lv0, xa
+
+    out = dict(n=n, dims=(nx, ny, nz), ndof=model.ndof,
+               nnodes=model.nnodes, s_per_iter=dt.s_per_iter,
+               steady=dt.steady_s_per_iter, cg=cg, fi=fi, objs=objs,
+               vol=vol, mem=mem, busy=busy, stages=stages,
+               step_ms=step_ms, rel64=rel64,
+               launches=dict(K3=sum(k3), K4_state=sum(k4s),
+                             K4_filter=sum(k4f), K5=sum(k5)),
+               reads=reads)
+    out["k4_filter"] = k4_filter_form(dev, filtr, x, label)
+    out["kernels"] = topo3d_kernels(model, torch.clamp(rho, min=dt.rho_floor),
+                                    label)
+    if resume_check:
+        ck = Path("build") / "chip_smoke" / "topo3d_checkpoint.npz"
+        ck.parent.mkdir(parents=True, exist_ok=True)
+        d_full = make()
+        x4, _ = d_full.optimize(max_iterations=4, verbose=False, log_every=2)
+        make().optimize(max_iterations=2, verbose=False, log_every=2,
+                        checkpoint_path=str(ck))
+        d_res = make()
+        x4r, _ = d_res.optimize(max_iterations=4, verbose=False, log_every=2,
+                                resume=str(ck))
+        same = torch.equal(x4, x4r) and [h["obj"] for h in d_res.history] \
+            == [h["obj"] for h in d_full.history]
+        log(f"{label}: 4 iterations resumed at 2 vs uninterrupted: "
+            f"bit-identical {same} (objectives "
+            f"{[h['obj'] for h in d_res.history]})")
+        check(same, f"{label}: a run resumed at iteration 2 equals the "
+              f"uninterrupted run bit for bit")
+    return out
+
+
+def einsum_route_3d(dev, pt, multigrid, i2p):
+    """The 3D einsum route (``elem_path="einsum"``: einsum element
+    matrices, ``Stencil3D.assemble``, elimination; K5 smooths, K4 is the
+    PCG operator) at 33^3 in both storages, against the uniform (K3)
+    route on the same bench-3D-like system (p=3, a seeded density)."""
+    import torch
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+
+    n = TOPO3D_EINSUM_N
+    conn, X, fixed, force, L = problem(n, n, n)
+    model = pt.LinearElasticity("hex8", X, conn, fixed, None, force, p=3.0,
+                                dtype=torch.float32, device=dev)
+    rho = torch.as_tensor(np.random.default_rng(SEED + 10).uniform(
+        0.3, 1.0, model.nnodes), dtype=torch.float32, device=dev)
+    b = None
+    out = {}
+    for sym in (True, False):
+        for path in ("uniform", "einsum"):
+            asm = multigrid.GMGAssembler3D(
+                n, n, n, *L, "elasticity", p=3.0, dtype=torch.float32,
+                device=dev, nu_pre=2, nu_post=2, min_n=3,
+                smoother_dtype=torch.bfloat16, omega="cheby",
+                elem_path=path, sym=sym)
+            _cuda.reset_launches()
+            gmg, lv0 = asm.assemble(rho)
+            if b is None:
+                b = torch.where(lv0.mask, 0.0, i2p(model.compute_rhs(), 3)
+                                .reshape(3, n, n, n))
+            _x, k, rn = multigrid.pcg_gmg(gmg, lv0, b, rtol=1e-6,
+                                          maxiter=200, flexible=True)
+            torch.cuda.synchronize()
+            c = {k_: _cuda.launches[k_] for k_ in TOPO3D_NAMES}
+            out[(sym, path)] = dict(k=k, launches=c)
+            ok = float(rn) <= 1e-6 * float(torch.linalg.norm(b))
+            log(f"einsum route {n}^3 sym={sym} {path}: {k} PCG iterations, "
+                f"converged {ok}, launches {c}")
+            check(ok, f"3D {path} route {n}^3 sym={sym} converges")
+        e, u = out[(sym, "einsum")], out[(sym, "uniform")]
+        check(e["launches"]["pyfem_assemble_3d"] == 0
+              and e["launches"]["pyfem_sweep_3d"] > 0
+              and e["launches"]["pyfem_sweeps_3d"] > 0,
+              f"3D einsum route sym={sym}: K4 and K5 launched, K3 not")
+        log(f"einsum route {n}^3 sym={sym}: {e['k']} PCG iterations against "
+            f"the uniform route's {u['k']}")
+    return {f"{'sym' if s else 'full'} {p}": v for (s, p), v in out.items()}
+
+
+def phase_topo3d(dev, pt, multigrid, i2p):
+    """Phase 10: 3D topology optimization, ``bench.py --config topo
+    --topo-3d`` (bench.py:337-360) on the card: the contract line at
+    --n3d-topo 33 (65x33x33, 2 warm-up + 40 timed MMA iterations, the
+    bench's counts; final volume <= 0.4 + 5e-3, tests/test_topo_device.py's
+    gate; a resumed run bit-identical), the scale line at n = 65
+    (129x65x65, 1,635,075 state dof, 2 + 10 iterations), K4's nd=1
+    filter form on each line's planes, and the 3D einsum route at 33^3
+    in both storages."""
+    con = topo3d_line(dev, pt, i2p, TOPO3D_N, TOPO3D_ITERS, "topo3d",
+                      resume_check=True)
+    check(con["vol"] <= 0.4 + 5e-3, f"topo3d: final volume {con['vol']:.5f} "
+          f"<= 0.405 after {TOPO3D_ITERS} iterations")
+    scale = topo3d_line(dev, pt, i2p, TOPO3D_SCALE_N, TOPO3D_SCALE_ITERS,
+                        "topo3d scale")
+    ein = einsum_route_3d(dev, pt, multigrid, i2p)
+    return dict(contract=con, scale=scale, einsum=ein)
+
+
+def run_topo3d():
+    """``python3 chip_smoke.py --topo3d``: only phase 10 (with the kernel
+    build); prints the card and one JSON line of its figures."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    import pyfem_gpu_testflight_tpu_torch as pt
+    from pyfem_gpu_testflight_tpu_torch import multigrid
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+    from pyfem_gpu_testflight_tpu_torch.ops.dia import (
+        interleave_to_planar as i2p,
+    )
+
+    log(card_line())
+    t0 = time.time()
+    _cuda.library()
+    log(f"build: {time.time() - t0:.2f} s")
+    out = phase_topo3d(torch.device("cuda", 0), pt, multigrid, i2p)
+    log(json.dumps(topo3d_summary(out)))
+    if FAILS:
+        print("chip_smoke FAILED:\n  " + "\n  ".join(FAILS), file=sys.stderr)
+        return 1
+    return 0
+
+
+def topo3d_summary(out):
+    """Phase 10's figures as one JSON-able dict."""
+    keep = ("dims", "ndof", "nnodes", "s_per_iter", "steady", "vol", "mem",
+            "busy", "stages", "step_ms", "rel64", "launches", "k4_filter")
+    lines = {}
+    for name in ("contract", "scale"):
+        o = out[name]
+        lines[name] = {k: o[k] for k in keep}
+        lines[name].update(
+            cg_first_last=(o["cg"][0], o["cg"][-1]),
+            filter_first_last=(o["fi"][0], o["fi"][-1]),
+            compliance_first_last=(o["objs"][0], o["objs"][-1]),
+            reads_per_iter=float(np.mean(o["reads"])))
+    return {"topo3d": lines, "einsum_route_33": out["einsum"]}
+
+
 def phase_direct(dev, pt):
     """Phase 6b: host scipy direct solves against the card's CG on small
     jittered meshes (quad4 257x129 both models; tet10 and brick20 on a
@@ -3517,6 +4024,9 @@ def main():
     newton = phase_newton(dev, pt)
     # 9. p-multigrid on the bench quadratic lattice
     quad = phase_quadratic(dev, pt)
+    # 10. 3D topology optimization at bench topo --topo-3d's width, its
+    # scale line and the 3D einsum route
+    topo3d = phase_topo3d(dev, pt, multigrid, i2p)
 
     # summary
     src = "pyfem_gpu_testflight_tpu_torch/csrc/"
@@ -3655,6 +4165,31 @@ def main():
                 for line, c in quad["launches"].items()}
             row["max_abs_err"] = max(row["max_abs_err"],
                                      quad["kernels"][key]["max_abs_err"])
+        # phase 10's counts over its timed MMA iterations (its main path:
+        # bench topo --topo-3d and its scale line) and the einsum route's;
+        # K4's nd=1 filter form held on each line's planes
+        if key in ("K3", "K4", "K5"):
+            lk = {"K3": ("K3",), "K4": ("K4_state", "K4_filter"),
+                  "K5": ("K5",)}[key]
+            row["launches_topo3d"] = {
+                line: ({k_: topo3d[line]["launches"][k_] for k_ in lk}
+                       if key == "K4" else topo3d[line]["launches"][lk[0]])
+                for line in ("contract", "scale")}
+            row["launches_topo3d"]["einsum_33"] = {
+                route: c["launches"][_QUAD_ENTRY[key]]
+                for route, c in topo3d["einsum"].items()
+                if "einsum" in route}
+            row["max_abs_err"] = max([row["max_abs_err"]] + [
+                topo3d[line]["kernels"][key]
+                for line in ("contract", "scale")])
+        if key == "K4":
+            row["topo3d_filter_nd1"] = {
+                "x".join(map(str, topo3d[line]["dims"])):
+                    topo3d[line]["k4_filter"]
+                for line in ("contract", "scale")}
+            row["max_abs_err"] = max([row["max_abs_err"]] + [
+                topo3d[line]["k4_filter"]["max_abs_err"]
+                for line in ("contract", "scale")])
         kernels.append(row)
     if FAILS:
         print("chip_smoke FAILED:\n  " + "\n  ".join(FAILS), file=sys.stderr)
@@ -3670,6 +4205,14 @@ def main():
         f"chained {quad['ch']:.1f} ms/solve, peak memory "
         f"{quad['mem'] / 2**20:.1f} MiB; tet10 {QUAD_TET_N}^3 "
         f"{quad['k_tet']} iterations, {quad['single_tet']:.1f} ms ({card})")
+    for line in ("contract", "scale"):
+        o = topo3d[line]
+        log(f"topo3d {line}: {'x'.join(map(str, o['dims']))}, "
+            f"{o['s_per_iter']:.4f} s per MMA iteration (steady "
+            f"{o['steady']:.4f}), state PCG {o['cg'][0]} -> {o['cg'][-1]} "
+            f"iterations, compliance {o['objs'][0]:.5e} -> "
+            f"{o['objs'][-1]:.5e}, volume {o['vol']:.5f}, peak "
+            f"{o['mem'] / 2**20:.1f} MiB ({card})")
     log(f"2D single-shot {s2:.3f} ms, chained {ch2:.3f} ms/solve; 3D "
         f"single-shot {m3['single_ms']:.3f} ms, chained {m3['ch']:.3f} "
         f"ms/solve; 3D otf single-shot {mo['single_ms']:.3f} ms, chained "
@@ -3686,6 +4229,7 @@ if __name__ == "__main__":
     sys.exit(run_pass_levels() if "--pass-levels" in sys.argv else
              run_quadratic_floor() if "--quadratic-floor" in sys.argv else
              run_quadratic() if "--quadratic" in sys.argv else
+             run_topo3d() if "--topo3d" in sys.argv else
              run_solution_floor() if "--solution-floor" in sys.argv else
              run_assembly_kernels() if "--assembly-kernels" in sys.argv
              else run_newton_floor() if "--newton-floor" in sys.argv

@@ -77,12 +77,22 @@ class SortedSegments:
         self.lengths = torch.bincount(ids, minlength=self.num_segments)
 
     def sum(self, data):
-        """Segment sums of ``data`` (``size`` entries) -> (num_segments,)."""
+        """Segment sums of ``data`` (``size`` entries) -> (num_segments,).
+
+        Complex data (the complex-step probes) is summed as its real
+        view, ``torch.segment_reduce`` having no complex kernel: the real
+        and imaginary parts in the same fixed order as real data.
+        """
         flat = data.reshape(-1)
         if flat.numel() != self.size:
             raise ValueError(f"{flat.numel()} entries for {self.size} ids")
-        return torch.segment_reduce(flat[self.order], "sum",
-                                    lengths=self.lengths, unsafe=True)
+        if not flat.is_complex():
+            return torch.segment_reduce(flat[self.order], "sum",
+                                        lengths=self.lengths, unsafe=True)
+        parts = torch.view_as_real(flat[self.order])  # (size, 2)
+        out = torch.segment_reduce(parts, "sum", lengths=self.lengths,
+                                   axis=0, unsafe=True)
+        return torch.view_as_complex(out.contiguous())
 
 
 def segment_sum(data, segment_ids, num_segments):

@@ -29,8 +29,8 @@ takes a numpy array or a torch tensor and returns the same kind.
 Topology optimization's state is the optimizer's:
 :func:`load_topo_checkpoint` reads a ``DeviceTopo`` checkpoint npz of
 either package (the keys are the same; ``u_prev`` is planar ``(nd, ny,
-nx)`` in both) into the port's device tensors, so the port can resume a
-JAX run.
+nx)`` in 2D and ``(nd, nz, ny, nx)`` in 3D in both) into the port's
+device tensors, so the port can resume a JAX run.
 """
 
 from __future__ import annotations

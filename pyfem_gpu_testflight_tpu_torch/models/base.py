@@ -12,6 +12,13 @@ attached uniform grid) and the volume functionals.  Every other method or
 branch raises ``NotImplementedError`` naming the ROADMAP.md slice that
 ports it.
 
+Complex-step probes: a complex density (``rho + 1j*h*p``) keeps its
+imaginary part.  It becomes the complex dtype matching ``dtype`` and
+takes the einsum route, whose element tables are cast to it
+(:meth:`FEModel._tables`); the element kernels and the structured
+sensitivity are real-only, and a complex operator is solved only by
+``method="direct"`` (host scipy), as in the JAX package.
+
 Reference parity: ModelBase (pyfem.py:634-931) and the RAMP material
 helpers (pyfem.py:1278-1329, 1922-1973).
 """
@@ -71,6 +78,12 @@ def _check_converged(method, resnorm, tol, iters=None, slack=10.0):
 def _host(v):
     """A tensor or array as a host numpy array."""
     return v.detach().cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
+
+
+def _is_complex(v):
+    """True for a complex tensor, array or scalar (a complex-step probe)."""
+    return torch.is_complex(v) if torch.is_tensor(v) else bool(
+        np.iscomplexobj(v))
 
 
 def ramp(rho_q, p):
@@ -275,17 +288,18 @@ class FEModel:
     # -- design sensitivity and volume ----------------------------------------
 
     def _dv_sens_inputs(self, rho, phi, psi):
-        """Nodal rho, phi, psi on the device; complex inputs (the
-        reference's complex-step probes) are not ported."""
-        if any(torch.is_complex(torch.as_tensor(v)) for v in (rho, phi, psi)):
-            _not_ported("complex-step inputs", "slice 1 item 4")
-        return (self._as_nodal(rho), torch.as_tensor(phi, device=self.device),
-                torch.as_tensor(psi, device=self.device))
+        """Nodal rho, phi, psi on the device in one working dtype: the
+        model's, or its complex form when any of them is complex."""
+        cplx = any(_is_complex(v) for v in (rho, phi, psi))
+        dt = self.complex_dtype if cplx else self.dtype
+        as_dt = lambda v: torch.as_tensor(v, device=self.device).to(dt)
+        return as_dt(self._as_nodal(rho)), as_dt(phi), as_dt(psi)
 
     def _gather_dv(self, rho, phi, psi):
         """Quad-point rho and element-gathered phi/psi of the generic
         route: (rho_q (nelems, nq), phi_e, psi_e (nelems, nn[, nd]))."""
-        rho_q = geometry.interp_to_quads(self.N, rho[self.conn])
+        rho_q = geometry.interp_to_quads(self._tables(rho.dtype)[2],
+                                         rho[self.conn])
         nd = self.ndof_per_node
         shape = (self.nelems, self.nnodes_per_elem) + ((nd,) if nd > 1
                                                       else ())
@@ -311,11 +325,14 @@ class FEModel:
                                     to_planes(phi), to_planes(psi))
         return out.reshape(-1)
 
-    def _use_structured_sens(self):
+    def _use_structured_sens(self, *inputs):
         """True when the scatter-free uniform-grid sensitivity applies:
-        a structured grid on the uniform element path is attached."""
+        a structured grid on the uniform element path is attached and no
+        input is complex (complex-step probes keep the einsum route, the
+        oracle, as in the JAX package)."""
         asm = getattr(self, "_gmg_asm", None)
-        return asm is not None and asm.elem_path == "uniform"
+        return (asm is not None and asm.elem_path == "uniform"
+                and not any(_is_complex(v) for v in inputs))
 
     def volume(self, rho):
         """Mean nodal density."""
@@ -428,6 +445,11 @@ class FEModel:
         """
         if method in _METHOD_SLICE:
             _not_ported(f"method={method!r}", _METHOD_SLICE[method])
+        if method != "direct" and any(
+                v is not None and _is_complex(v) for v in (Ke, rho)):
+            raise ValueError(
+                f"complex-step inputs need solver='direct' (the host "
+                f"scipy solve), got {method!r}")
         from .. import solvers
 
         if method == "pmg":
@@ -453,6 +475,7 @@ class FEModel:
             return self._solve_gmg(rho if rho is not None else 1.0, rhs,
                                    rtol=rtol)
         if method == "direct":
+            # a complex operator (complex-step probe) gives a complex u
             K, b = self.bc.apply_scipy(self.assemble_scipy(Ke), _host(rhs))
             return (torch.as_tensor(solvers.direct_solve(K, b),
                                     device=self.device),
@@ -480,11 +503,27 @@ class FEModel:
         }
         return res.x, b
 
+    @property
+    def complex_dtype(self):
+        """The complex dtype of a complex-step probe on this model."""
+        return (torch.complex128 if self.dtype == torch.float64
+                else torch.complex64)
+
     def _as_nodal(self, rho):
-        """Broadcast scalar density to a nodal field (pyfem.py:1015-1016)."""
+        """Broadcast scalar density to a nodal field (pyfem.py:1015-1016).
+
+        A complex density keeps its imaginary part: it becomes
+        :attr:`complex_dtype`, never a real cast.
+        """
         if rho is None:
             rho = 1.0
-        if np.ndim(rho) == 0:
-            return torch.full((self.nnodes,), float(rho), dtype=self.dtype,
-                              device=self.device)
-        return torch.as_tensor(rho, dtype=self.dtype, device=self.device)
+        dtype = self.complex_dtype if _is_complex(rho) else self.dtype
+        rho = torch.as_tensor(rho, dtype=dtype, device=self.device)
+        return rho.expand(self.nnodes).clone() if rho.ndim == 0 else rho
+
+    def _tables(self, dtype):
+        """(Xe, dN, N, wq) in ``dtype``: the model's own, or cast to the
+        complex dtype of a complex-step probe (``torch.einsum`` does not
+        promote real operands)."""
+        t = (self.Xe, self.dN, self.N, self.wq)
+        return t if dtype == self.dtype else tuple(a.to(dtype) for a in t)

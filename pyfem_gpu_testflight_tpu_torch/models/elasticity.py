@@ -74,7 +74,7 @@ class LinearElasticity(FEModel):
     def element_jacobian(self, rho=1.0):
         """Element stiffness matrices Ke (nelems, ndpe, ndpe)."""
         rho = self._as_nodal(rho)
-        if self.kernel == "cuda":
+        if self.kernel == "cuda" and not rho.is_complex():
             cqT = self._cq_transposed(rho)
             if self.ndims == 3:
                 from ..ops import element_kernels3d as ek3
@@ -87,10 +87,10 @@ class LinearElasticity(FEModel):
                 KeT = ek.elasticity_stiffness_quad4(self._XeT, cqT, self.mu,
                                                     self.lam)
             return self._untranspose_ke(KeT)
-        rho_q = geometry.interp_to_quads(self.N, rho[self.conn])
-        return stiffness.elasticity_stiffness(
-            self.Xe, self.dN, self.wq, ramp(rho_q, self.p), self.mu,
-            self.lam)
+        Xe, dN, N, wq = self._tables(rho.dtype)
+        rho_q = geometry.interp_to_quads(N, rho[self.conn])
+        return stiffness.elasticity_stiffness(Xe, dN, wq, ramp(rho_q, self.p),
+                                              self.mu, self.lam)
 
     def compute_jacobian(self, rho=1.0):
         """Assembled host scipy CSR global matrix (the direct path)."""
@@ -139,10 +139,11 @@ class LinearElasticity(FEModel):
         structured route on an attached uniform grid, else the einsum
         route with a deterministic element -> node segment sum."""
         rho, phi, psi = self._dv_sens_inputs(rho, phi, psi)
-        if self._use_structured_sens():
+        if self._use_structured_sens(rho, phi, psi):
             return self._k_dv_sens_structured(rho, phi, psi)
         rho_q, phi_e, psi_e = self._gather_dv(rho, phi, psi)
+        Xe, dN, N, wq = self._tables(rho.dtype)
         inner = stiffness.elasticity_dv_inner(
-            self.Xe, self.dN, self.N, self.wq, ramp_deriv(rho_q, self.p),
-            phi_e, psi_e, self.mu, self.lam)
+            Xe, dN, N, wq, ramp_deriv(rho_q, self.p), phi_e, psi_e, self.mu,
+            self.lam)
         return assembly.segment_sum(inner, self.node_segments, self.nnodes)

@@ -9,8 +9,12 @@ AMG hierarchy; ``solver="direct"`` factors K once on the host (scipy).
 
 General meshes run the matrix-free operator through ``solvers.cg``.
 ``attach_structured_grid`` switches to stencil planes: in 2D every
-product with K and R is kernel K9 (``ops.stencil_matvec``), in 3D the
-plain ``Stencil3D.matvec``.  Both routes solve with ``solvers.cg_loop``,
+product with K and R is kernel K9 (``ops.stencil_matvec``), in 3D
+kernel K4 (``ops.fused_smooth.fused_sweep_3d``, matvec mode) on the 27
+full-storage planes in float32 — the same product the JAX package runs
+in plain XLA — and, K4 having no float64 form, the plain
+``Stencil3D.matvec`` on a float64 filter.  Both routes solve with
+``solvers.cg_loop``,
 which reads its convergence flag back once per ``CHECK_EVERY``
 iterations and masks the iterations past convergence, so iterates,
 iteration count and residual equal a check on every iteration (the JAX
@@ -74,10 +78,13 @@ class Helmholtz(FEModel):
     def attach_structured_grid(self, nnodes_x, nnodes_y, nnodes_z=None):
         """Stencil-operator path for structured quad/hex grids.
 
-        ``apply``/``apply_gradient`` then run stencil products (kernel K9
-        in 2D) and Jacobi-PCG on (1, *grid) fields instead of the
-        gather/scatter operator.
+        ``apply``/``apply_gradient`` then run stencil products and
+        Jacobi-PCG on (1, *grid) fields instead of the gather/scatter
+        operator: kernel K9 in 2D; in 3D kernel K4 on (27, nz, ny, nx)
+        full-storage planes in float32 and, by dtype, the plain
+        ``Stencil3D.matvec`` in float64 (K4 takes float32 only).
         """
+        from ..ops import fused_smooth
         from ..ops.stencil import Stencil2D, Stencil3D
         from ..ops.stencil_matvec import stencil_matvec_2d
 
@@ -91,18 +98,27 @@ class Helmholtz(FEModel):
         if int(np.prod(dims)) != self.nnodes:
             raise ValueError(f"{'x'.join(map(str, dims))} grid != "
                              f"{self.nnodes} nodes")
+        shape = dims[::-1]
         if nnodes_z is None:
             st = Stencil2D(*dims, 1)
             self._st_matvec = stencil_matvec_2d
+            planes = lambda c: c.contiguous()
         else:
             st = Stencil3D(*dims, 1)
-            self._st_matvec = st.matvec
+            k4 = (fused_smooth.fused_sweep_3d if self.dtype == torch.float32
+                  else fused_smooth.fused_sweep_3d_plain)
+            self._st_matvec = lambda c, u: k4(c, x=u, mode="matvec",
+                                              neg_resid=True)
+            # K4's full storage: plane (dz, dy, dx) at dz*9 + dy*3 + dx,
+            # the row-major order of Stencil3D's (1, 1, 3, 3, 3) axes
+            planes = lambda c: c.reshape((27,) + shape).contiguous()
         self._st = st
-        self._st_shape = dims[::-1]
-        self._coeffK = st.assemble(self.Ke).contiguous()
-        self._coeffR = st.assemble(self.Re).contiguous()
-        diag = st.diagonal(self._coeffK)
+        self._st_shape = shape
+        coeffK = st.assemble(self.Ke)
+        diag = st.diagonal(coeffK)
         self._st_inv_diag = 1.0 / torch.where(diag == 0, 1.0, diag)
+        self._coeffK = planes(coeffK)
+        self._coeffR = planes(st.assemble(self.Re))
         return self
 
     def _st_solve_K(self, b_grid):

@@ -72,7 +72,7 @@ class LinearPoisson(FEModel):
     def element_jacobian(self, rho=1.0):
         """Element stiffness matrices Ke (nelems, nn, nn)."""
         rho = self._as_nodal(rho)
-        if self.kernel == "cuda":
+        if self.kernel == "cuda" and not rho.is_complex():
             cqT = self._cq_transposed(rho)
             if self.ndims == 3:
                 from ..ops import element_kernels3d as ek3
@@ -84,9 +84,9 @@ class LinearPoisson(FEModel):
 
                 KeT = ek.poisson_stiffness_quad4(self._XeT, cqT)
             return self._untranspose_ke(KeT)
-        rho_q = geometry.interp_to_quads(self.N, rho[self.conn])
-        return stiffness.poisson_stiffness(self.Xe, self.dN, self.wq,
-                                           ramp(rho_q, self.p))
+        Xe, dN, N, wq = self._tables(rho.dtype)
+        rho_q = geometry.interp_to_quads(N, rho[self.conn])
+        return stiffness.poisson_stiffness(Xe, dN, wq, ramp(rho_q, self.p))
 
     def compute_jacobian(self, rho=1.0):
         """Assembled host scipy CSR global matrix (the direct path)."""
@@ -153,10 +153,10 @@ class LinearPoisson(FEModel):
     def k_dv_sens(self, rho, phi, psi):
         """d(phi^T K psi)/d rho, nodal (pyfem.py:1240-1276)."""
         rho, phi, psi = self._dv_sens_inputs(rho, phi, psi)
-        if self._use_structured_sens():
+        if self._use_structured_sens(rho, phi, psi):
             return self._k_dv_sens_structured(rho, phi, psi)
         rho_q, phi_e, psi_e = self._gather_dv(rho, phi, psi)
+        Xe, dN, N, wq = self._tables(rho.dtype)
         inner = stiffness.poisson_dv_inner(
-            self.Xe, self.dN, self.N, self.wq, ramp_deriv(rho_q, self.p),
-            phi_e, psi_e)
+            Xe, dN, N, wq, ramp_deriv(rho_q, self.p), phi_e, psi_e)
         return assembly.segment_sum(inner, self.node_segments, self.nnodes)

@@ -926,7 +926,7 @@ class StaticLevel(NamedTuple):
     Kq: torch.Tensor     # (nq, ndpe, ndpe) unit element matrices
     W: torch.Tensor      # (nd*nd*9, 4, nq) K1 / (nd*nd*27, 8, nq) K3 weights
     otf: tuple = None    # 3D OTF level: (w3, wd) K6 tables, else None
-    elem: tuple = None   # 2D elem_path "einsum"/"cuda": (Xe, conn, XeT)
+    elem: tuple = None   # elem_path "einsum"/"cuda": (Xe, conn, XeT|None)
 
 
 class GMGAssembler:
@@ -963,7 +963,8 @@ class GMGAssembler:
 
     _level_cls = Level
     _assemble_fn = staticmethod(fused_assemble.assemble_pack_2d)
-    _offsets = _QUAD4_LOCAL  # local-node grid offsets (dv_sens)
+    _offsets = _QUAD4_LOCAL  # local-node grid offsets (dv_sens, materials)
+    _sym_planes = staticmethod(fused_smooth.sym_planes_2d)  # kept planes
 
     def __init__(self, nx, ny, Lx, Ly, physics="elasticity", E=10.0, nu=0.3,
                  p=0.0, dtype=torch.float32, device=None, nu_pre=2,
@@ -985,7 +986,6 @@ class GMGAssembler:
         then needs flexible PCG.
         """
         from .mesh import ProblemCreator
-        from .ops.element_kernels import transpose_xe
 
         if elem_path not in ("uniform", "einsum", "cuda"):
             raise ValueError(f"unknown elem_path {elem_path!r} (the JAX "
@@ -1015,12 +1015,8 @@ class GMGAssembler:
             self._add_level(Stencil2D(lnx, lny, nd), creator, mask_np,
                             (lny, lnx), fused_assemble.assembly_weights)
             if elem_path != "uniform":
-                # gathered on the host, as the JAX package does
-                Xe = self._tensor(creator.X[creator.conn])
                 self.static_levels[-1] = self.static_levels[-1]._replace(
-                    elem=(Xe, torch.as_tensor(creator.conn, dtype=torch.int64,
-                                              device=self.device),
-                          transpose_xe(Xe)))
+                    elem=self._elem_data(creator, elem_path == "cuda"))
 
     def _setup(self, element, dim, physics, E, nu, p, dtype, device, nu_pre,
                nu_post, omega, coarse_dense, coarse_dense_max,
@@ -1073,6 +1069,16 @@ class GMGAssembler:
             Kq=self._tensor(Kq),
             W=self._tensor(W),
         ))
+
+    def _elem_data(self, creator, transposed):
+        """(Xe, conn, XeT or None) of a level's element-matrix route,
+        gathered on the host as the JAX package does."""
+        from .ops.element_kernels import transpose_xe
+
+        Xe = self._tensor(creator.X[creator.conn])
+        conn = torch.as_tensor(creator.conn, dtype=torch.int64,
+                               device=self.device)
+        return Xe, conn, transpose_xe(Xe) if transposed else None
 
     def _tensor(self, a):
         return torch.as_tensor(np.asarray(a), dtype=self.dtype,
@@ -1133,13 +1139,14 @@ class GMGAssembler:
         return np.einsum("q,qnl,qml->qnm", cq, Ngrad, Ngrad)
 
     def material_planes(self, rho_grid):
-        """RAMP material at quad points as (nquads, ney, nex) planes
-        (gather-free: the quad4 nodal gather is four shifted slices)."""
+        """RAMP material at quad points as (nquads, [nez,] ney, nex)
+        planes (gather-free: the quad4 / hex8 nodal gather is four /
+        eight shifted slices, one per local node of ``_offsets``)."""
         from .models.base import ramp
 
-        ny, nx = rho_grid.shape
-        rho_e = [rho_grid[ay : ay + ny - 1, ax : ax + nx - 1]
-                 for (ay, ax) in _QUAD4_LOCAL]
+        esh = tuple(s - 1 for s in rho_grid.shape)
+        rho_e = [rho_grid[tuple(slice(o, o + e) for o, e in zip(off, esh))]
+                 for off in self._offsets]
         planes = []
         for q in range(self.N.shape[0]):
             acc = self.N[q, 0] * rho_e[0]
@@ -1170,9 +1177,10 @@ class GMGAssembler:
         return stiffness.poisson_stiffness(Xe, dN, wq, Cq)
 
     def _elem_level(self, st, rho_grid):
-        """A 2D level from element matrices (elem_path "cuda" / "einsum"):
-        stencil assembly, Dirichlet elimination, inverse diagonal (0 at
-        fixed dofs, K1's convention) and the optional bf16 copy."""
+        """A level from element matrices (elem_path "cuda" in 2D,
+        "einsum" in 2D and 3D): stencil assembly, Dirichlet elimination,
+        inverse diagonal (0 at fixed dofs, K1's / K3's convention), the
+        planes in the assembler's storage and the optional bf16 copy."""
         from .ops import element_kernels as ek
 
         Xe, conn, XeT = st.elem
@@ -1193,7 +1201,7 @@ class GMGAssembler:
         invd = st.maskf / torch.where(diag == 0, 1.0, diag)
         ce = ce.reshape(-1, *st.shape)
         if self.sym:
-            ce = ce[[k for (k, *_r) in fused_smooth.sym_planes_2d(self.nd)]]
+            ce = ce[[k for (k, *_r) in self._sym_planes(self.nd)]]
         lp = None if self.smoother_dtype is None else ce.to(
             self.smoother_dtype)
         return self._level_cls(st.op, ce, invd, st.mask, st.shape, self.nd,
@@ -1201,8 +1209,8 @@ class GMGAssembler:
 
     def _assemble_level(self, st, rho_grid):
         """One level's operator from its nodal density (K1 / K3, in the
-        assembler's storage), or from element matrices on a 2D
-        ``elem_path`` other than "uniform"."""
+        assembler's storage), or from element matrices on an
+        ``elem_path`` that makes them ("cuda", "einsum")."""
         if st.elem is not None:
             return self._elem_level(st, rho_grid)
         outs = self._assemble_fn(
@@ -1244,12 +1252,14 @@ class GMGAssembler3D(GMGAssembler):
     ``elem_path="otf"``: every level but the coarsest is an
     :class:`OTFLevel` (kernel K6 smooths and is the PCG operator, from
     the density alone); the coarsest is K3-assembled with its dense
-    inverse.
+    inverse.  ``elem_path="einsum"``: every level from einsum element
+    matrices (``ops.stiffness``, any dtype) through
+    ``Stencil3D.assemble``, eliminated, in the assembler's storage; K5
+    smooths and K4 is the PCG operator, as on the uniform route.
 
     Args:
         physics: "elasticity" (3D isotropic, nd=3) or "poisson" (nd=1).
-        elem_path: "uniform" or "otf"; "einsum" raises
-            ``NotImplementedError``.
+        elem_path: "uniform", "otf" or "einsum".
         sym: K3's coefficient storage, the JAX package's ``pallas_sym``:
             the half-symmetric kept planes (True, the default) or all
             nd*nd*27 planes.  A storage choice, not a tiling: K4 and K5
@@ -1259,6 +1269,7 @@ class GMGAssembler3D(GMGAssembler):
     _level_cls = Level3D
     _assemble_fn = staticmethod(fused_assemble.assemble_pack_3d)
     _offsets = _HEX8_LOCAL
+    _sym_planes = staticmethod(fused_smooth.sym_planes_3d)
 
     def __init__(self, nx, ny, nz, Lx, Ly, Lz, physics="elasticity",
                  E=10.0, nu=0.3, p=0.0, dtype=torch.float32, device=None,
@@ -1282,12 +1293,7 @@ class GMGAssembler3D(GMGAssembler):
         """
         from .mesh import ProblemCreator
 
-        if elem_path == "einsum":
-            raise NotImplementedError(
-                "elem_path='einsum' is not ported yet (ROADMAP.md queue 1, "
-                "slice 3 item 9: the einsum route, after slice 1 item 4)"
-            )
-        if elem_path not in ("uniform", "otf"):
+        if elem_path not in ("uniform", "otf", "einsum"):
             raise ValueError(f"unknown elem_path {elem_path!r}")
         self.elem_path = elem_path
         self.sym = bool(sym)
@@ -1312,6 +1318,9 @@ class GMGAssembler3D(GMGAssembler):
                 mask_np = _left_face_mask(lnx, lny, lnz, nd)
             self._add_level(Stencil3D(lnx, lny, lnz, nd), creator, mask_np,
                             (lnz, lny, lnx), fused_assemble.assembly_weights3d)
+            if elem_path == "einsum":
+                self.static_levels[-1] = self.static_levels[-1]._replace(
+                    elem=self._elem_data(creator, False))
         if elem_path == "otf":  # every level but the coarsest
             for li, st in enumerate(self.static_levels[:-1]):
                 self.static_levels[li] = st._replace(otf=self.otf_tables(st))

@@ -6,13 +6,15 @@ RAMP compliance minimization (examples/topology_optimization/topo.py:
 176-189).  Each iteration here runs, over design tensors on the model's
 device,
 
-    filter fwd (K9 stencil Jacobi-PCG)  ->  GMG hierarchy assembly (K1)
-    ->  warm-started V-cycle-PCG state solve (K2)  ->  structured
-    sensitivity  ->  filter bwd (K9 PCG)  ->  MMA update
+    filter fwd (stencil Jacobi-PCG: K9 in 2D, K4 in 3D)  ->  GMG
+    hierarchy assembly (K1 / K3)  ->  warm-started V-cycle-PCG state
+    solve (K2 / K5 smoothing, K4 the 3D PCG operator)  ->  structured
+    sensitivity  ->  filter bwd (stencil PCG)  ->  MMA update
 
-with no design-sized host transfer.  The host reads back the state
-PCG's ``r.r`` once per PCG iteration (``multigrid.pcg_gmg``) and the
-filter's convergence flag once per 16 of its iterations
+on a 2D quad4 or a 3D hex8 grid, with no design-sized host transfer.
+The host reads back the state PCG's ``r.r`` once per PCG iteration
+(``multigrid.pcg_gmg``) and the filter's convergence flag once per 16
+of its iterations
 (``solvers.cg_loop``); an iteration's stats are stacked into one tensor
 and a batch of them is drained with one device-to-host copy every
 ``log_every`` iterations.  All reductions have a fixed order and no
@@ -44,7 +46,7 @@ class DeviceTopo:
     """MMA compliance topology optimization, iterations on the device.
 
     Args:
-        model: 2D LinearElasticity/LinearPoisson with
+        model: LinearElasticity/LinearPoisson (quad4 or hex8) with
             ``attach_structured_grid`` already called (the GMG path
             assembles the state operator from rho).
         filtr: Helmholtz filter with ``attach_structured_grid`` already
@@ -64,10 +66,6 @@ class DeviceTopo:
             raise ValueError("call model.attach_structured_grid(...) first")
         if getattr(filtr, "_st", None) is None:
             raise ValueError("call filtr.attach_structured_grid(...) first")
-        if len(model._gmg_shape) != 2:
-            raise NotImplementedError(
-                "DeviceTopo on a 3D model is not ported yet (ROADMAP.md "
-                "queue 1, slice 2: 3D topology optimization)")
         self.model = model
         self.filtr = filtr
         self.fixed_volume = float(fixed_volume)
@@ -217,8 +215,14 @@ class DeviceTopo:
         upp = x + self.asy_init * rng
         k0 = 0
         if resume is not None:
+            shapes = (tuple(x.shape), tuple(u_prev.shape))
             (x, xold1, xold2, low, upp, u_prev), k0, self.history = (
                 load_topo_checkpoint(resume, self.dtype, self.device))
+            if (tuple(x.shape), tuple(u_prev.shape)) != shapes:
+                raise ValueError(
+                    f"checkpoint {resume} holds x {tuple(x.shape)} and "
+                    f"u_prev {tuple(u_prev.shape)}; this problem has "
+                    f"{shapes[0]} and {shapes[1]}")
 
         pending = []  # (iter, stats tensor)
 

@@ -23,8 +23,11 @@ nonsymmetric Newton tangent planes (float32) and the float64 flux, and
 the fused gmg Newton at 65^2; p-multigrid at 17^3 (tet10, brick20: K3
 and K5 launched, against a float64 plain-version solve), its lattice
 matvec bit-identical across two applies, and one ``smoother="chebyshev"``
-V-cycle (2D, 3D, 3D on the fly) against its plain version
-(chip_smoke.py phases 3-3e and 7-9 hold them at full size).
+V-cycle (2D, 3D, 3D on the fly) against its plain version; K4 at nd=1 on
+the 3D filter's full-storage planes, three 3D ``DeviceTopo`` iterations at
+17x9x9 against the same run on the CPU, and complex-step element
+matrices on the card against the CPU's
+(chip_smoke.py phases 3-3e and 7-10 hold them at full size).
 
 Needs an NVIDIA Hopper card and nvcc; marked ``slow`` (deselected by the
 CPU tier) and skipped where CUDA is absent.  Run on the card with:
@@ -1162,3 +1165,116 @@ def test_chebyshev_gmg_matches_plain_on_card(dev, route):
                           smoother="chebyshev", cheb_lam=gmg.cheb_lam)
     torch.cuda.synchronize()
     assert _rel(got.cpu(), plain.apply(r.cpu())) <= TOL
+
+
+# 3D topology optimization and complex-step inputs -----------------------
+
+
+def _topo3d_pair(pt, dev, n, dtype=torch.float32):
+    """bench topo --topo-3d's settings at (2n-1) x n x n: a model on its
+    GMG grid and a structured Helmholtz filter on ``dev``."""
+    nx = 2 * n - 1
+    c = pt.ProblemCreator(nnodes_x=nx, nnodes_y=n, nnodes_z=n,
+                          element_type="block")
+    conn, X, fixed, force = c.create_linear_elasticity_problem()
+    m = pt.LinearElasticity("hex8", X, conn, fixed, None, force, p=3.0,
+                            dtype=dtype, device=dev)
+    m.attach_structured_grid(nx, n, n, omega="cheby",
+                             smoother_dtype=torch.bfloat16)
+    f = pt.Helmholtz(0.01, "hex8", X, conn, dtype=dtype, rtol=1e-6,
+                     device=dev)
+    f.attach_structured_grid(nx, n, n)
+    return m, f
+
+
+@pytest.mark.parametrize("n", [9, 33])
+def test_k4_filter_matvec_matches_plain_on_card(dev, n):
+    """K4 at nd=1 on a 3D filter's 27 full-storage planes (K and R), the
+    product the float32 3D Helmholtz filter runs."""
+    import pyfem_gpu_testflight_tpu_torch as pt
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+    from pyfem_gpu_testflight_tpu_torch.ops import fused_smooth as fs
+
+    _m, f = _topo3d_pair(pt, dev, n)
+    shape = (n, n, 2 * n - 1)
+    assert tuple(f._coeffK.shape) == (27,) + shape
+    x = torch.as_tensor(np.random.default_rng(13).uniform(
+        0.0, 1.0, (1,) + shape), dtype=torch.float32, device=dev)
+    for c in (f._coeffK, f._coeffR):
+        n0 = _cuda.launches["pyfem_sweep_3d"]
+        got = fs.fused_sweep_3d(c, x=x, mode="matvec", neg_resid=True)
+        ref = fs.fused_sweep_3d_plain(c, x=x, mode="matvec", neg_resid=True)
+        torch.cuda.synchronize()
+        assert _cuda.launches["pyfem_sweep_3d"] == n0 + 1
+        assert _rel(got, ref) <= TOL
+
+
+# 3D DeviceTopo on the card against the CPU's plain versions: the largest
+# relative difference of the design x and of the objectives after 3
+# iterations at 17x9x9.  Read on an H100 (700 W): x 3.9e-5, objectives
+# 1.1e-4 (float32 state solves at rtol 1e-6 on bf16 smoother copies,
+# summed in another order); the limit is 9x the larger reading.
+TOPO3D_CARD_TOL = 1e-3
+
+
+def test_device_topo_3d_on_card_matches_cpu(dev):
+    """Three 3D DeviceTopo iterations at 17x9x9 (bench topo --topo-3d's
+    settings, float32) on the card (K3, K4, K5) against the same run on
+    the CPU (their plain versions)."""
+    import pyfem_gpu_testflight_tpu_torch as pt
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+
+    runs = {}
+    for where in (dev, torch.device("cpu")):
+        m, f = _topo3d_pair(pt, where, 9)
+        _cuda.reset_launches()
+        d = pt.opt.DeviceTopo(m, f, fixed_volume=0.4)
+        x, _rho = d.optimize(max_iterations=3, verbose=False, log_every=1)
+        runs[where.type] = (x.cpu(), [h["obj"] for h in d.history],
+                            dict(_cuda.launches))
+    (xc, oc, lc), (xp, op, lp) = runs["cuda"], runs["cpu"]
+    nlev = len(m._gmg_asm.sizes)
+    assert lc["pyfem_assemble_3d"] == 3 * nlev
+    assert lc["pyfem_sweep_3d"] > 0 and lc["pyfem_sweeps_3d"] > 0
+    assert lp["pyfem_sweep_3d"] == 0  # the CPU run: plain versions only
+    dx = float((xc - xp).abs().max() / xp.abs().max())
+    do = max(abs(a - b) / abs(b) for a, b in zip(oc, op))
+    print(f"3D DeviceTopo card vs CPU: x {dx:.3e}, objectives {do:.3e}")
+    assert all(np.isfinite(oc))
+    assert dx <= TOPO3D_CARD_TOL and do <= TOPO3D_CARD_TOL
+
+
+@pytest.mark.parametrize("physics", ["elasticity", "poisson"])
+def test_complex_step_element_jacobian_on_card(dev, physics):
+    """A complex density keeps its imaginary part on the card: complex
+    element matrices and the assembled CSR (complex segment sums) equal
+    the CPU's; a ``kernel="cuda"`` model takes the einsum route for it."""
+    import pyfem_gpu_testflight_tpu_torch as pt
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+
+    c = pt.ProblemCreator(5, 4, 3, element_type="block")
+    conn, X, fixed, force = c.create_linear_elasticity_problem()
+    rng = np.random.default_rng(14)
+    rho = rng.uniform(0.3, 1.0, X.shape[0]) + 1e-30j * rng.uniform(
+        0.0, 1.0, X.shape[0])
+
+    def make(where, **kw):
+        if physics == "elasticity":
+            return pt.LinearElasticity("hex8", X, conn, fixed, None, force,
+                                       p=3.0, device=where, **kw)
+        return pt.LinearPoisson("hex8", X, conn, np.unique(fixed // 3),
+                                p=3.0, device=where, **kw)
+
+    mc, mp = make(dev), make("cpu")
+    Ke, Ke_ref = mc.element_jacobian(rho), mp.element_jacobian(rho)
+    assert Ke.dtype == torch.complex128 and Ke.is_cuda
+    assert _rel(Ke.real.cpu(), Ke_ref.real) <= 1e-12
+    assert _rel(Ke.imag.cpu(), Ke_ref.imag) <= 1e-12
+    K, K_ref = mc.compute_jacobian(rho), mp.compute_jacobian(rho)
+    assert abs(K - K_ref).max() <= 1e-12 * abs(K_ref).max()
+    mk = make(dev, dtype=torch.float32, kernel="cuda")
+    n0 = _cuda.launches["pyfem_stiffness_3d"]
+    Kek = mk.element_jacobian(rho)
+    torch.cuda.synchronize()
+    assert Kek.dtype == torch.complex64
+    assert _cuda.launches["pyfem_stiffness_3d"] == n0

@@ -152,11 +152,16 @@ def test_unported_branches_raise():
     assert (u_gm - u_dir).abs().max() <= 1e-8 * u_dir.abs().max()
     with pytest.raises(ValueError, match="hex8"):
         m.attach_structured_grid(9, 5, 3)  # 3D gmg needs a hex8 model
-    # compliance is ported (tests/test_torch_topo.py); complex-step
-    # inputs are not
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        m.k_dv_sens(torch.ones(m.nnodes, dtype=torch.complex128),
-                    torch.zeros(m.ndof), torch.zeros(m.ndof))
+    # compliance is ported (tests/test_torch_topo.py), complex-step
+    # inputs too (tests/test_torch_complex_step.py): they take the einsum
+    # route, whose real part is the real sensitivity
+    rng = np.random.default_rng(0)
+    rho = rng.uniform(0.3, 1.0, m.nnodes)
+    phi, psi = rng.standard_normal((2, m.ndof))
+    s = m.k_dv_sens(rho + 1e-30j * rng.uniform(size=m.nnodes), phi, psi)
+    assert s.dtype == torch.complex128
+    s_real = m.k_dv_sens(rho, phi, psi)
+    assert (s.real - s_real).abs().max() <= 1e-12 * s_real.abs().max()
     m2 = pt.LinearElasticity("quad4", X, conn, fixed, np.ones(len(fixed)),
                              force, device=DEV).attach_structured_grid(9, 5)
     with pytest.raises(NotImplementedError):

@@ -15,7 +15,8 @@ Gates against the JAX package:
   33x17 (state rtol 1e-8): x within 1e-6 relative, objectives within
   1e-6 — and so does a run resumed from a JAX checkpoint;
 * stopping at iteration k and resuming repeats the run bit for bit;
-* a 3D model is refused, and the designs are written as VTK.
+* an unattached model is refused, a 3D one steps (3D parity is
+  tests/test_torch_topo3d.py's), and the designs are written as VTK.
 
 The kernels (K1, K2, K9) run their plain versions here; the card runs
 them in tests/test_torch_cuda.py and chip_smoke.py.
@@ -235,10 +236,13 @@ def test_device_topo_refuses_3d_and_unattached_models():
     f = pt.Helmholtz(0.1, "hex8", X, conn, dtype=torch.float64, device="cpu")
     with pytest.raises(ValueError):
         DeviceTopo(m, f)
+    # 3D is ported (tests/test_torch_topo3d.py): it builds and steps
     m.attach_structured_grid(5, 3, 3)
     f.attach_structured_grid(5, 3, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DeviceTopo(m, f)
+    d = DeviceTopo(m, f)
+    x, rho = d.optimize(max_iterations=1, verbose=False, log_every=1)
+    assert len(d.history) == 1 and np.isfinite(d.history[0]["obj"])
+    assert d.state[5].shape == (3, 3, 3, 5)
 
 
 def test_to_vtk_matches_jax(tmp_path):
