@@ -20,7 +20,11 @@ live dof; Chebyshev on the quadratic element operator, a corner-grid
 V-cycle on K3/K5 levels) with its ``kernel="cuda"`` (K8), Chebyshev
 corner smoother (K4) and tet10 33^3 lines, and 3D topology optimization
 at 65x33x33 and 129x65x65 (K3 levels, K5 smoothing, K4 the state
-operator and the Helmholtz filter's product; ``opt.DeviceTopo``) — and
+operator and the Helmholtz filter's product; ``opt.DeviceTopo``), and
+unstructured meshes from synthesized Abaqus .inp files: smoothed-
+aggregation AMG-PCG on the 1,053,186-dof torque arm and the
+212,355-dof C3D10 bracket (U1, the CSR product, on every level; K8) and
+their topology loops, and U2 (the DIA product) — and
 checks the answers
 against float64 and scipy references.  Exits nonzero on any
 failure; on success the last line is
@@ -159,6 +163,30 @@ Phases:
    1,635,075 state dof; 2 + 10 iterations), and the 3D einsum route
    (``elem_path="einsum"``) at 33^3 in both storages beside the uniform
    route;
+11. "unstructured": the torque arm synthesized at 257x2049 polar nodes
+   (526,593 nodes, 1,048,576 CPS3 elements, 1,053,186 dof) written as an
+   Abaqus .inp under ``build/chip_smoke/``, parsed (``InpParser``) and
+   solved through ``LinearElasticity.solve(method="amg", rtol=1e-10)`` in
+   float64: AMG-PCG on the card with the levels' products on U1 (the
+   counts zeroed just before, read just after), the host set-up and PCG
+   times, iterations, read-backs, the float64 true residual (<= 2e-10),
+   a second solve at another density (no structural set-up, the same
+   runner), a float32 V-cycle under the float64 CG, rigid-body modes
+   against translations only, the PCG alone, ms per V-cycle, U1
+   launches and device activities per V-cycle, the levels, busy share
+   and peak memory, a float32 model at rtol 1e-6, the 129x1025 arm
+   against host SuperLU (<= 1e-8 rel L2) and the topology loop at full
+   width (``examples.torque_arm_topo``: 2 warm-up + 5 timed MMA
+   iterations, one structural set-up, stages by wrappers); the C3D10
+   bracket at n=33 (212,355 dof) on K8 (``kernel="cuda"``) with float32
+   AMG-PCG to rtol 1e-6 (``max_offsets`` 32768), its float64 true
+   residual, the modes, the n=17 float64 bracket against SuperLU and its
+   topology loop (4 MMA iterations); U1 against plain on every AMG level
+   of both lines in float32 and float64 and timed on each fine level; U2
+   on the arm's fine matrix as DIA (float32, against U1 and timed) and
+   on the 2D bench grid (``structured_dia_2d(1025, 513, 2)``: Jacobi-PCG
+   on ``DiaOperator.bc_matvec`` counts its launches; against plain,
+   timed with the L2 flushed).
 
 ``python3 chip_smoke.py --pass-levels [--root DIR]`` runs only
 ``pass_levels`` on the package under DIR (default: this checkout), so a
@@ -168,6 +196,7 @@ the readings ``SOL64_TOL`` is set from; ``--newton-floor`` only phase
 8's 257^2 yardstick on four design vectors, the readings
 ``NEWTON64_TOL`` is set from; ``--newton`` only phase 8;
 ``--quadratic`` only phase 9; ``--topo3d`` only phase 10;
+``--unstructured`` only phase 11;
 ``--quadratic-floor`` bench quadratic's
 float32 solution against its float64-outer one on the bench load and
 three seeded loads, the readings ``PMG64_TOL`` is set from;
@@ -178,8 +207,11 @@ bench 2D sym's assemble+solve, K3 on every level of bench 3D (65^3
 down to 3^3) in both storages at nd 3 and 1, every K8 form on phase
 3c's inputs and ``element_jacobian(kernel="cuda")`` on 5c's model, each
 kernel held against its plain version, all timed by device time.
-The short kernels' times (K1, K1-sym, K2, K2-sym, K7, K8, K9) are CUDA
+The short kernels' times (K1, K1-sym, K2, K2-sym, K7, K8) are CUDA
 events over back-to-back wrapper calls, with the profiler's device time
+beside them; K9's forms, K2's newton matvec, K4's filter form and the
+U1 and U2 forms whose operands fit in the 50 MB L2 are timed with the
+L2 flushed before each call (``l2_flush``), their back-to-back times
 beside them.  Device time and busy shares sum the profiler's device
 rows only (``device_rows``: kernels, copies, sets); a PyTorch
 operator's own row repeats its kernels' time.
@@ -890,17 +922,20 @@ def phase_kernels_k9(dev):
             b_ms, b_by = bound(nbytes(c, u, got), 2 * nd * nd * 9 * nx * ny,
                                F32_FLOP_S if dt == torch.float32
                                else F64_FLOP_S)
+            flush = l2_flush(dev)
             forms[name] = dict(
+                flushed_times(lambda: sm.stencil_matvec_2d(c, u), flush),
                 max_abs_err=ea,
-                ms=cuda_ms(lambda: sm.stencil_matvec_2d(c, u), 50),
-                device_ms=device_ms(lambda: sm.stencil_matvec_2d(c, u)),
                 plain_ms=cuda_ms(lambda: sm.stencil_matvec_2d_plain(c, u),
                                  10),
                 bound_ms=b_ms, bound_by=b_by,
                 library_ms=library_matvec_ms(c, (ny, nx), u, dtype=dt))
+            del flush
             f = forms[name]
             log(f"K9 {name} {NX}x{NY}: rel {er:.2e}; kernel {f['ms']:.4f} ms "
-                f"(device {fms(f['device_ms'])}), "
+                f"(device {fms(f['device_ms'])}; L2 flushed before each "
+                f"call; back to back {f['l2_warm_ms']:.4f}, device "
+                f"{fms(f['l2_warm_device_ms'])}), "
                 f"plain {f['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
                 f"torch.sparse.mm ({str(dt)[6:]} CSR) {f['library_ms']:.4f} "
                 f"ms")
@@ -2728,13 +2763,14 @@ def phase_newton(dev, pt):
               + ", ".join(f"{e[1]:.2e}" for e in errs) + ")")
         if name == "matvec":
             b_ms, b_by = bound(nbytes(ck, b) + nbytes(b), 2 * 9 * n * n)
+            flush = l2_flush(dev)
             res["K2"] = dict(
-                ms=cuda_ms(lambda: fs.fused_sweeps_2d(*a, **kw), 50),
-                device_ms=device_ms(lambda: fs.fused_sweeps_2d(*a, **kw)),
+                flushed_times(lambda: fs.fused_sweeps_2d(*a, **kw), flush),
                 plain_ms=cuda_ms(lambda: fs.fused_sweeps_2d_plain(*a, **kw),
                                  10), bound_ms=b_ms, bound_by=b_by,
                 library_ms=library_matvec_ms(ck.reshape(1, 1, 3, 3, n, n),
                                              (n, n), b))
+            del flush
     res["K2"]["max_abs_err"] = worst
 
     cs, cr = model._uniform_tangent_coeffs(xdv, u.reshape(n, n))
@@ -2755,16 +2791,22 @@ def phase_newton(dev, pt):
         f64 = v.dtype == torch.float64
         b_ms, b_by = bound(nbytes(cc, v, got), 2 * 9 * n * n,
                            F64_FLOP_S if f64 else F32_FLOP_S)
+        flush = l2_flush(dev)
         res[f"K9 {name}"] = dict(
-            max_abs_err=ea, ms=cuda_ms(lambda: sm.stencil_matvec_2d(cc, v),
-                                       50),
-            device_ms=device_ms(lambda: sm.stencil_matvec_2d(cc, v)),
+            flushed_times(lambda: sm.stencil_matvec_2d(cc, v), flush),
+            max_abs_err=ea,
             plain_ms=cuda_ms(lambda: sm.stencil_matvec_2d_plain(cc, v), 10),
             bound_ms=b_ms, bound_by=b_by,
             library_ms=library_matvec_ms(cc, (n, n), v, dtype=v.dtype))
+        del flush
     for key, r in res.items():
+        warm = ("" if "l2_warm_ms" not in r else
+                f"; L2 flushed before each call; back to back "
+                f"{r['l2_warm_ms']:.4f}, device "
+                f"{fms(r['l2_warm_device_ms'])}")
         log(f"newton {key} nd=1 {n}x{n}: kernel {r['ms']:.4f} ms (device "
-            f"{fms(r['device_ms'])}), plain {r['plain_ms']:.4f} ms, bound "
+            f"{fms(r['device_ms'])}{warm}), plain {r['plain_ms']:.4f} ms, "
+            f"bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}), one-call PyTorch "
             + ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms"))
@@ -3789,6 +3831,830 @@ def topo3d_summary(out):
     return {"topo3d": lines, "einsum_route_33": out["einsum"]}
 
 
+UNS_ARM = (257, 2049)       # torque arm: 526,593 nodes, 1,053,186 dof
+UNS_ARM_YARD = (129, 1025)  # the SuperLU yardstick's arm, 264,450 dof
+UNS_BRACKET_N = 33          # C3D10 bracket 65x33x33: 212,355 dof
+UNS_BRACKET_YARD_N = 17     # the float64 bracket against SuperLU
+UNS_BRACKET_OFFSETS = 32768  # its RCM band has ~27,700 diagonals
+UNS_TOPO_WARMUP, UNS_TOPO_ITERS = 2, 5  # arm loop: 2 warm-up + 5 timed
+UNS_BRACKET_TOPO_ITERS = 4
+UNS_YARD_TOL = 1e-8         # rel L2 against SuperLU (test_unstructured:43)
+UNS_ARM_RES_TOL = 2e-10     # the float64 arm's true residual
+U_NAMES = ("pyfem_csr_spmv", "pyfem_dia_spmv", "pyfem_stiffness_3d")
+
+
+def uns_dir():
+    from pathlib import Path
+
+    d = Path("build") / "chip_smoke"
+    d.mkdir(parents=True, exist_ok=True)
+    return d
+
+
+def true_residual(K, b, u):
+    """Host float64 ||b - K u|| / ||b|| (u from the card)."""
+    u = u.detach().double().cpu().numpy()
+    b = np.asarray(b, dtype=np.float64)
+    return float(np.linalg.norm(b - K.astype(np.float64) @ u)
+                 / np.linalg.norm(b))
+
+
+def f32_check(K32, b, u, rtol, label):
+    """A float32 solve of the float32 system K32 u = b: its float64 true
+    residual on K32 itself, held to FLOOR_FACTOR x max(rtol, its float32
+    rounding floor u32 ||K32| |u|| / ||b||).  Returns (residual,
+    floor)."""
+    from scipy import sparse
+
+    u64 = u.detach().double().cpu().numpy()
+    b = np.asarray(b, dtype=np.float64)
+    K64 = sparse.csr_matrix(K32, dtype=np.float64)
+    res = float(np.linalg.norm(b - K64 @ u64) / np.linalg.norm(b))
+    floor = 2.0 ** -24 * float(np.linalg.norm(abs(K64) @ np.abs(u64))
+                                / np.linalg.norm(b))
+    lim = FLOOR_FACTOR * max(rtol, floor)
+    log(f"{label}: float64 true residual on its float32 operator "
+        f"{res:.3e}, float32 rounding floor {floor:.3e}")
+    check(res <= lim, f"{label}: true residual {res:.3e} <= {FLOOR_FACTOR:g}"
+          f" x max(rtol, floor) = {lim:.3e}")
+    return res, floor
+
+
+def share_pattern(dst, src):
+    """Hand a model the host sparsity pattern of another model of the same
+    mesh (it depends on the dof connectivity only)."""
+    if np.array_equal(dst.conn_dof_host, src.conn_dof_host):
+        dst._pattern = src.pattern
+
+
+def flushed_times(run, flush, reps=50):
+    """A kernel's times with the L2 flushed before each call (``ms``,
+    ``device_ms``: what its bytes bound assumes) and back to back
+    (``l2_warm_ms``, ``l2_warm_device_ms``)."""
+    return dict(ms=cuda_ms(run, reps, between=flush),
+                device_ms=device_ms(run, between=flush),
+                l2_warm_ms=cuda_ms(run, reps),
+                l2_warm_device_ms=device_ms(run))
+
+
+def csr_library_ms(op, x):
+    """One ``torch.sparse`` CSR product of the same matrix (the
+    yardstick; the port never calls it), built outside the timed span."""
+    import torch
+
+    A = torch.sparse_csr_tensor(op.indptr.long(), op.indices.long(),
+                                op.vals.to(x.dtype), (op.n, op.n))
+    xv = x.reshape(-1, 1)
+    ms = cuda_ms(lambda: torch.sparse.mm(A, xv), 20)
+    del A
+    return ms
+
+
+def u1_check_levels(amg, label, rng):
+    """U1 against its plain version on every level of ``amg``'s
+    hierarchy, in float32 and float64 (the level's values cast), at
+    ``REL_TOL`` of max|plain|.  Returns the worst max-abs error."""
+    import torch
+    from pyfem_gpu_testflight_tpu_torch.ops import spmv
+
+    worst = 0.0
+    for k, lv in enumerate(amg.levels):
+        op = lv["op"]
+        for dt in (torch.float32, torch.float64):
+            v = op.vals.to(dt)
+            x = torch.as_tensor(rng.standard_normal(op.n), dtype=dt,
+                                device=v.device)
+            got = spmv.csr_matvec(op.indptr, op.indices, v, x)
+            ref = spmv.csr_matvec_plain(op.indptr, op.indices, v, x)
+            torch.cuda.synchronize()
+            ea, er = rel_err(got, ref)
+            worst = max(worst, ea)
+            check(er <= REL_TOL and got.dtype == dt,
+                  f"{label}: U1 level {k} (n {op.n}, nnz {op.nnz}) "
+                  f"{str(dt)[6:]} within {REL_TOL:g} of plain (rel "
+                  f"{er:.2e})")
+    return worst
+
+
+def u1_groups(op, v, x):
+    """U1's CUDA-event time at every lanes-per-row group on one matrix
+    (the entry point called directly; the wrapper picks one), for the
+    record."""
+    import torch
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+
+    y = torch.empty_like(x)
+    out = {}
+    for g in (1, 2, 4, 8, 16, 32):
+        out[g] = cuda_ms(lambda: _cuda.launch(
+            "pyfem_csr_spmv", op.indptr.data_ptr(), op.indices.data_ptr(),
+            v.data_ptr(), x.data_ptr(), y.data_ptr(), op.n, g,
+            int(x.dtype == torch.float64), _cuda.stream_ptr(x)), 20)
+    return out
+
+
+def u1_timed(op, dt, rng, label):
+    """U1's times on one level matrix in ``dt``: CUDA events and device
+    time (the L2 flushed before each call where the operands fit in 50
+    MB, else back to back), its plain version, the bytes bound (indptr,
+    columns and values read once, x read once, y written once) and the
+    ``torch.sparse`` CSR product."""
+    import torch
+    from pyfem_gpu_testflight_tpu_torch.ops import spmv
+
+    v = op.vals.to(dt)
+    x = torch.as_tensor(rng.standard_normal(op.n), dtype=dt,
+                        device=v.device)
+    run = lambda: spmv.csr_matvec(op.indptr, op.indices, v, x)
+    y = run()
+    b_ms, b_by = bound(nbytes(op.indptr, op.indices, v, x, y),
+                       2 * op.nnz, F32_FLOP_S if dt == torch.float32
+                       else F64_FLOP_S)
+    fits = nbytes(op.indptr, op.indices, v, x, y) <= 50e6
+    flush = l2_flush(v.device)
+    t = flushed_times(run, flush) if fits else dict(
+        ms=cuda_ms(run, 50), device_ms=device_ms(run))
+    del flush
+    r = dict(t, plain_ms=cuda_ms(lambda: spmv.csr_matvec_plain(
+        op.indptr, op.indices, v, x), 5), bound_ms=b_ms, bound_by=b_by,
+        library_ms=csr_library_ms(op, x), n=op.n, nnz=op.nnz,
+        l2_flushed=fits, group=spmv.csr_group(op.n, op.nnz),
+        groups_ms=u1_groups(op, v, x))
+    log(f"{label}: U1 {str(dt)[6:]} n {op.n} nnz {op.nnz}: kernel "
+        f"{r['ms']:.4f} ms (device {fms(r['device_ms'])}"
+        f"{'; L2 flushed' if fits else ''}), plain {r['plain_ms']:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}), torch.sparse CSR "
+        f"{r['library_ms']:.4f} ms; lanes per row {r['group']}, by group "
+        + ", ".join(f"{g}: {ms:.4f}" for g, ms in r["groups_ms"].items()))
+    return r
+
+
+def u2_timed(dia_op, vals, u, label, mask=None, csr_op=None):
+    """U2 on a DIA matrix: against its plain version (REL_TOL), times
+    (the L2 flushed where the operands fit in 50 MB), the bound (every
+    stored diagonal read once, u read once, y written once) and the
+    ``torch.sparse`` CSR product of the same matrix."""
+    import torch
+    from pyfem_gpu_testflight_tpu_torch.ops import spmv
+
+    offs = dia_op.offsets_on(u.device)
+    got = spmv.dia_matvec(offs, vals, u, mask)
+    ref = spmv.dia_matvec_plain(offs, vals, u, mask)
+    torch.cuda.synchronize()
+    ea, er = rel_err(got, ref)
+    check(er <= REL_TOL, f"{label}: U2 ({dia_op.noffs} diagonals, "
+          f"{'masked' if mask is not None else 'plain'}) within "
+          f"{REL_TOL:g} of plain (rel {er:.2e})")
+    run = lambda: spmv.dia_matvec(offs, vals, u, mask)
+    moved = nbytes(offs, vals, u, got, mask)
+    b_ms, b_by = bound(moved, 2 * vals.numel(),
+                       F32_FLOP_S if u.dtype == torch.float32
+                       else F64_FLOP_S)
+    fits = moved <= 50e6
+    flush = l2_flush(u.device)
+    t = flushed_times(run, flush) if fits else dict(
+        ms=cuda_ms(run, 10), device_ms=device_ms(run, reps=5))
+    del flush
+    lib = None
+    if csr_op is not None:
+        lib = csr_library_ms(csr_op, u)
+    r = dict(t, max_abs_err=ea, plain_ms=cuda_ms(lambda: spmv.dia_matvec_plain(
+        offs, vals, u, mask), 3), bound_ms=b_ms, bound_by=b_by,
+        library_ms=lib, noffs=dia_op.noffs, n=u.numel(), l2_flushed=fits)
+    log(f"{label}: U2 {dia_op.noffs} diagonals x {u.numel()} rows: kernel "
+        f"{r['ms']:.4f} ms (device {fms(r['device_ms'])}), plain "
+        f"{r['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+        f"torch.sparse CSR {fms(lib)} ms")
+    return r
+
+
+def amg_breakdown(model, label, rng):
+    """The last ``solve(method="amg")`` of ``model`` in parts on the card,
+    from the hierarchy, operator and runner it left in ``_amg_cache``:
+    the PCG alone (CUDA-synchronized host clock, the system's load), ms
+    per V-cycle (CUDA events), U1 launches and device activities per
+    V-cycle, the levels (n, nnz, diagonals) and the busy share of one
+    PCG run (device rows over its unprofiled time).  Returns (figures,
+    the hierarchy)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+
+    cache = model._amg_cache
+    amg, A0, run = cache["amg"], cache["A0"], cache["run"]
+    b = model.compute_rhs().to(model.dtype)
+    bp = torch.where(model.bc.mask, 0.0, b)[amg.perm]
+    rtol = model._uns_rtol
+    torch.cuda.synchronize()
+    t0 = time.time()
+    x, k, rn = run(A0, amg, bp, rtol, 0.0)
+    torch.cuda.synchronize()
+    t_pcg = time.time() - t0
+    r = torch.as_tensor(rng.standard_normal(amg.levels[0]["n"]),
+                        dtype=amg.dtype, device=model.device)
+    _cuda.reset_launches()
+    amg.apply(r)
+    torch.cuda.synchronize()
+    u1_per_cycle = _cuda.launches["pyfem_csr_spmv"]
+    vc_ms = cuda_ms(lambda: amg.apply(r), 10)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        amg.apply(r)
+        torch.cuda.synchronize()
+    acts = sum(rw.count for rw in device_rows(prof))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run(A0, amg, bp, rtol, 0.0)
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    busy_ms = sum(dev_us(rw) for rw in rows) / 1e3
+    busy = 100 * busy_ms / (1e3 * t_pcg) if rows else None
+    levels = [(lv["n"], lv["op"].nnz) for lv in amg.levels]
+    out = dict(pcg_s=t_pcg, iters=int(k), vcycle_ms=vc_ms,
+               ms_per_iter=1e3 * t_pcg / max(int(k), 1),
+               u1_per_vcycle=u1_per_cycle, device_acts_per_vcycle=acts,
+               levels=levels, busy=busy,
+               pcg_device_ms=busy_ms if rows else None,
+               diagonals=[int(sl["offsets"].size)
+                          for sl in amg.structure["levels"]])
+    log(f"{label}: PCG alone {t_pcg:.3f} s ({int(k)} iterations, "
+        f"{out['ms_per_iter']:.2f} ms each); V-cycle {vc_ms:.3f} ms, "
+        f"{u1_per_cycle} U1 launches and {acts} device activities per "
+        f"V-cycle; levels (n, nnz) {levels}, diagonals per level "
+        f"{out['diagonals']}; PCG device time "
+        f"{fms(out['pcg_device_ms'])} ms, busy "
+        + ("not measured" if busy is None else f"{busy:.1f}%"))
+    if rows:
+        for rw in sorted(rows, key=dev_us, reverse=True)[:6]:
+            log(f"  {dev_us(rw) / 1e3:9.3f} ms {rw.count:6d}x  "
+                f"{rw.key[:90]}")
+    return out, amg
+
+
+def uns_solve(model, label, rtol, names=U_NAMES):
+    """One ``model.solve(method="amg")`` through the entry point, the
+    launch counts zeroed just before and read just after, with its peak
+    memory and host-clock parts."""
+    import torch
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+
+    model._uns_rtol = rtol
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    t0 = time.time()
+    u = model.solve(method="amg", rtol=rtol)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = {k: _cuda.launches[k] for k in names}
+    mem = torch.cuda.max_memory_allocated() - base
+    st = dict(model.last_solve_stats)
+    log(f"{label}: solve(method='amg', rtol={rtol:g}) {wall:.3f} s (scipy "
+        f"assembly + BCs {st['assemble_s']:.3f} s, AMG set-up "
+        f"{st['setup_s']:.3f} s, PCG {st['pcg_s']:.3f} s), {st['iters']} "
+        f"iterations, {st['readbacks']} read-backs, launches {counts}, "
+        f"peak device memory {mem / 2**20:.1f} MiB above "
+        f"{base / 2**20:.1f} MiB")
+    return u, dict(st, wall_s=wall, counts=counts, mem=mem)
+
+
+def uns_yardstick(model, label, rtol=1e-10):
+    """float64 AMG-PCG against host SuperLU: rel L2 <= UNS_YARD_TOL."""
+    import torch
+
+    u = model.solve(method="amg", rtol=rtol)
+    k = model.last_solve_stats["iters"]
+    t0 = time.time()
+    ud = model.solve(method="direct")
+    t_lu = time.time() - t0
+    rel = float(torch.linalg.norm(u.cpu() - ud.cpu())
+                / torch.linalg.norm(ud.cpu()))
+    log(f"{label}: {model.ndof} dof, AMG-PCG {k} iterations vs SuperLU "
+        f"({t_lu:.2f} s): rel L2 {rel:.3e}")
+    check(rel <= UNS_YARD_TOL, f"{label}: AMG within {UNS_YARD_TOL:g} of "
+          f"SuperLU (rel L2 {rel:.3e})")
+    return dict(ndof=model.ndof, iters=k, rel=rel, superlu_s=t_lu)
+
+
+def uns_topo(prob, model, filtr, label, warmup, iters):
+    """An MMA loop on the host loop (``opt.TopoProblem`` with AMG state
+    solves) timed per iteration (CUDA-synchronized), its stages by
+    wrappers on the model's and filter's methods: filter forward, state
+    (element matrices, scipy assembly, AMG set-up, PCG), sensitivity,
+    filter backward, and the MMA update as the rest."""
+    import torch
+    from pyfem_gpu_testflight_tpu_torch import unstructured as pu
+    from pyfem_gpu_testflight_tpu_torch.opt import MMA
+
+    stage = {}
+    state = []
+
+    def wrap(obj, name, key):
+        fn = getattr(obj, name)
+
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            stage.setdefault(key, []).append(time.time() - t0)
+            if key == "state":
+                st = model.last_solve_stats
+                state.append((st["iters"], st["assemble_s"], st["setup_s"],
+                              st["pcg_s"]))
+            return out
+
+        setattr(obj, name, timed)
+
+    wrap(filtr, "apply", "filter_fwd")
+    wrap(filtr, "apply_gradient", "filter_bwd")
+    wrap(model, "compliance", "state")
+    wrap(model, "compliance_grad", "sensitivity")
+    ticks = []
+
+    def callback(k, x, obj, con):
+        torch.cuda.synchronize()
+        ticks.append(time.time())
+
+    n0 = pu.AMGPreconditioner.n_structure_setups
+    torch.cuda.synchronize()
+    t0 = time.time()
+    opt = MMA(prob, {"max_iterations": warmup + iters, "verbose": False,
+                     "callback": callback})
+    x = opt.optimize()
+    torch.cuda.synchronize()
+    total = time.time() - t0
+    setups = pu.AMGPreconditioner.n_structure_setups - n0
+    steps = np.diff([t0] + ticks)
+    timed = steps[warmup:]
+    objs = [h["obj"] for h in opt.history]
+    cons = [h["con"][0] for h in opt.history]
+    n_it = len(opt.history)
+    per_it = {k: float(np.sum(v)) / max(n_it, 1) for k, v in stage.items()}
+    per_it["mma_update"] = float(np.mean(steps)) - sum(per_it.values())
+    log(f"{label}: {n_it} MMA iterations in {total:.2f} s, "
+        f"{float(np.mean(timed)) if len(timed) else float('nan'):.3f} s per "
+        f"timed iteration ({warmup} warm-up); stages per iteration (s): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in per_it.items()))
+    log(f"{label}: state solves (PCG iterations, assembly s, AMG set-up s, "
+        f"PCG s): {[tuple(round(v, 3) for v in s_) for s_ in state]}")
+    log(f"{label}: compliance {objs[0]:.6e} -> {objs[-1]:.6e}, constraint "
+        f"{cons[0]:+.4e} -> {cons[-1]:+.4e}; structural AMG set-ups {setups}")
+    rho = filtr.apply(torch.as_tensor(x, device=model.device)).cpu().numpy()
+    check(setups == 1, f"{label}: one structural AMG set-up for the loop "
+          f"({setups})")
+    check(n_it == warmup + iters and all(np.isfinite(objs))
+          and len(state) >= n_it,
+          f"{label}: {warmup + iters} iterations, a finite history, every "
+          f"state solve converged")
+    check(cons[0] < 0 and cons[-1] > cons[0],
+          f"{label}: the volume constraint approached from the solid start")
+    check(rho.min() > -0.05 and rho.max() < 1.05,
+          f"{label}: filtered density within [-0.05, 1.05]")
+    return dict(s_per_iter=float(np.mean(timed)) if len(timed) else None,
+                steps=[float(s) for s in steps], stages=per_it,
+                state=state, objs=objs, cons=cons, setups=setups,
+                total_s=total)
+
+
+def uns_arm_line(dev, pt, rng):
+    """The arm line of phase 11 (see :func:`phase_unstructured`)."""
+    import torch
+    from pyfem_gpu_testflight_tpu_torch import unstructured as pu
+    from pyfem_gpu_testflight_tpu_torch.examples import (
+        torque_arm, torque_arm_topo,
+    )
+
+    nr, nt = UNS_ARM
+    t0 = time.time()
+    inp = str(uns_dir() / f"arm_{nr}x{nt}.inp")
+    torque_arm.synthesize_arm_inp(inp, nr=nr, nt=nt)
+    t_syn = time.time() - t0
+    t0 = time.time()
+    model, X, conn, groups = torque_arm.arm_model(inp, device=dev)
+    t_parse = time.time() - t0
+    log(f"arm: {nr}x{nt} polar nodes, {model.nnodes} nodes, "
+        f"{model.nelems} CPS3 elements, {model.ndof} dof; .inp written in "
+        f"{t_syn:.2f} s, parsed + model in {t_parse:.2f} s")
+    check(model.ndof == 1053186 and model.nelems == 1048576,
+          "arm: 1,053,186 dof, 1,048,576 tri3 elements")
+
+    # the host sparsity pattern (38M element-matrix keys), built apart
+    # so that the solve's assembly time below is the per-solve part
+    from pyfem_gpu_testflight_tpu_torch import native
+
+    t0 = time.time()
+    native.get_lib()
+    t_lib = time.time() - t0
+    t0 = time.time()
+    model.pattern
+    t_pat = time.time() - t0
+    t0 = time.time()
+    model.pattern.segments(dev)
+    torch.cuda.synchronize()
+    t_seg = time.time() - t0
+    log(f"arm: native library {t_lib:.2f} s (built here: "
+        f"{native.get_lib() is not None}), host sparsity pattern "
+        f"{t_pat:.2f} s ({model.pattern.nnz} nonzeros), its device "
+        f"segments {t_seg:.2f} s")
+    # the main path: the entry point's AMG-PCG solve, fresh set-up
+    n0 = pu.AMGPreconditioner.n_structure_setups
+    u, st = uns_solve(model, "arm float64", 1e-10)
+    check(pu.AMGPreconditioner.n_structure_setups == n0 + 1,
+          "arm: one fresh structural set-up")
+    check(st["counts"]["pyfem_csr_spmv"] > 0,
+          "arm: U1 launched on the main path")
+    brk, amg = amg_breakdown(model, "arm float64", rng)
+    K, b = model.bc.apply_scipy(
+        model.assemble_scipy(model.element_jacobian(1.0)),
+        model.compute_rhs().cpu().numpy())
+    res = true_residual(K, b, u)
+    log(f"arm float64: true residual ||b - K u||/||b|| {res:.3e}")
+    check(res <= UNS_ARM_RES_TOL, f"arm float64: true residual {res:.3e} "
+          f"<= {UNS_ARM_RES_TOL:g}")
+    check(st["readbacks"] <= st["iters"] // 16 + 1,
+          "arm: read-backs <= iterations/16 + 1")
+    run1 = model._amg_cache["run"]
+    A0_host = amg.A0
+
+    # a second solve at another density: no structural set-up, same runner
+    rho2 = torch.as_tensor(rng.uniform(0.3, 1.0, model.nnodes), device=dev)
+    n1 = pu.AMGPreconditioner.n_structure_setups
+    t0 = time.time()
+    u2 = model.solve(method="amg", rho=rho2, rtol=1e-10)
+    torch.cuda.synchronize()
+    st2 = dict(model.last_solve_stats, wall_s=time.time() - t0)
+    check(pu.AMGPreconditioner.n_structure_setups == n1
+          and model._amg_cache["run"] is run1,
+          "arm: a second solve at another density does no structural "
+          "set-up and reuses the runner")
+    K2, b2 = model.bc.apply_scipy(
+        model.assemble_scipy(model.element_jacobian(rho2)),
+        model.compute_rhs().cpu().numpy())
+    res2 = true_residual(K2, b2, u2)
+    del K2, b2
+    log(f"arm second solve (rho ~ U[0.3, 1]): {st2['wall_s']:.3f} s "
+        f"(assembly + BCs {st2['assemble_s']:.3f}, value-only set-up "
+        f"{st2['setup_s']:.3f}, PCG {st2['pcg_s']:.3f}), {st2['iters']} "
+        f"iterations, true residual {res2:.3e}")
+
+    # a float32 V-cycle under the float64 CG, the same system
+    model.amg_options = {"precond_dtype": torch.float32}
+    uf = model.solve(method="amg", rtol=1e-10)
+    stf = dict(model.last_solve_stats)
+    resf = true_residual(K, b, uf)
+    model.amg_options = {}
+    log(f"arm float64 CG, float32 V-cycle: {stf['iters']} iterations, "
+        f"PCG {stf['pcg_s']:.3f} s, true residual {resf:.3e}")
+
+    # rigid-body modes against translations only, the same system
+    xt, kt, _ = pu.amg_pcg(K, b, nd=2, rtol=1e-10, device=dev)
+    log(f"arm: rigid-body modes {st['iters']} iterations, translations "
+        f"only {int(kt)}")
+    check(st["iters"] < int(kt), "arm: rigid-body modes beat translations")
+    del xt
+
+    k1 = dict(max_abs_err=u1_check_levels(amg, "arm", rng))
+    fine = amg.levels[0]["op"]
+    k1["f32"] = u1_timed(fine, torch.float32, rng, "arm fine level")
+    k1["f64"] = u1_timed(fine, torch.float64, rng, "arm fine level")
+    # U2 on the same fine matrix as DIA (float32), against U1
+    dia_op, dia_vals, _offs = pu.csr_to_dia(A0_host, torch.float32,
+                                            max_offsets=4096, device=dev)
+    ua = torch.as_tensor(rng.standard_normal(model.ndof),
+                         dtype=torch.float32, device=dev)
+    k2 = u2_timed(dia_op, dia_vals, ua, "arm fine level (DIA)",
+                  csr_op=fine)
+    from pyfem_gpu_testflight_tpu_torch.ops import spmv
+
+    yd = spmv.dia_matvec(dia_op.offsets_on(dev), dia_vals, ua)
+    yc = spmv.csr_matvec(fine.indptr, fine.indices, fine.vals.float(), ua)
+    torch.cuda.synchronize()
+    e_dc = rel_err(yd, yc)[1]
+    check(e_dc <= REL_TOL, f"arm: U2 (DIA) and U1 (CSR) agree on the fine "
+          f"matrix (rel {e_dc:.2e})")
+    csr_gb = nbytes(fine.indptr, fine.indices, fine.vals.float()) / 1e9
+    log(f"arm fine matrix: {dia_op.noffs} diagonals, DIA "
+        f"{nbytes(dia_vals) / 1e9:.3f} GB against CSR {csr_gb:.3f} GB "
+        f"(float32 values); fill {100 * fine.nnz / dia_vals.numel():.2f}%")
+    del dia_vals, yd, yc, amg, A0_host, fine
+
+    # float32 model at rtol 1e-6
+    m32 = torque_arm.arm_model(inp, device=dev, dtype=torch.float32)[0]
+    share_pattern(m32, model)
+    u32, st32 = uns_solve(m32, "arm float32", 1e-6)
+    res32 = true_residual(K, b, u32)
+    K32, b32 = m32.bc.apply_scipy(
+        m32.assemble_scipy(m32.element_jacobian(1.0)),
+        m32.compute_rhs().cpu().numpy())
+    own32, floor32 = f32_check(K32, b32, u32, 1e-6, "arm float32")
+    log(f"arm float32: {st32['iters']} iterations, float64 true residual "
+        f"on the float64 operator {res32:.3e}")
+    del m32, u32, K, b, K32, b32
+
+    # yardstick: the 129x1025 arm against host SuperLU
+    ny_, nt_ = UNS_ARM_YARD
+    yinp = str(uns_dir() / f"arm_{ny_}x{nt_}.inp")
+    torque_arm.synthesize_arm_inp(yinp, nr=ny_, nt=nt_)
+    yard = uns_yardstick(torque_arm.arm_model(yinp, device=dev)[0],
+                         "arm yardstick")
+
+    # the topology loop at full width, one cached structural set-up
+    prob, tm, tf, _c, _X = torque_arm_topo.build_problem(inp, device=dev)
+    share_pattern(tm, model)
+    topo = uns_topo(prob, tm, tf, "arm topo", UNS_TOPO_WARMUP,
+                    UNS_TOPO_ITERS)
+    return dict(ndof=model.ndof, nelems=model.nelems, solve=st,
+                res=res, second=dict(st2, res=res2),
+                f32_precond=dict(stf, res=resf), translations=int(kt),
+                breakdown=brk, f32=dict(st32, res=res32, res_own=own32,
+                                        floor=floor32), yard=yard,
+                topo=topo, U1=k1, U2=k2, synth_s=t_syn, parse_s=t_parse,
+                pattern_s=t_pat, segments_s=t_seg, native_s=t_lib)
+
+
+def uns_bracket_line(dev, pt, rng):
+    """The bracket line of phase 11 (see :func:`phase_unstructured`)."""
+    import torch
+    from pyfem_gpu_testflight_tpu_torch import unstructured as pu
+    from pyfem_gpu_testflight_tpu_torch.examples import bracket3d_topo
+
+    n = UNS_BRACKET_N
+    t0 = time.time()
+    inp = str(uns_dir() / f"bracket_{n}.inp")
+    bracket3d_topo.synthesize_bracket_inp(inp, n=n)
+    t_syn = time.time() - t0
+    t0 = time.time()
+    model, X, conn = bracket3d_topo.bracket_model(
+        inp, device=dev, dtype=torch.float32, kernel="cuda")
+    model.amg_options = {"max_offsets": UNS_BRACKET_OFFSETS}
+    t_parse = time.time() - t0
+    log(f"bracket: n={n}, {model.nnodes} nodes, {model.nelems} C3D10 "
+        f"elements, {model.ndof} dof; .inp written in {t_syn:.2f} s, parsed "
+        f"+ model in {t_parse:.2f} s")
+    check(model.ndof == 212355 and model.nelems == 49152,
+          "bracket: 212,355 dof, 49,152 tet10 elements")
+    u, st = uns_solve(model, "bracket float32", 1e-6)
+    # K8 against its plain version at the path's shape (49,152 distorted
+    # tet10 elements, rho = 1)
+    run_k, run_p, _ins = stiffness_pair(
+        model, "tet10", "elasticity",
+        torch.ones(model.nnodes, dtype=torch.float32, device=dev))
+    k8a, k8r = rel_err(run_k(), run_p())
+    check(k8r <= REL_TOL, f"bracket: K8 tet10 on the path's elements within "
+          f"{REL_TOL:g} of plain (rel {k8r:.2e})")
+    del _ins
+    brk, amg = amg_breakdown(model, "bracket float32", rng)
+    check(st["counts"]["pyfem_stiffness_3d"] == 1
+          and st["counts"]["pyfem_csr_spmv"] > 0,
+          "bracket: K8 launched once and U1 on the main path")
+    K, b = model.bc.apply_scipy(
+        model.assemble_scipy(model.element_jacobian(1.0)),
+        model.compute_rhs().cpu().numpy())
+    own, floor = f32_check(K, b, u, 1e-6, "bracket float32")
+    # the float64 true residual the float32 solve reaches on the float64
+    # (einsum) operator: K8's float32 Ke differ from it (the kernel's
+    # documented ~2 digits on quadratic elements)
+    m64 = bracket3d_topo.bracket_model(inp, device=dev)[0]
+    share_pattern(m64, model)
+    K64, b64 = m64.bc.apply_scipy(
+        m64.assemble_scipy(m64.element_jacobian(1.0)),
+        m64.compute_rhs().cpu().numpy())
+    del m64
+    res = true_residual(K64, b64, u)
+    log(f"bracket float32: float64 true residual on the float64 operator "
+        f"{res:.3e}")
+    xt, kt, _ = pu.amg_pcg(K, b, nd=3, rtol=1e-6, device=dev,
+                           max_offsets=UNS_BRACKET_OFFSETS)
+    log(f"bracket: rigid-body modes {st['iters']} iterations, "
+        f"translations only {int(kt)}")
+    check(st["iters"] < int(kt), "bracket: rigid-body modes beat "
+          "translations")
+    del xt, K64, b64
+    k1 = dict(max_abs_err=u1_check_levels(amg, "bracket", rng))
+    fine = amg.levels[0]["op"]
+    k1["f32"] = u1_timed(fine, torch.float32, rng, "bracket fine level")
+    k1["f64"] = u1_timed(fine, torch.float64, rng, "bracket fine level")
+    del amg, K, b
+
+    # yardstick: float64 einsum model at n = 17 against SuperLU
+    ny_ = UNS_BRACKET_YARD_N
+    yinp = str(uns_dir() / f"bracket_{ny_}.inp")
+    bracket3d_topo.synthesize_bracket_inp(yinp, n=ny_)
+    yard = uns_yardstick(bracket3d_topo.bracket_model(yinp, device=dev)[0],
+                         "bracket yardstick")
+    prob, tm, tf, _c, _X = bracket3d_topo.build_problem(yinp, device=dev)
+    topo = uns_topo(prob, tm, tf, "bracket topo n=17", 0,
+                    UNS_BRACKET_TOPO_ITERS)
+    return dict(ndof=model.ndof, nelems=model.nelems, solve=st, res=res,
+                res_own=own, floor=floor, k8_err=k8a,
+                translations=int(kt), breakdown=brk, yard=yard, topo=topo,
+                U1=k1, synth_s=t_syn, parse_s=t_parse)
+
+
+def u2_bench_grid(dev, pt, rng):
+    """U2 on the 2D bench grid: ``structured_dia_2d(1025, 513, 2)`` (21
+    diagonals) assembled by ``StructuredDia2D`` from the bench model's
+    float64 element matrices, as the operator of a Jacobi-PCG solve
+    (``DiaOperator.bc_matvec``, rtol 1e-6) — U2's run: the counts zeroed
+    before, read after, the solution's true residual by the matrix-free
+    operator — then U2 against plain (both forms) and timed in
+    float32."""
+    import torch
+    from pyfem_gpu_testflight_tpu_torch import assembly, solvers
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+    from pyfem_gpu_testflight_tpu_torch.ops.dia import structured_dia_2d
+
+    conn, X, fixed, force, _L = problem(NX, NY)
+    m = pt.LinearElasticity("quad4", X, conn, fixed, None, force,
+                            device=dev)
+    Ke = m.element_jacobian(1.0)
+    op, st = structured_dia_2d(NX, NY, 2)
+    dia = st.assemble(Ke)
+    mask = m.bc.mask
+    b = m.bc.constrain_rhs(m.compute_rhs(), lambda v: m.matvec(Ke, v))
+    diag = op.diagonal(dia)
+    inv_diag = 1.0 / torch.where(mask | (diag == 0), 1.0, diag)
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.time()
+    res = solvers.cg(lambda d, u: op.bc_matvec(d, mask, u), dia, b,
+                     inv_diag=inv_diag, rtol=1e-6, maxiter=20000)
+    torch.cuda.synchronize()
+    t_cg = time.time() - t0
+    launches = _cuda.launches["pyfem_dia_spmv"]
+    yt = assembly.bc_elem_matvec((Ke, m.conn_dof, mask, m.segments), res.x)
+    tr = float(torch.linalg.norm(b - yt) / torch.linalg.norm(b))
+    log(f"U2 bench 2D: {op.noffs} diagonals, Jacobi-PCG on "
+        f"DiaOperator.bc_matvec (float64): {int(res.iters)} iterations in "
+        f"{t_cg:.2f} s, {launches} U2 launches, true residual (matrix-free "
+        f"operator) {tr:.3e}")
+    blocks = -(-int(res.iters) // solvers.CHECK_EVERY)
+    check(launches == solvers.CHECK_EVERY * blocks and tr <= 2e-6,
+          f"U2 bench 2D: one U2 launch per CG iteration of its "
+          f"{blocks} blocks of {solvers.CHECK_EVERY} and the solution's "
+          f"true residual <= 2e-6")
+    u = torch.as_tensor(rng.standard_normal(op.ndof), device=dev)
+    r64m = u2_timed(op, dia, u, "U2 bench 2D float64 masked", mask=mask)
+    d32, u32 = dia.float(), u.float()
+    csr = dia_to_csr(op, d32)
+    r32 = u2_timed(op, d32, u32, "U2 bench 2D float32", csr_op=csr)
+    return dict(r32, launches=launches, cg_iters=int(res.iters),
+                cg_s=t_cg, true_res=tr,
+                max_abs_err=max(r32["max_abs_err"], r64m["max_abs_err"]),
+                f64_masked=r64m)
+
+
+def dia_to_csr(op, dia):
+    """A DIA matrix (``dia[k, i]`` at (i, i + offsets[k])) as the port's
+    device CSR: the input of the ``torch.sparse`` yardstick."""
+    from scipy import sparse
+    from pyfem_gpu_testflight_tpu_torch import unstructured as pu
+
+    d = dia.double().cpu().numpy()
+    n = op.ndof
+    rows, cols, vals = [], [], []
+    for k, off in enumerate(op.offsets):
+        i = np.arange(max(0, -off), min(n, n - off))
+        rows.append(i)
+        cols.append(i + off)
+        vals.append(d[k, i])
+    A = sparse.csr_matrix((np.concatenate(vals), (np.concatenate(rows),
+                                                  np.concatenate(cols))),
+                          shape=(n, n))
+    return pu._device_csr(A, {}, "p", dia.dtype, dia.device)[0]
+
+
+def phase_unstructured(dev, pt):
+    """Phase 11: unstructured meshes on the card.  The arm line: the
+    synthesized torque arm at 257x2049 polar nodes (1,053,186 dof, tri3)
+    written as .inp, parsed, ``LinearElasticity`` in float64,
+    ``solve(method="amg", rtol=1e-10)`` (the main path: U1 counted),
+    its true residual on the host, a second solve at another density
+    (no structural set-up, the same runner), a float32 V-cycle under the
+    float64 CG, translations-only against rigid-body modes, the solve in
+    parts (set-ups, PCG, V-cycle, busy share), a float32 model at rtol
+    1e-6, the 129x1025 arm against SuperLU, and the topology loop at full
+    width (2 + 5 MMA iterations, one structural set-up).  The bracket
+    line: C3D10 at n=33 (212,355 dof) on K8 (``kernel="cuda"``, float32)
+    and float32 AMG-PCG to rtol 1e-6, its float64 true residual, the
+    modes, the parts, the n=17 float64 bracket against SuperLU and its
+    topology loop (4 MMA iterations).  U1 against plain on every level
+    of both lines in float32 and float64, with times on each fine level;
+    U2 on the arm's fine matrix as DIA and on the 2D bench grid."""
+    rng = np.random.default_rng(SEED + 11)
+    t0 = time.time()
+    arm = uns_arm_line(dev, pt, rng)
+    t_arm = time.time() - t0
+    t0 = time.time()
+    bracket = uns_bracket_line(dev, pt, rng)
+    t_br = time.time() - t0
+    t0 = time.time()
+    grid = u2_bench_grid(dev, pt, rng)
+    log(f"phase 11: arm line {t_arm:.1f} s, bracket line {t_br:.1f} s, "
+        f"U2 bench grid {time.time() - t0:.1f} s")
+    return dict(arm=arm, bracket=bracket, u2_grid=grid,
+                seconds=dict(arm=t_arm, bracket=t_br))
+
+
+def unstructured_kernel_rows(uns):
+    """The kernels line's U1 and U2 rows from phase 11."""
+    src = "pyfem_gpu_testflight_tpu_torch/csrc/spmv.cu"
+    arm, br, grid = uns["arm"], uns["bracket"], uns["u2_grid"]
+    f32 = arm["U1"]["f32"]
+    keep = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "n", "nnz", "l2_flushed")
+    u1 = dict(
+        name="csr_spmv", route="cuda", source=src,
+        replaces="none (the JAX AMG levels are DIA: "
+                 "pyfem_gpu_testflight_tpu/ops/dia.py:130 matvec, plain XLA)",
+        launches=arm["solve"]["counts"]["pyfem_csr_spmv"],
+        max_abs_err=max(arm["U1"]["max_abs_err"], br["U1"]["max_abs_err"]),
+        ms=f32["ms"], plain_ms=f32["plain_ms"], bound_ms=f32["bound_ms"],
+        bound_us=1e3 * f32["bound_ms"], bound_by=f32["bound_by"],
+        library_ms=f32["library_ms"], device_ms=f32["device_ms"],
+        form="a group of lanes per row (a power of two about an eighth of "
+             "the mean row length), shuffle-reduced in a fixed order (main "
+             "path: the "
+             "1,053,186-dof arm's float64 AMG-PCG; timed form: its fine "
+             "level in float32)",
+        launches_bracket=br["solve"]["counts"]["pyfem_csr_spmv"],
+        forms={"arm_f64": {k: arm["U1"]["f64"][k] for k in keep},
+               "bracket_f32": {k: br["U1"]["f32"][k] for k in keep},
+               "bracket_f64": {k: br["U1"]["f64"][k] for k in keep}})
+    a2 = arm["U2"]
+    u2 = dict(
+        name="dia_spmv", route="cuda", source=src,
+        replaces="none (DiaOperator.matvec: "
+                 "pyfem_gpu_testflight_tpu/ops/dia.py:130, plain XLA)",
+        launches=grid["launches"], max_abs_err=max(grid["max_abs_err"],
+                                                   a2["max_abs_err"]),
+        ms=grid["ms"], plain_ms=grid["plain_ms"], bound_ms=grid["bound_ms"],
+        bound_us=1e3 * grid["bound_ms"], bound_by=grid["bound_by"],
+        library_ms=grid["library_ms"], device_ms=grid["device_ms"],
+        form="one thread per row, offsets staged in shared memory (main "
+             "path: Jacobi-PCG on DiaOperator.bc_matvec on the 2D bench "
+             "grid, float64; timed form: that grid's 21 diagonals in "
+             "float32)",
+        forms={"arm_fine_f32": {k: a2[k] for k in (
+            "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "noffs", "n")}})
+    return [u1, u2]
+
+
+def unstructured_summary(uns):
+    """Phase 11's figures as one JSON-able dict."""
+    arm, br = uns["arm"], uns["bracket"]
+    line = lambda o: dict(
+        ndof=o["ndof"], iters=o["solve"]["iters"],
+        solve_s=o["solve"]["wall_s"], mem=o["solve"]["mem"],
+        res=o["res"], translations=o["translations"],
+        breakdown=o["breakdown"], yard=o["yard"],
+        topo=dict(s_per_iter=o["topo"]["s_per_iter"],
+                  stages=o["topo"]["stages"],
+                  state_iters=[s[0] for s in o["topo"]["state"]],
+                  objs=(o["topo"]["objs"][0], o["topo"]["objs"][-1])))
+    out = dict(arm=line(arm), bracket=line(br), seconds=uns["seconds"])
+    out["arm"].update(second=dict(iters=arm["second"]["iters"],
+                                  res=arm["second"]["res"],
+                                  setup_s=arm["second"]["setup_s"]),
+                      f32_precond=dict(iters=arm["f32_precond"]["iters"],
+                                       res=arm["f32_precond"]["res"]),
+                      f32=dict(iters=arm["f32"]["iters"],
+                               res=arm["f32"]["res"],
+                               res_own=arm["f32"]["res_own"],
+                               floor=arm["f32"]["floor"]),
+                      pattern_s=arm["pattern_s"])
+    out["bracket"].update(res_own=br["res_own"], floor=br["floor"])
+    return out
+
+
+def run_unstructured():
+    """``python3 chip_smoke.py --unstructured``: only phase 11 (with the
+    kernel build); prints the card, the kernels line of U1 and U2 and
+    one JSON line of its figures."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    import pyfem_gpu_testflight_tpu_torch as pt
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+
+    log(card_line())
+    t0 = time.time()
+    _cuda.library()
+    log(f"build: {time.time() - t0:.2f} s")
+    uns = phase_unstructured(torch.device("cuda", 0), pt)
+    log(json.dumps(unstructured_summary(uns)))
+    log(json.dumps({"kernels": unstructured_kernel_rows(uns)}))
+    if FAILS:
+        print("chip_smoke FAILED:\n  " + "\n  ".join(FAILS), file=sys.stderr)
+        return 1
+    return 0
+
+
 def phase_direct(dev, pt):
     """Phase 6b: host scipy direct solves against the card's CG on small
     jittered meshes (quad4 257x129 both models; tet10 and brick20 on a
@@ -4027,6 +4893,8 @@ def main():
     # 10. 3D topology optimization at bench topo --topo-3d's width, its
     # scale line and the 3D einsum route
     topo3d = phase_topo3d(dev, pt, multigrid, i2p)
+    # 11. unstructured meshes: the torque arm and the C3D10 bracket
+    uns = phase_unstructured(dev, pt)
 
     # summary
     src = "pyfem_gpu_testflight_tpu_torch/csrc/"
@@ -4121,6 +4989,10 @@ def main():
                     "pyfem_assemble_3d" if key == "K3" else "pyfem_sweep_3d"])
         if key == "K8":
             row["launches_5d"] = g5d["st"]["launches"]
+            row["launches_unstructured_bracket"] = uns["bracket"]["solve"][
+                "counts"]["pyfem_stiffness_3d"]
+            row["max_abs_err"] = max(row["max_abs_err"],
+                                     uns["bracket"]["k8_err"])
             row["forms"] = {
                 k[3:]: dict(max_abs_err=v["max_abs_err"], ms=v["ms"],
                             device_ms=v["device_ms"],
@@ -4191,6 +5063,7 @@ def main():
                 topo3d[line]["k4_filter"]["max_abs_err"]
                 for line in ("contract", "scale")])
         kernels.append(row)
+    kernels += unstructured_kernel_rows(uns)
     if FAILS:
         print("chip_smoke FAILED:\n  " + "\n  ".join(FAILS), file=sys.stderr)
         return 1
@@ -4213,6 +5086,14 @@ def main():
             f"iterations, compliance {o['objs'][0]:.5e} -> "
             f"{o['objs'][-1]:.5e}, volume {o['vol']:.5f}, peak "
             f"{o['mem'] / 2**20:.1f} MiB ({card})")
+    ua, ub = uns["arm"], uns["bracket"]
+    log(f"unstructured: arm {ua['ndof']} dof, {ua['solve']['iters']} "
+        f"AMG-PCG iterations, solve {ua['solve']['wall_s']:.2f} s (PCG "
+        f"{ua['solve']['pcg_s']:.3f} s), true residual {ua['res']:.2e}, "
+        f"topo {ua['topo']['s_per_iter']:.2f} s per MMA iteration; bracket "
+        f"{ub['ndof']} dof, {ub['solve']['iters']} iterations, solve "
+        f"{ub['solve']['wall_s']:.2f} s ({card})")
+    log(json.dumps({"unstructured": unstructured_summary(uns)}))
     log(f"2D single-shot {s2:.3f} ms, chained {ch2:.3f} ms/solve; 3D "
         f"single-shot {m3['single_ms']:.3f} ms, chained {m3['ch']:.3f} "
         f"ms/solve; 3D otf single-shot {mo['single_ms']:.3f} ms, chained "
@@ -4230,6 +5111,7 @@ if __name__ == "__main__":
              run_quadratic_floor() if "--quadratic-floor" in sys.argv else
              run_quadratic() if "--quadratic" in sys.argv else
              run_topo3d() if "--topo3d" in sys.argv else
+             run_unstructured() if "--unstructured" in sys.argv else
              run_solution_floor() if "--solution-floor" in sys.argv else
              run_assembly_kernels() if "--assembly-kernels" in sys.argv
              else run_newton_floor() if "--newton-floor" in sys.argv

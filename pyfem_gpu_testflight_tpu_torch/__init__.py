@@ -14,8 +14,13 @@ device-resident ``opt.DeviceTopo`` loop — and the Newton-solved
 ``solvers.newton``, with GMRES on the exact tangent stencil (K9)
 right-preconditioned by a V-cycle (K1 levels, K2 smoothing) on
 structured grids — and the two-level p-multigrid of tet10/brick20
-lattices (``pmg``, ``attach_pmg`` / ``solve(method="pmg")``).  On CPU
-tensors each kernel's plain PyTorch version runs instead.
+lattices (``pmg``, ``attach_pmg`` / ``solve(method="pmg")``) — and
+unstructured meshes: the Abaqus ``.inp`` reader (``InpParser``), the
+native host set-up (``native``), the DIA operator (``ops.dia``, kernel
+U2) and smoothed-aggregation AMG-PCG on CSR levels (``unstructured``,
+kernel U1; ``solve(method="amg")``), with mesh-synthesizing examples in
+``examples``.  On CPU tensors each kernel's plain PyTorch version runs
+instead.
 
 The package imports torch and never jax.  float32 is pinned to IEEE
 float32 at import (TF32 off, see ``ops.precision``).
@@ -29,6 +34,7 @@ from . import assembly, bcs, elements, mesh, multigrid, opt, pmg, solvers  # noq
 from .bcs import DirichletBC  # noqa: E402
 from .elements import ElementType, get_element  # noqa: E402
 from .io.vtk import to_vtk  # noqa: E402
+from .io.inp import InpParser  # noqa: E402
 from .mesh import ProblemCreator, fix_orientation, structured_mesh  # noqa: E402,E501
 from .models import (  # noqa: E402
     FEModel, Helmholtz, LinearElasticity, LinearPoisson, NonlinearPoisson,
@@ -37,15 +43,16 @@ from .models import (  # noqa: E402
 
 __version__ = "0.1.0"
 
-# The JAX package's exports, less Assembler (slice 7), InpParser (slice
-# 6) and the timers time_this / timer_* (slice 7, utils/profile.py); plus
-# the port's own multigrid, opt, pmg and NonlinearPoisson2D.
+# The JAX package's exports, less Assembler and the timers time_this /
+# timer_* (slice 7, utils/profile.py); plus the port's own multigrid, opt,
+# pmg and NonlinearPoisson2D.
 __all__ = [
     "fix_orientation",
     "DirichletBC",
     "ElementType",
     "FEModel",
     "Helmholtz",
+    "InpParser",
     "LinearElasticity",
     "LinearPoisson",
     "NonlinearPoisson",

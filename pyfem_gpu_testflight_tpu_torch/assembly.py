@@ -12,8 +12,8 @@ Port of ``pyfem_gpu_testflight_tpu/assembly.py``.
   gather -> batched element product -> segment sum (:func:`elem_matvec`);
   its sorted index has one entry per element dof.
 * :class:`SparsityPattern` (rows, cols, CSR indptr of the assembled
-  matrix) is built on the host in NumPy and serves only the scipy
-  export of the ``direct`` solve (:func:`assemble_values`,
+  matrix) is built on the host (``native`` or NumPy) and serves the
+  scipy export of the ``direct`` and ``amg`` solves (:func:`assemble_values`,
   :func:`scipy_csr`); models build it lazily.
 """
 
@@ -116,22 +116,29 @@ class SparsityPattern:
     Built once per (mesh, ndof_per_node); ``seg_ids`` maps each
     flattened element-matrix entry (row-major within each element, as
     ``Ke.reshape(-1)``, pyfem.py:838-858) to its unique nonzero slot.
-    The expansion and the sorted unique are NumPy's (the JAX package's
-    ``native.py`` fallback); every diagonal entry gets a slot, so
+    The expansion and the sorted unique run in the native C++ helper
+    (``native``: OpenMP, a row-bucketed unique), or in NumPy where it
+    cannot be built, with identical results, as in the JAX package
+    (``assembly.py:69-79``); every diagonal entry gets a slot, so
     unreferenced dofs (brick20 super-cell centers, pyfem.py:683) keep BC
     application and Jacobi well defined.
     """
 
     def __init__(self, conn_dof: np.ndarray, ndof_total: int):
+        from . import native
+
         conn_dof = np.ascontiguousarray(conn_dof, dtype=np.int64)
-        ndpe = conn_dof.shape[1]
-        ii = np.repeat(conn_dof, ndpe, axis=1).ravel()
-        jj = np.tile(conn_dof, (1, ndpe)).ravel()
-        unique_keys, seg_ids = np.unique(ii * ndof_total + jj,
-                                         return_inverse=True)
+        ii, jj = native.expand_pattern(conn_dof)
+        unique_keys, seg_ids = native.unique_inverse(
+            ii * ndof_total + jj, rows=ii, nrows=ndof_total)
         seg_ids = seg_ids.reshape(-1)
         diag_keys = np.arange(ndof_total, dtype=np.int64) * (ndof_total + 1)
-        missing = np.setdiff1d(diag_keys, unique_keys, assume_unique=False)
+        # diagonal keys absent from the sorted unique keys (a binary
+        # search, not setdiff1d's sort of both)
+        pos = np.minimum(np.searchsorted(unique_keys, diag_keys),
+                         max(unique_keys.size - 1, 0))
+        missing = (diag_keys if unique_keys.size == 0
+                   else diag_keys[unique_keys[pos] != diag_keys])
         if missing.size:
             merged = np.concatenate([unique_keys, missing])
             order = np.argsort(merged, kind="stable")
@@ -146,8 +153,8 @@ class SparsityPattern:
         self.seg_ids = seg_ids.astype(np.int64)
         self.diag_pos = np.searchsorted(unique_keys, diag_keys).astype(np.int32)
         self.indptr = np.zeros(ndof_total + 1, dtype=np.int64)
-        np.add.at(self.indptr, self.rows + 1, 1)
-        self.indptr = np.cumsum(self.indptr)
+        self.indptr[1:] = np.cumsum(np.bincount(self.rows,
+                                                minlength=ndof_total))
         self._segments = {}
 
     def segments(self, device):

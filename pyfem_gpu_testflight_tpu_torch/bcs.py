@@ -93,22 +93,37 @@ class DirichletBC:
         """Reference-equivalent BC application on a scipy CSR matrix.
 
         Mirrors pyfem.py:780-835 (row zeroing, optional column zeroing,
-        unit diagonal, rhs lift).
+        unit diagonal, rhs lift).  The entries of fixed rows (and
+        columns) are zeroed on a copy of the CSR arrays and dropped with
+        every other zero, which leaves the matrix the JAX package's LIL
+        route leaves, in O(nnz) vectorized work (the LIL route's column
+        zeroing took 73 s for a 264,450-dof tri3 matrix on one CPU core,
+        this route 0.09 s).
         """
+        from scipy import sparse
+
         rhs = np.array(rhs)
-        free = np.setdiff1d(np.arange(self.ndof_total), self.fixed)
-        Krb = K[free][:, self.fixed]
-        diag = np.asarray(K.diagonal()).copy()
-        K = K.tolil()
-        K[self.fixed, :] = 0.0
-        if enforce_symmetric_K:
-            K[:, self.fixed] = 0.0
+        n = self.ndof_total
         K = K.tocsr()
+        fixed = np.zeros(n, dtype=bool)
+        fixed[self.fixed] = True
+        vals = self.values.cpu().numpy()[self.fixed]
+        lift = self._has_vals and enforce_symmetric_K
+        if lift:
+            free = np.flatnonzero(~fixed)
+            Krb = K[free][:, self.fixed]
+        diag = np.asarray(K.diagonal()).copy()
+        rows = np.repeat(np.arange(n), np.diff(K.indptr))
+        drop = fixed[rows]
+        if enforce_symmetric_K:
+            drop |= fixed[K.indices]
+        K = sparse.csr_matrix(
+            (np.where(drop, 0, K.data), K.indices.copy(), K.indptr.copy()),
+            shape=K.shape)
         diag[self.fixed] = 1.0
         K.setdiag(diag)
         K.eliminate_zeros()
-        vals = self.values.cpu().numpy()[self.fixed]
         rhs[self.fixed] = vals if self._has_vals else 0.0
-        if self._has_vals and enforce_symmetric_K:
+        if lift:
             rhs[free] -= Krb.dot(vals)
         return K, rhs

@@ -4,7 +4,7 @@ Port of ``pyfem_gpu_testflight_tpu/models/base.py``: the constructor's
 mesh, element-table and BC state, the lazy host sparsity ``pattern``,
 ``assemble_scipy``, the matrix-free ``matvec`` / ``diagonal``,
 ``attach_structured_grid`` in 2D and 3D, ``attach_pmg``, the ``"gmg"``,
-``"pmg"``, ``"cg"``, ``"gmres"`` and ``"direct"`` branches of
+``"pmg"``, ``"amg"``, ``"cg"``, ``"gmres"`` and ``"direct"`` branches of
 ``_solve_system``, the design
 sensitivity ``d(phi^T K psi)/drho`` (the generic einsum route with a
 deterministic segment sum, and the scatter-free structured route of an
@@ -25,6 +25,7 @@ helpers (pyfem.py:1278-1329, 1922-1973).
 
 from __future__ import annotations
 
+import time
 import warnings
 
 import numpy as np
@@ -47,7 +48,6 @@ OWN_OPERATOR = ("gmg", "pmg")
 
 # solve method -> the ROADMAP.md slice (queue 1) that ports it
 _METHOD_SLICE = {
-    "amg": "slice 6",
     "sharded_gmg": "slice 8",
 }
 
@@ -474,6 +474,8 @@ class FEModel:
                 )
             return self._solve_gmg(rho if rho is not None else 1.0, rhs,
                                    rtol=rtol)
+        if method == "amg":
+            return self._solve_amg(Ke, rhs, rtol, maxiter)
         if method == "direct":
             # a complex operator (complex-step probe) gives a complex u
             K, b = self.bc.apply_scipy(self.assemble_scipy(Ke), _host(rhs))
@@ -502,6 +504,39 @@ class FEModel:
             "readbacks": solvers.readbacks[method] - n0,
         }
         return res.x, b
+
+    def _solve_amg(self, Ke, rhs, rtol, maxiter):
+        """Unstructured fast path (JAX ``models/base.py:438-466``): host
+        smoothed-aggregation set-up, device AMG-PCG (pyamg's role,
+        pyfem.py:2392-2400).  The structural set-up and the PCG runner
+        are cached on the model (``_amg_cache``), so repeat solves
+        (topology loops) pay only the value update.  ``amg_options``
+        (e.g. ``{"max_offsets": 8192, "precond_dtype": torch.float32}``)
+        go to ``unstructured.amg_pcg``."""
+        from .. import solvers, unstructured
+
+        if getattr(self, "_amg_cache", None) is None:
+            self._amg_cache = {}
+        t0 = time.perf_counter()
+        K, b_np = self.bc.apply_scipy(self.assemble_scipy(Ke), _host(rhs))
+        t_asm = time.perf_counter() - t0
+        n0 = solvers.readbacks["amg"]
+        x, k, rn = unstructured.amg_pcg(
+            K, b_np, nd=self.ndof_per_node, coords=self.X_host,
+            dtype=self.dtype, rtol=rtol, maxiter=maxiter or 10 * self.ndof,
+            cache=self._amg_cache, device=self.device,
+            **getattr(self, "amg_options", {}),
+        )
+        _check_converged("amg-pcg", rn, rtol * np.linalg.norm(b_np), k)
+        # host-clock seconds: scipy assembly + BCs, AMG set-up, PCG
+        times = self._amg_cache["times"]
+        self.last_solve_stats = {
+            "method": "amg", "iters": int(k), "resnorm": float(rn),
+            "readbacks": solvers.readbacks["amg"] - n0,
+            "assemble_s": t_asm, "setup_s": times["setup"],
+            "pcg_s": times["pcg"],
+        }
+        return x, torch.as_tensor(b_np, dtype=self.dtype, device=self.device)
 
     @property
     def complex_dtype(self):

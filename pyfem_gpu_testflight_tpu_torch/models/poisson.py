@@ -113,7 +113,7 @@ class LinearPoisson(FEModel):
 
     def solve(self, method="cg", rho=1.0, rtol=1e-8, maxiter=None):
         """Static solve with Dirichlet BCs: ``"cg"``, ``"gmres"``,
-        ``"direct"``, ``"gmg"`` or ``"pmg"``."""
+        ``"direct"``, ``"gmg"``, ``"pmg"`` or ``"amg"``."""
         Ke = (None if method in OWN_OPERATOR
               else self.element_jacobian(rho))
         u, _ = self._solve_system(Ke, self.compute_rhs(), method, rtol,

@@ -34,7 +34,7 @@ __all__ = ["library", "launch", "launches", "reset_launches", "stream_ptr",
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _SOURCES = ("assemble_2d.cu", "smooth_2d.cu", "assemble_3d.cu",
             "smooth_3d.cu", "otf_3d.cu", "stiffness_2d.cu",
-            "stiffness_3d.cu", "stencil_2d.cu")
+            "stiffness_3d.cu", "stencil_2d.cu", "spmv.cu")
 _BUILD_DIR = (
     Path(__file__).resolve().parent.parent.parent
     / "build" / "pyfem_torch_kernels"
@@ -84,6 +84,10 @@ _SIGNATURES = {
     "pyfem_poisson_quad4": (_P, _P, _I, _P, _P),
     # XeT, cq, table, mu, lam, elastic, nn, nelems, KeT, stream
     "pyfem_stiffness_3d": (_P, _P, _P, _F, _F, _I, _I, _I, _P, _P),
+    # indptr, indices, vals, x, y, n, group, f64, stream
+    "pyfem_csr_spmv": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # offsets, noffs, dia, u, mask (or None), y, n, f64, stream
+    "pyfem_dia_spmv": (_P, _I, _P, _P, _P, _P, _I, _I, _P),
 }
 
 launches = {name: 0 for name in _SIGNATURES}

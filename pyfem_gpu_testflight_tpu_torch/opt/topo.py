@@ -74,6 +74,7 @@ class TopoProblem(Problem):
         self.prefix = prefix
         self.counter = 0
         self.u = None
+        self._memos = {}  # key -> (input, filter output) of the last call
         self.device = model.device  # where MMA runs its design update
 
     def getVarsAndBounds(self, x, lb, ub):
@@ -81,8 +82,22 @@ class TopoProblem(Problem):
         lb[:] = self.lb
         ub[:] = self.ub
 
+    def _memo(self, key, v, fn):
+        """fn(v), reused while v is unchanged: the filter's solves are the
+        costliest steps of an iteration on a general mesh, MMA evaluates
+        the objective and its gradient at one design, and the volume
+        gradient of a model is usually constant."""
+        v = torch.as_tensor(v)
+        last = self._memos.get(key)
+        if last is not None and last[0].shape == v.shape and torch.equal(
+                last[0], v.to(last[0].device)):
+            return last[1]
+        out = fn(v)
+        self._memos[key] = (v.clone(), out)
+        return out
+
     def evalObjCon(self, x):
-        rho = self.filtr.apply(x)
+        rho = self._memo("apply", x, self.filtr.apply)
         rho_c = torch.clamp(rho, min=self.rho_floor)
         if self.save_history and self.counter % self.save_history_every == 0:
             self._save_design(rho)
@@ -92,7 +107,7 @@ class TopoProblem(Problem):
         return 0, float(obj), con
 
     def evalObjConGradient(self, x, g, A):
-        rho = self.filtr.apply(x)
+        rho = self._memo("apply", x, self.filtr.apply)
         rho_c = torch.clamp(rho, min=self.rho_floor)
         live = rho > self.rho_floor  # d rho_c / d rho (0 where clamped)
         g[:] = _host(
@@ -101,9 +116,9 @@ class TopoProblem(Problem):
                             0.0)
             )
         )
-        A[0][:] = -_host(
-            self.filtr.apply_gradient(self.model.volume_grad(rho))
-        )
+        A[0][:] = -_host(self._memo("volume_grad",
+                                    self.model.volume_grad(rho),
+                                    self.filtr.apply_gradient))
         return 0
 
     def _save_design(self, rho):

@@ -42,8 +42,9 @@ __all__ = ["cg", "cg_loop", "gmres", "gmres_loop", "direct_solve", "newton",
 # iterations), multigrid.pcg / pcg_gmg's r.r (one per iteration),
 # gmres_loop's (the tolerance with the first residual, each restart
 # cycle's entry and end residual norms, one Hessenberg column per Arnoldi
-# step) and the fused Newton loop's flag (one per Newton iteration)
-readbacks = {"cg": 0, "pcg": 0, "gmres": 0, "newton": 0}
+# step), the fused Newton loop's flag (one per Newton iteration) and
+# unstructured.amg_pcg's flag (one per block of CHECK_EVERY iterations)
+readbacks = {"cg": 0, "pcg": 0, "gmres": 0, "newton": 0, "amg": 0}
 # iterations between those read-backs (1 = the JAX loop's per-iteration test)
 CHECK_EVERY = 16
 

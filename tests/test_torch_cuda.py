@@ -26,8 +26,11 @@ matvec bit-identical across two applies, and one ``smoother="chebyshev"``
 V-cycle (2D, 3D, 3D on the fly) against its plain version; K4 at nd=1 on
 the 3D filter's full-storage planes, three 3D ``DeviceTopo`` iterations at
 17x9x9 against the same run on the CPU, and complex-step element
-matrices on the card against the CPU's
-(chip_smoke.py phases 3-3e and 7-10 hold them at full size).
+matrices on the card against the CPU's; U1 (CSR) on ragged rows at
+every lanes-per-row group and U2 (DIA) with offsets past both ends, over
+a shared-memory chunk, masked and not, float32 and float64, and AMG-PCG
+on the 12x80 torque arm against the CPU
+(chip_smoke.py phases 3-3e and 7-11 hold them at full size).
 
 Needs an NVIDIA Hopper card and nvcc; marked ``slow`` (deselected by the
 CPU tier) and skipped where CUDA is absent.  Run on the card with:
@@ -1278,3 +1281,114 @@ def test_complex_step_element_jacobian_on_card(dev, physics):
     torch.cuda.synchronize()
     assert Kek.dtype == torch.complex64
     assert _cuda.launches["pyfem_stiffness_3d"] == n0
+
+
+def _ragged_csr(n, mean, seed):
+    """A random n x n CSR matrix with ragged rows about ``mean`` long:
+    empty rows, single-entry rows and rows several times the mean."""
+    from scipy import sparse
+
+    rng = np.random.default_rng(seed)
+    lens = rng.poisson(mean, n)
+    lens[::17] = 0
+    lens[5::23] = 1
+    lens[7::29] = 4 * mean + 3
+    lens = np.minimum(lens, n)
+    indptr = np.concatenate([[0], np.cumsum(lens)])
+    indices = np.concatenate([np.sort(rng.choice(n, k, replace=False))
+                              for k in lens])
+    vals = rng.standard_normal(indices.size)
+    return sparse.csr_matrix((vals, indices, indptr), shape=(n, n))
+
+
+@pytest.mark.parametrize("mean", [1, 14, 25, 40, 82, 300])
+def test_u1_csr_spmv_matches_plain_on_card(dev, mean):
+    """U1 on ragged rows at every lanes-per-row group (1, 2, 4, 8, 16 and
+    32 for these mean lengths), float32
+    and float64: one launch, within TOL (f64: 1e-12) of the plain
+    version, a repeat call bit-identical."""
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda, spmv
+
+    A = _ragged_csr(5003, mean, mean)
+    assert spmv.csr_group(A.shape[0], A.nnz) == {
+        1: 1, 14: 2, 25: 4, 40: 8, 82: 16, 300: 32}[mean]
+    ip = torch.as_tensor(A.indptr, dtype=torch.int32, device=dev)
+    ix = torch.as_tensor(A.indices, dtype=torch.int32, device=dev)
+    for dt, tol in ((torch.float32, TOL), (torch.float64, 1e-12)):
+        v = torch.as_tensor(A.data, dtype=dt, device=dev)
+        x = torch.as_tensor(np.random.default_rng(1).standard_normal(
+            A.shape[0]), dtype=dt, device=dev)
+        n0 = _cuda.launches["pyfem_csr_spmv"]
+        y = spmv.csr_matvec(ip, ix, v, x)
+        torch.cuda.synchronize()
+        assert _cuda.launches["pyfem_csr_spmv"] == n0 + 1
+        ref = spmv.csr_matvec_plain(ip, ix, v, x)
+        assert y.dtype == dt and _rel(y, ref) <= tol
+        assert torch.equal(y, spmv.csr_matvec(ip, ix, v, x))
+        y_host = A.astype(np.float64) @ x.double().cpu().numpy()
+        assert np.abs(y.double().cpu().numpy() - y_host).max() <= \
+            tol * 10 * np.abs(y_host).max()
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_u2_dia_spmv_matches_plain_on_card(dev, masked):
+    """U2 with offsets past both ends of the vector and more offsets
+    than one shared-memory chunk (1,500 > 1,024), float32 and float64,
+    plain and Dirichlet-masked: one launch, within TOL (f64: 1e-12) of
+    the plain version."""
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda, spmv
+
+    n = 3001
+    rng = np.random.default_rng(2)
+    offs = np.unique(np.concatenate([
+        [-n - 5, -n + 1, 0, n - 1, n + 7],
+        rng.integers(-n + 1, n, 1495)]))
+    offsets = torch.as_tensor(offs.astype(np.int32), device=dev)
+    mask = (torch.as_tensor(rng.uniform(size=n) < 0.2, device=dev)
+            if masked else None)
+    for dt, tol in ((torch.float32, TOL), (torch.float64, 1e-12)):
+        dia = torch.as_tensor(rng.standard_normal((offs.size, n)),
+                              dtype=dt, device=dev)
+        u = torch.as_tensor(rng.standard_normal(n), dtype=dt, device=dev)
+        n0 = _cuda.launches["pyfem_dia_spmv"]
+        y = spmv.dia_matvec(offsets, dia, u, mask)
+        torch.cuda.synchronize()
+        assert _cuda.launches["pyfem_dia_spmv"] == n0 + 1
+        ref = spmv.dia_matvec_plain(offsets, dia, u, mask)
+        assert y.dtype == dt and _rel(y, ref) <= tol
+        if masked:
+            assert torch.equal(y[mask], u[mask])
+
+
+def test_amg_pcg_on_card_matches_cpu(dev, tmp_path):
+    """AMG-PCG (float64) on the 12x80 torque arm: the card's run takes
+    U1 for every level product (no plain version), the CPU's iterations,
+    and its solution within 1e-10 of the CPU's."""
+    from pyfem_gpu_testflight_tpu_torch import unstructured
+    from pyfem_gpu_testflight_tpu_torch.examples.torque_arm import (
+        arm_model, synthesize_arm_inp,
+    )
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+
+    inp = synthesize_arm_inp(str(tmp_path / "arm.inp"), nr=12, nt=80)
+    model, X = arm_model(inp, device="cpu")[:2]
+    K, b = model.bc.apply_scipy(model.assemble_scipy(
+        model.element_jacobian()), model.compute_rhs().numpy())
+    xc, kc, _ = unstructured.amg_pcg(K, b, nd=2, coords=X, rtol=1e-10,
+                                     device="cpu")
+    n0 = _cuda.launches["pyfem_csr_spmv"]
+    cache = {}
+    xg, kg, rng_ = unstructured.amg_pcg(K, b, nd=2, coords=X, rtol=1e-10,
+                                        device=dev, cache=cache)
+    torch.cuda.synchronize()
+    assert _cuda.launches["pyfem_csr_spmv"] > n0
+    assert int(kg) == int(kc)
+    assert float((xg.cpu() - xc).abs().max() / xc.abs().max()) <= 1e-10
+    # a value-only rebuild on the card keeps the device patterns
+    pats = [sl["csr"][0] for sl in cache["structure"]["levels"]]
+    p0 = cache["pattern0"][0]
+    xg2, kg2, _ = unstructured.amg_pcg(K, b, nd=2, coords=X, rtol=1e-10,
+                                       device=dev, cache=cache)
+    assert all(a is c for a, c in zip(
+        pats, [sl["csr"][0] for sl in cache["structure"]["levels"]]))
+    assert cache["pattern0"][0] is p0 and int(kg2) == int(kg)

@@ -132,9 +132,12 @@ def test_unported_branches_raise():
                             device=DEV)
     with pytest.raises(RuntimeError):
         m.solve(method="gmg")  # attach_structured_grid first
-    for method in ("amg", "sharded_gmg"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            m.solve(method=method)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        m.solve(method="sharded_gmg")
+    # amg is ported (tests/test_torch_amg.py): AMG-PCG on any mesh
+    u_amg, u_d = m.solve(method="amg", rtol=1e-10), m.solve(method="direct")
+    assert m.last_solve_stats["method"] == "amg"
+    assert (u_amg - u_d).abs().max() <= 1e-8 * u_d.abs().max()
     # pmg is ported (tests/test_torch_pmg.py): attach_pmg and the solve run
     conn3, X3, fixed3, force3 = pt.ProblemCreator(
         5, 5, 5, element_type="brick20").create_linear_elasticity_problem()

@@ -197,8 +197,8 @@ def test_build_gmg_matches_jax(physics):
 
 
 def test_exports_match_jax():
-    later = {"Assembler", "InpParser", "time_this", "timer_off",
-             "timer_on", "timer_set_threshold", "timer_to_stdout"}
+    later = {"Assembler", "time_this", "timer_off", "timer_on",
+             "timer_set_threshold", "timer_to_stdout"}
     own = {"multigrid", "opt", "pmg", "NonlinearPoisson2D"}
     assert set(pt.__all__) - own == set(fem.__all__) - later
     for name in pt.__all__:
