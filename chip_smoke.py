@@ -38,8 +38,13 @@ that call's time.
 Phases:
 1. device: require CUDA, print the card's name and power limit;
 2. build the kernels (one nvcc per source, in parallel) and time it;
-3. 2D kernels vs plain (K1 at 1025x513 and 65x33, K2 in the four
-   V-cycle variants and niter=8), with times and the CSR matvec time;
+3. 2D kernels vs plain (K1 at 1025x513 and 65x33; K2 in every call form
+   the main paths run, each one launch, at 1025x513 nd=2: bf16
+   presmooth with its residual, bf16 postsmooth, f32 postsmooth with
+   the residual, the matvec, the Chebyshev residual pass, and niter=8
+   in two sweep groups), with times, device times, one-pass bounds,
+   launches per call and the CSR matvec time; the V-cycle's three call
+   forms on every coarser level of bench 2D (513x257 down to 9x5);
 3a. 3D kernels vs plain, in half-symmetric and full coefficient storage
    (K3 at 65^3 and 9x7x5 for nd=3 and nd=1, K4 in every mode on f32 and
    bf16 planes, K5 presmooth+resid and postsmooth on bf16 and nu=4),
@@ -67,7 +72,8 @@ Phases:
    smoother copy, flexible PCG, rtol 1e-6): iterations, launch counts,
    float64 true residual, single-shot and chained solve times, and where
    the time goes (CUDA-event phase times, device busy share from
-   ``torch.profiler``);
+   ``torch.profiler``), and one K2 launch per smoothing call (a run with
+   every ``fused_sweeps_2d`` call counted);
 4a. the 3D bench configuration (``bench.py --config 3d``: 65^3, p=0,
    rho=1, Chebyshev-node nu=2, bf16 smoother copy, flexible PCG, rtol
    1e-6, coarsest 3^3 solved densely), the same measures, the peak
@@ -122,9 +128,10 @@ Phases:
    at most 12 Newton iterations): Newton and GMRES iterations, the
    float64 true residual ratio, K1/K2/K9 launches (K9's float32 and
    float64 forms apart) and host read-backs, K1 on every level of the
-   iterate's coefficient field, K2 on its finest level and K9 on the
-   nonsymmetric tangent planes (float32) and the flux (float64) against
-   their plain versions, single-shot and chained times, CUDA-event
+   iterate's coefficient field, K2 on its finest level (the path's own
+   residual) and its presmooth and postsmooth calls on every level,
+   and K9 on the nonsymmetric tangent planes (float32) and the flux
+   (float64) against their plain versions, single-shot and chained times, CUDA-event
    stage times of every Newton iteration, busy share, peak memory, and
    the 257^2 float32 solution against a float64 direct Newton
    (``NEWTON64_TOL``);
@@ -197,6 +204,22 @@ the readings ``SOL64_TOL`` is set from; ``--newton-floor`` only phase
 ``NEWTON64_TOL`` is set from; ``--newton`` only phase 8;
 ``--quadratic`` only phase 9; ``--topo3d`` only phase 10;
 ``--unstructured`` only phase 11;
+``--stencil-2d-kernels [--root DIR]`` only K2 and K9, on the package
+under DIR: every K2 call form at 1025x513 nd=2 and 1025^2 nd=1 and every
+K9 form (nd 1 and 2 in f32 and f64 at 1025x513, newton's tangent and
+flux at 1025^2), each held against its plain version, a repeat call
+bit-identical, launches per call, CUDA-event and device times with the
+L2 flushed by a write (``l2_flush``), by a read (``l2_flush_clean``) and
+back to back, the bound and the plain and one-call PyTorch times; bench
+2D's V-cycle calls on every coarser level, held and timed back to back;
+what each flush costs a timed call; and bench 2D's, bench 2D sym's, 4d's and
+newton's iterations, K2 launches, device time and busy share, and
+topo's state iterations over 4 MMA iterations;
+``--k2-witness [--root DIR]`` K2's float32 calls against the plain
+version in float64 (the one-pass call, the plain version and the
+step-kernel chain; Chebyshev-node damping, niter 1-8, nd 1 and 2, f32
+and bf16 planes, small grids and seeds 0-3, bench 2D's and newton's
+finest levels) and the nd=1 call forms at 1025^2 by both kernels;
 ``--quadratic-floor`` bench quadratic's
 float32 solution against its float64-outer one on the bench load and
 three seeded loads, the readings ``PMG64_TOL`` is set from;
@@ -212,7 +235,9 @@ events over back-to-back wrapper calls, with the profiler's device time
 beside them; K9's forms, K2's newton matvec, K4's filter form and the
 U1 and U2 forms whose operands fit in the 50 MB L2 are timed with the
 L2 flushed before each call (``l2_flush``), their back-to-back times
-beside them.  Device time and busy shares sum the profiler's device
+beside them.  ``l2_flush`` writes its buffer, so the timed call also
+writes back up to 50 MB of the flush's dirty lines; ``--stencil-2d-
+kernels`` times after a read (``l2_flush_clean``) too.  Device time and busy shares sum the profiler's device
 rows only (``device_rows``: kernels, copies, sets); a PyTorch
 operator's own row repeats its kernels' time.
 
@@ -775,7 +800,6 @@ def phase_kernels(dev, build_log):
     import torch
     from pyfem_gpu_testflight_tpu_torch import multigrid
     from pyfem_gpu_testflight_tpu_torch.ops import fused_assemble as fa
-    from pyfem_gpu_testflight_tpu_torch.ops import fused_smooth as fs
 
     rng = np.random.default_rng(SEED)
     res = {}
@@ -828,61 +852,20 @@ def phase_kernels(dev, build_log):
                                     dtype=torch.float32, device=dev)
     b = torch.where(mask, 0.0, field())
     x0 = torch.where(mask, 0.0, field())
-    xr = field()
-    om2 = multigrid.smoothing_omegas(2, 2.3)
-    variants = {
-        "presmooth_resid_bf16": ((lk, dk, b, None),
-                                 dict(niter=2, want_resid=True, omega=om2)),
-        "postsmooth_bf16": ((lk, dk, b, x0),
-                            dict(niter=2, omega=om2[::-1])),
-        "postsmooth_resid_f32": ((ck, dk, b, x0),
-                                 dict(niter=2, want_resid=True,
-                                      omega=om2[::-1])),
-        "matvec_f32": ((ck, dk, None, xr),
-                       dict(niter=0, want_resid=True, neg_resid=True)),
-        "niter8_f32": ((ck, dk, b, None),
-                       dict(niter=8, want_resid=True, omega=0.7)),
-    }
-    worst_abs = 0.0
-    for name, (a, kw) in variants.items():
-        got = fs.fused_sweeps_2d(*a, **kw)
-        ref = fs.fused_sweeps_2d_plain(*a, **kw)
-        torch.cuda.synchronize()
-        got = got if isinstance(got, tuple) else (got,)
-        ref = ref if isinstance(ref, tuple) else (ref,)
-        errs = [rel_err(g, r) for g, r in zip(got, ref)]
-        worst_abs = max([worst_abs] + [e[0] for e in errs])
-        ms = cuda_ms(lambda: fs.fused_sweeps_2d(*a, **kw), 50)
-        pms = cuda_ms(lambda: fs.fused_sweeps_2d_plain(*a, **kw), 10)
-        log(f"K2 {name}: rel " + ", ".join(f"{e[1]:.2e}" for e in errs)
-            + f"; kernel {ms:.4f} ms, plain {pms:.4f} ms")
-        check(all(e[1] <= REL_TOL for e in errs),
-              f"K2 {name} within {REL_TOL:g}")
-        if name == "matvec_f32":  # one launch: the per-launch time
-            b_ms, b_by = bound(nbytes(ck, xr) + nbytes(xr),
-                               2 * 72 * NX * NY)
-            lib = library_matvec_ms(ck.reshape(2, 2, 3, 3, NY, NX),
-                                    (NY, NX), xr)
-            log(f"K2 matvec_f32: torch.sparse.mm (f32 CSR) {lib:.4f} ms, "
-                f"bound {b_ms:.4f} ms ({b_by})")
-            dms = device_ms(lambda: fs.fused_sweeps_2d(*a, **kw))
-            log(f"K2 matvec_f32: device time {fms(dms)} ms")
-            res["K2"] = dict(ms=ms, device_ms=dms, plain_ms=pms,
-                             bound_ms=b_ms, bound_by=b_by, library_ms=lib)
-    # 8 Chebyshev-node sweeps damp the residual far below b, so its
-    # rounding is measured against max|b|, the scale it is computed at
-    kw = dict(niter=8, want_resid=True,
-              omega=multigrid.smoothing_omegas(8, 2.3))
-    (xk, rk), (xp, rp) = (fs.fused_sweeps_2d(ck, dk, b, None, **kw),
-                          fs.fused_sweeps_2d_plain(ck, dk, b, None, **kw))
-    ex, rr = rel_err(xk, xp), rel_err(rk, rp)
-    bmax = float(b.abs().max())
-    log(f"K2 niter8_cheby: x rel {ex[1]:.2e}; r rel {rr[1]:.2e} of "
-        f"max|r|, {rr[0] / bmax:.2e} of max|b| (max|r|/max|b| "
-        f"{float(rp.abs().max()) / bmax:.2e})")
-    check(ex[1] <= REL_TOL and rr[0] <= REL_TOL * bmax,
-          f"K2 niter8_cheby x and r within {REL_TOL:g} (r of max|b|)")
-    res["K2"]["max_abs_err"] = max(worst_abs, ex[0], rr[0])
+    forms, _w = k2_level_rows(ck, dk, lk, b, x0, field(), f"{NX}x{NY} nd=2",
+                              lambda run: dict(ms=cuda_ms(run, 50),
+                                               device_ms=device_ms(run)))
+    _levels, _w, coarse_abs = k2_coarse_levels(dev, rng)
+    head = forms["presmooth_resid_bf16"]
+    res["K2"] = dict(max_abs_err=max([coarse_abs] + [
+                         v["max_abs_err"] for v in forms.values()]),
+                     ptxas={k: short_ptxas(build_log, k) for k in (
+                         "sweeps_2d_kernel", "sweeps_2d_kernel_b2",
+                         "smooth_2d_kernel")},
+                     ms=head["ms"],
+                     device_ms=head["device_ms"], plain_ms=head["plain_ms"],
+                     bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+                     library_ms=None, forms=forms)
     return res
 
 
@@ -1465,6 +1448,592 @@ def run_assembly_kernels():
     return 1 if FAILS else 0
 
 
+# K2 entry points (full storage): the one-pass call (pyfem_sweeps_2d) and
+# the single stencil step (pyfem_smooth_2d); a parent checkout may lack
+# the first, so counts read both with a default of 0
+K2_ENTRIES = ("pyfem_smooth_2d", "pyfem_sweeps_2d")
+
+
+def k2_launches(launches):
+    return sum(launches.get(k, 0) for k in K2_ENTRIES)
+
+
+def l2_flush_clean(dev):
+    """A callable that evicts the card's L2 cache by READING a 1 GiB
+    buffer (a sum), so that the call timed after it finds the L2 full of
+    clean lines.  :func:`l2_flush` writes its buffer, which leaves up to
+    50 MB of dirty lines that the timed call's misses then write back to
+    device memory inside its own timed span; this flush does not.  Its
+    ``floor_ms`` is 90% of the read's time at the card's memory rate."""
+    import torch
+
+    buf = torch.ones(256 << 20, dtype=torch.float32, device=dev)
+
+    def flush():
+        buf.sum()
+
+    flush.floor_ms = 0.9e3 * nbytes(buf) / HBM_BYTES_S
+    return flush
+
+
+def stencil_times(run, flush, flush_clean, reps=50):
+    """:func:`flushed_times` with the L2 flushed by a write (``ms``,
+    ``device_ms``), by a read (``clean_ms``, ``clean_device_ms``) and
+    back to back (``l2_warm_ms``, ``l2_warm_device_ms``)."""
+    return dict(flushed_times(run, flush, reps),
+                clean_ms=cuda_ms(run, reps, between=flush_clean),
+                clean_device_ms=device_ms(run, between=flush_clean))
+
+
+def k2_call_forms(ck, dk, lk, b, x0, xr):
+    """The K2 call forms the main paths run, each as one
+    ``fused_sweeps_2d`` call: bench 2D's V-cycle (bf16 presmooth with its
+    residual, bf16 postsmooth, the fine level's f32 postsmooth with the
+    PCG's residual), newton's (f32 presmooth with its residual, f32
+    postsmooth), the PCG matvec and the Chebyshev smoother's residual
+    pass; and, untimed, 8 sweeps with the residual, Chebyshev-node and
+    constant damping (two sweep groups on the card)."""
+    from pyfem_gpu_testflight_tpu_torch import multigrid
+
+    om2 = multigrid.smoothing_omegas(2, 2.3)
+    return {
+        "presmooth_resid_bf16": ((lk, dk, b, None),
+                                 dict(niter=2, want_resid=True, omega=om2)),
+        "postsmooth_bf16": ((lk, dk, b, x0), dict(niter=2, omega=om2[::-1])),
+        "presmooth_resid_f32": ((ck, dk, b, None),
+                                dict(niter=2, want_resid=True, omega=om2)),
+        "postsmooth_f32": ((ck, dk, b, x0), dict(niter=2, omega=om2[::-1])),
+        "postsmooth_resid_f32": ((ck, dk, b, x0),
+                                 dict(niter=2, want_resid=True,
+                                      omega=om2[::-1])),
+        "matvec_f32": ((ck, dk, None, xr),
+                       dict(niter=0, want_resid=True, neg_resid=True)),
+        "cheb_resid_bf16": ((lk, dk, b, x0), dict(niter=0, want_resid=True)),
+        "niter8_cheby_f32": ((ck, dk, b, None), dict(
+            niter=8, want_resid=True,
+            omega=multigrid.smoothing_omegas(8, 2.3))),
+        "niter8_f32": ((ck, dk, b, None), dict(niter=8, want_resid=True,
+                                               omega=0.7)),
+    }
+
+
+def k2_call_bound(args, kw, out):
+    """One pass of a K2 call: the planes once, each input field once,
+    each output once; the operations of its stencil steps."""
+    coeff, invd, b, x = args
+    nd, ny, nx = invd.shape
+    steps = (kw["niter"] - (1 if x is None else 0)
+             + (1 if kw.get("want_resid") else 0))
+    return bound(nbytes(coeff, invd, b, x, *out),
+                 2 * 9 * nd * nd * ny * nx * steps)
+
+
+def k2_levels(dev, rng, nx, ny, nd):
+    """K1's planes of one level (p = 3, seeded density) and its fields:
+    (ck, dk, lk, b, x0, xr)."""
+    import torch
+    from pyfem_gpu_testflight_tpu_torch import multigrid
+    from pyfem_gpu_testflight_tpu_torch.ops import fused_assemble as fa
+
+    a = multigrid.GMGAssembler(nx, ny, (nx - 1) / (ny - 1), 1.0,
+                               "elasticity" if nd == 2 else "poisson",
+                               p=3.0, device=dev, min_n=nx + ny)
+    st = a.static_levels[0]
+    rho = torch.as_tensor(rng.uniform(0.2, 1.0, (ny, nx)),
+                          dtype=torch.float32, device=dev)
+    ck, dk, lk = fa.assemble_pack_2d(rho, st.maskf, st.W, a.N, nd=nd, p=3.0,
+                                     lp_dtype=torch.bfloat16)
+    field = lambda: torch.as_tensor(rng.standard_normal((nd, ny, nx)),
+                                    dtype=torch.float32, device=dev)
+    return (ck, dk, lk, torch.where(st.mask, 0.0, field()),
+            torch.where(st.mask, 0.0, field()), field())
+
+
+def k2_level_rows(ck, dk, lk, b, x0, xr, size, times=None, forms=None):
+    """K2 call forms (:func:`k2_call_forms`, those named in ``forms`` or
+    all) on one level: error against the plain version, relative to
+    max|plain| (the residual after 8 Chebyshev-node sweeps, damped far
+    below b, of max|b|, the scale it is computed at), a repeat call
+    bit-identical, launches per call (one up to the sweep budget) and,
+    with ``times``, ``times(run)`` for the forms but the 8-sweep ones,
+    the one-pass bound, the plain version's time and, for the matvec,
+    ``torch.sparse.mm``'s.  Returns ({form: row}, worst relative
+    error)."""
+    import torch
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+    from pyfem_gpu_testflight_tpu_torch.ops import fused_smooth as fs
+
+    nd, ny, nx = dk.shape
+    rows, worst = {}, 0.0
+    tup = lambda v: v if isinstance(v, tuple) else (v,)
+    for name, (a, kw) in k2_call_forms(ck, dk, lk, b, x0, xr).items():
+        if forms is not None and name not in forms:
+            continue
+        n0 = dict(_cuda.launches)
+        got = tup(fs.fused_sweeps_2d(*a, **kw))
+        torch.cuda.synchronize()
+        nl = k2_launches(_cuda.launches) - k2_launches(n0)
+        ref = tup(fs.fused_sweeps_2d_plain(*a, **kw))
+        again = tup(fs.fused_sweeps_2d(*a, **kw))
+        scale = [float(r.abs().max()) for r in ref]
+        if name == "niter8_cheby_f32":
+            scale[-1] = float(b.abs().max())
+        errs = [float((g - r).abs().max()) for g, r in zip(got, ref)]
+        rel = max(e / s for e, s in zip(errs, scale))
+        worst = max(worst, rel)
+        check(rel <= REL_TOL, f"K2 {name} {size} within {REL_TOL:g} "
+              f"(rel {rel:.2e})")
+        check(all(torch.equal(g, h) for g, h in zip(got, again)),
+              f"K2 {name} {size}: repeat call bit-identical")
+        steps = (kw["niter"] - (a[3] is None)
+                 + kw.get("want_resid", False))
+        want = (1 if kw["niter"] == 0 else
+                max(1, -(-steps // fs.SWEEP_BUDGET_2D)))
+        check(nl == want, f"K2 {name} {size}: {want} launch(es) a call "
+              f"({nl})")
+        row = dict(max_abs_err=max(errs), rel_err=rel, launches=nl)
+        del again
+        if times is not None and not name.startswith("niter8"):
+            run = lambda: fs.fused_sweeps_2d(*a, **kw)
+            b_ms, b_by = k2_call_bound(a, kw, got)
+            row.update(times(run), plain_ms=cuda_ms(
+                lambda: fs.fused_sweeps_2d_plain(*a, **kw), 5),
+                bound_ms=b_ms, bound_by=b_by, library_ms=(
+                    library_matvec_ms(a[0].reshape(nd, nd, 3, 3, ny, nx),
+                                      (ny, nx), xr)
+                    if name == "matvec_f32" else None))
+            log(f"K2 {name} {size}: rel {rel:.2e}, {nl} launch(es); "
+                + ", ".join(f"{k} {fms(v)}" for k, v in row.items()
+                            if k.endswith("ms")
+                            and not (k == "library_ms" and v is None))
+                + f" ({b_by})")
+        rows[name] = row
+        del got, ref
+    return rows, worst
+
+
+def k2_call_rows(dev, rng, flush, flush_clean):
+    """Every K2 call form (:func:`k2_level_rows`) at 1025x513 nd=2 (bench
+    2D's fine level) and at 1025^2 nd=1 (newton's), timed by
+    :func:`stencil_times`."""
+    rows, worst = {}, 0.0
+    for nx, ny, nd in ((NX, NY, 2), (NEWTON_N, NEWTON_N, 1)):
+        size = f"{nx}x{ny} nd={nd}"
+        r, w = k2_level_rows(*k2_levels(dev, rng, nx, ny, nd), size,
+                             lambda run: stencil_times(run, flush,
+                                                       flush_clean))
+        rows.update({f"{k} {size}": v for k, v in r.items()})
+        worst = max(worst, w)
+    return rows, worst
+
+
+def k9_form_rows(dev, pt, rng, flush, flush_clean):
+    """Every K9 form: nd=1 (the Helmholtz filter's planes) and nd=2 (the
+    float64 accuracy operator's elasticity planes) in f32 and f64 at
+    1025x513, and newton's nonsymmetric tangent planes (f32) and its
+    flux planes (f64) at 1025^2 on a seeded iterate: error against the
+    plain version, a repeat call bit-identical, launches, times
+    (:func:`stencil_times`), bound, plain and ``torch.sparse.mm`` times."""
+    import torch
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+    from pyfem_gpu_testflight_tpu_torch.ops import stencil_matvec as sm
+
+    conn, X, _f, _l, (Lx, Ly) = problem(NX, NY)
+    filt = pt.Helmholtz(0.01, "quad4", X, conn, dtype=torch.float64,
+                        device=dev).attach_structured_grid(NX, NY)
+    rho = torch.as_tensor(rng.uniform(0.3, 1.0, NX * NY), device=dev)
+    c2 = f64_operator(NX, NY, Lx, Ly, rho, 3.0, dev)[2]
+    n = NEWTON_N
+    model = newton_model(pt, dev, n, torch.float32)
+    mask0 = model._gmg_newton.static_levels[0].mask
+    xdv = torch.full((10,), 0.1, dtype=torch.float32, device=dev)
+    u = torch.as_tensor(rng.uniform(0.0, 0.5, (n, n)), dtype=torch.float32,
+                        device=dev)
+    cs, cr = model._uniform_tangent_coeffs(xdv, u)
+    tangent = model._gmg_newton.static_levels[0].op.bc_eliminate(cs + cr,
+                                                                 mask0)
+    forms = {"nd1_f32": (filt._coeffK, torch.float32),
+             "nd1_f64": (filt._coeffK, torch.float64),
+             "nd2_f32": (c2, torch.float32), "nd2_f64": (c2, torch.float64),
+             "newton_tangent_f32": (tangent, torch.float32),
+             "newton_flux_f64": (cs, torch.float64)}
+    rows, worst = {}, 0.0
+    for name, (c, dt) in forms.items():
+        c = c.to(dt).contiguous()
+        nd, ny, nx = c.shape[0], c.shape[-2], c.shape[-1]
+        v = torch.as_tensor(rng.standard_normal((nd, ny, nx)), dtype=dt,
+                            device=dev)
+        n0 = _cuda.launches["pyfem_stencil_2d"]
+        got = sm.stencil_matvec_2d(c, v)
+        torch.cuda.synchronize()
+        nl = _cuda.launches["pyfem_stencil_2d"] - n0
+        ref = sm.stencil_matvec_2d_plain(c, v)
+        ea, er = rel_err(got, ref)
+        worst = max(worst, er)
+        check(er <= REL_TOL and got.dtype == dt,
+              f"K9 {name} {nx}x{ny} within {REL_TOL:g} (rel {er:.2e})")
+        check(torch.equal(got, sm.stencil_matvec_2d(c, v)),
+              f"K9 {name} {nx}x{ny}: repeat call bit-identical")
+        run = lambda: sm.stencil_matvec_2d(c, v)
+        b_ms, b_by = bound(nbytes(c, v, got), 2 * nd * nd * 9 * nx * ny,
+                           F32_FLOP_S if dt == torch.float32 else F64_FLOP_S)
+        row = dict(stencil_times(run, flush, flush_clean), max_abs_err=ea,
+                   rel_err=er, launches=nl,
+                   plain_ms=cuda_ms(lambda: sm.stencil_matvec_2d_plain(c, v),
+                                    10),
+                   bound_ms=b_ms, bound_by=b_by,
+                   library_ms=library_matvec_ms(c, (ny, nx), v, dtype=dt))
+        log(f"K9 {name} {nx}x{ny}: rel {er:.2e}; events {row['ms']:.4f} ms "
+            f"(write flush) / {row['clean_ms']:.4f} (read flush) / "
+            f"{row['l2_warm_ms']:.4f} (back to back); device "
+            f"{fms(row['device_ms'])} / {fms(row['clean_device_ms'])} / "
+            f"{fms(row['l2_warm_device_ms'])}; bound {b_ms:.4f} ms ({b_by}); "
+            f"plain {row['plain_ms']:.4f} ms, torch.sparse.mm "
+            f"{row['library_ms']:.4f} ms")
+        rows[f"{name} {nx}x{ny}"] = row
+        del got, ref
+    return rows, worst
+
+
+# the V-cycle's K2 call forms on every level of bench 2D, 4d and topo
+# (bf16 planes) and the PCG's f32 postsmooth with the residual
+BENCH_V_FORMS = ("presmooth_resid_bf16", "postsmooth_bf16",
+                 "postsmooth_resid_f32")
+
+
+def k2_coarse_levels(dev, rng, timed=False):
+    """K2's bench 2D call forms (:data:`BENCH_V_FORMS`, nd=2) on every
+    level of bench 2D below the finest, 513x257 down to 9x5: each held
+    against the plain version (:func:`k2_level_rows`) and, ``timed``,
+    its device time back to back.  Returns ({level: rows}, worst
+    relative error, worst absolute error)."""
+    out, worst, worst_abs = {}, 0.0, 0.0
+    for i in range(1, 8):
+        nx, ny = (1024 >> i) + 1, (512 >> i) + 1
+        rows, w = k2_level_rows(
+            *k2_levels(dev, rng, nx, ny, 2), f"{nx}x{ny} nd=2",
+            times=(lambda run: dict(device_ms=device_ms(run))) if timed
+            else None, forms=BENCH_V_FORMS)
+        out[f"{nx}x{ny}"] = rows
+        worst = max(worst, w)
+        worst_abs = max([worst_abs] + [r["max_abs_err"]
+                                       for r in rows.values()])
+        log(f"K2 level {nx}x{ny}: " + "; ".join(
+            f"{k} rel {v['rel_err']:.2e}"
+            + (f", {fms(v['device_ms'])} ms" if timed else "")
+            + f" ({v['launches']} launch)" for k, v in rows.items()))
+    return out, worst, worst_abs
+
+
+def k2_step_chain(a, kw):
+    """A K2 call as the step kernel runs it: one ``pyfem_smooth_2d``
+    launch a sweep (from x0 = 0 the first is elementwise) and one for the
+    residual, as the wrapper still runs half storage."""
+    import torch
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+    from pyfem_gpu_testflight_tpu_torch.ops import fused_smooth as fs
+
+    planes, dk, b, x = a
+    nd, ny, nx = dk.shape
+    ptr = lambda t: None if t is None else t.data_ptr()
+
+    def step(xin, om, mode):
+        out = torch.empty_like(dk)
+        _cuda.launch("pyfem_smooth_2d", planes.data_ptr(),
+                     int(planes.dtype == torch.bfloat16), dk.data_ptr(),
+                     ptr(b), ptr(xin), out.data_ptr(), nd, ny, nx,
+                     float(om), mode, _cuda.stream_ptr(dk))
+        return out
+
+    for om in fs._omega_seq(kw.get("omega", 0.7), kw["niter"]):
+        x = step(x, om, 0)
+    want = kw.get("want_resid", False)
+    r = step(x, 0.0, 2 if kw.get("neg_resid") else 1) if want else None
+    return fs._outputs(x, r, kw["niter"], want)
+
+
+def k2_float64_witness(dev):
+    """K2's float32 forms against the plain version in float64 on the
+    same inputs (the stored planes widened): the one-pass call (the
+    wrapper), the plain version in float32 and the step-kernel chain
+    (:func:`k2_step_chain`), with Chebyshev-node damping
+    (``smoothing_omegas(niter, 2.3)``) at niter 1-8, from x0 = 0 with
+    the residual and from x0 with the negated residual, nd 1 and 2, f32
+    and bf16 planes, on 3x3, 13x7, 9x5, 17x9, 33x17 and 65x33 grids with
+    seeds 0-3, and at 1025x513 nd=2 and 1025^2 nd=1 (seed 0).  Errors are
+    over the card test's scale (max|plain|; a residual's max(|plain|,
+    |b|)).  Returns a row per niter: the largest error of each float32
+    version, the median and largest ratio of the one-pass call's error
+    to the plain version's, the largest difference of the two float32
+    versions, how many calls put it over ``REL_TOL`` and how many equal
+    the step chain bit for bit."""
+    import torch
+    from pyfem_gpu_testflight_tpu_torch import multigrid
+    from pyfem_gpu_testflight_tpu_torch.ops import fused_smooth as fs
+
+    tup = lambda v: v if isinstance(v, tuple) else (v,)
+    acc = {n: dict(kernel=[], plain=[], chain=[], ratio=[], kp=[], over=0,
+                   calls=0, same=0) for n in range(1, 9)}
+    cases = [(nx, ny, nd, seed) for nx, ny in ((3, 3), (13, 7), (9, 5),
+                                              (17, 9), (33, 17), (65, 33))
+             for nd in (1, 2) for seed in range(4)]
+    cases += [(NX, NY, 2, 0), (NEWTON_N, NEWTON_N, 1, 0)]
+    for nx, ny, nd, seed in cases:
+        rng = np.random.default_rng(seed)
+        ck, dk, lk, b, x0, _xr = k2_levels(dev, rng, nx, ny, nd)
+        w64 = lambda t: None if t is None else t.double()
+        for planes in (ck, lk):
+            for niter in range(1, 9):
+                om = multigrid.smoothing_omegas(niter, 2.3)
+                for x, neg in ((None, False), (x0, True)):
+                    kw = dict(niter=niter, want_resid=True, neg_resid=neg,
+                              omega=om)
+                    a = (planes, dk, b, x)
+                    k = tup(fs.fused_sweeps_2d(*a, **kw))
+                    p = tup(fs.fused_sweeps_2d_plain(*a, **kw))
+                    c = tup(k2_step_chain(a, kw))
+                    e = tup(fs.fused_sweeps_2d_plain(
+                        planes, w64(dk), w64(b), w64(x), **kw))
+                    row = acc[niter]
+                    row["calls"] += 1
+                    row["same"] += all(torch.equal(u, v)
+                                       for u, v in zip(k, c))
+                    over = False
+                    for i in range(len(e)):
+                        sc = float(p[i].abs().max())
+                        if i == len(e) - 1:
+                            sc = max(sc, float(b.abs().max()))
+                        err = lambda v: float((v[i].double() - e[i])
+                                              .abs().max()) / sc
+                        ek, ep, ec = err(k), err(p), err(c)
+                        kp = float((k[i] - p[i]).abs().max()) / sc
+                        row["kernel"].append(ek)
+                        row["plain"].append(ep)
+                        row["chain"].append(ec)
+                        row["kp"].append(kp)
+                        if ep > 0:
+                            row["ratio"].append(ek / ep)
+                        over = over or kp > REL_TOL
+                    row["over"] += over
+        del ck, dk, lk, b, x0
+    out = {}
+    for n, row in acc.items():
+        out[n] = dict(calls=row["calls"], kernel_max=max(row["kernel"]),
+                      plain_max=max(row["plain"]),
+                      chain_max=max(row["chain"]),
+                      ratio_median=float(np.median(row["ratio"])),
+                      ratio_max=max(row["ratio"]),
+                      kernel_vs_plain_max=max(row["kp"]),
+                      calls_over_tol=row["over"],
+                      calls_equal_to_step_chain=row["same"])
+        log(f"K2 float64 witness niter {n}: {row['calls']} calls; error "
+            f"over the test's scale, one-pass {out[n]['kernel_max']:.2e}, "
+            f"plain f32 {out[n]['plain_max']:.2e}, step chain "
+            f"{out[n]['chain_max']:.2e}; one-pass/plain median "
+            f"{out[n]['ratio_median']:.2f}, max {out[n]['ratio_max']:.2f}; "
+            f"one-pass vs plain {out[n]['kernel_vs_plain_max']:.2e}, "
+            f"{row['over']} calls over {REL_TOL:g}; {row['same']} calls "
+            f"bit-identical to the step chain")
+    return out
+
+
+def k2_nd1_forms(dev, flush_clean):
+    """The bf16 V-cycle calls at nd=1 on a 1025^2 level (no main path
+    runs them: newton's planes are f32) and newton's f32 calls, by the
+    one-pass call and by the step-kernel chain: device time with the L2
+    flushed by a read before each call."""
+    from pyfem_gpu_testflight_tpu_torch.ops import fused_smooth as fs
+
+    rng = np.random.default_rng(SEED + 61)
+    n = NEWTON_N
+    ck, dk, lk, b, x0, xr = k2_levels(dev, rng, n, n, 1)
+    out = {}
+    for name, (a, kw) in k2_call_forms(ck, dk, lk, b, x0, xr).items():
+        if name not in ("presmooth_resid_bf16", "postsmooth_bf16",
+                        "presmooth_resid_f32", "postsmooth_f32"):
+            continue
+        out[name] = {
+            label: device_ms(run, between=flush_clean)
+            for label, run in (
+                ("one_pass", lambda: fs.fused_sweeps_2d(*a, **kw)),
+                ("step_chain", lambda: k2_step_chain(a, kw)))}
+        log(f"K2 {name} {n}x{n} nd=1, read-flushed device: one-pass "
+            f"{fms(out[name]['one_pass'])} ms, step chain "
+            f"{fms(out[name]['step_chain'])} ms")
+    return out
+
+
+def run_k2_witness():
+    """``python3 chip_smoke.py --k2-witness [--root DIR]``: on the package
+    under DIR, K2's float32 forms against float64
+    (:func:`k2_float64_witness`), the nd=1 call forms by both kernels
+    (:func:`k2_nd1_forms`) and ptxas's registers of the one-pass
+    kernel; prints the card and one JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    if "--root" in sys.argv:
+        sys.path.insert(0, sys.argv[sys.argv.index("--root") + 1])
+    import pyfem_gpu_testflight_tpu_torch as pt
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+
+    log(card_line())
+    dev = torch.device("cuda", 0)
+    _cuda.library()
+    regs = {k: short_ptxas(_cuda.build_log, k)
+            for k in ("sweeps_2d_kernel", "sweeps_2d_kernel_b2")}
+    log(f"ptxas: {regs}")
+    out = dict(ptxas=regs, witness=k2_float64_witness(dev),
+               nd1=k2_nd1_forms(dev, l2_flush_clean(dev)))
+    log(card_line())
+    log(json.dumps({"package": pt.__file__, **out}))
+    return 1 if FAILS else 0
+
+
+def flush_controls(dev, flush, flush_clean):
+    """What each flush costs the call timed after it: an elementwise
+    product that reads 11.6 MB and writes 11.6 MB (the bytes of K9 nd=1
+    f32 at 1025x513), its device time after each flush and back to
+    back."""
+    import torch
+
+    t = torch.ones(2_887_500, dtype=torch.float32, device=dev)
+    y = torch.empty_like(t)
+    run = lambda: torch.mul(t, 2.0, out=y)
+    out = dict(stencil_times(run, flush, flush_clean),
+               bound_ms=bound(nbytes(t, y), t.numel())[0])
+    log(f"flush control, 2 x of 11.6 MB into 11.6 MB: device "
+        f"{fms(out['device_ms'])} ms "
+        f"(write flush) / {fms(out['clean_device_ms'])} (read flush) / "
+        f"{fms(out['l2_warm_device_ms'])} (back to back), bound "
+        f"{out['bound_ms']:.4f} ms")
+    return out
+
+
+def solve_rows(dev, pt):
+    """The main paths that run K2 and K9, with the counts zeroed just
+    before one run and read just after: bench 2D, bench 2D sym and 4d
+    (PCG iterations, K2 launches, CUDA-event and device time of one
+    assemble+solve, busy share), newton (Newton iterations, K2 and K9
+    launches, the same times) and topo (2 warm-up and 4 MMA iterations:
+    state and filter iterations of each, K2 launches of the 4)."""
+    import torch
+    from pyfem_gpu_testflight_tpu_torch import multigrid
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+    from pyfem_gpu_testflight_tpu_torch.ops.dia import (
+        interleave_to_planar as i2p, planar_to_interleave as p2i,
+    )
+    from pyfem_gpu_testflight_tpu_torch.opt import DeviceTopo
+
+    out = {}
+
+    def measured(label, run, reps, iters):
+        run()
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        k = iters(run())
+        torch.cuda.synchronize()
+        counts = dict(_cuda.launches)
+        ms = cuda_ms(run, reps)
+        dms = device_ms(run, reps=reps, sessions=3)
+        out[label] = dict(iterations=k, k2_launches=k2_launches(counts),
+                          k2_sym_launches=counts.get("pyfem_smooth_2d_sym", 0),
+                          k9_launches=counts.get("pyfem_stencil_2d", 0),
+                          ms=ms, device_ms=dms,
+                          busy=None if dms is None else dms / ms)
+        log(f"{label}: {k} iterations, K2 launches "
+            f"{out[label]['k2_launches']} (sym "
+            f"{out[label]['k2_sym_launches']}), K9 "
+            f"{out[label]['k9_launches']}; {ms:.3f} ms a run (CUDA events), "
+            f"device {fms(dms)} ms, busy "
+            f"{'not measured' if dms is None else f'{100 * dms / ms:.1f}%'}")
+
+    for label, route in (("bench 2D", {}), ("bench 2D sym", {"sym": True}),
+                         ("4d", {"elem_path": "cuda"})):
+        _m, _a, rho, rhs, step, _L = bench2d(dev, pt, multigrid, i2p, p2i,
+                                             **route)
+        measured(label, lambda: step(rho, rhs, rhs), 5, lambda o: int(o[1]))
+        del step
+    model = newton_model(pt, dev, NEWTON_N, torch.float32)
+    xdv = torch.full((10,), 0.1, dtype=torch.float32, device=dev)
+    measured("newton", lambda: model.solve_nonlinear_fused(
+        method="gmg", xdv=xdv, **NEWTON_KW), 2, lambda o: int(o[1]))
+    del model
+    conn, X, fixed, force, _L = problem(NX, NY)
+    model = pt.LinearElasticity("quad4", X, conn, fixed, None, force, p=3.0,
+                                dtype=torch.float32, device=dev)
+    model.attach_structured_grid(NX, NY, nu_pre=2, nu_post=2, min_n=5,
+                                 smoother_dtype=torch.bfloat16,
+                                 omega="cheby")
+    filtr = pt.Helmholtz(0.01, "quad4", X, conn, dtype=torch.float32,
+                         rtol=1e-6, device=dev)
+    filtr.attach_structured_grid(NX, NY)
+    dt = DeviceTopo(model, filtr, fixed_volume=0.4, rtol=1e-6, maxiter=200)
+    dt.optimize(max_iterations=2, verbose=False, log_every=2)
+    dt.history.clear()
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    dt.optimize(max_iterations=4, verbose=False, log_every=4)
+    torch.cuda.synchronize()
+    out["topo"] = dict(
+        state_iterations=[int(h["cg_iters"]) for h in dt.history],
+        filter_iterations=[[int(v) for v in h["filter_iters"]]
+                           for h in dt.history],
+        k2_launches=k2_launches(_cuda.launches),
+        k9_launches=_cuda.launches["pyfem_stencil_2d"],
+        s_per_iter=dt.s_per_iter)
+    log(f"topo: state PCG iterations {out['topo']['state_iterations']}, "
+        f"filter {out['topo']['filter_iterations']}, K2 launches "
+        f"{out['topo']['k2_launches']} and K9 {out['topo']['k9_launches']} "
+        f"in 4 MMA iterations, {dt.s_per_iter:.4f} s an iteration")
+    return out
+
+
+def run_stencil_2d_kernels():
+    """``python3 chip_smoke.py --stencil-2d-kernels [--root DIR]``: K2 and
+    K9 alone on the package under DIR (default: this checkout), so a
+    parent checkout is timed on the same inputs in the same call: every
+    K2 call form (:func:`k2_call_rows`), every K9 form
+    (:func:`k9_form_rows`), bench 2D's V-cycle calls on every coarser
+    level (:func:`k2_coarse_levels`), what each L2 flush costs a timed read
+    (:func:`flush_controls`) and the main paths' iterations, launches and
+    device time (:func:`solve_rows`); prints the card and one JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    if "--root" in sys.argv:
+        sys.path.insert(0, sys.argv[sys.argv.index("--root") + 1])
+    import pyfem_gpu_testflight_tpu_torch as pt
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+
+    log(card_line())
+    dev = torch.device("cuda", 0)
+    t0 = time.time()
+    _cuda.library()
+    log(f"build: {time.time() - t0:.2f} s")
+    rng = np.random.default_rng(SEED + 60)
+    flush, flush_clean = l2_flush(dev), l2_flush_clean(dev)
+    out = {"flush_control": flush_controls(dev, flush, flush_clean)}
+    out["K2"], w2 = k2_call_rows(dev, rng, flush, flush_clean)
+    out["K9"], w9 = k9_form_rows(dev, pt, rng, flush, flush_clean)
+    out["K2_levels"], w2c, _a = k2_coarse_levels(dev, rng, timed=True)
+    del flush, flush_clean
+    out["solves"] = solve_rows(dev, pt)
+    out["ptxas"] = {k: short_ptxas(_cuda.build_log, k)
+                    for k in ("smooth_2d_kernel", "sweeps_2d_kernel",
+                              "sweeps_2d_kernel_b2",
+                              "stencil_2d_kernel")}
+    log(card_line())
+    log(json.dumps({"package": pt.__file__,
+                    "worst_rel_err": max(w2, w2c, w9),
+                    **out}))
+    return 1 if FAILS else 0
+
+
 # bench 3D's levels (65^3 down to 5^3, coarsest 3^3 dense)
 PASS_LEVELS = (65, 33, 17, 9, 5)
 
@@ -1834,6 +2403,30 @@ def launches_by_level(step, args):
             if v}
 
 
+def k2_per_call(run):
+    """One more run of ``run`` with every ``fused_sweeps_2d`` call and
+    every full-storage K2 launch counted: (calls, launches)."""
+    import torch
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+    from pyfem_gpu_testflight_tpu_torch.ops import fused_smooth
+
+    calls = [0]
+    sweeps = fused_smooth.fused_sweeps_2d
+
+    def counting(*a, **kw):
+        calls[0] += 1
+        return sweeps(*a, **kw)
+
+    fused_smooth.fused_sweeps_2d = counting
+    n0 = k2_launches(_cuda.launches)
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        fused_smooth.fused_sweeps_2d = sweeps
+    return calls[0], k2_launches(_cuda.launches) - n0
+
+
 def chained_ms(step, rho, rhs, u, n_chain=10):
     import torch
 
@@ -1939,9 +2532,10 @@ def phase_main_2d(dev, pt, multigrid, i2p, p2i, label="bench 2D",
 
     (u, k, rn, b, gmg), counts, single_ms = solve_and_measure(
         step, (rho, rhs, rhs), ("pyfem_assemble_2d", "pyfem_smooth_2d",
-                                "pyfem_assemble_2d_sym",
+                                "pyfem_sweeps_2d", "pyfem_assemble_2d_sym",
                                 "pyfem_smooth_2d_sym",
                                 "pyfem_elasticity_quad4"), label)
+    counts["K2"] = k2_launches(counts)
     log(f"{label}: {k} PCG iterations (JAX reference: 7), "
         f"||r||/||b|| {float(rn) / float(torch.linalg.norm(b)):.3e}, "
         f"launches {counts}, single-shot {single_ms:.3f} ms")
@@ -1953,22 +2547,25 @@ def phase_main_2d(dev, pt, multigrid, i2p, p2i, label="bench 2D",
     if route.get("sym"):
         check(counts["pyfem_assemble_2d_sym"] == len(gmg.levels)
               and counts["pyfem_smooth_2d_sym"] > 0
-              and counts["pyfem_assemble_2d"] == 0
-              and counts["pyfem_smooth_2d"] == 0,
+              and counts["pyfem_assemble_2d"] == 0 and counts["K2"] == 0,
               f"{label}: K1-sym once per level ({len(gmg.levels)}), K2-sym "
               f"launched, no full-storage K1/K2 launch")
     elif route.get("elem_path", "uniform") == "uniform":
         check(counts["pyfem_assemble_2d"] == len(gmg.levels)
-              and counts["pyfem_smooth_2d"] > 0
+              and counts["K2"] > 0
               and counts["pyfem_assemble_2d_sym"] == 0,
               f"{label}: K1 once per level ({len(gmg.levels)}), K2 "
               f"launched, no K1-sym launch")
     else:
         check(counts["pyfem_elasticity_quad4"] == len(gmg.levels)
-              and counts["pyfem_assemble_2d"] == 0
-              and counts["pyfem_smooth_2d"] > 0,
+              and counts["pyfem_assemble_2d"] == 0 and counts["K2"] > 0,
               f"{label}: K7a once per level ({len(gmg.levels)}), no K1, K2 "
               f"launched")
+    if not route.get("sym"):
+        calls, nk2 = k2_per_call(lambda: step(rho, rhs, rhs))
+        log(f"{label}: {calls} smoothing calls, {nk2} K2 launches")
+        check(calls > 0 and nk2 == calls,
+              f"{label}: one K2 launch per smoothing call ({calls})")
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -2427,7 +3024,8 @@ def phase_topo(dev, pt, i2p):
     log(f"topo: {TOPO_WARMUP}-iteration warm-up {time.time() - t0:.2f} s")
 
     # the timed run: launches snapshotted at the end of every iteration
-    names = ("pyfem_assemble_2d", "pyfem_smooth_2d", "pyfem_stencil_2d")
+    names = ("pyfem_assemble_2d", "pyfem_smooth_2d", "pyfem_sweeps_2d",
+             "pyfem_stencil_2d")
     snaps = []
 
     def snapshot(stage):
@@ -2467,7 +3065,7 @@ def phase_topo(dev, pt, i2p):
     log(f"topo: state PCG iterations {cg}")
     log(f"topo: filter PCG iterations (fwd, bwd) {fi}")
     log(f"topo: launches per iteration K1 {[p['pyfem_assemble_2d'] for p in per_it]}, "
-        f"K2 {[p['pyfem_smooth_2d'] for p in per_it]}, K9 "
+        f"K2 {[k2_launches(p) for p in per_it]}, K9 "
         f"{[p['pyfem_stencil_2d'] for p in per_it]}")
     log(f"topo: host read-backs {reads} in {TOPO_ITERS} iterations "
         f"({reads / TOPO_ITERS:.1f} per iteration: state PCG {rb['pcg']}, "
@@ -2655,8 +3253,9 @@ def phase_newton(dev, pt):
 
     # the counted run: every count zeroed just before, read just after;
     # K9's two forms told apart by its float64 flag
-    names = ("pyfem_assemble_2d", "pyfem_smooth_2d", "pyfem_stencil_2d",
-             "pyfem_assemble_2d_sym", "pyfem_smooth_2d_sym")
+    names = ("pyfem_assemble_2d", "pyfem_smooth_2d", "pyfem_sweeps_2d",
+             "pyfem_stencil_2d", "pyfem_assemble_2d_sym",
+             "pyfem_smooth_2d_sym")
     k9 = {0: 0, 1: 0}
     launch = _cuda.launch
 
@@ -2678,6 +3277,7 @@ def phase_newton(dev, pt):
     finally:
         _cuda.launch = launch
     counts = {name: _cuda.launches[name] for name in names}
+    counts["K2"] = k2_launches(counts)
     single0 = e0.elapsed_time(e1)
     st = dict(model.last_solve_stats)
     rb = {key: solvers.readbacks[key] - rb0[key] for key in rb0}
@@ -2696,12 +3296,16 @@ def phase_newton(dev, pt):
     check(ratio <= 2e-2 and r_end / r_0 <= 2e-2,
           "newton: float64 true residual ratio <= 2e-2")
     check(counts["pyfem_assemble_2d"] == nlev * (k - 1)
-          and counts["pyfem_smooth_2d"] > 0 and k9[0] > 0 and k9[1] == k
+          and counts["K2"] > 0 and k9[0] > 0 and k9[1] == k
           and counts["pyfem_assemble_2d_sym"] == 0
           and counts["pyfem_smooth_2d_sym"] == 0,
           f"newton: K1 once per level ({nlev}) per tangent solve, K2 "
           f"launched, K9 float32 launched and float64 once per Newton "
           f"iteration, no half-storage launch")
+    calls, nk2 = k2_per_call(lambda: solve(0.0 * u))
+    log(f"newton: {calls} smoothing calls, {nk2} K2 launches")
+    check(calls > 0 and nk2 == calls,
+          f"newton: one K2 launch per smoothing call ({calls})")
 
     # K1, K2, K9 against their plain versions on the path's inputs: the
     # iterate's coefficient field on every level, the finest level's
@@ -2712,7 +3316,8 @@ def phase_newton(dev, pt):
     c = (hfunc(xdv, model.X) * (1.0 + u * u)).reshape(n, n).contiguous()
     log(f"newton: coefficient field c = h(1+u^2) in [{float(c.min()):.4f}, "
         f"{float(c.max()):.4f}]")
-    rho, worst = c, 0.0
+    rho, worst, k2_abs = c, 0.0, 0.0
+    rng = np.random.default_rng(SEED + 80)
     for lv, stl in enumerate(asm.static_levels):
         args = (rho, stl.maskf, stl.W, asm.N)
         kw = dict(nd=1, p=0.0)
@@ -2727,6 +3332,15 @@ def phase_newton(dev, pt):
               and bool((got[1][~free] == 0).all()),
               f"newton K1 level {stl.shape[1]}x{stl.shape[0]} on c: planes "
               f"rel {er:.2e}, inv_diag rel {ir:.2e} within {REL_TOL:g}")
+        # K2's newton call forms on this level's planes, seeded fields
+        field = lambda: torch.where(stl.mask, 0.0, torch.as_tensor(
+            rng.standard_normal((1,) + tuple(rho.shape)),
+            dtype=torch.float32, device=dev))
+        rows, _w = k2_level_rows(
+            got[0], got[1], None, field(), field(), None,
+            f"newton level {rho.shape[1]}x{rho.shape[0]} nd=1",
+            forms=("presmooth_resid_f32", "postsmooth_f32"))
+        k2_abs = max([k2_abs] + [v["max_abs_err"] for v in rows.values()])
         if lv == 0:
             b_ms, b_by = bound(nbytes(*args, *got), k1_flops(1, False,
                                                             rho.numel()))
@@ -2771,7 +3385,7 @@ def phase_newton(dev, pt):
                 library_ms=library_matvec_ms(ck.reshape(1, 1, 3, 3, n, n),
                                              (n, n), b))
             del flush
-    res["K2"]["max_abs_err"] = worst
+    res["K2"]["max_abs_err"] = max(worst, k2_abs)
 
     cs, cr = model._uniform_tangent_coeffs(xdv, u.reshape(n, n))
     ce = asm.static_levels[0].op.bc_eliminate(cs + cr, mask0)
@@ -4909,7 +5523,11 @@ def main():
          "it (and at nd=1) 4 x 32-pair tiles storing directly (main path: "
          "bench 2D, once per level)"),
         ("K2", "fused_sweeps_2d", "smooth_2d.cu", "pallas_smooth.py:369",
-         c2["pyfem_smooth_2d"], "one stencil pass per sweep"),
+         c2["K2"], "full storage, one launch per smoothing call (sweeps "
+         "and residual, each block a tile plus a ghost ring, coefficients "
+         "in registers read once; timed: bench 2D's presmooth_resid on "
+         "bf16 planes; forms: every call form at 1025x513 nd=2 with "
+         "launches per call; niter 0: one stencil step)"),
         ("K3", "assemble_pack_3d", "assemble_3d.cu", "pallas_assemble.py:584",
          c3["pyfem_assemble_3d"], "both storages, one pass: half-symmetric "
          "123 planes (timed, main path) and full 243 planes (full_form); "
@@ -5010,6 +5628,9 @@ def main():
         if key == "K9":
             row["launches_per_mma_iteration"] = topo["k9_per_iter"]
             row["forms"] = r["forms"]
+        if key == "K2":
+            row["forms"] = r["forms"]
+            row["launches_per_bench_2d_solve"] = c2["K2"]
         # phase 8's counts (its main path: bench newton) and its nd=1
         # forms at 1025^2 on the path's own inputs
         nk = newton["kernels"]
@@ -5017,7 +5638,7 @@ def main():
             row["launches_newton"] = newton["counts"]["pyfem_assemble_2d"]
             row["newton_nd1"] = nk["K1"]
         if key == "K2":
-            row["launches_newton"] = newton["counts"]["pyfem_smooth_2d"]
+            row["launches_newton"] = newton["counts"]["K2"]
             row["newton_nd1"] = nk["K2"]
         if key == "K9":
             row["launches_newton"] = dict(f32=newton["k9"][0],
@@ -5113,7 +5734,10 @@ if __name__ == "__main__":
              run_topo3d() if "--topo3d" in sys.argv else
              run_unstructured() if "--unstructured" in sys.argv else
              run_solution_floor() if "--solution-floor" in sys.argv else
+             run_k2_witness() if "--k2-witness" in sys.argv else
              run_assembly_kernels() if "--assembly-kernels" in sys.argv
+             else run_stencil_2d_kernels()
+             if "--stencil-2d-kernels" in sys.argv
              else run_newton_floor() if "--newton-floor" in sys.argv
              else run_newton() if "--newton" in sys.argv
              else main())

@@ -22,6 +22,24 @@
 // neighbourhood of u is read through the read-only cache, where the
 // neighbouring threads' reads of the same rows hit.  Every output is
 // written once; no atomics, so the result does not depend on the run.
+// On the card (device time, NVIDIA H100 80GB HBM3 at 700 W, chip_smoke.py
+// --stencil-2d-kernels; PERF.md section 6) nd=1 f32 at 1025x513 takes 8.8
+// us after an L2 flush that reads 1 GiB (78% of its 6.9 us bound), 4.9 us
+// back to back (the 23 MB stay in the 50 MB L2, as in the filter's CG
+// loop), and 14.3 us after a flush that writes 1 GiB: that flush leaves
+// up to 50 MB of dirty lines, which the timed call's misses write back.
+// Tried and lost, against this form in the same calls (nd=1 f32 1025x513,
+// read-flushed / back to back / write-flushed, us): a memory-order walk of
+// two nodes a thread, one launch-wide grid 9.1 / 5.8 / 12.7, or a grid
+// sized to the card 9.2 / 5.9 / 12.5 (wins only after the write flush,
+// and loses at nd=1 f64 17.3 against 15.5 and nd=2 f32 33.3 against
+// 31.9); four nodes a thread 10.8 / 6.2 / 15.2; a warp walking 4 or 8 rows
+// down a 32-column strip with three rows of u in registers 9.9 / 5.4 /
+// 13.9 and 13.2 / 6.8 / 18.2; 16-byte loads with a per-plane peel through
+// warp shuffles 11.3 / 7.8 / 14.9 (nd=2 f64 158.9 against 59.4).  So
+// neither the odd-sized planes' split sectors, nor the third wave of
+// blocks at 1025x513, nor the unshared u rows is what held it: this form
+// stays.
 #include <cuda_runtime.h>
 
 namespace {

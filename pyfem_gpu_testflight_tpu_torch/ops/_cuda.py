@@ -57,6 +57,10 @@ _SIGNATURES = {
     # coeff, coeff_bf16, invd, b, x, out, nd, ny, nx, omega, mode, stream
     "pyfem_smooth_2d": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
     "pyfem_smooth_2d_sym": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
+    # coeff, coeff_bf16, invd, b, x0, xout, rout, omegas (HOST memory),
+    # nsweeps, first_elem, rmode, g, tile_y, tile_x, nd, ny, nx, stream
+    "pyfem_sweeps_2d": (_P, _I, _P, _P, _P, _P, _P, _FP, _I, _I, _I, _I, _I,
+                        _I, _I, _I, _I, _P),
     # coeff, u, out, nd, ny, nx, f64, stream
     "pyfem_stencil_2d": (_P, _P, _P, _I, _I, _I, _I, _P),
     # rho, maskf, table, table floats, p, nd, nz, ny, nx, full, coeff,

@@ -19,9 +19,17 @@ fields are ``(nd, ny, nx)`` and zero at fixed dofs (the V-cycle
 invariant).  A first sweep from ``x = None`` (x0 = 0) is elementwise
 and consumes ``omega[0]``.
 
-The TPU kernel fused all sweeps into one pass over the coefficients
-and so had a ghost-row budget of 7 sweeps; here each sweep is its own
-launch of ``csrc/smooth_2d.cu`` and any ``niter >= 0`` is accepted.
+On the card a full-storage call with ``niter >= 1`` is one launch of
+``csrc/smooth_2d.cu``'s ``pyfem_sweeps_2d``, as the TPU kernel's is: each
+tile is computed from the tile plus a ghost ring as wide as the call's
+stencil steps, its coefficients read once for all sweeps and the
+residual.
+The launch budget is :data:`SWEEP_BUDGET_2D` stencil steps (the TPU
+kernel's was 7 ghost rows); a call with more runs in groups of sweeps,
+one launch each (:func:`sweep_plan_2d`), so any ``niter >= 0`` is
+accepted.  The ``niter=0`` matvec and residual are one stencil step,
+one launch of ``pyfem_smooth_2d``; half storage still launches that
+step kernel once per sweep.
 
 A CPU tensor takes the ``*_plain`` version; a CUDA tensor launches the
 kernel or raises.
@@ -31,6 +39,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 import torch.nn.functional as F
@@ -43,6 +52,8 @@ __all__ = [
     "full_planes_2d",
     "as_full_planes_2d",
     "is_full_storage_2d",
+    "SWEEP_BUDGET_2D",
+    "sweep_plan_2d",
     "fused_sweeps_2d",
     "fused_sweeps_2d_plain",
     "sym_planes_3d",
@@ -176,6 +187,54 @@ def fused_sweeps_2d_plain(coeff, invd, b=None, x=None, *, niter=2,
     return _outputs(x, r, niter, want_resid)
 
 
+# stencil steps one launch of pyfem_sweeps_2d takes (csrc/smooth_2d.cu
+# kMaxSteps): the ghost ring costs 2 (g - 1) of the region's 32 columns
+SWEEP_BUDGET_2D = 4
+# rows of the region (32 columns) a block of pyfem_sweeps_2d computes, by
+# nd: csrc/smooth_2d.cu Region<ND, CT>::rows
+_SWEEP_ROWS_2D = {1: 32, 2: 16}
+
+
+def sweep_plan_2d(nd, ny, nx, niter, x0_zero, want_resid):
+    """The launches of one full-storage call on the card.
+
+    The call's stencil steps (its sweeps, less the elementwise first
+    sweep from x0 = 0, plus the residual) are split into as few groups
+    of at most :data:`SWEEP_BUDGET_2D` as will do, as even as possible,
+    the residual last.  A group's ghost width ``g`` is its stencil steps
+    (at least 1); each tile of ``tile`` = (rows, columns) nodes, its
+    region less a ring of ``g - 1``, is computed from its planes on the
+    region and the iterate on the tile plus a ring of ``g``.
+
+    Every group holds a sweep when ``niter >= 1``; at ``niter = 0`` the
+    plan is the residual alone (g = 1), which the card runs by the step
+    kernel.
+
+    Returns a list of dicts, one per launch: ``sweeps`` (range of sweep
+    indices of the call), ``first_elem``, ``resid``, ``g``, ``tile``
+    and ``grid`` (tiles along y, x).
+    """
+    first = 1 if (x0_zero and niter > 0) else 0
+    stencil = niter - first
+    steps = stencil + (1 if want_resid else 0)
+    ngroups = max(1, math.ceil(steps / SWEEP_BUDGET_2D))
+    qh, qw = _SWEEP_ROWS_2D[nd], 32
+    plan, s0 = [], 0
+    for j in range(ngroups):
+        n = steps // ngroups + (1 if j < steps % ngroups else 0)
+        resid = want_resid and j == ngroups - 1
+        nst = n - (1 if resid else 0)
+        lo = first + s0 - (first if j == 0 else 0)
+        sweeps = range(lo, first + s0 + nst)
+        g = max(n, 1)
+        tile = (qh - 2 * (g - 1), qw - 2 * (g - 1))
+        plan.append(dict(sweeps=sweeps, first_elem=first if j == 0 else 0,
+                         resid=resid, g=g, tile=tile,
+                         grid=(-(-ny // tile[0]), -(-nx // tile[1]))))
+        s0 += nst
+    return plan
+
+
 def _fused_sweeps_2d_cuda(coeff, invd, b, x, *, niter, want_resid,
                           neg_resid, omega):
     _check(coeff, invd, b, x, niter, want_resid)
@@ -188,20 +247,43 @@ def _fused_sweeps_2d_cuda(coeff, invd, b, x, *, niter, want_resid,
     for t in (coeff, invd, b, x):
         if t is not None and not t.is_contiguous():
             raise ValueError("inputs must be contiguous")
+    ptr = lambda t: None if t is None else t.data_ptr()
     nd, ny, nx = invd.shape
     bf16 = int(coeff.dtype == torch.bfloat16)
     stream = _cuda.stream_ptr(invd)
-    ptr = lambda t: None if t is None else t.data_ptr()
-    entry = ("pyfem_smooth_2d" if is_full_storage_2d(coeff, nd)
-             else "pyfem_smooth_2d_sym")
+    rmode = _MODE_NEG_RESID if neg_resid else _MODE_RESID
+    full = is_full_storage_2d(coeff, nd)
+    if full and niter > 0:
+        # the kernel stages 16-byte chunks: a view that starts elsewhere
+        # (a slice) is copied
+        coeff, invd, b, x = (t if t is None or t.data_ptr() % 16 == 0
+                             else t.clone() for t in (coeff, invd, b, x))
+        oms = _omega_seq(omega, niter)
+        r = None
+        for grp in sweep_plan_2d(nd, ny, nx, niter, x is None, want_resid):
+            n = len(grp["sweeps"])
+            xo = torch.empty_like(invd)
+            if grp["resid"]:
+                r = torch.empty_like(invd)
+            w = [oms[i] for i in grp["sweeps"]]
+            _cuda.launch("pyfem_sweeps_2d", coeff.data_ptr(), bf16,
+                         invd.data_ptr(), ptr(b), ptr(x), xo.data_ptr(),
+                         ptr(r if grp["resid"] else None),
+                         (ctypes.c_float * n)(*w), n, grp["first_elem"],
+                         rmode if grp["resid"] else -1, grp["g"],
+                         *grp["tile"], nd, ny, nx, stream)
+            x = xo
+        return _outputs(x, r, niter, want_resid)
+    entry = "pyfem_smooth_2d" if full else "pyfem_smooth_2d_sym"
 
     def step(xin, out, om, mode):
         _cuda.launch(entry, coeff.data_ptr(), bf16,
                      invd.data_ptr(), ptr(b), ptr(xin), out.data_ptr(),
                      nd, ny, nx, float(om), mode, stream)
 
-    # ping-pong: a sweep reads every neighbour of its input, so it can
-    # never write in place; the caller's x is never written
+    # half storage, one launch a sweep into two ping-pong buffers (a sweep
+    # reads every neighbour of its input, so it can never write in place;
+    # the caller's x is never written); full storage at niter = 0
     bufs = [torch.empty_like(invd) for _ in range(min(niter, 2))]
     for i, om in enumerate(_omega_seq(omega, niter)):
         out = bufs[i % 2]
@@ -210,7 +292,7 @@ def _fused_sweeps_2d_cuda(coeff, invd, b, x, *, niter, want_resid,
     r = None
     if want_resid:
         r = torch.empty_like(invd)
-        step(x, r, 0.0, _MODE_NEG_RESID if neg_resid else _MODE_RESID)
+        step(x, r, 0.0, rmode)
     return _outputs(x, r, niter, want_resid)
 
 

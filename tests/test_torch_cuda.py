@@ -1,7 +1,9 @@
 """PyTorch port: the CUDA kernels against their plain versions on the card.
 
 K1 and K1-sym on every level of bench 2D (1025x513..9x5) and on ragged
-grids down to 3x3, nd 2 and 1; K2 on a 65x33 level; K3, K4 (every mode,
+grids down to 3x3, nd 2 and 1; K2 (full storage, every call form, niter
+0-8, f32 and bf16 planes) and K9 on the same levels and ragged grids,
+one launch per K2 call up to the sweep budget; K3, K4 (every mode,
 f32 and bf16 planes) and K5 on a 17^3 level, in half-symmetric and full
 coefficient storage;
 K3 on every level of bench 3D (65^3..3^3) and on ragged and wide grids,
@@ -15,7 +17,7 @@ in every form (quad4, hex8, tet10, brick20; elasticity and Poisson) on
 jittered meshes, the determinism of the matrix-free operator and of a
 CG solve, ``kernel="cuda"`` never taking a plain version on a CUDA
 tensor, the 2D ``elem_path="cuda"`` hierarchy against the uniform
-one, K9 (nd 1 and 2, float32 and float64), K2-sym (every mode) on
+one, K2-sym (every mode) on
 65x33 and 13x7 grids, and three ``DeviceTopo``
 iterations at 65x33 with a bit-for-bit resume; K1 nd=1 on the Newton
 coefficient field c = h(1 + u^2) >= 1 on every level, K9 nd=1 on the
@@ -132,31 +134,117 @@ def test_k1_matches_plain_on_card(dev, nd, shape):
     _k1_case(dev, shape, nd, sym=False)
 
 
-@pytest.mark.parametrize("variant", ["pre_bf16", "post_f32", "matvec"])
-def test_k2_matches_plain_on_card(level, variant):
+# K2 and K9 grids (nx, ny): bench 2D's levels and ragged ones down to 3x3,
+# rows of 40000 and of 2 nodes
+_K2_GRIDS = [((1024 >> i) + 1, (512 >> i) + 1) for i in range(8)] + [
+    (3, 3), (13, 7), (17, 9), (40000, 2), (2, 3000)]
+
+
+def _k2_calls(ck, lk, b, x0):
+    """Every form of a K2 call: f32 and bf16 planes, niter 0-8, from x0 = 0
+    and from x0, with and without the residual (either sign), and the
+    matvec (niter 0, b = 0): (planes, b, x, kwargs, reference).  Damping:
+    Chebyshev nodes, held against the plain version up to 4 sweeps and,
+    from 5, bit for bit against the step kernel's chain (there the late
+    nodes' large factors carry the plain version's own float32 rounding
+    past 1e-5 of its scale: ``chip_smoke.py --k2-witness`` measures each
+    float32 form against float64); from 5 sweeps also the stationary 0.7
+    against the plain version."""
+    from pyfem_gpu_testflight_tpu_torch import multigrid
+
+    for planes in (ck, lk):
+        yield planes, None, x0, dict(niter=0, want_resid=True,
+                                     neg_resid=True), "plain"
+        yield planes, b, x0, dict(niter=0, want_resid=True), "plain"
+        for niter in range(1, 9):
+            cheby = multigrid.smoothing_omegas(niter, 2.3)
+            damping = ([(cheby, "plain")] if niter <= 4 else
+                       [(cheby, "steps"), (0.7, "plain")])
+            for om, held in damping:
+                for x, want, neg in ((None, True, False), (x0, False, False),
+                                     (x0, True, True), (None, False, False)):
+                    yield planes, b, x, dict(niter=niter, want_resid=want,
+                                             neg_resid=neg, omega=om), held
+
+
+def _k2_step_chain(planes, dk, b, x, kw):
+    """A K2 call by the step kernel: one ``pyfem_smooth_2d`` launch a
+    sweep (from x0 = 0 the first is elementwise) and one for the
+    residual."""
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+    from pyfem_gpu_testflight_tpu_torch.ops import fused_smooth as fs
+
+    nd, ny, nx = dk.shape
+    ptr = lambda t: None if t is None else t.data_ptr()
+
+    def step(xin, om, mode):
+        out = torch.empty_like(dk)
+        _cuda.launch("pyfem_smooth_2d", planes.data_ptr(),
+                     int(planes.dtype == torch.bfloat16), dk.data_ptr(),
+                     ptr(b), ptr(xin), out.data_ptr(), nd, ny, nx,
+                     float(om), mode, _cuda.stream_ptr(dk))
+        return out
+
+    for om in fs._omega_seq(kw["omega"], kw["niter"]):
+        x = step(x, om, 0)
+    r = (step(x, 0.0, 2 if kw["neg_resid"] else 1) if kw["want_resid"]
+         else None)
+    return fs._outputs(x, r, kw["niter"], kw["want_resid"])
+
+
+@pytest.mark.parametrize("nd", [1, 2])
+@pytest.mark.parametrize("shape", _K2_GRIDS)
+def test_k2_matches_plain_on_card(dev, nd, shape):
+    """K2 on full storage in every call form (:func:`_k2_calls`): within
+    1e-5 of max|plain| (a residual of max|b| where that is larger) or
+    equal to the step kernel's chain, a repeat call bit-identical, one
+    launch per call up to the sweep budget (one per sweep group past
+    it)."""
+    from pyfem_gpu_testflight_tpu_torch import multigrid
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
     from pyfem_gpu_testflight_tpu_torch.ops import fused_assemble as fa
     from pyfem_gpu_testflight_tpu_torch.ops import fused_smooth as fs
 
-    a, st, rho, rng = level
-    ck, dk, lk = fa.assemble_pack_2d(rho, st.maskf, st.W, a.N, nd=2, p=3.0,
+    nx, ny = shape
+    a = multigrid.GMGAssembler(nx, ny, 2.0, 1.0,
+                               "elasticity" if nd == 2 else "poisson",
+                               p=3.0, device=dev, min_n=nx + ny)
+    st = a.static_levels[0]
+    rng = np.random.default_rng(6)
+    rho = torch.as_tensor(rng.uniform(0.2, 1.0, (ny, nx)),
+                          dtype=torch.float32, device=dev)
+    ck, dk, lk = fa.assemble_pack_2d(rho, st.maskf, st.W, a.N, nd=nd, p=3.0,
                                      lp_dtype=torch.bfloat16)
-    f = lambda: torch.as_tensor(rng.standard_normal((2, NY, NX)),
-                                dtype=torch.float32, device=rho.device)
-    b = torch.where(st.mask, 0.0, f())
-    x0 = torch.where(st.mask, 0.0, f())
-    args, kw = {
-        "pre_bf16": ((lk, dk, b, None), dict(niter=2, want_resid=True)),
-        "post_f32": ((ck, dk, b, x0), dict(niter=3, want_resid=True)),
-        "matvec": ((ck, dk, None, f()),
-                   dict(niter=0, want_resid=True, neg_resid=True)),
-    }[variant]
-    got = fs.fused_sweeps_2d(*args, **kw)
-    ref = fs.fused_sweeps_2d_plain(*args, **kw)
-    torch.cuda.synchronize()
-    got = got if isinstance(got, tuple) else (got,)
-    ref = ref if isinstance(ref, tuple) else (ref,)
-    for g, r in zip(got, ref):
-        assert _rel(g, r) <= TOL
+    f = lambda: torch.where(st.mask, 0.0, torch.as_tensor(
+        rng.standard_normal((nd, ny, nx)), dtype=torch.float32, device=dev))
+    b, x0 = f(), f()
+    for planes, bb, x, kw, held in _k2_calls(ck, lk, b, x0):
+        n0 = dict(_cuda.launches)
+        got = fs.fused_sweeps_2d(planes, dk, bb, x, **kw)
+        torch.cuda.synchronize()
+        steps = (kw["niter"] - (x is None) + kw["want_resid"])
+        if kw["niter"] == 0:
+            want = {"pyfem_smooth_2d": 1, "pyfem_sweeps_2d": 0}
+        else:
+            want = {"pyfem_smooth_2d": 0, "pyfem_sweeps_2d": max(
+                1, -(-steps // fs.SWEEP_BUDGET_2D))}
+        assert {k: _cuda.launches[k] - n0[k] for k in want} == want, kw
+        ref = (fs.fused_sweeps_2d_plain(planes, dk, bb, x, **kw)
+               if held == "plain" else
+               _k2_step_chain(planes, dk, bb, x, kw))
+        again = fs.fused_sweeps_2d(planes, dk, bb, x, **kw)
+        got, ref, again = (v if isinstance(v, tuple) else (v,)
+                           for v in (got, ref, again))
+        for i, (g, r, h) in enumerate(zip(got, ref, again)):
+            assert torch.equal(g, h), kw
+            if held == "steps":
+                assert torch.equal(g, r), (kw, i, planes.dtype)
+                continue
+            scale = float(r.abs().max())
+            if kw["want_resid"] and i == len(got) - 1 and bb is not None:
+                scale = max(scale, float(bb.abs().max()))
+            err = float((g - r).abs().max())
+            assert err <= TOL * scale, (kw, i, planes.dtype, err, scale)
 
 
 def test_cuda_wrappers_refuse_float64(level):
@@ -883,7 +971,7 @@ def test_gmg_elem_path_cuda_matches_uniform_on_card(dev):
 
 @pytest.mark.parametrize("nd", [1, 2])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("shape", [(NY, NX), (9, 17), (7, 13)])
+@pytest.mark.parametrize("shape", [(ny, nx) for nx, ny in _K2_GRIDS])
 def test_k9_matches_plain_on_card(dev, nd, dtype, shape):
     from pyfem_gpu_testflight_tpu_torch.ops import _cuda
     from pyfem_gpu_testflight_tpu_torch.ops import stencil_matvec as sm
@@ -900,6 +988,7 @@ def test_k9_matches_plain_on_card(dev, nd, dtype, shape):
     torch.cuda.synchronize()
     assert _cuda.launches["pyfem_stencil_2d"] == n0 + 1
     assert got.dtype == dtype and _rel(got, ref) <= TOL
+    assert torch.equal(got, sm.stencil_matvec_2d(c, u))
 
 
 @pytest.mark.parametrize("nd", [1, 2])
@@ -1071,7 +1160,7 @@ def test_newton_gmg_runs_on_card(dev):
     assert k <= 12 and rns[-1] <= 2e-2 * rns[0]
     assert bool(torch.isfinite(u).all()) and rn.dtype == torch.float64
     assert _cuda.launches["pyfem_assemble_2d"] == nlev * (k - 1)
-    assert _cuda.launches["pyfem_smooth_2d"] > 0
+    assert _cuda.launches["pyfem_sweeps_2d"] > 0  # K2's smoothing calls
     assert _cuda.launches["pyfem_stencil_2d"] > k
 
 
