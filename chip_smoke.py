@@ -66,8 +66,9 @@ Phases:
    nd=1 (the Helmholtz filter's planes) and nd=2 (elasticity), float32
    and float64, with times, the bound and the CSR time of each form;
 3e. K1-sym and K2-sym (half-symmetric 2D storage) vs plain at the same
-   sizes, nd=2 and nd=1, K2-sym in every mode on f32 and bf16 planes,
-   with times, bounds and the CSR matvec time;
+   sizes, nd=2 and nd=1, K2-sym in every call form K2 runs (each one
+   launch) on f32 and bf16 planes, with times, bounds and the CSR matvec
+   time; bench 2D sym's V-cycle calls on every coarser level;
 4. the 2D bench configuration (p=0, rho=1, Chebyshev-node nu=2, bf16
    smoother copy, flexible PCG, rtol 1e-6): iterations, launch counts,
    float64 true residual, single-shot and chained solve times, and where
@@ -91,8 +92,8 @@ Phases:
    assembly and peak memory beside phase 4's;
 4e. "bench 2D sym": the 2D bench configuration with ``sym=True``
    (K1-sym on every level, K2-sym in every V-cycle variant): iterations
-   against phase 4's, launches (no full-storage K1/K2), the breakdown and
-   peak memory beside phase 4's;
+   against phase 4's, launches (no full-storage K1/K2), one K2-sym launch
+   per smoothing call, the breakdown and peak memory beside phase 4's;
 5. ``LinearElasticity.solve(method="gmg")`` at 1025x513 (rho=0.6 and a
    seeded random rho, p=3);
 5a. the same entry on hex8 at 65^3;
@@ -204,22 +205,24 @@ the readings ``SOL64_TOL`` is set from; ``--newton-floor`` only phase
 ``NEWTON64_TOL`` is set from; ``--newton`` only phase 8;
 ``--quadratic`` only phase 9; ``--topo3d`` only phase 10;
 ``--unstructured`` only phase 11;
-``--stencil-2d-kernels [--root DIR]`` only K2 and K9, on the package
-under DIR: every K2 call form at 1025x513 nd=2 and 1025^2 nd=1 and every
-K9 form (nd 1 and 2 in f32 and f64 at 1025x513, newton's tangent and
-flux at 1025^2), each held against its plain version, a repeat call
-bit-identical, launches per call, CUDA-event and device times with the
-L2 flushed by a write (``l2_flush``), by a read (``l2_flush_clean``) and
-back to back, the bound and the plain and one-call PyTorch times; bench
-2D's V-cycle calls on every coarser level, held and timed back to back;
+``--stencil-2d-kernels [--root DIR]`` only K2, K2-sym and K9, on the
+package under DIR: every K2 and K2-sym call form at 1025x513 nd=2 and
+1025^2 nd=1 and every K9 form (nd 1 and 2 in f32 and f64 at 1025x513,
+newton's tangent and flux at 1025^2), each held against its plain
+version, a repeat call bit-identical, launches per call, CUDA-event and
+device times with the L2 flushed by a write (``l2_flush``), by a read
+(``l2_flush_clean``) and back to back, the bound and the plain and
+one-call PyTorch times; bench 2D's and bench 2D sym's V-cycle calls on
+every coarser level, held and timed back to back;
 what each flush costs a timed call; and bench 2D's, bench 2D sym's, 4d's and
 newton's iterations, K2 launches, device time and busy share, and
 topo's state iterations over 4 MMA iterations;
-``--k2-witness [--root DIR]`` K2's float32 calls against the plain
-version in float64 (the one-pass call, the plain version and the
-step-kernel chain; Chebyshev-node damping, niter 1-8, nd 1 and 2, f32
-and bf16 planes, small grids and seeds 0-3, bench 2D's and newton's
-finest levels) and the nd=1 call forms at 1025^2 by both kernels;
+``--k2-witness [--root DIR]`` K2's and K2-sym's float32 calls against
+the plain version in float64 (the one-pass call, the plain version and
+the step-kernel chain, each one-pass call equal to the chain bit for
+bit; Chebyshev-node damping, niter 1-8, nd 1 and 2, f32 and bf16
+planes, small grids and seeds 0-3, bench 2D's and newton's finest
+levels) and the nd=1 call forms at 1025^2 by both kernels;
 ``--quadratic-floor`` bench quadratic's
 float32 solution against its float64-outer one on the bench load and
 three seeded loads, the readings ``PMG64_TOL`` is set from;
@@ -928,16 +931,20 @@ def phase_kernels_k9(dev):
 
 def phase_kernels_sym2d(dev):
     """Phase 3e: K1-sym and K2-sym (half-symmetric 2D storage) against
-    their plain versions at 1025x513, 17x9 and 13x7, nd=2 and nd=1, K2
-    in every mode on f32 and bf16 planes, with times, bounds and the CSR
-    matvec time at full size (nd=2)."""
+    their plain versions at 1025x513, 17x9 and 13x7, nd=2 and nd=1: K1-sym
+    with times and bounds at full size (nd=2); K2-sym in every call form
+    (:func:`k2_level_rows`: one launch a call, a repeat call
+    bit-identical), timed at 1025x513 nd=2 with the CSR matvec time; then
+    bench 2D sym's V-cycle calls on every coarser level
+    (:func:`k2_coarse_levels`)."""
     import torch
     from pyfem_gpu_testflight_tpu_torch import multigrid
     from pyfem_gpu_testflight_tpu_torch.ops import fused_assemble as fa
     from pyfem_gpu_testflight_tpu_torch.ops import fused_smooth as fs
 
     rng = np.random.default_rng(SEED + 10)
-    res = {"K1-sym": dict(max_abs_err=0.0), "K2-sym": dict(max_abs_err=0.0)}
+    res = {"K1-sym": dict(max_abs_err=0.0)}
+    k2_abs = 0.0
     for nx, ny in ((NX, NY), (17, 9), (13, 7)):
         for nd in (2, 1):
             full = (nx, ny) == (NX, NY) and nd == 2
@@ -984,63 +991,21 @@ def phase_kernels_sym2d(dev):
                 device=dev)
             b = torch.where(st.mask, 0.0, field())
             x0 = torch.where(st.mask, 0.0, field())
-            xr = field()
-            om2 = multigrid.smoothing_omegas(2, 2.3 if nd == 2 else 1.6)
-            variants = {
-                "presmooth_resid_bf16": ((lk, dk, b, None), dict(
-                    niter=2, want_resid=True, omega=om2)),
-                "postsmooth_bf16": ((lk, dk, b, x0), dict(
-                    niter=2, omega=om2[::-1])),
-                "postsmooth_resid_f32": ((ck, dk, b, x0), dict(
-                    niter=2, want_resid=True, omega=om2[::-1])),
-                "resid_f32": ((ck, dk, b, xr), dict(niter=0,
-                                                    want_resid=True)),
-                "matvec_f32": ((ck, dk, None, xr), dict(
-                    niter=0, want_resid=True, neg_resid=True)),
-                "matvec_bf16": ((lk, dk, None, xr), dict(
-                    niter=0, want_resid=True, neg_resid=True)),
-            }
-            for name, (va, vkw) in variants.items():
-                got = fs.fused_sweeps_2d(*va, **vkw)
-                ref = fs.fused_sweeps_2d_plain(*va, **vkw)
-                torch.cuda.synchronize()
-                got = got if isinstance(got, tuple) else (got,)
-                ref = ref if isinstance(ref, tuple) else (ref,)
-                errs = [rel_err(g, r) for g, r in zip(got, ref)]
-                res["K2-sym"]["max_abs_err"] = max(
-                    [res["K2-sym"]["max_abs_err"]] + [e[0] for e in errs])
-                check(all(e[1] <= REL_TOL for e in errs),
-                      f"K2-sym {name} {tag} within {REL_TOL:g} (rel "
-                      + ", ".join(f"{e[1]:.2e}" for e in errs) + ")")
-                if not full:
-                    continue
-                ms = cuda_ms(lambda: fs.fused_sweeps_2d(*va, **vkw), 50)
-                pms = cuda_ms(lambda: fs.fused_sweeps_2d_plain(*va, **vkw),
-                              10)
-                log(f"K2-sym {name} {tag}: kernel {ms:.4f} ms, plain "
-                    f"{pms:.4f} ms")
-                if name == "matvec_f32":
-                    b_ms, b_by = bound(nbytes(ck, xr) + nbytes(xr),
-                                       2 * 72 * nx * ny)
-                    lib = library_matvec_ms(fs.full_planes_2d(ck, 2),
-                                            (ny, nx), xr)
-                    dms = device_ms(lambda: fs.fused_sweeps_2d(*va, **vkw))
-                    log(f"K2-sym matvec_f32: device time {fms(dms)} ms, bound "
-                        f"{b_ms:.4f} ms ({b_by}), torch.sparse.mm (f32 CSR) "
-                        f"{lib:.4f} ms")
-                    res["K2-sym"].update(ms=ms, device_ms=dms, plain_ms=pms,
-                                         bound_ms=b_ms, bound_by=b_by,
-                                         library_ms=lib)
-            kw8 = dict(niter=8, want_resid=True,
-                       omega=multigrid.smoothing_omegas(8, 2.3))
-            (xk, rk), (xp, rp) = (fs.fused_sweeps_2d(ck, dk, b, None, **kw8),
-                                  fs.fused_sweeps_2d_plain(ck, dk, b, None,
-                                                           **kw8))
-            ex, rr = rel_err(xk, xp), rel_err(rk, rp)
-            bmax = float(b.abs().max())
-            check(ex[1] <= REL_TOL and rr[0] <= REL_TOL * bmax,
-                  f"K2-sym niter8_cheby {tag}: x rel {ex[1]:.2e}, r "
-                  f"{rr[0] / bmax:.2e} of max|b|")
+            rows, _w = k2_level_rows(
+                ck, dk, lk, b, x0, field(), tag,
+                (lambda run: dict(ms=cuda_ms(run, 50),
+                                  device_ms=device_ms(run))) if full
+                else None)
+            k2_abs = max([k2_abs] + [v["max_abs_err"] for v in rows.values()])
+            if full:
+                forms = rows
+    _levels, _w, coarse_abs = k2_coarse_levels(dev, rng, sym=True)
+    head = forms["presmooth_resid_bf16"]
+    res["K2-sym"] = dict(max_abs_err=max(k2_abs, coarse_abs),
+                         ms=head["ms"], device_ms=head["device_ms"],
+                         plain_ms=head["plain_ms"],
+                         bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+                         library_ms=None, forms=forms)
     return res
 
 
@@ -1448,14 +1413,20 @@ def run_assembly_kernels():
     return 1 if FAILS else 0
 
 
-# K2 entry points (full storage): the one-pass call (pyfem_sweeps_2d) and
-# the single stencil step (pyfem_smooth_2d); a parent checkout may lack
-# the first, so counts read both with a default of 0
+# K2 entry points: the one-pass call (pyfem_sweeps_2d) and the single
+# stencil step (pyfem_smooth_2d) on full storage, and their K2-sym
+# counterparts on half storage; a parent checkout may lack a one-pass
+# entry, so counts read each with a default of 0
 K2_ENTRIES = ("pyfem_smooth_2d", "pyfem_sweeps_2d")
+K2_SYM_ENTRIES = ("pyfem_smooth_2d_sym", "pyfem_sweeps_2d_sym")
 
 
-def k2_launches(launches):
-    return sum(launches.get(k, 0) for k in K2_ENTRIES)
+def k2_launches(launches, entries=K2_ENTRIES):
+    return sum(launches.get(k, 0) for k in entries)
+
+
+def k2_sym_launches(launches):
+    return k2_launches(launches, K2_SYM_ENTRIES)
 
 
 def l2_flush_clean(dev):
@@ -1528,9 +1499,9 @@ def k2_call_bound(args, kw, out):
                  2 * 9 * nd * nd * ny * nx * steps)
 
 
-def k2_levels(dev, rng, nx, ny, nd):
-    """K1's planes of one level (p = 3, seeded density) and its fields:
-    (ck, dk, lk, b, x0, xr)."""
+def k2_levels(dev, rng, nx, ny, nd, sym=False):
+    """K1's planes of one level (p = 3, seeded density; K1-sym's kept
+    planes with ``sym``) and its fields: (ck, dk, lk, b, x0, xr)."""
     import torch
     from pyfem_gpu_testflight_tpu_torch import multigrid
     from pyfem_gpu_testflight_tpu_torch.ops import fused_assemble as fa
@@ -1542,7 +1513,7 @@ def k2_levels(dev, rng, nx, ny, nd):
     rho = torch.as_tensor(rng.uniform(0.2, 1.0, (ny, nx)),
                           dtype=torch.float32, device=dev)
     ck, dk, lk = fa.assemble_pack_2d(rho, st.maskf, st.W, a.N, nd=nd, p=3.0,
-                                     lp_dtype=torch.bfloat16)
+                                     lp_dtype=torch.bfloat16, sym=sym)
     field = lambda: torch.as_tensor(rng.standard_normal((nd, ny, nx)),
                                     dtype=torch.float32, device=dev)
     return (ck, dk, lk, torch.where(st.mask, 0.0, field()),
@@ -1551,12 +1522,14 @@ def k2_levels(dev, rng, nx, ny, nd):
 
 def k2_level_rows(ck, dk, lk, b, x0, xr, size, times=None, forms=None):
     """K2 call forms (:func:`k2_call_forms`, those named in ``forms`` or
-    all) on one level: error against the plain version, relative to
-    max|plain| (the residual after 8 Chebyshev-node sweeps, damped far
-    below b, of max|b|, the scale it is computed at), a repeat call
-    bit-identical, launches per call (one up to the sweep budget) and,
-    with ``times``, ``times(run)`` for the forms but the 8-sweep ones,
-    the one-pass bound, the plain version's time and, for the matvec,
+    all) on one level, on full storage or (K2-sym) the kept planes: error
+    against the plain version, relative to max|plain| (the residual after
+    8 Chebyshev-node sweeps, damped far below b, of max|b|, the scale it
+    is computed at), a repeat call bit-identical, launches per call (one
+    up to the sweep budget; a package without the storage's one-pass
+    entry, a parent checkout, one a stencil step) and, with ``times``,
+    ``times(run)`` for the forms but the 8-sweep ones, the one-pass
+    bound, the plain version's time and, for the matvec,
     ``torch.sparse.mm``'s.  Returns ({form: row}, worst relative
     error)."""
     import torch
@@ -1564,6 +1537,9 @@ def k2_level_rows(ck, dk, lk, b, x0, xr, size, times=None, forms=None):
     from pyfem_gpu_testflight_tpu_torch.ops import fused_smooth as fs
 
     nd, ny, nx = dk.shape
+    sym = not fs.is_full_storage_2d(ck, nd)
+    label, entries = ("K2-sym", K2_SYM_ENTRIES) if sym else ("K2", K2_ENTRIES)
+    one_pass = entries[1] in _cuda.launches
     rows, worst = {}, 0.0
     tup = lambda v: v if isinstance(v, tuple) else (v,)
     for name, (a, kw) in k2_call_forms(ck, dk, lk, b, x0, xr).items():
@@ -1572,7 +1548,7 @@ def k2_level_rows(ck, dk, lk, b, x0, xr, size, times=None, forms=None):
         n0 = dict(_cuda.launches)
         got = tup(fs.fused_sweeps_2d(*a, **kw))
         torch.cuda.synchronize()
-        nl = k2_launches(_cuda.launches) - k2_launches(n0)
+        nl = k2_launches(_cuda.launches, entries) - k2_launches(n0, entries)
         ref = tup(fs.fused_sweeps_2d_plain(*a, **kw))
         again = tup(fs.fused_sweeps_2d(*a, **kw))
         scale = [float(r.abs().max()) for r in ref]
@@ -1581,16 +1557,17 @@ def k2_level_rows(ck, dk, lk, b, x0, xr, size, times=None, forms=None):
         errs = [float((g - r).abs().max()) for g, r in zip(got, ref)]
         rel = max(e / s for e, s in zip(errs, scale))
         worst = max(worst, rel)
-        check(rel <= REL_TOL, f"K2 {name} {size} within {REL_TOL:g} "
+        check(rel <= REL_TOL, f"{label} {name} {size} within {REL_TOL:g} "
               f"(rel {rel:.2e})")
         check(all(torch.equal(g, h) for g, h in zip(got, again)),
-              f"K2 {name} {size}: repeat call bit-identical")
+              f"{label} {name} {size}: repeat call bit-identical")
         steps = (kw["niter"] - (a[3] is None)
                  + kw.get("want_resid", False))
         want = (1 if kw["niter"] == 0 else
-                max(1, -(-steps // fs.SWEEP_BUDGET_2D)))
-        check(nl == want, f"K2 {name} {size}: {want} launch(es) a call "
-              f"({nl})")
+                max(1, -(-steps // fs.SWEEP_BUDGET_2D)) if one_pass else
+                kw["niter"] + kw.get("want_resid", False))
+        check(nl == want, f"{label} {name} {size}: {want} launch(es) a "
+              f"call ({nl})")
         row = dict(max_abs_err=max(errs), rel_err=rel, launches=nl)
         del again
         if times is not None and not name.startswith("niter8"):
@@ -1599,10 +1576,10 @@ def k2_level_rows(ck, dk, lk, b, x0, xr, size, times=None, forms=None):
             row.update(times(run), plain_ms=cuda_ms(
                 lambda: fs.fused_sweeps_2d_plain(*a, **kw), 5),
                 bound_ms=b_ms, bound_by=b_by, library_ms=(
-                    library_matvec_ms(a[0].reshape(nd, nd, 3, 3, ny, nx),
+                    library_matvec_ms(fs.as_full_planes_2d(a[0], nd),
                                       (ny, nx), xr)
                     if name == "matvec_f32" else None))
-            log(f"K2 {name} {size}: rel {rel:.2e}, {nl} launch(es); "
+            log(f"{label} {name} {size}: rel {rel:.2e}, {nl} launch(es); "
                 + ", ".join(f"{k} {fms(v)}" for k, v in row.items()
                             if k.endswith("ms")
                             and not (k == "library_ms" and v is None))
@@ -1612,14 +1589,14 @@ def k2_level_rows(ck, dk, lk, b, x0, xr, size, times=None, forms=None):
     return rows, worst
 
 
-def k2_call_rows(dev, rng, flush, flush_clean):
-    """Every K2 call form (:func:`k2_level_rows`) at 1025x513 nd=2 (bench
-    2D's fine level) and at 1025^2 nd=1 (newton's), timed by
-    :func:`stencil_times`."""
+def k2_call_rows(dev, rng, flush, flush_clean, sym=False):
+    """Every K2 call form (:func:`k2_level_rows`; K2-sym's with ``sym``)
+    at 1025x513 nd=2 (bench 2D's fine level) and at 1025^2 nd=1
+    (newton's size), timed by :func:`stencil_times`."""
     rows, worst = {}, 0.0
     for nx, ny, nd in ((NX, NY, 2), (NEWTON_N, NEWTON_N, 1)):
         size = f"{nx}x{ny} nd={nd}"
-        r, w = k2_level_rows(*k2_levels(dev, rng, nx, ny, nd), size,
+        r, w = k2_level_rows(*k2_levels(dev, rng, nx, ny, nd, sym), size,
                              lambda run: stencil_times(run, flush,
                                                        flush_clean))
         rows.update({f"{k} {size}": v for k, v in r.items()})
@@ -1701,24 +1678,25 @@ BENCH_V_FORMS = ("presmooth_resid_bf16", "postsmooth_bf16",
                  "postsmooth_resid_f32")
 
 
-def k2_coarse_levels(dev, rng, timed=False):
-    """K2's bench 2D call forms (:data:`BENCH_V_FORMS`, nd=2) on every
-    level of bench 2D below the finest, 513x257 down to 9x5: each held
-    against the plain version (:func:`k2_level_rows`) and, ``timed``,
-    its device time back to back.  Returns ({level: rows}, worst
-    relative error, worst absolute error)."""
+def k2_coarse_levels(dev, rng, timed=False, sym=False):
+    """K2's bench 2D call forms (:data:`BENCH_V_FORMS`, nd=2; K2-sym's,
+    bench 2D sym's, with ``sym``) on every level of bench 2D below the
+    finest, 513x257 down to 9x5: each held against the plain version
+    (:func:`k2_level_rows`) and, ``timed``, its device time back to back.
+    Returns ({level: rows}, worst relative error, worst absolute
+    error)."""
     out, worst, worst_abs = {}, 0.0, 0.0
     for i in range(1, 8):
         nx, ny = (1024 >> i) + 1, (512 >> i) + 1
         rows, w = k2_level_rows(
-            *k2_levels(dev, rng, nx, ny, 2), f"{nx}x{ny} nd=2",
+            *k2_levels(dev, rng, nx, ny, 2, sym), f"{nx}x{ny} nd=2",
             times=(lambda run: dict(device_ms=device_ms(run))) if timed
             else None, forms=BENCH_V_FORMS)
         out[f"{nx}x{ny}"] = rows
         worst = max(worst, w)
         worst_abs = max([worst_abs] + [r["max_abs_err"]
                                        for r in rows.values()])
-        log(f"K2 level {nx}x{ny}: " + "; ".join(
+        log(f"K2{'-sym' if sym else ''} level {nx}x{ny}: " + "; ".join(
             f"{k} rel {v['rel_err']:.2e}"
             + (f", {fms(v['device_ms'])} ms" if timed else "")
             + f" ({v['launches']} launch)" for k, v in rows.items()))
@@ -1727,8 +1705,8 @@ def k2_coarse_levels(dev, rng, timed=False):
 
 def k2_step_chain(a, kw):
     """A K2 call as the step kernel runs it: one ``pyfem_smooth_2d``
-    launch a sweep (from x0 = 0 the first is elementwise) and one for the
-    residual, as the wrapper still runs half storage."""
+    (half storage: ``pyfem_smooth_2d_sym``) launch a sweep (from x0 = 0
+    the first is elementwise) and one for the residual."""
     import torch
     from pyfem_gpu_testflight_tpu_torch.ops import _cuda
     from pyfem_gpu_testflight_tpu_torch.ops import fused_smooth as fs
@@ -1736,10 +1714,12 @@ def k2_step_chain(a, kw):
     planes, dk, b, x = a
     nd, ny, nx = dk.shape
     ptr = lambda t: None if t is None else t.data_ptr()
+    entry = ("pyfem_smooth_2d" if fs.is_full_storage_2d(planes, nd)
+             else "pyfem_smooth_2d_sym")
 
     def step(xin, om, mode):
         out = torch.empty_like(dk)
-        _cuda.launch("pyfem_smooth_2d", planes.data_ptr(),
+        _cuda.launch(entry, planes.data_ptr(),
                      int(planes.dtype == torch.bfloat16), dk.data_ptr(),
                      ptr(b), ptr(xin), out.data_ptr(), nd, ny, nx,
                      float(om), mode, _cuda.stream_ptr(dk))
@@ -1753,34 +1733,36 @@ def k2_step_chain(a, kw):
 
 
 def k2_float64_witness(dev):
-    """K2's float32 forms against the plain version in float64 on the
-    same inputs (the stored planes widened): the one-pass call (the
-    wrapper), the plain version in float32 and the step-kernel chain
-    (:func:`k2_step_chain`), with Chebyshev-node damping
+    """K2's and K2-sym's float32 forms against the plain version in
+    float64 on the same inputs (the stored planes widened): the one-pass
+    call (the wrapper), the plain version in float32 and the step-kernel
+    chain (:func:`k2_step_chain`), with Chebyshev-node damping
     (``smoothing_omegas(niter, 2.3)``) at niter 1-8, from x0 = 0 with
     the residual and from x0 with the negated residual, nd 1 and 2, f32
-    and bf16 planes, on 3x3, 13x7, 9x5, 17x9, 33x17 and 65x33 grids with
-    seeds 0-3, and at 1025x513 nd=2 and 1025^2 nd=1 (seed 0).  Errors are
-    over the card test's scale (max|plain|; a residual's max(|plain|,
-    |b|)).  Returns a row per niter: the largest error of each float32
-    version, the median and largest ratio of the one-pass call's error
-    to the plain version's, the largest difference of the two float32
-    versions, how many calls put it over ``REL_TOL`` and how many equal
-    the step chain bit for bit."""
+    and bf16 planes, full and half storage, on 3x3, 13x7, 9x5, 17x9,
+    33x17 and 65x33 grids with seeds 0-3, and at 1025x513 nd=2 and 1025^2
+    nd=1 (seed 0).  Errors are over the card test's scale (max|plain|; a
+    residual's max(|plain|, |b|)).  Returns a row per storage and niter:
+    the largest error of each float32 version, the median and largest
+    ratio of the one-pass call's error to the plain version's, the
+    largest difference of the two float32 versions, how many calls put
+    it over ``REL_TOL`` and how many equal the step chain bit for bit
+    (checked: every call)."""
     import torch
     from pyfem_gpu_testflight_tpu_torch import multigrid
     from pyfem_gpu_testflight_tpu_torch.ops import fused_smooth as fs
 
     tup = lambda v: v if isinstance(v, tuple) else (v,)
-    acc = {n: dict(kernel=[], plain=[], chain=[], ratio=[], kp=[], over=0,
-                   calls=0, same=0) for n in range(1, 9)}
+    acc = {(sym, n): dict(kernel=[], plain=[], chain=[], ratio=[], kp=[],
+                          over=0, calls=0, same=0)
+           for sym in (False, True) for n in range(1, 9)}
     cases = [(nx, ny, nd, seed) for nx, ny in ((3, 3), (13, 7), (9, 5),
                                               (17, 9), (33, 17), (65, 33))
              for nd in (1, 2) for seed in range(4)]
     cases += [(NX, NY, 2, 0), (NEWTON_N, NEWTON_N, 1, 0)]
-    for nx, ny, nd, seed in cases:
+    for (nx, ny, nd, seed), sym in itertools.product(cases, (False, True)):
         rng = np.random.default_rng(seed)
-        ck, dk, lk, b, x0, _xr = k2_levels(dev, rng, nx, ny, nd)
+        ck, dk, lk, b, x0, _xr = k2_levels(dev, rng, nx, ny, nd, sym)
         w64 = lambda t: None if t is None else t.double()
         for planes in (ck, lk):
             for niter in range(1, 9):
@@ -1794,7 +1776,7 @@ def k2_float64_witness(dev):
                     c = tup(k2_step_chain(a, kw))
                     e = tup(fs.fused_sweeps_2d_plain(
                         planes, w64(dk), w64(b), w64(x), **kw))
-                    row = acc[niter]
+                    row = acc[sym, niter]
                     row["calls"] += 1
                     row["same"] += all(torch.equal(u, v)
                                        for u, v in zip(k, c))
@@ -1817,8 +1799,9 @@ def k2_float64_witness(dev):
                     row["over"] += over
         del ck, dk, lk, b, x0
     out = {}
-    for n, row in acc.items():
-        out[n] = dict(calls=row["calls"], kernel_max=max(row["kernel"]),
+    for (sym, n), row in acc.items():
+        key = f"{'half' if sym else 'full'} niter {n}"
+        out[key] = dict(calls=row["calls"], kernel_max=max(row["kernel"]),
                       plain_max=max(row["plain"]),
                       chain_max=max(row["chain"]),
                       ratio_median=float(np.median(row["ratio"])),
@@ -1826,40 +1809,48 @@ def k2_float64_witness(dev):
                       kernel_vs_plain_max=max(row["kp"]),
                       calls_over_tol=row["over"],
                       calls_equal_to_step_chain=row["same"])
-        log(f"K2 float64 witness niter {n}: {row['calls']} calls; error "
-            f"over the test's scale, one-pass {out[n]['kernel_max']:.2e}, "
-            f"plain f32 {out[n]['plain_max']:.2e}, step chain "
-            f"{out[n]['chain_max']:.2e}; one-pass/plain median "
-            f"{out[n]['ratio_median']:.2f}, max {out[n]['ratio_max']:.2f}; "
-            f"one-pass vs plain {out[n]['kernel_vs_plain_max']:.2e}, "
-            f"{row['over']} calls over {REL_TOL:g}; {row['same']} calls "
-            f"bit-identical to the step chain")
+        o = out[key]
+        log(f"{'K2-sym' if sym else 'K2'} float64 witness niter {n}: "
+            f"{row['calls']} calls; error over the test's scale, one-pass "
+            f"{o['kernel_max']:.2e}, plain f32 {o['plain_max']:.2e}, step "
+            f"chain {o['chain_max']:.2e}; one-pass/plain median "
+            f"{o['ratio_median']:.2f}, max {o['ratio_max']:.2f}; one-pass "
+            f"vs plain {o['kernel_vs_plain_max']:.2e}, {row['over']} calls "
+            f"over {REL_TOL:g}; {row['same']} calls bit-identical to the "
+            f"step chain")
+        check(row["same"] == row["calls"],
+              f"{'K2-sym' if sym else 'K2'} niter {n}: every one-pass call "
+              f"equals the step chain bit for bit ({row['same']} of "
+              f"{row['calls']})")
     return out
 
 
 def k2_nd1_forms(dev, flush_clean):
     """The bf16 V-cycle calls at nd=1 on a 1025^2 level (no main path
-    runs them: newton's planes are f32) and newton's f32 calls, by the
-    one-pass call and by the step-kernel chain: device time with the L2
-    flushed by a read before each call."""
+    runs them: newton's planes are f32) and newton's f32 calls, on full
+    and half storage, by the one-pass call and by the step-kernel chain:
+    device time with the L2 flushed by a read before each call."""
     from pyfem_gpu_testflight_tpu_torch.ops import fused_smooth as fs
 
     rng = np.random.default_rng(SEED + 61)
     n = NEWTON_N
-    ck, dk, lk, b, x0, xr = k2_levels(dev, rng, n, n, 1)
     out = {}
-    for name, (a, kw) in k2_call_forms(ck, dk, lk, b, x0, xr).items():
-        if name not in ("presmooth_resid_bf16", "postsmooth_bf16",
-                        "presmooth_resid_f32", "postsmooth_f32"):
-            continue
-        out[name] = {
-            label: device_ms(run, between=flush_clean)
-            for label, run in (
-                ("one_pass", lambda: fs.fused_sweeps_2d(*a, **kw)),
-                ("step_chain", lambda: k2_step_chain(a, kw)))}
-        log(f"K2 {name} {n}x{n} nd=1, read-flushed device: one-pass "
-            f"{fms(out[name]['one_pass'])} ms, step chain "
-            f"{fms(out[name]['step_chain'])} ms")
+    for sym in (False, True):
+        ck, dk, lk, b, x0, xr = k2_levels(dev, rng, n, n, 1, sym)
+        for name, (a, kw) in k2_call_forms(ck, dk, lk, b, x0, xr).items():
+            if name not in ("presmooth_resid_bf16", "postsmooth_bf16",
+                            "presmooth_resid_f32", "postsmooth_f32"):
+                continue
+            key = f"{name}{' sym' if sym else ''}"
+            out[key] = {
+                label: device_ms(run, between=flush_clean)
+                for label, run in (
+                    ("one_pass", lambda: fs.fused_sweeps_2d(*a, **kw)),
+                    ("step_chain", lambda: k2_step_chain(a, kw)))}
+            log(f"K2{'-sym' if sym else ''} {name} {n}x{n} nd=1, "
+                f"read-flushed device: one-pass {fms(out[key]['one_pass'])} "
+                f"ms, step chain {fms(out[key]['step_chain'])} ms")
+        del ck, dk, lk, b, x0, xr
     return out
 
 
@@ -1939,7 +1930,7 @@ def solve_rows(dev, pt):
         ms = cuda_ms(run, reps)
         dms = device_ms(run, reps=reps, sessions=3)
         out[label] = dict(iterations=k, k2_launches=k2_launches(counts),
-                          k2_sym_launches=counts.get("pyfem_smooth_2d_sym", 0),
+                          k2_sym_launches=k2_sym_launches(counts),
                           k9_launches=counts.get("pyfem_stencil_2d", 0),
                           ms=ms, device_ms=dms,
                           busy=None if dms is None else dms / ms)
@@ -1992,12 +1983,13 @@ def solve_rows(dev, pt):
 
 
 def run_stencil_2d_kernels():
-    """``python3 chip_smoke.py --stencil-2d-kernels [--root DIR]``: K2 and
-    K9 alone on the package under DIR (default: this checkout), so a
-    parent checkout is timed on the same inputs in the same call: every
-    K2 call form (:func:`k2_call_rows`), every K9 form
-    (:func:`k9_form_rows`), bench 2D's V-cycle calls on every coarser
-    level (:func:`k2_coarse_levels`), what each L2 flush costs a timed read
+    """``python3 chip_smoke.py --stencil-2d-kernels [--root DIR]``: K2,
+    K2-sym and K9 alone on the package under DIR (default: this
+    checkout), so a parent checkout is timed on the same inputs in the
+    same call: every K2 and K2-sym call form (:func:`k2_call_rows`),
+    every K9 form (:func:`k9_form_rows`), bench 2D's and bench 2D sym's
+    V-cycle calls on every coarser level (:func:`k2_coarse_levels`), what
+    each L2 flush costs a timed read
     (:func:`flush_controls`) and the main paths' iterations, launches and
     device time (:func:`solve_rows`); prints the card and one JSON line."""
     import torch
@@ -2019,8 +2011,11 @@ def run_stencil_2d_kernels():
     flush, flush_clean = l2_flush(dev), l2_flush_clean(dev)
     out = {"flush_control": flush_controls(dev, flush, flush_clean)}
     out["K2"], w2 = k2_call_rows(dev, rng, flush, flush_clean)
+    out["K2-sym"], w2s = k2_call_rows(dev, rng, flush, flush_clean, sym=True)
     out["K9"], w9 = k9_form_rows(dev, pt, rng, flush, flush_clean)
     out["K2_levels"], w2c, _a = k2_coarse_levels(dev, rng, timed=True)
+    out["K2-sym_levels"], w2sc, _a = k2_coarse_levels(dev, rng, timed=True,
+                                                      sym=True)
     del flush, flush_clean
     out["solves"] = solve_rows(dev, pt)
     out["ptxas"] = {k: short_ptxas(_cuda.build_log, k)
@@ -2029,7 +2024,7 @@ def run_stencil_2d_kernels():
                               "stencil_2d_kernel")}
     log(card_line())
     log(json.dumps({"package": pt.__file__,
-                    "worst_rel_err": max(w2, w2c, w9),
+                    "worst_rel_err": max(w2, w2c, w2s, w2sc, w9),
                     **out}))
     return 1 if FAILS else 0
 
@@ -2368,7 +2363,8 @@ def solve_and_measure(step, args, names, label):
     out = step(*args)
     e1.record()
     e1.synchronize()
-    counts = {k: _cuda.launches[k] for k in names}
+    # .get: a parent checkout (--root) may lack an entry
+    counts = {k: _cuda.launches.get(k, 0) for k in names}
     return out, counts, e0.elapsed_time(e1)
 
 
@@ -2403,9 +2399,10 @@ def launches_by_level(step, args):
             if v}
 
 
-def k2_per_call(run):
+def k2_per_call(run, entries=K2_ENTRIES):
     """One more run of ``run`` with every ``fused_sweeps_2d`` call and
-    every full-storage K2 launch counted: (calls, launches)."""
+    every launch of ``entries`` (K2's, or K2-sym's) counted: (calls,
+    launches)."""
     import torch
     from pyfem_gpu_testflight_tpu_torch.ops import _cuda
     from pyfem_gpu_testflight_tpu_torch.ops import fused_smooth
@@ -2418,13 +2415,13 @@ def k2_per_call(run):
         return sweeps(*a, **kw)
 
     fused_smooth.fused_sweeps_2d = counting
-    n0 = k2_launches(_cuda.launches)
+    n0 = k2_launches(_cuda.launches, entries)
     try:
         run()
         torch.cuda.synchronize()
     finally:
         fused_smooth.fused_sweeps_2d = sweeps
-    return calls[0], k2_launches(_cuda.launches) - n0
+    return calls[0], k2_launches(_cuda.launches, entries) - n0
 
 
 def chained_ms(step, rho, rhs, u, n_chain=10):
@@ -2533,9 +2530,10 @@ def phase_main_2d(dev, pt, multigrid, i2p, p2i, label="bench 2D",
     (u, k, rn, b, gmg), counts, single_ms = solve_and_measure(
         step, (rho, rhs, rhs), ("pyfem_assemble_2d", "pyfem_smooth_2d",
                                 "pyfem_sweeps_2d", "pyfem_assemble_2d_sym",
-                                "pyfem_smooth_2d_sym",
+                                "pyfem_smooth_2d_sym", "pyfem_sweeps_2d_sym",
                                 "pyfem_elasticity_quad4"), label)
     counts["K2"] = k2_launches(counts)
+    counts["K2-sym"] = k2_sym_launches(counts)
     log(f"{label}: {k} PCG iterations (JAX reference: 7), "
         f"||r||/||b|| {float(rn) / float(torch.linalg.norm(b)):.3e}, "
         f"launches {counts}, single-shot {single_ms:.3f} ms")
@@ -2546,10 +2544,11 @@ def phase_main_2d(dev, pt, multigrid, i2p, p2i, label="bench 2D",
           f"{label} solution finite, shape (ndof,)")
     if route.get("sym"):
         check(counts["pyfem_assemble_2d_sym"] == len(gmg.levels)
-              and counts["pyfem_smooth_2d_sym"] > 0
+              and counts["pyfem_sweeps_2d_sym"] > 0
               and counts["pyfem_assemble_2d"] == 0 and counts["K2"] == 0,
               f"{label}: K1-sym once per level ({len(gmg.levels)}), K2-sym "
-              f"launched, no full-storage K1/K2 launch")
+              f"launched ({counts['K2-sym']} a solve), no full-storage "
+              f"K1/K2 launch")
     elif route.get("elem_path", "uniform") == "uniform":
         check(counts["pyfem_assemble_2d"] == len(gmg.levels)
               and counts["K2"] > 0
@@ -2561,11 +2560,12 @@ def phase_main_2d(dev, pt, multigrid, i2p, p2i, label="bench 2D",
               and counts["pyfem_assemble_2d"] == 0 and counts["K2"] > 0,
               f"{label}: K7a once per level ({len(gmg.levels)}), no K1, K2 "
               f"launched")
-    if not route.get("sym"):
-        calls, nk2 = k2_per_call(lambda: step(rho, rhs, rhs))
-        log(f"{label}: {calls} smoothing calls, {nk2} K2 launches")
-        check(calls > 0 and nk2 == calls,
-              f"{label}: one K2 launch per smoothing call ({calls})")
+    k2 = "K2-sym" if route.get("sym") else "K2"
+    calls, nk2 = k2_per_call(lambda: step(rho, rhs, rhs), K2_SYM_ENTRIES
+                             if route.get("sym") else K2_ENTRIES)
+    log(f"{label}: {calls} smoothing calls, {nk2} {k2} launches")
+    check(calls > 0 and nk2 == calls,
+          f"{label}: one {k2} launch per smoothing call ({calls})")
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -3255,7 +3255,7 @@ def phase_newton(dev, pt):
     # K9's two forms told apart by its float64 flag
     names = ("pyfem_assemble_2d", "pyfem_smooth_2d", "pyfem_sweeps_2d",
              "pyfem_stencil_2d", "pyfem_assemble_2d_sym",
-             "pyfem_smooth_2d_sym")
+             "pyfem_smooth_2d_sym", "pyfem_sweeps_2d_sym")
     k9 = {0: 0, 1: 0}
     launch = _cuda.launch
 
@@ -3298,7 +3298,7 @@ def phase_newton(dev, pt):
     check(counts["pyfem_assemble_2d"] == nlev * (k - 1)
           and counts["K2"] > 0 and k9[0] > 0 and k9[1] == k
           and counts["pyfem_assemble_2d_sym"] == 0
-          and counts["pyfem_smooth_2d_sym"] == 0,
+          and k2_sym_launches(counts) == 0,
           f"newton: K1 once per level ({nlev}) per tangent solve, K2 "
           f"launched, K9 float32 launched and float64 once per Newton "
           f"iteration, no half-storage launch")
@@ -5573,9 +5573,13 @@ def main():
          "half-symmetric storage, 19 of 36 planes (5 of 9 at nd=1), one "
          "pass, K1's design (main path: bench 2D sym, once per level)"),
         ("K2-sym", "fused_sweeps_2d (sym planes)", "smooth_2d.cu",
-         "pallas_smooth.py:369", cs["pyfem_smooth_2d_sym"],
-         "half-symmetric storage, partner term by a shifted read, one "
-         "stencil pass per sweep (main path: bench 2D sym)"),
+         "pallas_smooth.py:369", cs["K2-sym"],
+         "half-symmetric storage, one launch per smoothing call (K2's "
+         "design, the kept planes staged on the region plus a ring of one "
+         "for the partner terms; timed: bench 2D sym's presmooth_resid on "
+         "bf16 planes; forms: every call form at 1025x513 nd=2 with "
+         "launches per call; niter 0: one stencil step) (main path: bench "
+         "2D sym)"),
         ("K9", "stencil_matvec_2d", "stencil_2d.cu", "pallas_stencil.py:56",
          topo["k9_launches"],
          "one thread per node, all nd outputs, f32 and f64 (main path: "

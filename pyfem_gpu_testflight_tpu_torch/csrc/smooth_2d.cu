@@ -25,15 +25,16 @@
 // arithmetic in f32); fields are f32.
 //
 // Two kernels:
-// - sweeps_2d_kernel[_b2] (pyfem_sweeps_2d): a whole smoothing call on full
-//   storage, its sweeps and residual, in one launch, as the TPU kernel's
-//   call is: each tile is computed from the tile plus a ghost ring as
-//   wide as the call's stencil steps, its planes read once.  The budget
-//   is kMaxSteps stencil steps a launch; ops/fused_smooth.py::
-//   sweep_plan_2d splits a longer call into groups, one launch each.
+// - sweeps_2d_kernel[_b2] (pyfem_sweeps_2d on full storage,
+//   pyfem_sweeps_2d_sym on the kept planes): a whole smoothing call, its
+//   sweeps and residual, in one launch, as the TPU kernel's call is: each
+//   tile is computed from the tile plus a ghost ring as wide as the call's
+//   stencil steps, its planes read once (the kept planes on a ring one
+//   node wider, for the partner terms).  The budget is kMaxSteps stencil
+//   steps a launch; ops/fused_smooth.py::sweep_plan_2d splits a longer
+//   call into groups, one launch each.
 // - smooth_2d_kernel (pyfem_smooth_2d[_sym]): one stencil step a launch,
-//   for the niter = 0 matvec and residual (one step either way) and for
-//   half storage (one launch a sweep).
+//   for the niter = 0 matvec and residual (one step either way).
 //
 // What bounds a call on the H100: bytes.  One pass reads the planes once,
 // each input field once and writes each output once: bench 2D's bf16
@@ -69,6 +70,16 @@
 // against the step kernel's 27.9-28.4 and its presmooth_resid 31.6 against
 // 30.6-31.0; held to two blocks an SM (128 registers, no spill) they read
 // 26.2 and 25.0 (no main path runs bf16 planes at nd = 1).
+// Half storage (pyfem_sweeps_2d_sym) stages the 19 kept planes (nd = 2) on
+// the region plus a ring of one, 0.72-0.79x the full call's bytes a tile:
+// 33.5-33.7 us for bench 2D sym's bf16 presmooth with its residual (33% of
+// its 11.0 us one-pass bound), 35.3 for its bf16 postsmooth and 51.3-51.5
+// for the f32 postsmooth with the residual (35% of 18.2), against 56.0-56.3,
+// 51.9 and 88.4-88.5 for the step kernel's chain it replaced (read-flushed
+// device time, the same card call); on the 513x257 level the two
+// postsmooth forms lose 3% to that chain (back to back, L2-warm), and every
+// smaller level runs 1.4-2.2x faster.  A 24-row region (12 warps) won 7% at
+// 1025x513 and lost ~1 us a call on every level from 257x129 down.
 // Tried and lost (bf16 presmooth / bf16 postsmooth / f32 postsmooth with
 // residual, nd=2, read-flushed device us, each against the parent's
 // 78.0 / 72.2 / 128.8 in chip_smoke.py --stencil-2d-kernels): a block a
@@ -194,7 +205,7 @@ __global__ void smooth_2d_kernel(const CT* __restrict__ coeff,
 }
 
 // ---------------------------------------------------------------------------
-// The one-pass call (full storage): a group of sweeps (+ the residual) in
+// The one-pass call (either storage): a group of sweeps (+ the residual) in
 // one launch, each block reading its tiles' coefficients once.
 // ---------------------------------------------------------------------------
 
@@ -202,14 +213,18 @@ constexpr int QW = 32;          // region columns: a warp's lanes
 constexpr int kMaxSteps = 4;    // stencil steps of one launch (the budget)
 constexpr int kMaxSweeps = kMaxSteps + 1;  // + the elementwise first sweep
 
-// Rows of the region a block computes and warps of the block, by
-// instance (ops/fused_smooth.py::_SWEEP_ROWS_2D mirrors the rows): two
-// regions' staging fit a block's shared memory, and a warp takes one row
-// of the region at nd = 2 and four at nd = 1 (each the faster on the card,
+// Rows of the region a block computes, by nd, on either storage
+// (ops/fused_smooth.py::_SWEEP_ROWS_2D mirrors them, and
+// tests/test_torch_smooth_tiles.py reads them here): two regions' staging
+// fit a block's shared memory.  A warp takes one row of the region at
+// nd = 2 and four at nd = 1 (each the faster on the card; on half
+// storage 24 rows at nd = 2, two a warp, lost on the coarse levels:
 // PERF.md section 6).
-template <int ND, typename CT>
+constexpr int kRows1 = 32, kRows2 = 16;  // nd = 1, 2
+
+template <int ND>
 struct Region {
-  static constexpr int rows = ND == 2 ? 16 : 32;
+  static constexpr int rows = ND == 2 ? kRows2 : kRows1;
   static constexpr int warps = ND == 2 ? 16 : 8;
 };
 
@@ -227,18 +242,25 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
                "l"(src));
 }
 
-// Rows are staged as the 16-byte chunks (V values) that cover them,
-// aligned in the tensor, so a row's first value sits s = e0 mod V past the
-// row's start in shared memory (e0 its element index: odd-sized planes
-// start each row at another alignment).  Every row of the planes stages
-// NC chunks from its first column's chunk (covering 32 columns), every
-// window row of the fields NCF chunks (34 columns).  A chunk's values
+// The planes a block stages for one tile: on full storage all ND*ND*9 on
+// the region; on half storage the kept planes on the region plus a ring of
+// one, since the partner term of node i reads the kept value of node
+// i - (d - 1).  Rows are staged as the 16-byte chunks (V values) that
+// cover them, aligned in the tensor, so a row's first value sits s = e0
+// mod V past the row's start in shared memory (e0 its element index:
+// odd-sized planes start each row at another alignment): NC chunks a row
+// from its first column's chunk, and every window row of the fields NCF
+// chunks (34 columns).  Rows outside the grid are zeros.  A chunk's values
 // outside the grid are read only by off-grid nodes, which are never
-// updated or written; an aligned chunk never leaves the allocation.
-template <typename CT>
-struct Chunks {
+// updated or written, or as a partner off the grid, which is taken as 0;
+// an aligned chunk never leaves the allocation.
+template <int ND, bool FULL, typename CT>
+struct Staged {
+  static constexpr int K = FULL ? ND * ND * 9 : (ND * ND * 9 + ND) / 2;
+  static constexpr int ring = FULL ? 0 : 1;
+  static constexpr int rows = Region<ND>::rows + 2 * ring;
   static constexpr int V = 16 / sizeof(CT);
-  static constexpr int NC = (QW + V - 1 + V - 1) / V;
+  static constexpr int NC = (QW + 2 * ring + V - 1 + V - 1) / V;
   static constexpr int PV = NC * V;  // values a staged row holds
 };
 constexpr int NCF = (QW + 2 + 3 + 3) / 4;  // field chunks a window row
@@ -250,14 +272,14 @@ __device__ __forceinline__ float coeff_at(const __nv_bfloat16* p) {
   return __uint_as_float(u << 16);
 }
 
-// Shared memory of a block: two staging buffers (one tile's planes on
-// the region, and b, invd, x0 on the window) and the two x buffers.
-template <int ND, typename CT>
+// Shared memory of a block: two staging buffers (one tile's planes, and
+// b, invd, x0 on the window) and the two x buffers.
+template <int ND, bool FULL, typename CT>
 struct Smem {
-  static constexpr int QH = Region<ND, CT>::rows;
+  using P = Staged<ND, FULL, CT>;
+  static constexpr int QH = Region<ND>::rows;
   static constexpr int WH = QH + 2, WW = QW + 2;  // the window
-  static constexpr int K = ND * ND * 9;
-  static constexpr int planes = sizeof(CT) * K * QH * Chunks<CT>::PV;
+  static constexpr int planes = sizeof(CT) * P::K * P::rows * P::PV;
   static constexpr int field = 4 * ND * WH * FP;
   static constexpr int stage = planes + 3 * field;  // planes, b, invd, x0
   static constexpr int bytes = 2 * stage + 2 * 4 * ND * WH * WW;
@@ -267,30 +289,36 @@ struct Smem {
 // 1) columns by tile_y = QH - 2 (g - 1) rows at (ty * tile_y, tx *
 // tile_x); its region is the tile plus a ring of g - 1 nodes (QH x QW, a
 // thread a column of QH / BY of them), computed from a window one node
-// wider still (the x ring that the first stencil step reads).  After step
-// j the region's values are right on the tile plus a ring of g - j, so
-// after the g steps on the tile.  Off the grid x reads 0 and is never
-// updated.
+// wider still (the x ring that the first stencil step reads, and on half
+// storage the partners' kept planes).  After step j the region's values
+// are right on the tile plus a ring of g - j, so after the g steps on the
+// tile.  Off the grid x reads 0 and is never updated.
 // A block walks tiles blockIdx.x, + gridDim.x, ... (the grid is sized to
 // the card): while it computes one tile, cp.async stages the next one's
 // planes and fields in the other buffer, so the card's memory stays busy
-// through the arithmetic.  Each stencil sweep reads x from one x buffer
-// and writes the other; the residual and x are written on the tile.  A
-// thread's R x ND sums are interleaved, each in the step kernel's order
-// (c2, dy, dx).
-template <int ND, typename CT>
+// through the arithmetic.  A thread moves its nodes' ND*ND*9 coefficients
+// into registers once a tile (on half storage each kept plane's own value
+// and, unless it is its own partner, its partner's: the kept value of node
+// i - (d - 1), 0 where that node is off the grid).  Each stencil sweep
+// reads x from one x buffer and writes the other; the residual and x are
+// written on the tile.  A thread's R x ND sums are interleaved, each in
+// the step kernel's order: (c2, dy, dx) on full storage, the kept planes'
+// order (own term, then partner term) on half storage.
+template <int ND, bool FULL, typename CT>
 __device__ __forceinline__ void sweeps_2d_body(
     const CT* __restrict__ coeff, const float* __restrict__ invd,
     const float* __restrict__ b, const float* __restrict__ x0,
     float* __restrict__ xout, float* __restrict__ rout, int ny, int nx,
     const SweepGroup grp) {
-  using S = Smem<ND, CT>;
-  using C = Chunks<CT>;
-  constexpr int BY = Region<ND, CT>::warps, NT = QW * BY;
-  constexpr int QH = S::QH, WH = S::WH, WW = S::WW, K = S::K, R = QH / BY;
-  constexpr int V = C::V, PV = C::PV, NC = C::NC;
+  using S = Smem<ND, FULL, CT>;
+  using P = Staged<ND, FULL, CT>;
+  constexpr int BY = Region<ND>::warps, NT = QW * BY;
+  constexpr int QH = S::QH, WH = S::WH, WW = S::WW, R = QH / BY;
+  constexpr int K = ND * ND * 9;  // a node's coefficients, full order
+  constexpr int KS = P::K, PR = P::rows, RING = P::ring;
+  constexpr int V = P::V, PV = P::PV, NC = P::NC;
   extern __shared__ __align__(16) unsigned char smem[];
-  auto planes = [&](int buf) {  // [K][QH][PV]
+  auto planes = [&](int buf) {  // [KS][PR][PV]
     return reinterpret_cast<CT*>(smem + buf * S::stage);
   };
   auto field = [&](int buf, int f) {  // [ND][WH][FP]; 0 b, 1 invd, 2 x0
@@ -317,14 +345,14 @@ __device__ __forceinline__ void sweeps_2d_body(
 
   // stage tile `tile` into buffer buf, as one commit group.  Item p <
   // SLOTS * M (threads take items p = tid, tid + NT, ...) is chunk j of
-  // row r (slot p % SLOTS) of every M-th plane from p / SLOTS; the
+  // staged row r (slot p % SLOTS) of every M-th plane from p / SLOTS; the
   // fields' chunks (x0 only where it is given) are spread over the block.
-  constexpr int SLOTS = QH * NC, M = NT >= SLOTS ? NT / SLOTS : 1;
+  constexpr int SLOTS = PR * NC, M = NT >= SLOTS ? NT / SLOTS : 1;
   const int nfields = x0 != nullptr ? 3 : 2;
   auto stage = [&](int tile, int buf) {
     if (tile < ntiles) {
-      const int ox = (tile % tiles_x) * tile_x - (g - 1);
-      const int oy = (tile / tiles_x) * tile_y - (g - 1);
+      const int ox = (tile % tiles_x) * tile_x - (g - 1) - RING;
+      const int oy = (tile / tiles_x) * tile_y - (g - 1) - RING;
       for (int p = tid; p < SLOTS * M; p += NT) {
         const int slot = p % SLOTS, k0 = p / SLOTS;
         const int r = slot / NC, j = slot - r * NC, gy = oy + r;
@@ -332,8 +360,8 @@ __device__ __forceinline__ void sweeps_2d_body(
         const int rowterm = gy * xm + ox;
         const CT* src = coeff + k0 * plane + static_cast<long long>(gy) * nx +
                         ox + j * V;
-        CT* d = planes(buf) + (k0 * QH + r) * PV + j * V;
-        for (int k = k0; k < K; k += M) {
+        CT* d = planes(buf) + (k0 * PR + r) * PV + j * V;
+        for (int k = k0; k < KS; k += M) {
           const int s = (k * pm + rowterm) & (V - 1);  // the row's shift
           const int x = ox - s + j * V;                // the chunk's column
           if (rin && x + V > 0 && x < nx)
@@ -341,15 +369,16 @@ __device__ __forceinline__ void sweeps_2d_body(
           else
             *reinterpret_cast<uint4*>(d) = make_uint4(0, 0, 0, 0);
           src += M * plane;
-          d += M * QH * PV;
+          d += M * PR * PV;
         }
       }
+      const int fox = ox + RING, foy = oy + RING;  // the region's origin
       for (int i = tid; i < nfields * ND * WH * NCF; i += NT) {
         const int f = i / (ND * WH * NCF), fr = i - f * (ND * WH * NCF);
         const int c = fr / (WH * NCF), rem = fr - c * (WH * NCF);
         const int wy = rem / NCF, j = rem - wy * NCF;
-        const int yy = oy - 1 + wy;
-        const int x = ox - 1 - fshift(c, yy, ox - 1) + 4 * j;
+        const int yy = foy - 1 + wy;
+        const int x = fox - 1 - fshift(c, yy, fox - 1) + 4 * j;
         const float* src = f == 0 ? b : f == 1 ? invd : x0;
         float* d = field(buf, f) + (c * WH + wy) * FP + 4 * j;
         if (src != nullptr && yy >= 0 && yy < ny && x + 4 > 0 && x < nx)
@@ -377,18 +406,41 @@ __device__ __forceinline__ void sweeps_2d_body(
     for (int i = 0; i < R; ++i)
 #pragma unroll
       for (int c = 0; c < ND; ++c) ax[i][c] = 0.f;
+    if constexpr (FULL) {
 #pragma unroll
-    for (int c2 = 0; c2 < ND; ++c2)
+      for (int c2 = 0; c2 < ND; ++c2)
 #pragma unroll
-      for (int dy = 0; dy < 3; ++dy)
+        for (int dy = 0; dy < 3; ++dy)
 #pragma unroll
-        for (int dx = 0; dx < 3; ++dx)
+          for (int dx = 0; dx < 3; ++dx)
 #pragma unroll
-          for (int c = 0; c < ND; ++c)
+            for (int c = 0; c < ND; ++c)
 #pragma unroll
-            for (int i = 0; i < R; ++i)
-              ax[i][c] += cf[i][(c * ND + c2) * 9 + dy * 3 + dx] *
-                          xw[c2][i + dy][dx];
+              for (int i = 0; i < R; ++i)
+                ax[i][c] += cf[i][(c * ND + c2) * 9 + dy * 3 + dx] *
+                            xw[c2][i + dy][dx];
+    } else {
+#pragma unroll
+      for (int a = 0; a < ND; ++a)
+#pragma unroll
+        for (int bb = 0; bb < ND; ++bb)
+#pragma unroll
+          for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+            for (int dx = 0; dx < 3; ++dx) {
+              const int k = (a * ND + bb) * 9 + dy * 3 + dx;
+              const int pk = (bb * ND + a) * 9 + (2 - dy) * 3 + (2 - dx);
+              if (pk < k) continue;  // sym_planes_2d's rule
+#pragma unroll
+              for (int i = 0; i < R; ++i)
+                ax[i][a] += cf[i][k] * xw[bb][i + dy][dx];
+              if (pk != k) {
+#pragma unroll
+                for (int i = 0; i < R; ++i)
+                  ax[i][bb] += cf[i][pk] * xw[a][i + 2 - dy][2 - dx];
+              }
+            }
+    }
   };
 
   const int nst = grp.nsweeps - grp.first_elem;  // stencil sweeps
@@ -421,22 +473,49 @@ __device__ __forceinline__ void sweeps_2d_body(
       }
     }
     __syncthreads();
-    // this thread's nodes' coefficients (from the staged planes, a row of
-    // shift s = element index mod V at column tx + s) and offsets in the
-    // staged fields
+    // this thread's nodes' coefficients (from the staged planes: plane k's
+    // staged row pr, of shift s = element index mod V, holds staged
+    // column pc at pc + s) and offsets in the staged fields
     float cf[R][K];
     int fe[R][ND];
     bool live[R];
     const CT* s_c = planes(buf);
+    auto at = [&](int k, int pr, int pc) {
+      const int s = (k * pm + (oy - RING + pr) * xm + ox - RING) & (V - 1);
+      return coeff_at(s_c + (k * PR + pr) * PV + pc + s);
+    };
 #pragma unroll
     for (int i = 0; i < R; ++i) {
       const int r = ty * R + i, yy = oy + r;
       live[i] = yy >= 0 && yy < ny && gx >= 0 && gx < nx;
-      const int rowterm = yy * xm + ox;
+      if constexpr (FULL) {
 #pragma unroll
-      for (int k = 0; k < K; ++k)
-        cf[i][k] = coeff_at(s_c + (k * QH + r) * PV + tx +
-                            ((k * pm + rowterm) & (V - 1)));
+        for (int k = 0; k < K; ++k) cf[i][k] = at(k, r, tx);
+      } else {
+        int si = 0;  // storage slot of the kept plane (constant once unrolled)
+#pragma unroll
+        for (int a = 0; a < ND; ++a)
+#pragma unroll
+          for (int bb = 0; bb < ND; ++bb)
+#pragma unroll
+            for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+              for (int dx = 0; dx < 3; ++dx) {
+                const int k = (a * ND + bb) * 9 + dy * 3 + dx;
+                const int pk = (bb * ND + a) * 9 + (2 - dy) * 3 + (2 - dx);
+                if (pk < k) continue;
+                cf[i][k] = at(si, r + 1, tx + 1);
+                if (pk != k) {
+                  // the partner node i - (d - 1), staged one row and
+                  // column further in
+                  const int py = yy + 1 - dy, px = gx + 1 - dx;
+                  cf[i][pk] = py >= 0 && py < ny && px >= 0 && px < nx
+                                  ? at(si, r + 2 - dy, tx + 2 - dx)
+                                  : 0.f;
+                }
+                ++si;
+              }
+      }
 #pragma unroll
       for (int c = 0; c < ND; ++c)
         fe[i][c] = (c * WH + r + 1) * FP + tx + 1 + fshift(c, yy, ox - 1);
@@ -491,30 +570,30 @@ __device__ __forceinline__ void sweeps_2d_body(
       float *__restrict__ xout, float *__restrict__ rout, int ny, int nx, \
       const SweepGroup grp
 
-template <int ND, typename CT>
-__global__ void __launch_bounds__(QW * Region<ND, CT>::warps)
+template <int ND, bool FULL, typename CT>
+__global__ void __launch_bounds__(QW * Region<ND>::warps)
     sweeps_2d_kernel(SWEEPS_2D_PARAMS) {
-  sweeps_2d_body<ND, CT>(coeff, invd, b, x0, xout, rout, ny, nx, grp);
+  sweeps_2d_body<ND, FULL, CT>(coeff, invd, b, x0, xout, rout, ny, nx, grp);
 }
 
-// The bf16 instance at nd = 1, held to two blocks an SM (at most 128
-// registers; its shared memory fits twice): at 171 registers it ran one
-// block an SM and its postsmooth at 1025^2 lost to the step kernel
-// (PERF.md section 6).  Naming the minimum for the other instances too
-// changes their code, so they keep the kernel above.
-template <int ND, typename CT>
-__global__ void __launch_bounds__(QW * Region<ND, CT>::warps, 2)
+// The bf16 instances at nd = 1, held to two blocks an SM (at most 128
+// registers; their shared memory fits twice): at 171 registers full
+// storage ran one block an SM and its postsmooth at 1025^2 lost to the
+// step kernel (PERF.md section 6).  Naming the minimum for the other
+// instances too changes their code, so they keep the kernel above.
+template <int ND, bool FULL, typename CT>
+__global__ void __launch_bounds__(QW * Region<ND>::warps, 2)
     sweeps_2d_kernel_b2(SWEEPS_2D_PARAMS) {
-  sweeps_2d_body<ND, CT>(coeff, invd, b, x0, xout, rout, ny, nx, grp);
+  sweeps_2d_body<ND, FULL, CT>(coeff, invd, b, x0, xout, rout, ny, nx, grp);
 }
 #undef SWEEPS_2D_PARAMS
 
-template <int ND, typename CT>
+template <int ND, bool FULL, typename CT>
 constexpr auto sweeps_kernel() {
   if constexpr (ND == 1 && sizeof(CT) == 2)
-    return &sweeps_2d_kernel_b2<ND, CT>;
+    return &sweeps_2d_kernel_b2<ND, FULL, CT>;
   else
-    return &sweeps_2d_kernel<ND, CT>;
+    return &sweeps_2d_kernel<ND, FULL, CT>;
 }
 
 int sm_count() {
@@ -527,24 +606,24 @@ int sm_count() {
   return n;
 }
 
-template <int ND, typename CT>
+template <int ND, bool FULL, typename CT>
 int launch_group(const void* coeff, const float* invd, const float* b,
                  const float* x0, float* xout, float* rout, int ny, int nx,
                  const SweepGroup& grp, int tile_y, int tile_x,
                  cudaStream_t s) {
-  using S = Smem<ND, CT>;
-  constexpr int BY = Region<ND, CT>::warps;
+  using S = Smem<ND, FULL, CT>;
+  constexpr int BY = Region<ND>::warps;
   static_assert(S::bytes <= 227 * 1024 && S::QH % BY == 0, "region");
   if (tile_x != QW - 2 * (grp.g - 1) || tile_y != S::QH - 2 * (grp.g - 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto kernel = sweeps_kernel<ND, CT>();
+  const auto kernel = sweeps_kernel<ND, FULL, CT>();
   static const int occ = [] {
-    cudaFuncSetAttribute(sweeps_kernel<ND, CT>(),
+    cudaFuncSetAttribute(sweeps_kernel<ND, FULL, CT>(),
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          S::bytes);
     int v = 0;
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &v, sweeps_kernel<ND, CT>(), QW * BY, S::bytes);
+        &v, sweeps_kernel<ND, FULL, CT>(), QW * BY, S::bytes);
     return v;
   }();
   if (occ < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
@@ -615,7 +694,7 @@ extern "C" int pyfem_smooth_2d_sym(const void* coeff, int coeff_bf16,
                        omega, mode, stream);
 }
 
-// K2, the one-pass call on full storage: one group of a smoothing call,
+// K2 and K2-sym, the one-pass call: one group of a smoothing call,
 // nsweeps >= 1 sweeps with damping omegas[0..nsweeps) (host memory) from
 // x0 (first_elem = 1: from x0 = 0, x0 == nullptr, the first sweep
 // elementwise) into xout, then with rmode 1 or 2 the residual into rout
@@ -623,13 +702,19 @@ extern "C" int pyfem_smooth_2d_sym(const void* coeff, int coeff_bf16,
 // from ops/fused_smooth.py::sweep_plan_2d and is checked here: the ghost
 // width g must be the group's stencil steps (at least 1, at most
 // kMaxSteps), the tile the instance's region less a ring of g - 1.
-extern "C" int pyfem_sweeps_2d(const void* coeff, int coeff_bf16,
-                               const void* invd, const void* b,
-                               const void* x0, void* xout, void* rout,
-                               const float* omegas, int nsweeps,
-                               int first_elem, int rmode, int g, int tile_y,
-                               int tile_x, int nd, int ny, int nx,
-                               void* stream) {
+#define SWEEPS_ENTRY_PARAMS                                                 \
+  const void *coeff, int coeff_bf16, const void *invd, const void *b,      \
+      const void *x0, void *xout, void *rout, const float *omegas,         \
+      int nsweeps, int first_elem, int rmode, int g, int tile_y,           \
+      int tile_x, int nd, int ny, int nx, void *stream
+#define SWEEPS_ENTRY_ARGS                                                   \
+  coeff, coeff_bf16, invd, b, x0, xout, rout, omegas, nsweeps, first_elem, \
+      rmode, g, tile_y, tile_x, nd, ny, nx, stream
+
+namespace {
+
+template <bool FULL>
+int sweeps_call(SWEEPS_ENTRY_PARAMS) {
   const int steps = nsweeps - first_elem + (rmode > 0 ? 1 : 0);
   if (invd == nullptr || xout == nullptr || nsweeps < 1 ||
       nsweeps > kMaxSweeps || (first_elem != 0 && first_elem != 1) ||
@@ -653,16 +738,30 @@ extern "C" int pyfem_sweeps_2d(const void* coeff, int coeff_bf16,
   float* xo = static_cast<float*>(xout);
   float* ro = static_cast<float*>(rout);
   if (nd == 2)
-    return coeff_bf16
-               ? launch_group<2, __nv_bfloat16>(coeff, f(invd), f(b), f(x0),
-                                                xo, ro, ny, nx, grp, tile_y,
-                                                tile_x, s)
-               : launch_group<2, float>(coeff, f(invd), f(b), f(x0), xo, ro,
-                                        ny, nx, grp, tile_y, tile_x, s);
-  return coeff_bf16
-             ? launch_group<1, __nv_bfloat16>(coeff, f(invd), f(b), f(x0), xo,
-                                              ro, ny, nx, grp, tile_y, tile_x,
-                                              s)
-             : launch_group<1, float>(coeff, f(invd), f(b), f(x0), xo, ro, ny,
-                                      nx, grp, tile_y, tile_x, s);
+    return coeff_bf16 ? launch_group<2, FULL, __nv_bfloat16>(
+                            coeff, f(invd), f(b), f(x0), xo, ro, ny, nx, grp,
+                            tile_y, tile_x, s)
+                      : launch_group<2, FULL, float>(
+                            coeff, f(invd), f(b), f(x0), xo, ro, ny, nx, grp,
+                            tile_y, tile_x, s);
+  return coeff_bf16 ? launch_group<1, FULL, __nv_bfloat16>(
+                          coeff, f(invd), f(b), f(x0), xo, ro, ny, nx, grp,
+                          tile_y, tile_x, s)
+                    : launch_group<1, FULL, float>(
+                          coeff, f(invd), f(b), f(x0), xo, ro, ny, nx, grp,
+                          tile_y, tile_x, s);
 }
+
+}  // namespace
+
+// All nd*nd*9 planes (K2 full storage).
+extern "C" int pyfem_sweeps_2d(SWEEPS_ENTRY_PARAMS) {
+  return sweeps_call<true>(SWEEPS_ENTRY_ARGS);
+}
+
+// The kept planes of sym_planes_2d (K2 half-symmetric storage).
+extern "C" int pyfem_sweeps_2d_sym(SWEEPS_ENTRY_PARAMS) {
+  return sweeps_call<false>(SWEEPS_ENTRY_ARGS);
+}
+#undef SWEEPS_ENTRY_PARAMS
+#undef SWEEPS_ENTRY_ARGS

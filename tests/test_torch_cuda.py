@@ -17,8 +17,9 @@ in every form (quad4, hex8, tet10, brick20; elasticity and Poisson) on
 jittered meshes, the determinism of the matrix-free operator and of a
 CG solve, ``kernel="cuda"`` never taking a plain version on a CUDA
 tensor, the 2D ``elem_path="cuda"`` hierarchy against the uniform
-one, K2-sym (every mode) on
-65x33 and 13x7 grids, and three ``DeviceTopo``
+one, K2-sym as K2 (each call with a sweep one launch, equal to the step
+kernel's chain bit for bit; planes framed by NaN change nothing), and
+three ``DeviceTopo``
 iterations at 65x33 with a bit-for-bit resume; K1 nd=1 on the Newton
 coefficient field c = h(1 + u^2) >= 1 on every level, K9 nd=1 on the
 nonsymmetric Newton tangent planes (float32) and the float64 flux, and
@@ -168,7 +169,7 @@ def _k2_calls(ck, lk, b, x0):
 
 
 def _k2_step_chain(planes, dk, b, x, kw):
-    """A K2 call by the step kernel: one ``pyfem_smooth_2d`` launch a
+    """A K2 call by the step kernel: one ``pyfem_smooth_2d[_sym]`` launch a
     sweep (from x0 = 0 the first is elementwise) and one for the
     residual."""
     from pyfem_gpu_testflight_tpu_torch.ops import _cuda
@@ -176,10 +177,12 @@ def _k2_step_chain(planes, dk, b, x, kw):
 
     nd, ny, nx = dk.shape
     ptr = lambda t: None if t is None else t.data_ptr()
+    entry = ("pyfem_smooth_2d" if fs.is_full_storage_2d(planes, nd)
+             else "pyfem_smooth_2d_sym")
 
     def step(xin, om, mode):
         out = torch.empty_like(dk)
-        _cuda.launch("pyfem_smooth_2d", planes.data_ptr(),
+        _cuda.launch(entry, planes.data_ptr(),
                      int(planes.dtype == torch.bfloat16), dk.data_ptr(),
                      ptr(b), ptr(xin), out.data_ptr(), nd, ny, nx,
                      float(om), mode, _cuda.stream_ptr(dk))
@@ -192,14 +195,24 @@ def _k2_step_chain(planes, dk, b, x, kw):
     return fs._outputs(x, r, kw["niter"], kw["want_resid"])
 
 
-@pytest.mark.parametrize("nd", [1, 2])
-@pytest.mark.parametrize("shape", _K2_GRIDS)
-def test_k2_matches_plain_on_card(dev, nd, shape):
-    """K2 on full storage in every call form (:func:`_k2_calls`): within
+def _nan_framed(t):
+    """``t`` copied into a NaN-filled buffer, 64 bytes in: what a staged
+    chunk reads past the planes' ends is NaN."""
+    buf = torch.full((t.numel() + 128 // t.element_size(),), float("nan"),
+                     dtype=t.dtype, device=t.device)
+    off = 64 // t.element_size()
+    v = buf[off:off + t.numel()].view(t.shape)
+    v.copy_(t)
+    return v
+
+
+def _k2_case(dev, shape, nd, sym):
+    """K2 in one storage in every call form (:func:`_k2_calls`): within
     1e-5 of max|plain| (a residual of max|b| where that is larger) or
-    equal to the step kernel's chain, a repeat call bit-identical, one
-    launch per call up to the sweep budget (one per sweep group past
-    it)."""
+    equal to the step kernel's chain, a repeat call and a call on the
+    planes framed by NaN bit-identical, one launch per call up to the
+    sweep budget (one per sweep group past it).  On half storage every
+    call with a sweep equals the step kernel's chain bit for bit."""
     from pyfem_gpu_testflight_tpu_torch import multigrid
     from pyfem_gpu_testflight_tpu_torch.ops import _cuda
     from pyfem_gpu_testflight_tpu_torch.ops import fused_assemble as fa
@@ -214,29 +227,38 @@ def test_k2_matches_plain_on_card(dev, nd, shape):
     rho = torch.as_tensor(rng.uniform(0.2, 1.0, (ny, nx)),
                           dtype=torch.float32, device=dev)
     ck, dk, lk = fa.assemble_pack_2d(rho, st.maskf, st.W, a.N, nd=nd, p=3.0,
-                                     lp_dtype=torch.bfloat16)
+                                     lp_dtype=torch.bfloat16, sym=sym)
+    assert ck.shape[0] == (len(fs.sym_planes_2d(nd)) if sym else nd * nd * 9)
     f = lambda: torch.where(st.mask, 0.0, torch.as_tensor(
         rng.standard_normal((nd, ny, nx)), dtype=torch.float32, device=dev))
     b, x0 = f(), f()
+    step, sweeps = (("pyfem_smooth_2d_sym", "pyfem_sweeps_2d_sym") if sym
+                    else ("pyfem_smooth_2d", "pyfem_sweeps_2d"))
     for planes, bb, x, kw, held in _k2_calls(ck, lk, b, x0):
         n0 = dict(_cuda.launches)
         got = fs.fused_sweeps_2d(planes, dk, bb, x, **kw)
         torch.cuda.synchronize()
         steps = (kw["niter"] - (x is None) + kw["want_resid"])
         if kw["niter"] == 0:
-            want = {"pyfem_smooth_2d": 1, "pyfem_sweeps_2d": 0}
+            want = {step: 1, sweeps: 0}
         else:
-            want = {"pyfem_smooth_2d": 0, "pyfem_sweeps_2d": max(
-                1, -(-steps // fs.SWEEP_BUDGET_2D))}
+            want = {step: 0, sweeps: max(1, -(-steps // fs.SWEEP_BUDGET_2D))}
         assert {k: _cuda.launches[k] - n0[k] for k in want} == want, kw
         ref = (fs.fused_sweeps_2d_plain(planes, dk, bb, x, **kw)
                if held == "plain" else
                _k2_step_chain(planes, dk, bb, x, kw))
+        chain = (_k2_step_chain(planes, dk, bb, x, kw)
+                 if sym and kw["niter"] > 0 else None)
         again = fs.fused_sweeps_2d(planes, dk, bb, x, **kw)
-        got, ref, again = (v if isinstance(v, tuple) else (v,)
-                           for v in (got, ref, again))
-        for i, (g, r, h) in enumerate(zip(got, ref, again)):
+        framed = fs.fused_sweeps_2d(_nan_framed(planes), dk, bb, x, **kw)
+        got, ref, again, framed, chain = (
+            v if isinstance(v, tuple) or v is None else (v,)
+            for v in (got, ref, again, framed, chain))
+        for i, (g, r, h, w) in enumerate(zip(got, ref, again, framed)):
             assert torch.equal(g, h), kw
+            assert torch.equal(g, w), (kw, i, planes.dtype, "NaN frame")
+            if chain is not None:
+                assert torch.equal(g, chain[i]), (kw, i, planes.dtype)
             if held == "steps":
                 assert torch.equal(g, r), (kw, i, planes.dtype)
                 continue
@@ -245,6 +267,13 @@ def test_k2_matches_plain_on_card(dev, nd, shape):
                 scale = max(scale, float(bb.abs().max()))
             err = float((g - r).abs().max())
             assert err <= TOL * scale, (kw, i, planes.dtype, err, scale)
+
+
+@pytest.mark.parametrize("nd", [1, 2])
+@pytest.mark.parametrize("shape", _K2_GRIDS)
+def test_k2_matches_plain_on_card(dev, nd, shape):
+    """K2 on full storage (:func:`_k2_case`)."""
+    _k2_case(dev, shape, nd, sym=False)
 
 
 def test_cuda_wrappers_refuse_float64(level):
@@ -998,46 +1027,12 @@ def test_k1_sym_matches_plain_on_card(dev, nd, shape):
 
 
 @pytest.mark.parametrize("nd", [1, 2])
-@pytest.mark.parametrize("variant", ["pre_bf16", "post_f32", "matvec",
-                                     "resid_f32"])
-@pytest.mark.parametrize("shape", [(NY, NX), (7, 13)])
-def test_k2_sym_matches_plain_on_card(dev, nd, variant, shape):
-    from pyfem_gpu_testflight_tpu_torch import multigrid
-    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
-    from pyfem_gpu_testflight_tpu_torch.ops import fused_assemble as fa
-    from pyfem_gpu_testflight_tpu_torch.ops import fused_smooth as fs
-
-    ny, nx = shape
-    a = multigrid.GMGAssembler(nx, ny, 2.0, 1.0,
-                               "elasticity" if nd == 2 else "poisson",
-                               p=3.0, device=dev)
-    st = a.static_levels[0]
-    rng = np.random.default_rng(5)
-    rho = torch.as_tensor(rng.uniform(0.2, 1.0, shape), dtype=torch.float32,
-                          device=dev)
-    ck, dk, lk = fa.assemble_pack_2d(rho, st.maskf, st.W, a.N, nd=nd, p=3.0,
-                                     lp_dtype=torch.bfloat16, sym=True)
-    f = lambda: torch.where(st.mask, 0.0, torch.as_tensor(
-        rng.standard_normal((nd, ny, nx)), dtype=torch.float32, device=dev))
-    b, x0 = f(), f()
-    om = multigrid.smoothing_omegas(2, 2.3)
-    args, kw = {
-        "pre_bf16": ((lk, dk, b, None), dict(niter=2, want_resid=True,
-                                             omega=om)),
-        "post_f32": ((ck, dk, b, x0), dict(niter=2, omega=om[::-1])),
-        "matvec": ((ck, dk, None, x0), dict(niter=0, want_resid=True,
-                                            neg_resid=True)),
-        "resid_f32": ((ck, dk, b, x0), dict(niter=0, want_resid=True)),
-    }[variant]
-    n0 = _cuda.launches["pyfem_smooth_2d_sym"]
-    got = fs.fused_sweeps_2d(*args, **kw)
-    ref = fs.fused_sweeps_2d_plain(*args, **kw)
-    torch.cuda.synchronize()
-    assert _cuda.launches["pyfem_smooth_2d_sym"] > n0
-    got = got if isinstance(got, tuple) else (got,)
-    ref = ref if isinstance(ref, tuple) else (ref,)
-    for g, r in zip(got, ref):
-        assert _rel(g, r) <= TOL
+@pytest.mark.parametrize("shape", _K2_GRIDS)
+def test_k2_sym_matches_plain_on_card(dev, nd, shape):
+    """K2-sym, on the kept planes of half storage (:func:`_k2_case`): one
+    launch of ``pyfem_sweeps_2d_sym`` a call, each equal to the step
+    kernel's chain bit for bit."""
+    _k2_case(dev, shape, nd, sym=True)
 
 
 def test_device_topo_runs_on_card_and_resumes_bit_for_bit(dev, tmp_path):
