@@ -194,7 +194,33 @@ Phases:
    on the arm's fine matrix as DIA (float32, against U1 and timed) and
    on the 2D bench grid (``structured_dia_2d(1025, 513, 2)``: Jacobi-PCG
    on ``DiaOperator.bc_matvec`` counts its launches; against plain,
-   timed with the L2 flushed).
+   timed with the L2 flushed);
+12. "surface": the user-facing surface on the 1025x513 GMG solves.
+   12a: the p=3 cantilever (1,051,650 dof, float32, rho ~ U[0.3, 1]) with
+   bench 2D's GMG options through ``Assembler(model).solve(method="gmg",
+   rtol=1e-6)``, then ``postprocess.quadrature_strains``,
+   ``quadrature_stresses(u, rho)``, ``nodal_strains``, ``mass_matrix`` and
+   ``lumped_mass``: CUDA-event times and peak memory of each, the float32
+   results against float64 on the same u and an affine field's exact
+   strains (each within ``FLOOR_FACTOR`` x u32 x max sum |grad N||u|),
+   the lumped mass sum, and iterations, K1 and K2 launches against phase
+   4's step at the same p and density (the solution bit for bit);
+   12d: those stages under ``time_this`` (``timer_on``,
+   ``timer_to_stdout``), ``saved_times`` holding each, each timer reading
+   no less than the stage's CUDA-event time; 12b: ``LinearPoisson`` at
+   1025x513 (525,825 dof, K1/K2 at nd=1): KS at pval 10 and 100 against
+   max u, ``ks_adjoint_rhs``, ``solve_adjoint(method="gmg")`` (its
+   float64 true residual <= 4 x its float32 floor) and the design
+   gradient, and at 257x129 in float64 the gradient's directional
+   derivative against a complex step (1e-12); 12c:
+   ``natural_frequencies_device`` (float64 LOBPCG) against eigsh on the
+   same lumped mass from 129x65 down to the first grid meeting rtol 1e-6,
+   its iterations, operator applications and time, and
+   ``natural_frequencies`` at 257x129 (Rayleigh quotient); 12e: every
+   ported example's ``main`` once on the card at its default size (topo:
+   ``--solver gmg``, 3 MMA iterations; K1, K2, K9 launched;
+   performance_study ``--kernel cuda``: K8), VTK output in a temporary
+   directory, printout in ``build/chip_smoke/example_*.log``.
 
 ``python3 chip_smoke.py --pass-levels [--root DIR]`` runs only
 ``pass_levels`` on the package under DIR (default: this checkout), so a
@@ -204,7 +230,7 @@ the readings ``SOL64_TOL`` is set from; ``--newton-floor`` only phase
 8's 257^2 yardstick on four design vectors, the readings
 ``NEWTON64_TOL`` is set from; ``--newton`` only phase 8;
 ``--quadratic`` only phase 9; ``--topo3d`` only phase 10;
-``--unstructured`` only phase 11;
+``--unstructured`` only phase 11; ``--surface`` only phase 12;
 ``--stencil-2d-kernels [--root DIR]`` only K2, K2-sym and K9, on the
 package under DIR: every K2 and K2-sym call form at 1025x513 nd=2 and
 1025^2 nd=1 and every K9 form (nd 1 and 2 in f32 and f64 at 1025x513,
@@ -2487,18 +2513,19 @@ def breakdown(label, step, args, asm, rho, b, single_ms):
     return asm_ms
 
 
-def bench2d(dev, pt, multigrid, i2p, p2i, **route):
+def bench2d(dev, pt, multigrid, i2p, p2i, p=0.0, **route):
     """The 2D bench configuration (bench.py run_2d) through the package's
     public functions: (model, assembler, rho, rhs, step, (Lx, Ly)), where
     ``step(rho, rhs, chain)`` assembles the hierarchy and solves, and
-    returns (u, iterations, residual norm, b, gmg)."""
+    returns (u, iterations, residual norm, b, gmg).  ``p``: the RAMP
+    exponent (the bench's 0; phase 12 runs the step at 3)."""
     import torch
 
     conn, X, fixed, force, (Lx, Ly) = problem(NX, NY)
-    model = pt.LinearElasticity("quad4", X, conn, fixed, None, force, p=0.0,
+    model = pt.LinearElasticity("quad4", X, conn, fixed, None, force, p=p,
                                 dtype=torch.float32, device=dev)
     asm = multigrid.GMGAssembler(
-        NX, NY, Lx, Ly, "elasticity", p=0.0, dtype=torch.float32,
+        NX, NY, Lx, Ly, "elasticity", p=p, dtype=torch.float32,
         device=dev, nu_pre=2, nu_post=2, min_n=5, coarse_dense_max=4096,
         smoother_dtype=torch.bfloat16, omega="cheby", **route,
     )
@@ -5269,6 +5296,493 @@ def run_unstructured():
     return 0
 
 
+# -- phase 12: the user-facing surface -------------------------------------
+
+SURF_SEED = SEED + 12
+SURF_P = 3.0
+SURF_PVAL = 10.0       # KS aggregation parameter of the adjoint chain
+SURF_YARD = (257, 129)  # complex-step gradient and host eigsh grid
+# natural_frequencies_device: grids tried from 129x65 down (the first
+# one meeting rtol 1e-6 against eigsh within maxiter=200 is reported)
+SURF_EIG_GRIDS = ((129, 65), (65, 33), (33, 17), (17, 9))
+SURF_EIG_RTOL = 1e-6
+SURF_MASS_TOL = 1e-5   # float32 lumped-mass sum against density*area*nd
+SURF_EXAMPLES = (
+    ("block_3d", ("--vtk", "{d}/block.vtk")),
+    ("heat_conduction", ("--vtk", "{d}/heat.vtk")),
+    ("helmholtz_filter", ("--vtk", "{d}/helmholtz.vtk")),
+    ("nonlinear_poisson_ex", ("--vtk", "{d}/nonlinear_poisson.vtk")),
+    ("quad_tri", ("--out-dir", "{d}")),
+    ("element_plot", ("--out-dir", "{d}")),
+    ("topo", ("--solver", "gmg", "--max_iterations", "3", "--prefix",
+              "{d}/topo")),
+    ("performance_study", ("--kernel", "cuda")),
+)
+SURF_NAMES = ("pyfem_assemble_2d", "pyfem_smooth_2d", "pyfem_sweeps_2d",
+              "pyfem_stencil_2d", "pyfem_stiffness_3d")
+
+
+def surf_gmg_options():
+    """bench 2D's GMG options (bench.py run_2d), as
+    ``attach_structured_grid`` takes them."""
+    import torch
+
+    return dict(nu_pre=2, nu_post=2, min_n=5, coarse_dense_max=4096,
+                smoother_dtype=torch.bfloat16, omega="cheby")
+
+
+def surf_counts():
+    """The phase's kernel launch counts since the last reset (K2 as the
+    sum of its entries)."""
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+
+    c = {k: _cuda.launches.get(k, 0) for k in SURF_NAMES}
+    c["K2"] = k2_launches(c)
+    return c
+
+
+def grad_floor(model, u):
+    """max over quadrature points of sum_n |grad N_n| |u_n| (each
+    component pair), the scale of a float32 strain's rounding: a strain
+    computed in float32 is off by a few u32 times it."""
+    import torch
+    from pyfem_gpu_testflight_tpu_torch.ops import geometry
+
+    _, Ng = geometry.shape_gradients(model.Xe.double(), model.dN.double())
+    nd = model.ndof_per_node
+    ue = u.double()[model.conn_dof].reshape(model.nelems,
+                                            model.nnodes_per_elem, nd).abs()
+    S = torch.einsum("eqnl,ena->eqal", Ng.abs(), ue)
+    return float((S + S.transpose(-1, -2)).max())
+
+
+def surface_elasticity(dev, pt, multigrid, i2p, p2i):
+    """12a + 12d: the 1025x513 cantilever through Assembler.solve and the
+    post-processing functions, each stage under ``time_this`` with CUDA
+    events inside it; returns the counts and readings."""
+    import torch
+    from pyfem_gpu_testflight_tpu_torch import postprocess as post
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+    from pyfem_gpu_testflight_tpu_torch.utils import profile
+
+    conn, X, fixed, force, (Lx, Ly) = problem(NX, NY)
+    model = pt.LinearElasticity("quad4", X, conn, fixed, None, force,
+                                p=SURF_P, dtype=torch.float32, device=dev)
+    model.attach_structured_grid(NX, NY, **surf_gmg_options())
+    rho = np.random.default_rng(SURF_SEED).uniform(0.3, 1.0, model.nnodes)
+    rho_t = torch.as_tensor(rho, dtype=torch.float32, device=dev)
+    asm = pt.Assembler(model)
+    solve = lambda: asm.solve(method="gmg", rtol=1e-6, rho=rho_t)
+    u = solve()
+    stages = (
+        ("solve", solve),
+        ("quadrature_strains", lambda: post.quadrature_strains(model, u)),
+        ("quadrature_stresses",
+         lambda: post.quadrature_stresses(model, u, rho_t)),
+        ("nodal_strains", lambda: post.nodal_strains(model, u)),
+        ("mass_matrix", lambda: post.mass_matrix(model, density=2.5)),
+        ("lumped_mass", lambda: post.lumped_mass(model, density=2.5)),
+    )
+    # warm-up: allocator, hierarchy statics, the sorted segments (built
+    # on first use), first-call library set-up; the cold times are kept
+    cold = {}
+    for name, fn in stages:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        cold[name] = 1e3 * (time.perf_counter() - t0)
+    log("surface 12a first (cold) calls, host clock ms: " + ", ".join(
+        f"{n} {v:.1f}" for n, v in cold.items()))
+    profile.timer_on()
+    profile.timer_to_stdout()
+    profile.timer_set_threshold(0.0)
+    profile.saved_times.clear()
+    out, ev_ms, mem = {}, {}, {}
+    counts = None
+    try:
+        for name, fn in stages:
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+
+            def run(fn=fn, ev=ev):
+                ev[0].record()
+                r = fn()
+                ev[1].record()
+                return r
+
+            run.__qualname__ = f"surface.{name}"
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            if name == "solve":
+                _cuda.reset_launches()
+            out[name] = profile.time_this(run)()
+            if name == "solve":
+                counts = surf_counts()
+                k = model.last_solve_stats["iters"]
+            mem[name] = torch.cuda.max_memory_allocated() - base
+            ev_ms[name] = ev[0].elapsed_time(ev[1])
+            if name == "solve":
+                u = out["solve"]
+    finally:
+        profile.timer_off()
+    timer_ms = {n.split(".", 1)[1]: v[-1]
+                for n, v in profile.saved_times.items()
+                if n.startswith("surface.")}
+    for name, _ in stages:
+        log(f"surface 12a {name}: {ev_ms[name]:.3f} ms (CUDA events), "
+            f"timer {timer_ms.get(name, float('nan')):.3f} ms, peak "
+            f"memory {mem[name] / 2**20:.1f} MiB above the allocated")
+    log(f"surface 12a: {model.ndof} dof, {k} PCG iterations, launches "
+        f"{counts}")
+    # 12d: every stage kept, each timer reading >= its device span
+    check(set(timer_ms) == {n for n, _ in stages},
+          "surface 12d: saved_times holds every stage")
+    check(all(timer_ms[n] >= ev_ms[n] for n, _ in stages if n in timer_ms),
+          "surface 12d: each timer reading >= the stage's CUDA-event time "
+          "(the timer synchronizes)")
+
+    # phase 4's configuration (bench2d's step) at this p and density
+    _m4, _asm4, _r4, rhs4, step4, _L = bench2d(dev, pt, multigrid, i2p, p2i,
+                                               p=SURF_P)
+    (u4, k4, _rn4, _b4, gmg4), c4, _ms4 = solve_and_measure(
+        step4, (rho_t, rhs4, rhs4), SURF_NAMES, "surface 12a phase-4 step")
+    c4["K2"] = k2_launches(c4)
+    log(f"surface 12a phase-4 step: {k4} iterations, launches {c4}")
+    # the model's solve starts from x0 = 0 (its Dirichlet values): one
+    # residual matvec, one K2 launch, more than the step's
+    check(k == k4 and counts["pyfem_assemble_2d"] == c4["pyfem_assemble_2d"]
+          == len(gmg4.levels) and counts["K2"] == c4["K2"] + 1,
+          f"surface 12a: iterations ({k} vs {k4}), K1 ({counts['pyfem_assemble_2d']}"
+          f" vs {c4['pyfem_assemble_2d']}) and K2 ({counts['K2']} vs "
+          f"{c4['K2']} + 1, the x0 residual) equal phase 4's step")
+    du = float((u - u4).abs().max() / u4.abs().max())
+    check(du == 0.0, f"surface 12a: the solution equals the phase-4 step's "
+          f"bit for bit (max rel diff {du:.3e})")
+    del _m4, _asm4, gmg4, u4
+
+    # float32 against float64 on the same u
+    m64 = pt.LinearElasticity("quad4", X, conn, fixed, None, force,
+                              p=SURF_P, dtype=torch.float64, device=dev)
+    u64 = u.double()
+    S = grad_floor(m64, u64)
+    cs = 2.0 * model.mu + abs(model.lam)
+    errs = {}
+    for name, fn, args, scale in (
+            ("quadrature_strains", post.quadrature_strains, (), 1.0),
+            ("quadrature_stresses", post.quadrature_stresses, (rho_t,), cs),
+            ("nodal_strains", post.nodal_strains, (), 1.0)):
+        ref = fn(m64, u64, *args)
+        got = out[name]
+        check(got.dtype == torch.float32 and got.shape == ref.shape
+              and bool(torch.isfinite(got).all()),
+              f"surface 12a {name}: float32, finite, shape "
+              f"{tuple(ref.shape)}")
+        err = float((got.double() - ref).abs().max())
+        errs[name] = dict(
+            rel=err / float(ref.abs().max()),
+            floor_ratio=err / (2.0 ** -24 * scale * S))
+        log(f"surface 12a {name}: float32 vs float64 max-abs "
+            f"{err:.3e} (rel to max {errs[name]['rel']:.3e}), "
+            f"{errs[name]['floor_ratio']:.2f} x the rounding scale")
+        check(errs[name]["floor_ratio"] <= FLOOR_FACTOR,
+              f"surface 12a {name}: float32 within {FLOOR_FACTOR:g} x "
+              f"u32 x max(sum |grad N| |u|) of float64")
+    del m64
+    area = float(np.ptp(X[:, 0]) * np.ptp(X[:, 1]))
+    msum = float(out["lumped_mass"].double().sum())
+    check(abs(msum / (2.5 * area * 2) - 1.0) <= SURF_MASS_TOL,
+          f"surface 12a: lumped mass sums to density x area x nd "
+          f"({msum:.7f} vs {2.5 * area * 2:.7f})")
+    check(tuple(out["mass_matrix"].shape) == (model.nelems, 8, 8),
+          "surface 12a: element mass matrices (nelems, 8, 8)")
+
+    # an exact affine field: constant strains at every quad and node
+    A = np.array([[2e-3, 1e-3], [-5e-4, 3e-3]])
+    ua = torch.as_tensor((X @ A.T).reshape(-1), dtype=torch.float32,
+                         device=dev)
+    exact = torch.tensor([A[0, 0], A[1, 1], A[0, 1] + A[1, 0]],
+                         dtype=torch.float64, device=dev)
+    Sa = grad_floor(model, ua)
+    for fn in (post.quadrature_strains, post.nodal_strains):
+        err = float((fn(model, ua).double() - exact).abs().max())
+        log(f"surface 12a affine field {fn.__name__}: max-abs error "
+            f"{err:.3e}, {err / (2.0 ** -24 * Sa):.2f} x the rounding scale")
+        check(err <= FLOOR_FACTOR * 2.0 ** -24 * Sa,
+              f"surface 12a affine field: {fn.__name__} exact to "
+              f"{FLOOR_FACTOR:g} x u32 x max(sum |grad N| |u|)")
+    return dict(counts=counts, iters=k, ev_ms=ev_ms, timer_ms=timer_ms,
+                mem=mem, errs=errs, ndof=model.ndof, cold=cold)
+
+
+def poisson_model(pt, dev, nx, ny, dtype, p=SURF_P):
+    import torch
+
+    conn, X, fixed = pt.ProblemCreator(nx, ny).create_poisson_problem()
+    return pt.LinearPoisson("quad4", X, conn, fixed, p=p, dtype=dtype,
+                            device=dev,
+                            gfunc=lambda x: torch.ones_like(x[..., 0]))
+
+
+def surface_ks(dev, pt):
+    """12b: KS, its adjoint rhs, the gmg adjoint solve and the design
+    gradient on the 1025x513 Poisson model (K1/K2 at nd=1); the adjoint's
+    float64 true residual; the complex-step gradient at 257x129."""
+    import torch
+    from scipy.sparse.linalg import spsolve
+    from pyfem_gpu_testflight_tpu_torch import assembly
+    from pyfem_gpu_testflight_tpu_torch import postprocess as post
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+
+    m = poisson_model(pt, dev, NX, NY, torch.float32)
+    m.attach_structured_grid(NX, NY, **surf_gmg_options())
+    rho = torch.as_tensor(
+        np.random.default_rng(SURF_SEED + 1).uniform(0.3, 1.0, m.nnodes),
+        dtype=torch.float32, device=dev)
+    asm = pt.Assembler(m)
+
+    def chain():
+        u = asm.solve(method="gmg", rtol=1e-6, rho=rho)
+        ks = [post.ks_aggregate(m, u, pv) for pv in (SURF_PVAL, 100.0)]
+        b = m.bc.zero_fixed(post.ks_adjoint_rhs(m, u, SURF_PVAL))
+        psi = post.solve_adjoint(m, b, rho=rho, method="gmg", rtol=1e-6)
+        k_adj = m.last_solve_stats["iters"]
+        grad = -m.k_dv_sens(rho, psi, u)
+        return u, ks, b, psi, k_adj, grad
+
+    chain()
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    u, ks, b, psi, k_adj, grad = chain()
+    e1.record()
+    e1.synchronize()
+    counts = surf_counts()
+    ms = e0.elapsed_time(e1)
+    umax = float(u.max())
+    ks10, ks100 = (float(v) for v in ks)
+    log(f"surface 12b: {m.ndof} dof, KS(10) {ks10:.6e}, KS(100) "
+        f"{ks100:.6e}, max u {umax:.6e}; adjoint {k_adj} iterations; "
+        f"solve + KS + adjoint + gradient {ms:.3f} ms (CUDA events); "
+        f"launches {counts}")
+    check(abs(ks100 - umax) < abs(ks10 - umax),
+          "surface 12b: KS nears max(u) as pval grows")
+    check(counts["pyfem_assemble_2d"] > 0 and counts["K2"] > 0,
+          "surface 12b: K1 and K2 (nd=1) launched")
+    check(bool(torch.isfinite(grad).all()) and grad.shape == (m.nnodes,),
+          "surface 12b: design gradient finite, shape (nnodes,)")
+    # the adjoint's float64 true residual against its float32 floor
+    m64 = poisson_model(pt, dev, NX, NY, torch.float64)
+    Ke = m64.element_jacobian(rho)
+    mask = m64.bc.mask
+    op = lambda K, v: assembly.bc_elem_matvec(
+        (K, m64.conn_dof, mask, m64.segments), v)
+    b64, psi64 = b.double(), psi.double()
+    bn = float(torch.linalg.norm(b64))
+    true = float(torch.linalg.norm(b64 - op(Ke, psi64))) / bn
+    floor = 2.0 ** -24 * float(torch.linalg.norm(op(Ke.abs(),
+                                                     psi64.abs()))) / bn
+    log(f"surface 12b adjoint: float64 true residual {true:.3e}, float32 "
+        f"floor {floor:.3e} (ratio {true / floor:.2f})")
+    check(true <= FLOOR_FACTOR * floor,
+          f"surface 12b adjoint: true residual <= {FLOOR_FACTOR:g} x "
+          f"float32 floor")
+    del m64, Ke
+
+    # the complete KS design gradient against a complex step (float64,
+    # direct solves), as tests/test_postprocess.py holds the JAX package
+    nx, ny = SURF_YARD
+    my = poisson_model(pt, dev, nx, ny, torch.float64)
+    rng = np.random.default_rng(SURF_SEED + 2)
+    rho_y = rng.uniform(0.3, 1.0, my.nnodes)
+    pvec = rng.uniform(0.0, 1.0, my.nnodes)
+    _, uy = my.compliance(rho_y, solver="direct")
+    dks = post.ks_adjoint_rhs(my, uy, SURF_PVAL)
+    psi_y = post.solve_adjoint(my, my.bc.zero_fixed(dks), rho=rho_y,
+                               method="direct")
+    g = -my.k_dv_sens(rho_y, psi_y, uy).cpu().numpy()
+    h = 1e-30
+    K = my.compute_jacobian(rho_y + 1j * h * pvec)
+    Kbc, rhsbc = my.bc.apply_scipy(K, my.compute_rhs().cpu().numpy())
+    fd = complex(post.ks_aggregate(my, spsolve(Kbc, rhsbc),
+                                   SURF_PVAL)).imag / h
+    cs_err = abs(pvec.dot(g) - fd) / abs(fd)
+    log(f"surface 12b complex step at {nx}x{ny}: directional derivative "
+        f"{pvec.dot(g):.15e} vs {fd:.15e}, rel {cs_err:.3e}")
+    check(cs_err < 1e-12, "surface 12b: KS design gradient = complex step "
+          "to 1e-12")
+    return dict(counts=counts, ms=ms, true=true, floor=floor,
+                cs_err=cs_err, ndof=m.ndof)
+
+
+def surface_eigen(dev, pt):
+    """12c: natural_frequencies_device (float64, einsum elements) against
+    host eigsh on the same lumped mass, from 129x65 down to the first
+    grid meeting rtol 1e-6; natural_frequencies (host shift-invert) at
+    257x129 with the Rayleigh-quotient check."""
+    import torch
+    from scipy.sparse import diags, linalg as sla
+    from pyfem_gpu_testflight_tpu_torch import postprocess as post
+
+    found = None
+    tried = []
+    for nx, ny in SURF_EIG_GRIDS:
+        conn, X, fixed, force, _L = problem(nx, ny)
+        m = pt.LinearElasticity("quad4", X, conn, fixed, None, force,
+                                dtype=torch.float64, device=dev)
+        K = m.assemble_scipy(m.element_jacobian())
+        ml = post.lumped_mass(m).cpu().numpy()
+        free = np.setdiff1d(np.arange(m.ndof), m.bc.fixed)
+        ref, _ = sla.eigsh(K[free][:, free].tocsc(),
+                           M=diags(ml[free]).tocsc(), k=4, sigma=0.0,
+                           which="LM")
+        ref = np.sqrt(np.maximum(np.sort(ref), 0))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        w, modes = post.natural_frequencies_device(m, k=4)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        err = float(np.abs(w.cpu().numpy() / ref - 1.0).max())
+        st = m.last_eig_stats
+        tried.append(dict(grid=f"{nx}x{ny}", ndof=m.ndof, rel=err,
+                          s=dt, **st))
+        log(f"surface 12c LOBPCG {nx}x{ny} ({m.ndof} dof): rel error "
+            f"{err:.3e} against eigsh, {st['iters']} iterations, "
+            f"{st['applies']} operator applications ({st['columns']} "
+            f"columns), {dt:.3f} s host clock")
+        if err <= SURF_EIG_RTOL:
+            found = tried[-1]
+            check(float(modes[m.bc.mask].abs().max()) == 0.0,
+                  "surface 12c: LOBPCG modes zero at fixed dofs")
+            break
+    check(found is not None, f"surface 12c: natural_frequencies_device "
+          f"meets rtol {SURF_EIG_RTOL:g} against eigsh on some grid")
+    if found:
+        log(f"surface 12c: largest grid meeting rtol {SURF_EIG_RTOL:g}: "
+            f"{found['grid']} ({found['ndof']} dof)")
+    nx, ny = SURF_YARD
+    conn, X, fixed, force, _L = problem(nx, ny)
+    m = pt.LinearElasticity("quad4", X, conn, fixed, None, force,
+                            dtype=torch.float64, device=dev)
+    t0 = time.perf_counter()
+    w, modes = post.natural_frequencies(m, k=4)
+    dt = time.perf_counter() - t0
+    K = m.assemble_scipy(m.element_jacobian())
+    M = m.assemble_scipy(post.mass_matrix(m))
+    v = modes[:, 0]
+    rq = float(np.sqrt((v @ (K @ v)) / (v @ (M @ v))))
+    log(f"surface 12c natural_frequencies {nx}x{ny}: omega "
+        f"{np.array2string(w, precision=6)}, Rayleigh quotient of mode 0 "
+        f"{rq:.9e}, {dt:.2f} s host clock")
+    check(bool(np.all(w > 0)) and bool(np.all(np.diff(w) >= -1e-9))
+          and float(np.abs(modes[m.bc.fixed]).max()) < 1e-12
+          and abs(rq / w[0] - 1.0) <= 1e-5,
+          "surface 12c: host frequencies positive, sorted, modes zero at "
+          "fixed dofs, Rayleigh quotient within 1e-5")
+    return dict(found=found, tried=tried, host_s=dt)
+
+
+def surface_examples(dev):
+    """12e: every ported example's main once on the card at its default
+    size (topo: --solver gmg, 3 MMA iterations), its VTK output in a
+    temporary directory and its printout in build/chip_smoke/; K1, K2
+    and K9 launches of topo and K8's of performance_study."""
+    import contextlib
+    import importlib
+    import io
+    import tempfile
+
+    import torch
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        for name, args in SURF_EXAMPLES:
+            argv = [a.format(d=d) for a in args] + ["--device", dev.type]
+            mod = importlib.import_module(
+                f"pyfem_gpu_testflight_tpu_torch.examples.{name}")
+            buf = io.StringIO()
+            _cuda.reset_launches()
+            t0 = time.perf_counter()
+            try:
+                with contextlib.redirect_stdout(buf):
+                    mod.main(argv)
+                torch.cuda.synchronize()
+                rc = 0
+            except Exception as exc:  # the phase reports, then fails
+                rc = f"{type(exc).__name__}: {exc}"
+            dt = time.perf_counter() - t0
+            out[name] = dict(rc=rc, s=dt, counts=surf_counts())
+            (uns_dir() / f"example_{name}.log").write_text(buf.getvalue())
+            log(f"surface 12e example {name}: exit {rc}, {dt:.2f} s host "
+                f"clock, launches {out[name]['counts']}")
+            check(rc == 0, f"surface 12e: example {name} exits with 0")
+    ct = out["topo"]["counts"]
+    check(ct["pyfem_assemble_2d"] > 0 and ct["K2"] > 0
+          and ct["pyfem_stencil_2d"] > 0,
+          "surface 12e: topo runs K1, K2 and K9")
+    check(out["performance_study"]["counts"]["pyfem_stiffness_3d"] > 0,
+          "surface 12e: performance_study --kernel cuda runs K8")
+    return out
+
+
+def phase_surface(dev, pt, multigrid, i2p, p2i):
+    """Phase 12 (see the module docstring)."""
+    t0 = time.time()
+    res = dict(elasticity=surface_elasticity(dev, pt, multigrid, i2p, p2i))
+    res["ks"] = surface_ks(dev, pt)
+    res["eigen"] = surface_eigen(dev, pt)
+    res["examples"] = surface_examples(dev)
+    log(f"surface: phase 12 took {time.time() - t0:.1f} s host clock")
+    return res
+
+
+def surface_summary(res):
+    a, b, c = res["elasticity"], res["ks"], res["eigen"]
+    return dict(
+        elasticity=dict(ndof=a["ndof"], iters=a["iters"],
+                        launches=a["counts"], ms=a["ev_ms"],
+                        cold_host_ms=a["cold"],
+                        timer_ms=a["timer_ms"],
+                        peak_mib={k: v / 2**20 for k, v in a["mem"].items()},
+                        f32_vs_f64=a["errs"]),
+        ks=dict(ndof=b["ndof"], launches=b["counts"], chain_ms=b["ms"],
+                adjoint_true=b["true"], adjoint_floor=b["floor"],
+                complex_step_rel=b["cs_err"]),
+        eigen=dict(found=c["found"], tried=c["tried"], host_s=c["host_s"]),
+        examples={k: dict(rc=v["rc"], s=v["s"], launches=v["counts"])
+                  for k, v in res["examples"].items()},
+    )
+
+
+def run_surface():
+    """``python3 chip_smoke.py --surface``: only phase 12 (with the kernel
+    build); prints the card and one JSON line of its readings."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    import pyfem_gpu_testflight_tpu_torch as pt
+    from pyfem_gpu_testflight_tpu_torch import multigrid
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+    from pyfem_gpu_testflight_tpu_torch.ops.dia import (
+        interleave_to_planar as i2p, planar_to_interleave as p2i,
+    )
+
+    log(card_line())
+    t0 = time.time()
+    _cuda.library()
+    log(f"build: {time.time() - t0:.2f} s")
+    res = phase_surface(torch.device("cuda", 0), pt, multigrid, i2p, p2i)
+    log(json.dumps({"surface": surface_summary(res)}))
+    if FAILS:
+        print("chip_smoke FAILED:\n  " + "\n  ".join(FAILS), file=sys.stderr)
+        return 1
+    return 0
+
+
 def phase_direct(dev, pt):
     """Phase 6b: host scipy direct solves against the card's CG on small
     jittered meshes (quad4 257x129 both models; tet10 and brick20 on a
@@ -5509,6 +6023,9 @@ def main():
     topo3d = phase_topo3d(dev, pt, multigrid, i2p)
     # 11. unstructured meshes: the torque arm and the C3D10 bracket
     uns = phase_unstructured(dev, pt)
+    # 12. the user-facing surface: post-processing, KS and its adjoint,
+    # natural frequencies, the profiler and the examples
+    surf = phase_surface(dev, pt, multigrid, i2p, p2i)
 
     # summary
     src = "pyfem_gpu_testflight_tpu_torch/csrc/"
@@ -5649,6 +6166,19 @@ def main():
                                           f64=newton["k9"][1])
             row["newton_nd1"] = {k_[3:]: v for k_, v in nk.items()
                                  if k_.startswith("K9 ")}
+        # phase 12's counts: 12a (elasticity, nd=2) and 12b (KS and its
+        # adjoint, nd=1) for K1/K2, the topo example for K1/K2/K9 and
+        # performance_study --kernel cuda for K8
+        if key in ("K1", "K2", "K9", "K8"):
+            entry = {"K1": "pyfem_assemble_2d", "K2": "K2",
+                     "K9": "pyfem_stencil_2d", "K8": "pyfem_stiffness_3d"}[key]
+            ex = surf["examples"]
+            row["launches_surface"] = (
+                {"performance_study": ex["performance_study"]["counts"][entry]}
+                if key == "K8" else
+                {"12a_elasticity": surf["elasticity"]["counts"][entry],
+                 "12b_ks_adjoint": surf["ks"]["counts"][entry],
+                 "topo_example": ex["topo"]["counts"][entry]})
         if key in ("K1", "K2", "K9"):
             row["max_abs_err"] = max([row["max_abs_err"]] + [
                 v["max_abs_err"] for k_, v in nk.items()
@@ -5719,6 +6249,13 @@ def main():
         f"{ub['ndof']} dof, {ub['solve']['iters']} iterations, solve "
         f"{ub['solve']['wall_s']:.2f} s ({card})")
     log(json.dumps({"unstructured": unstructured_summary(uns)}))
+    se, sk, sc = surf["elasticity"], surf["ks"], surf["eigen"]["found"]
+    log(f"surface: 1025x513 elasticity {se['iters']} PCG iterations, "
+        f"Assembler.solve {se['ev_ms']['solve']:.3f} ms, strains "
+        f"{se['ev_ms']['quadrature_strains']:.3f} ms, nodal strains "
+        f"{se['ev_ms']['nodal_strains']:.3f} ms; KS chain {sk['ms']:.3f} "
+        f"ms; LOBPCG meets rtol 1e-6 at {sc['grid']} ({card})")
+    log(json.dumps({"surface": surface_summary(surf)}))
     log(f"2D single-shot {s2:.3f} ms, chained {ch2:.3f} ms/solve; 3D "
         f"single-shot {m3['single_ms']:.3f} ms, chained {m3['ch']:.3f} "
         f"ms/solve; 3D otf single-shot {mo['single_ms']:.3f} ms, chained "
@@ -5737,6 +6274,7 @@ if __name__ == "__main__":
              run_quadratic() if "--quadratic" in sys.argv else
              run_topo3d() if "--topo3d" in sys.argv else
              run_unstructured() if "--unstructured" in sys.argv else
+             run_surface() if "--surface" in sys.argv else
              run_solution_floor() if "--solution-floor" in sys.argv else
              run_k2_witness() if "--k2-witness" in sys.argv else
              run_assembly_kernels() if "--assembly-kernels" in sys.argv

@@ -18,7 +18,12 @@ lattices (``pmg``, ``attach_pmg`` / ``solve(method="pmg")``) — and
 unstructured meshes: the Abaqus ``.inp`` reader (``InpParser``), the
 native host set-up (``native``), the DIA operator (``ops.dia``, kernel
 U2) and smoothed-aggregation AMG-PCG on CSR levels (``unstructured``,
-kernel U1; ``solve(method="amg")``), with mesh-synthesizing examples in
+kernel U1; ``solve(method="amg")``) — and the user-facing surface:
+strain/stress recovery, mass matrices, natural frequencies (host eigsh
+and a matrix-free device LOBPCG), KS aggregation and adjoint solves
+(``postprocess``), the reference-style ``compat`` layer, the
+``Assembler`` facade and the ``time_this`` / ``timer_*`` call-graph
+profiler (``utils.profile``), with the reference's example scripts in
 ``examples``.  On CPU tensors each kernel's plain PyTorch version runs
 instead.
 
@@ -40,14 +45,22 @@ from .models import (  # noqa: E402
     FEModel, Helmholtz, LinearElasticity, LinearPoisson, NonlinearPoisson,
     NonlinearPoisson2D,
 )
+from .assembler import Assembler  # noqa: E402
+from .utils.profile import (  # noqa: E402
+    time_this,
+    timer_off,
+    timer_on,
+    timer_set_threshold,
+    timer_to_stdout,
+)
 
 __version__ = "0.1.0"
 
-# The JAX package's exports, less Assembler and the timers time_this /
-# timer_* (slice 7, utils/profile.py); plus the port's own multigrid, opt,
-# pmg and NonlinearPoisson2D.
+# The JAX package's exports, plus the port's own multigrid, opt, pmg and
+# NonlinearPoisson2D.
 __all__ = [
     "fix_orientation",
+    "Assembler",
     "DirichletBC",
     "ElementType",
     "FEModel",
@@ -68,5 +81,10 @@ __all__ = [
     "pmg",
     "solvers",
     "structured_mesh",
+    "time_this",
+    "timer_off",
+    "timer_on",
+    "timer_set_threshold",
+    "timer_to_stdout",
     "to_vtk",
 ]

@@ -426,8 +426,11 @@ class FEModel:
         ).reshape((nd,) + shape)
         b = torch.where(lv0.mask, vals_g, rhs_g)
         x0 = torch.where(lv0.mask, vals_g, 0.0)
-        x, k, rn = multigrid.pcg_gmg(gmg, lv0, b, rtol=rtol,
-                                     maxiter=maxiter, x0=x0)
+        # a bf16 smoother copy makes the V-cycle vary with its input:
+        # flexible PCG, as every caller of pcg_gmg on such a hierarchy
+        x, k, rn = multigrid.pcg_gmg(
+            gmg, lv0, b, rtol=rtol, maxiter=maxiter, x0=x0,
+            flexible=self._gmg_asm.smoother_dtype is not None)
         _check_converged("gmg-pcg", rn, rtol * float(torch.linalg.norm(b)),
                          k)
         self.last_solve_stats = {

@@ -32,8 +32,10 @@ the 3D filter's full-storage planes, three 3D ``DeviceTopo`` iterations at
 matrices on the card against the CPU's; U1 (CSR) on ragged rows at
 every lanes-per-row group and U2 (DIA) with offsets past both ends, over
 a shared-memory chunk, masked and not, float32 and float64, and AMG-PCG
-on the 12x80 torque arm against the CPU
-(chip_smoke.py phases 3-3e and 7-11 hold them at full size).
+on the 12x80 torque arm against the CPU; the float32 post-processing of
+a GMG solution (strains, stresses, nodal strains) against float64 on the
+same u, the nodal sums bit-identical across two runs
+(chip_smoke.py phases 3-3e and 7-12 hold them at full size).
 
 Needs an NVIDIA Hopper card and nvcc; marked ``slow`` (deselected by the
 CPU tier) and skipped where CUDA is absent.  Run on the card with:
@@ -1476,3 +1478,38 @@ def test_amg_pcg_on_card_matches_cpu(dev, tmp_path):
     assert all(a is c for a, c in zip(
         pats, [sl["csr"][0] for sl in cache["structure"]["levels"]]))
     assert cache["pattern0"][0] is p0 and int(kg2) == int(kg)
+
+
+def test_postprocess_float32_matches_float64_on_card(dev):
+    """Phase 12a at 65x33: ``Assembler.solve(method="gmg")`` (K1 and K2
+    launched) in float32, then the float32 strains, stresses and nodal
+    strains against the same functions in float64 on the same u; the
+    nodal strains bit-identical across two runs; the lumped mass sums to
+    density * area * nd."""
+    import pyfem_gpu_testflight_tpu_torch as pt
+    from pyfem_gpu_testflight_tpu_torch import postprocess as post
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+
+    c = pt.ProblemCreator(NX, NY)
+    conn, X, fixed, force = c.create_linear_elasticity_problem()
+    m32, m64 = (pt.LinearElasticity("quad4", X, conn, fixed, None, force,
+                                    p=3.0, dtype=dt, device=dev)
+                for dt in (torch.float32, torch.float64))
+    rho = np.random.default_rng(0).uniform(0.3, 1.0, m32.nnodes)
+    m32.attach_structured_grid(NX, NY, omega="cheby",
+                               smoother_dtype=torch.bfloat16)
+    n0 = dict(_cuda.launches)
+    u = pt.Assembler(m32).solve(method="gmg", rtol=1e-6, rho=rho)
+    torch.cuda.synchronize()
+    for k in ("pyfem_assemble_2d", "pyfem_sweeps_2d"):
+        assert _cuda.launches.get(k, 0) > n0.get(k, 0)
+    for fn, args in ((post.quadrature_strains, ()),
+                     (post.quadrature_stresses, (rho,)),
+                     (post.nodal_strains, ())):
+        got = fn(m32, u, *args)
+        assert got.dtype == torch.float32
+        assert _rel(got, fn(m64, u.double(), *args)) <= 1e-5
+    assert torch.equal(post.nodal_strains(m32, u), post.nodal_strains(m32, u))
+    area = float(np.ptp(X[:, 0]) * np.ptp(X[:, 1]))
+    ml = post.lumped_mass(m64, density=2.0)
+    assert abs(float(ml.sum()) - 2.0 * area * 2) <= 1e-12 * area

@@ -18,8 +18,7 @@ Gates, against the JAX package:
   direct solution;
 * ``build_elasticity_gmg`` / ``build_poisson_gmg`` + ``pcg`` take the
   JAX package's iterations, the solution within 1e-10;
-* the top-level ``__all__`` is the JAX package's less the names later
-  slices bring, plus the port's own.
+* the top-level ``__all__`` is the JAX package's plus the port's own.
 
 The JAX hierarchies are assembled eagerly (compiling an assembly costs
 more than running it at these sizes); the V-cycles and PCG loops are
@@ -197,8 +196,7 @@ def test_build_gmg_matches_jax(physics):
 
 
 def test_exports_match_jax():
-    later = {"Assembler", "time_this", "timer_off", "timer_on",
-             "timer_set_threshold", "timer_to_stdout"}
+    later = set()
     own = {"multigrid", "opt", "pmg", "NonlinearPoisson2D"}
     assert set(pt.__all__) - own == set(fem.__all__) - later
     for name in pt.__all__:
