@@ -221,6 +221,23 @@ Phases:
    ``--solver gmg``, 3 MMA iterations; K1, K2, K9 launched;
    performance_study ``--kernel cuda``: K8), VTK output in a temporary
    directory, printout in ``build/chip_smoke/example_*.log``.
+13. "sharded": the multi-rank solvers (``parallel``).  13a, a world-1
+   NCCL process group made and destroyed in the phase: bench 2D and
+   bench 3D through ``ShardedGMG2D/3D`` (iterations
+   against phases 4 and 4a, float64 true residual, one K2 launch per
+   smoothing call or one K4 launch per pass, CUDA-event time,
+   collectives per PCG iteration, peak memory), the model entry
+   (``attach_sharded_grid``, ``solve(method="sharded_gmg")``,
+   ``compliance``) at 1025x513 p=3 against its ``gmg``, ``ShardedAMGPCG``
+   on phase 11's arm (iterations against phase 11's, true residual) and
+   ``ShardedDeviceTopo`` at 1025x513 (2 + 3 MMA iterations) and
+   65x33x33 (2 + 5) against ``DeviceTopo`` on the same options; 13b, two
+   spawned ranks on the one card over gloo (kernels built before the
+   spawn): the 2D, 3D and arm solves against 13a's (their launches
+   counted from just before the solves to just after), then K2, K4 and
+   U1 on those solves' halo-extended blocks and K9 on the sharded 2D
+   filter's (nd = 1), nonzero inner halos, against their plain
+   versions; 13c, ``parallel.dryrun_multichip(2)``.
 
 ``python3 chip_smoke.py --pass-levels [--root DIR]`` runs only
 ``pass_levels`` on the package under DIR (default: this checkout), so a
@@ -231,6 +248,7 @@ the readings ``SOL64_TOL`` is set from; ``--newton-floor`` only phase
 ``NEWTON64_TOL`` is set from; ``--newton`` only phase 8;
 ``--quadratic`` only phase 9; ``--topo3d`` only phase 10;
 ``--unstructured`` only phase 11; ``--surface`` only phase 12;
+``--sharded`` only phase 13 (with its single-device yardsticks);
 ``--stencil-2d-kernels [--root DIR]`` only K2, K2-sym and K9, on the
 package under DIR: every K2 and K2-sym call form at 1025x513 nd=2 and
 1025^2 nd=1 and every K9 form (nd 1 and 2 in f32 and f64 at 1025x513,
@@ -4992,7 +5010,7 @@ def uns_arm_line(dev, pt, rng):
     own32, floor32 = f32_check(K32, b32, u32, 1e-6, "arm float32")
     log(f"arm float32: {st32['iters']} iterations, float64 true residual "
         f"on the float64 operator {res32:.3e}")
-    del m32, u32, K, b, K32, b32
+    del m32, u32, K32, b32
 
     # yardstick: the 129x1025 arm against host SuperLU
     ny_, nt_ = UNS_ARM_YARD
@@ -5012,7 +5030,8 @@ def uns_arm_line(dev, pt, rng):
                 breakdown=brk, f32=dict(st32, res=res32, res_own=own32,
                                         floor=floor32), yard=yard,
                 topo=topo, U1=k1, U2=k2, synth_s=t_syn, parse_s=t_parse,
-                pattern_s=t_pat, segments_s=t_seg, native_s=t_lib)
+                pattern_s=t_pat, segments_s=t_seg, native_s=t_lib,
+                system=(K, b, model.X_host))
 
 
 def uns_bracket_line(dev, pt, rng):
@@ -5783,6 +5802,705 @@ def run_surface():
     return 0
 
 
+# -- phase 13: multi-rank solvers over torch.distributed ---------------------
+
+SH_TOPO = (2, 3)        # 13a 2D ShardedDeviceTopo: warm-up, timed MMA its
+SH_TOPO3D_N = 33        # 13a 3D: 65x33x33, bench topo --topo-3d's width
+SH_TOPO3D = (2, 5)
+SH_TIMEOUT = 900.0      # 13b and 13c: seconds before the ranks are ended
+SH_DEVICE = None        # 13b/13c ranks' device: None, the card
+# 13a: the sharded topology loops against the single-device DeviceTopo on
+# the same options: the same kernels assemble every level and the same PCG
+# form solves, so they part by the order of the reductions.  Held: the
+# design iterates (relative L2 of the last) and the state PCG iterations
+# (within 1 each).  The compliances are read, not held: a float32 state
+# solve stops at its operator's rounding floor, where one ulp of density
+# moves the compliance by 1.5e-3 at 65x33 (CPU), and at 1025x513 either
+# route's float32 compliance is ~40% off the float64 one (ROADMAP queue 3
+# item 2)
+SH_TOPO_X_TOL = 2e-2
+# the first iteration's compliance (both loops start from the same
+# design), held: read 3.9e-4 (2D) and 7e-6 (3D) apart on an H100 (PERF.md)
+SH_TOPO_OBJ0_TOL = 2e-3
+# 13b: two ranks' solutions against 13a's world-1 ones (rel L2)
+SH_W2_REL = {"2d": 1e-3, "3d": 1e-3, "arm": 1e-9}
+SH_NAMES = ("pyfem_assemble_2d", "pyfem_smooth_2d", "pyfem_sweeps_2d",
+            "pyfem_assemble_3d", "pyfem_sweep_3d", "pyfem_sweeps_3d",
+            "pyfem_stencil_2d", "pyfem_csr_spmv")
+
+
+def sh_counts():
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+
+    c = {k: _cuda.launches.get(k, 0) for k in SH_NAMES}
+    c["K2"] = k2_launches(c)
+    return c
+
+
+def k4_per_pass(run):
+    """One more run of ``run`` with every ``fused_sweep_3d`` call and
+    every K4 launch counted: (calls, launches)."""
+    import torch
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+    from pyfem_gpu_testflight_tpu_torch.ops import fused_smooth
+
+    calls = [0]
+    sweep = fused_smooth.fused_sweep_3d
+
+    def counting(*a, **kw):
+        calls[0] += 1
+        return sweep(*a, **kw)
+
+    fused_smooth.fused_sweep_3d = counting
+    n0 = _cuda.launches["pyfem_sweep_3d"]
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        fused_smooth.fused_sweep_3d = sweep
+    return calls[0], _cuda.launches["pyfem_sweep_3d"] - n0
+
+
+class world1_nccl:
+    """A world-1 NCCL process group for the ``with`` block (a FileStore
+    in a fresh directory; destroyed on the way out)."""
+
+    def __enter__(self):
+        import datetime
+        import tempfile
+
+        import torch.distributed as dist
+
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+        dist.init_process_group(
+            "nccl", init_method=f"file://{self.dir}/store", rank=0,
+            world_size=1, timeout=datetime.timedelta(seconds=300))
+        return self
+
+    def __exit__(self, *exc):
+        import shutil
+
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+        shutil.rmtree(self.dir, ignore_errors=True)
+        return False
+
+
+def sh_gmg(mesh, pt, dims):
+    """(solver, rho, b planes, lengths) of the bench configuration (p=0,
+    rho=1, Chebyshev-node nu=2, bf16 smoother copy, flexible PCG)."""
+    import torch
+    from pyfem_gpu_testflight_tpu_torch.ops.dia import interleave_to_planar
+    from pyfem_gpu_testflight_tpu_torch.parallel import (
+        ShardedGMG2D, ShardedGMG3D,
+    )
+
+    conn, X, fixed, force, L = problem(*dims)
+    et = "quad4" if len(dims) == 2 else "hex8"
+    m = pt.LinearElasticity(et, X, conn, fixed, None, force, p=0.0,
+                            dtype=torch.float32, device=mesh.device)
+    cls = ShardedGMG2D if len(dims) == 2 else ShardedGMG3D
+    sg = cls(mesh, *dims, *L, "elasticity", p=0.0, dtype=torch.float32,
+             nu_pre=2, nu_post=2, min_n=5 if len(dims) == 2 else 3,
+             omega="cheby", smoother_dtype=torch.bfloat16)
+    rho = torch.ones(m.nnodes, dtype=torch.float32, device=mesh.device)
+    b = interleave_to_planar(m.compute_rhs(), len(dims)).reshape(
+        (len(dims),) + tuple(dims[::-1]))
+    return sg, rho, b, L
+
+
+def sh_gmg_line(dev, pt, mesh, label, dims, single_k):
+    """13a: one bench-configuration sharded GMG solve on the world-1
+    NCCL mesh; iterations against the single-device phase, the float64
+    true residual, one kernel launch per smoothing call (2D: K2) or per
+    pass (3D: K4), CUDA-event time, collectives per PCG iteration, peak
+    memory."""
+    import torch
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+
+    sg, rho, b, L = sh_gmg(mesh, pt, dims)
+    solve = lambda: sg.solve(rho, b, rtol=1e-6, maxiter=200)
+    t0 = time.time()
+    solve()
+    torch.cuda.synchronize()
+    cold = time.time() - t0
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    _cuda.reset_launches()
+    e0.record()
+    x, k, rn = solve()
+    e1.record()
+    e1.synchronize()
+    ms = e0.elapsed_time(e1)
+    counts = sh_counts()
+    mem = torch.cuda.max_memory_allocated() - base
+    coll = sg.last_stats["collectives_solve"]
+    per_it = {c_: n / max(k, 1) for c_, n in coll.items()}
+    mask0 = sg.asm.static_levels[0].mask
+    bz = torch.where(mask0, 0.0, b)
+    log(f"{label}: {int(np.prod(dims)) * len(dims)} dof, levels "
+        f"{sg.asm.sizes}, {sg.S} sharded (local slabs {sg.nl}, padded from "
+        f"{sg.shapes[0][0]}), halo {sg.h}; {k} PCG iterations (single "
+        f"device: {single_k}), ||r||/||b|| "
+        f"{float(rn) / float(torch.linalg.norm(bz)):.3e}; solve {ms:.3f} ms "
+        f"(CUDA events; cold {1e3 * cold:.1f} ms host clock), peak "
+        f"{mem / 2**20:.1f} MiB above {base / 2**20:.1f}; collectives per "
+        f"PCG iteration {per_it} ({mesh.backend}, {mesh.transport} "
+        f"transport); launches {counts}")
+    check(abs(k - single_k) <= 1, f"{label}: {k} iterations, within 1 of "
+          f"the single-device phase's {single_k}")
+    check(float(rn) <= 1e-6 * float(torch.linalg.norm(bz)),
+          f"{label}: PCG residual <= rtol")
+    if len(dims) == 2:
+        mv64, mvabs, _ = f64_operator(*dims, *L, rho, 0.0, dev)
+        calls, nk = k2_per_call(solve)
+        check(counts["K2"] > 0 and calls > 0 and nk == calls,
+              f"{label}: K2 launched, one launch per smoothing call "
+              f"({calls} calls, {nk} launches)")
+    else:
+        mv64, mvabs, _ = f64_operator_3d(dims[0], L, rho, 0.0, dev)
+        calls, nk = k4_per_pass(solve)
+        check(counts["pyfem_sweep_3d"] > 0 and calls > 0 and nk == calls,
+              f"{label}: K4 launched, one launch per pass ({calls} "
+              f"passes, {nk} launches)")
+    true, floor = residuals(mv64, mvabs, bz, x)
+    log(f"{label}: float64 true residual {true:.3e} (float32 floor "
+        f"{floor:.3e}, ratio {true / floor:.2f})")
+    check(true <= FLOOR_FACTOR * floor,
+          f"{label}: true residual <= {FLOOR_FACTOR:g} x float32 floor")
+    return dict(k=k, ms=ms, mem=mem, per_it=per_it, counts=counts,
+                true=true, floor=floor, x=x.cpu(), calls=calls, cold=cold)
+
+
+def sh_model_line(dev, pt, mesh):
+    """13a: ``attach_sharded_grid(...).solve(method="sharded_gmg")`` and
+    ``compliance(solver="sharded_gmg")`` at 1025x513, p=3, rho ~ U[0.3,
+    1] (seed 1), float32, against the same model's single-device gmg."""
+    import torch
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+
+    conn, X, fixed, force, (Lx, Ly) = problem(NX, NY)
+    m = pt.LinearElasticity("quad4", X, conn, fixed, None, force, p=3.0,
+                            dtype=torch.float32, device=dev)
+    opts = dict(nu_pre=2, nu_post=2, min_n=5, omega="cheby",
+                smoother_dtype=torch.bfloat16)
+    m.attach_sharded_grid(mesh, NX, NY, **opts)
+    m.attach_structured_grid(NX, NY, **opts)
+    rho = torch.as_tensor(np.random.default_rng(1).uniform(
+        0.3, 1.0, m.nnodes), dtype=torch.float32, device=dev)
+    m.solve(method="sharded_gmg", rho=rho, rtol=1e-6)  # warm
+    _cuda.reset_launches()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    u = m.solve(method="sharded_gmg", rho=rho, rtol=1e-6)
+    e1.record()
+    e1.synchronize()
+    counts = sh_counts()
+    st = dict(m.last_solve_stats)
+    u1 = m.solve(method="gmg", rho=rho, rtol=1e-6)
+    k1 = m.last_solve_stats["iters"]
+    c_s, _ = m.compliance(rho, solver="sharded_gmg")
+    c_1, _ = m.compliance(rho, solver="gmg")
+    du = float(torch.linalg.norm(u - u1) / torch.linalg.norm(u1))
+    dc = abs(float(c_s) - float(c_1)) / abs(float(c_1))
+    mv64, mvabs, _ = f64_operator(NX, NY, Lx, Ly, rho, 3.0, dev)
+    from pyfem_gpu_testflight_tpu_torch.ops.dia import interleave_to_planar
+
+    b = torch.where(m._sgmg.asm.static_levels[0].mask, 0.0,
+                    interleave_to_planar(m.compute_rhs(), 2).reshape(
+                        2, NY, NX))
+    true, floor = residuals(mv64, mvabs, b,
+                            interleave_to_planar(u, 2).reshape(2, NY, NX))
+    log(f"13a model: solve(method='sharded_gmg') {st['iters']} iterations "
+        f"(gmg: {k1}), {e0.elapsed_time(e1):.3f} ms (CUDA events), "
+        f"collectives {st['collectives']}; against gmg: u rel L2 "
+        f"{du:.3e}, compliance {float(c_s):.6e} vs {float(c_1):.6e} (rel "
+        f"{dc:.3e}); float64 true residual {true:.3e} (floor {floor:.3e}); "
+        f"launches {counts}")
+    check(abs(st["iters"] - k1) <= 1, "13a model: sharded_gmg iterations "
+          "within 1 of gmg's")
+    check(counts["K2"] > 0, "13a model: K2 launched")
+    check(true <= FLOOR_FACTOR * floor, f"13a model: true residual <= "
+          f"{FLOOR_FACTOR:g} x float32 floor")
+    check(bool(torch.isfinite(c_s)), "13a model: compliance finite")
+    return dict(k=st["iters"], k1=k1, du=du, dc=dc, true=true, floor=floor,
+                counts=counts, ms=e0.elapsed_time(e1))
+
+
+def sh_amg_line(dev, mesh, arm_sys, single_k):
+    """13a: ``ShardedAMGPCG`` on phase 11's arm (float64, rtol 1e-10)."""
+    import torch
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+    from pyfem_gpu_testflight_tpu_torch.parallel import ShardedAMGPCG
+
+    K, b, X = arm_sys
+    t0 = time.time()
+    solver = ShardedAMGPCG(mesh, K, nd=2, coords=X, dtype=torch.float64)
+    torch.cuda.synchronize()
+    setup = time.time() - t0
+    solver.solve(b, rtol=1e-10)  # warm
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    mesh.reset_counts()
+    _cuda.reset_launches()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    x, k, rn = solver.solve(b, rtol=1e-10)
+    e1.record()
+    e1.synchronize()
+    k = int(k)
+    counts = sh_counts()
+    mem = torch.cuda.max_memory_allocated() - base
+    res = true_residual(K, b, x)
+    per_it = {c_: n / max(k, 1) for c_, n in mesh.counts.items()}
+    levels = [(p["n"], p["bw"], p["sharded"]) for p in solver.plan]
+    log(f"13a arm: ShardedAMGPCG set-up {setup:.2f} s (host), levels (n, "
+        f"bandwidth, sharded) {levels}; {k} iterations (phase 11: "
+        f"{single_k}), solve {e0.elapsed_time(e1):.3f} ms (CUDA events), "
+        f"true residual {res:.3e}, peak {mem / 2**20:.1f} MiB, collectives "
+        f"per iteration {per_it}, U1 launches "
+        f"{counts['pyfem_csr_spmv']}")
+    check(abs(k - single_k) <= 1, f"13a arm: {k} iterations, within 1 of "
+          f"phase 11's {single_k}")
+    check(res <= UNS_ARM_RES_TOL, f"13a arm: true residual <= "
+          f"{UNS_ARM_RES_TOL:g}")
+    check(counts["pyfem_csr_spmv"] > 0 and sum(p[2] for p in levels) >= 1,
+          "13a arm: U1 launched, at least one sharded level")
+    return dict(k=k, res=res, setup_s=setup, ms=e0.elapsed_time(e1),
+                mem=mem, per_it=per_it, counts=counts, levels=levels,
+                x=x.cpu())
+
+
+def sh_topo_line(dev, pt, mesh, dims, iters, label):
+    """13a: ``ShardedDeviceTopo`` (phase 7's / phase 10's options) against
+    the single-device ``DeviceTopo`` on the same model and storage."""
+    import torch
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+    from pyfem_gpu_testflight_tpu_torch.opt import (
+        DeviceTopo, ShardedDeviceTopo,
+    )
+
+    warm, timed = iters
+    conn, X, fixed, force, _ = problem(*dims)
+    et = "quad4" if len(dims) == 2 else "hex8"
+    m = pt.LinearElasticity(et, X, conn, fixed, None, force, p=3.0,
+                            dtype=torch.float32, device=dev)
+    opts = dict(nu_pre=2, nu_post=2, min_n=5 if len(dims) == 2 else 3,
+                omega="cheby", smoother_dtype=torch.bfloat16)
+    m.attach_sharded_grid(mesh, *dims, **opts)
+    m.attach_structured_grid(*dims, **opts, **({} if len(dims) == 2
+                                               else {"sym": False}))
+    f = pt.Helmholtz(0.01, et, X, conn, dtype=torch.float32, rtol=1e-6,
+                     device=dev).attach_structured_grid(*dims)
+    kw = dict(fixed_volume=0.4, rtol=1e-6, maxiter=200)
+    ShardedDeviceTopo(m, f, **kw).optimize(max_iterations=warm,
+                                           verbose=False, log_every=warm)
+    sd = ShardedDeviceTopo(m, f, **kw)
+    _cuda.reset_launches()
+    t0 = time.time()
+    xs, _ = sd.optimize(max_iterations=timed, verbose=False,
+                        log_every=timed)
+    counts = sh_counts()
+    s_it = (time.time() - t0) / timed
+    d1 = DeviceTopo(m, f, **kw)
+    x1, _ = d1.optimize(max_iterations=timed, verbose=False,
+                        log_every=timed)
+    o_s = np.array([h["obj"] for h in sd.history])
+    o_1 = np.array([h["obj"] for h in d1.history])
+    dobj = float(np.max(np.abs(o_s - o_1) / np.abs(o_1)))
+    dobj0 = float(abs(o_s[0] - o_1[0]) / abs(o_1[0]))
+    cg_s = [h["cg_iters"] for h in sd.history]
+    cg_1 = [h["cg_iters"] for h in d1.history]
+    dx = float(torch.linalg.norm(xs - x1) / torch.linalg.norm(x1))
+    dx_max = float((xs - x1).abs().max())
+    log(f"13a {label}: {'x'.join(map(str, dims))}, {warm} + {timed} MMA "
+        f"iterations, {s_it:.4f} s an iteration (host clock, synchronized "
+        f"at the end); compliance {o_s[0]:.6e} -> {o_s[-1]:.6e} (single "
+        f"device {o_1[0]:.6e} -> {o_1[-1]:.6e}; first rel {dobj0:.3e}, max "
+        f"rel {dobj:.3e}), design rel L2 {dx:.3e} (max |dx| {dx_max:.3e}); "
+        f"state PCG {cg_s} (single device {cg_1}), filter "
+        f"{[h['filter_iters'] for h in sd.history]}; launches {counts}")
+    check(dx <= SH_TOPO_X_TOL
+          and all(abs(a - b) <= 1 for a, b in zip(cg_s, cg_1)),
+          f"13a {label}: iterates match the single-device DeviceTopo "
+          f"(design rel L2 {dx:.2e} <= {SH_TOPO_X_TOL:g}, state PCG "
+          f"iterations within 1)")
+    check(dobj0 <= SH_TOPO_OBJ0_TOL, f"13a {label}: first compliance "
+          f"within {SH_TOPO_OBJ0_TOL:g} of the single-device one "
+          f"({dobj0:.2e})")
+    k = "pyfem_stencil_2d" if len(dims) == 2 else "pyfem_sweep_3d"
+    check(counts[k] > 0, f"13a {label}: the filter's kernel launched")
+    out = dict(s_it=s_it, dobj=dobj, dobj0=dobj0, dx=dx, dx_max=dx_max,
+               counts=counts, cg=(cg_s, cg_1),
+               objs=(float(o_s[0]), float(o_s[-1])))
+    if len(dims) == 2:
+        gen = torch.Generator(device=mesh.device).manual_seed(SEED + 13)
+        k9 = sh_k9_filter(sd, gen)
+        log(f"13a {label}: K9 nd=1 f32 against plain on the sharded "
+            f"filter's block: rel {k9['rel']:.2e}")
+        check(k9["rel"] <= REL_TOL, f"13a {label}: K9 on the sharded "
+              f"filter's block matches plain (<= {REL_TOL:g})")
+        out["k9_rel"] = k9["rel"]
+    return out
+
+
+def sh_k9_filter(sd, gen):
+    """K9 against its plain version on a ``ShardedDeviceTopo``'s filter
+    product as the loop runs it (``halo_stencil_matvec`` at nd = 1: the
+    rank's planes framed by a zero slab a side, a random block with the
+    neighbours' halo rows): the relative error and the halo's max |.|
+    below and above."""
+    import torch
+    from pyfem_gpu_testflight_tpu_torch.ops import stencil_matvec as sm
+
+    mesh, fK = sd.mesh, sd._fK
+    coeff = fK.reshape((1, 1, 3, 3) + tuple(fK.shape[-2:]))
+    u = torch.where(sd._xpad, 0.0, torch.rand(
+        sd._xpad.shape, generator=gen, device=mesh.device,
+        dtype=fK.dtype))[None]
+    ue = mesh.halo(u, 1, 1)
+    got = sm.stencil_matvec_2d(coeff, ue)
+    ref = sm.stencil_matvec_2d_plain(coeff, ue)
+    return dict(rel=float((got - ref).abs().max() / ref.abs().max()),
+                halo=[float(ue[:, 0].abs().max()),
+                      float(ue[:, -1].abs().max())])
+
+
+def sh_rank(rank, world, arm_sys, dims2, dims3, device):
+    """13b: one of two ranks sharing the card over gloo.  The 2D and 3D
+    bench sharded solves (``dims2``, ``dims3``) and the arm, the
+    kernels' launch counts set to 0 just before them and read just
+    after; then K2, K4 and U1 on this rank's halo-extended blocks of
+    those solves, and K9 on the sharded 2D filter's block, against their
+    plain versions."""
+    import torch
+    import pyfem_gpu_testflight_tpu_torch as pt
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda, fused_smooth as fs
+    from pyfem_gpu_testflight_tpu_torch.ops import spmv
+    from pyfem_gpu_testflight_tpu_torch.parallel import (
+        ShardedAMGPCG, make_mesh,
+    )
+
+    mesh = make_mesh(world, device=device)
+    gen = torch.Generator(device=mesh.device).manual_seed(SEED + 13 + rank)
+    out = {"device": str(mesh.device), "transport": mesh.transport,
+           "backend": mesh.backend, "kernels": {}}
+    gmgs = {"2d": sh_gmg(mesh, pt, dims2), "3d": sh_gmg(mesh, pt, dims3)}
+    K, bb, X = arm_sys
+    solver = ShardedAMGPCG(mesh, K, nd=2, coords=X, dtype=torch.float64)
+    _cuda.reset_launches()
+    for key, (sg, rho, b, _) in gmgs.items():
+        mesh.reset_counts()
+        x, k, rn = sg.solve(rho, b, rtol=1e-6, maxiter=200)
+        out[key] = dict(x=x.cpu(), k=k, coll=dict(
+            sg.last_stats["collectives_solve"]), nl=sg.nl)
+    mesh.reset_counts()
+    x, k, rn = solver.solve(bb, rtol=1e-10)
+    out["arm"] = dict(x=x.cpu(), k=int(k), coll=dict(mesh.counts),
+                      sharded=[p["sharded"] for p in solver.plan])
+    out["launches"] = sh_counts()
+    # the kernels on this rank's level-0 blocks, halos exchanged
+    for key, (sg, rho, b, _) in gmgs.items():
+        rho_loc = sg._local(rho.reshape(sg.shapes[0]), 0, axis=0)
+        lv = sg.hierarchy(rho_loc.contiguous()).levels[0]
+        v = torch.where(lv.mask, 0.0, torch.rand(
+            lv.mask.shape, generator=gen, device=mesh.device))
+        ve = sg._ext(v, sg.h)
+        halo = [float(ve.narrow(1, 0, sg.h).abs().max()),
+                float(ve.narrow(1, ve.shape[1] - sg.h, sg.h).abs().max())]
+        bk = sg._ext(torch.where(lv.mask, 0.0, torch.rand(
+            lv.mask.shape, generator=gen, device=mesh.device)), sg.h)
+        oms = sg._omegas(2)
+        if key == "2d":
+            forms = {
+                "K2 presmooth_resid bf16": (
+                    lambda f: f(lv.ck_s, lv.dk, bk, None, niter=2,
+                                want_resid=True, omega=oms),
+                    fs.fused_sweeps_2d, fs.fused_sweeps_2d_plain),
+                "K2 postsmooth bf16": (
+                    lambda f: f(lv.ck_s, lv.dk, bk, ve, niter=2,
+                                omega=oms),
+                    fs.fused_sweeps_2d, fs.fused_sweeps_2d_plain),
+                "K2 postsmooth_resid f32": (
+                    lambda f: f(lv.ck, lv.dk, bk, ve, niter=2,
+                                want_resid=True, omega=oms),
+                    fs.fused_sweeps_2d, fs.fused_sweeps_2d_plain),
+                "K2 matvec f32": (
+                    lambda f: f(lv.ck, lv.dk, None, ve, niter=0,
+                                want_resid=True, neg_resid=True),
+                    fs.fused_sweeps_2d, fs.fused_sweeps_2d_plain),
+            }
+        else:
+            forms = {
+                "K4 sweep bf16": (
+                    lambda f: f(lv.ck_s, lv.dk, bk, ve, mode="sweep",
+                                omega=oms[0]),
+                    fs.fused_sweep_3d, fs.fused_sweep_3d_plain),
+                "K4 matvec f32": (
+                    lambda f: f(lv.ck, x=ve, mode="matvec", neg_resid=True),
+                    fs.fused_sweep_3d, fs.fused_sweep_3d_plain),
+            }
+        for name, (call, kern, plain) in forms.items():
+            got, ref = call(kern), call(plain)
+            got = got if isinstance(got, tuple) else (got,)
+            ref = ref if isinstance(ref, tuple) else (ref,)
+            err = max(float((g - r).abs().max() / r.abs().max())
+                      for g, r in zip(got, ref))
+            out["kernels"][name] = dict(rel=err, halo=halo)
+    del gmgs
+    out["kernels"]["K9 filter nd=1 f32"] = sh_k9_filter(
+        sh_filter_topo(mesh, pt, dims2), gen)
+    A = solver._loc[0]["op"]
+    u = torch.rand(A.nl, generator=gen, device=mesh.device,
+                   dtype=torch.float64)
+    uh = mesh.halo(u, 0, A.bw)
+    halo = [float(uh[: A.bw].abs().max()), float(uh[-A.bw:].abs().max())]
+    got = spmv.csr_matvec(A.indptr, A.indices, A.vals, uh)
+    ref = spmv.csr_matvec_plain(A.indptr, A.indices, A.vals, uh)
+    out["kernels"]["U1 arm fine block f64"] = dict(
+        rel=float((got - ref).abs().max() / ref.abs().max()), halo=halo)
+    return out
+
+
+def sh_filter_topo(mesh, pt, dims):
+    """A ``ShardedDeviceTopo`` of 13a's 2D topology options on ``mesh``
+    (its filter planes are made on construction; no iteration runs)."""
+    import torch
+    from pyfem_gpu_testflight_tpu_torch.opt import ShardedDeviceTopo
+
+    conn, X, fixed, force, _ = problem(*dims)
+    m = pt.LinearElasticity("quad4", X, conn, fixed, None, force, p=3.0,
+                            dtype=torch.float32, device=mesh.device)
+    m.attach_sharded_grid(mesh, *dims, nu_pre=2, nu_post=2, min_n=5,
+                          omega="cheby", smoother_dtype=torch.bfloat16)
+    f = pt.Helmholtz(0.01, "quad4", X, conn, dtype=torch.float32,
+                     rtol=1e-6, device=mesh.device).attach_structured_grid(
+                         *dims)
+    return ShardedDeviceTopo(m, f, fixed_volume=0.4, rtol=1e-6, maxiter=200)
+
+
+def phase_sharded(dev, pt, single, arm_sys):
+    """Phase 13: the multi-rank solvers (``parallel``) on the card.
+
+    13a, world 1 on NCCL, in this process: the 2D and 3D bench
+    configurations through ``ShardedGMG2D`` / ``ShardedGMG3D`` (one K2
+    launch per 2D smoothing call on an h-row halo block, K4 passes in
+    3D), the model entry (``attach_sharded_grid``, ``solve(method=
+    "sharded_gmg")``, ``compliance``) at 1025x513 p=3, ``ShardedAMGPCG`` on
+    phase 11's arm and ``ShardedDeviceTopo`` in 2D (1025x513) and 3D
+    (65x33x33).  13b: two spawned ranks on the one card over gloo (host
+    transport), the 2D, 3D and arm solves against 13a's, and K2, K4, K9
+    and U1 on each rank's halo-extended blocks against their plain
+    versions.  13c: ``parallel.dryrun_multichip(2)`` on the card."""
+    import torch
+    from pyfem_gpu_testflight_tpu_torch.parallel import (
+        dryrun_multichip, make_mesh, run_ranks,
+    )
+
+    out = {}
+    t0 = time.time()
+    with world1_nccl():
+        mesh = make_mesh(1, device=SH_DEVICE)
+        log(f"13a: world 1, backend {mesh.backend}, transport "
+            f"{mesh.transport}, {mesh.device}")
+        out["2d"] = sh_gmg_line(dev, pt, mesh, "13a bench 2D", (NX, NY),
+                                single["k2d"])
+        out["3d"] = sh_gmg_line(dev, pt, mesh, "13a bench 3D", (N3,) * 3,
+                                single["k3d"])
+        out["model"] = sh_model_line(dev, pt, mesh)
+        out["arm"] = sh_amg_line(dev, mesh, arm_sys, single["k_arm"])
+        out["topo"] = sh_topo_line(dev, pt, mesh, (NX, NY), SH_TOPO,
+                                   "topo")
+        n = SH_TOPO3D_N
+        out["topo3d"] = sh_topo_line(dev, pt, mesh, (2 * n - 1, n, n),
+                                     SH_TOPO3D, "topo3d")
+    out["s_13a"] = time.time() - t0
+
+    t0 = time.time()
+    try:
+        ranks = run_ranks(sh_rank, 2, args=(arm_sys, (NX, NY), (N3,) * 3,
+                                            SH_DEVICE),
+                          timeout=SH_TIMEOUT)
+    except RuntimeError as e:
+        check(False, f"13b: two gloo ranks on the card: {e}")
+        ranks = None
+    out["s_13b"] = time.time() - t0
+    if ranks is not None:
+        out["13b"] = sh_compare(out, ranks)
+    t0 = time.time()
+    try:
+        res = dryrun_multichip(2, device=SH_DEVICE, timeout=SH_TIMEOUT,
+                               verbose=False)
+        for line in __import__(
+                "pyfem_gpu_testflight_tpu_torch.parallel.dryrun",
+                fromlist=["summary_lines"]).summary_lines(res):
+            log("13c " + line)
+        check(res["device"].startswith("cuda"),
+              f"13c: dryrun_multichip(2) on the card ({res['device']})")
+        out["13c"] = {k: v for k, v in res.items() if np.isscalar(v)}
+    except RuntimeError as e:
+        check(False, f"13c: dryrun_multichip(2): {e}")
+    out["s_13c"] = time.time() - t0
+    log(f"phase 13: 13a {out['s_13a']:.1f} s, 13b {out['s_13b']:.1f} s, "
+        f"13c {out['s_13c']:.1f} s")
+    return out
+
+
+def sh_compare(out, ranks):
+    """13b's readings against 13a's world-1 solutions."""
+    import torch
+
+    res = {"kernels": {}, "launches": [r["launches"] for r in ranks]}
+    for r, o in enumerate(ranks):
+        log(f"13b rank {r}: {o['device']}, {o['backend']} ({o['transport']} "
+            f"transport); the solves' launches {o['launches']}")
+        check(all(o["launches"][e] > 0 for e in SH_13B_PATH),
+              f"13b rank {r}: K2, K4 and U1 launched in the solves")
+        for name, kv in o["kernels"].items():
+            res["kernels"][f"rank{r} {name}"] = kv
+            log(f"13b rank {r}: {name} against plain on the halo-extended "
+                f"block: rel {kv['rel']:.2e} (halo max |.| below/above "
+                f"{kv['halo'][0]:.2e}/{kv['halo'][1]:.2e})")
+            inner = kv["halo"][1] if r == 0 else kv["halo"][0]
+            check(kv["rel"] <= REL_TOL and inner > 0,
+                  f"13b rank {r}: {name} matches plain (<= {REL_TOL:g}) on a "
+                  f"block whose inner halo is not zero")
+    for key in ("2d", "3d", "arm"):
+        ks = [o[key]["k"] for o in ranks]
+        x0 = out[key]["x"].double()
+        rels = [float(torch.linalg.norm(o[key]["x"].double() - x0)
+                      / torch.linalg.norm(x0)) for o in ranks]
+        res[key] = dict(k=ks, rel=rels, coll=[o[key]["coll"] for o in ranks])
+        log(f"13b {key}: iterations {ks} (world 1: {out[key]['k']}), "
+            f"solution rel L2 against world 1 {rels}, collectives "
+            f"{res[key]['coll'][0]}" + (f", sharded levels "
+                                        f"{ranks[0]['arm']['sharded']}"
+                                        if key == "arm" else ""))
+        check(all(abs(k - out[key]["k"]) <= 1 for k in ks)
+              and max(rels) <= SH_W2_REL[key],
+              f"13b {key}: two ranks within 1 iteration of world 1 and "
+              f"within {SH_W2_REL[key]:g} (rel L2)")
+    check(sum(ranks[0]["arm"]["sharded"]) >= 1,
+          "13b arm: at least one sharded level")
+    return res
+
+
+def arm_system(dev, pt):
+    """Phase 11's arm as (K, b, coordinates) for ``--sharded``."""
+    from pyfem_gpu_testflight_tpu_torch.examples import torque_arm
+
+    nr, nt = UNS_ARM
+    inp = str(uns_dir() / f"arm_{nr}x{nt}.inp")
+    torque_arm.synthesize_arm_inp(inp, nr=nr, nt=nt)
+    model = torque_arm.arm_model(inp, device=dev)[0]
+    K, b = model.bc.apply_scipy(
+        model.assemble_scipy(model.element_jacobian(1.0)),
+        model.compute_rhs().cpu().numpy())
+    return model, (K, b, model.X_host)
+
+
+# the kernels 13b's solves run (K9 runs in the sharded filter, 13a only)
+SH_13B_PATH = ("K2", "pyfem_sweep_3d", "pyfem_csr_spmv")
+
+
+def sharded_row(sh, entry, key):
+    """Phase 13's launches of one kernel entry point (13a's lines, 13b's
+    ranks' solves) and the largest 13b relative error of its forms (K9:
+    also 13a's, on the topology loop's filter block)."""
+    lines = ("2d", "3d", "model", "arm", "topo", "topo3d")
+    out = {"launches_sharded": {f"13a_{k}": sh[k]["counts"].get(entry, 0)
+                                for k in lines if k in sh}}
+    if "k9_rel" in sh.get("topo", {}) and key == "K9":
+        out["sharded_13a_rel"] = sh["topo"]["k9_rel"]
+    if "13b" in sh and entry in SH_13B_PATH:
+        for r, c in enumerate(sh["13b"]["launches"]):
+            out["launches_sharded"][f"13b_rank{r}"] = c.get(entry, 0)
+    if "13b" in sh:
+        errs = [v["rel"] for k, v in sh["13b"]["kernels"].items()
+                if k.split()[1] == key]
+        if errs:
+            out["sharded_13b_rel"] = max(errs)
+    return out
+
+
+def sharded_summary(sh):
+    """Phase 13's figures as one JSON-able dict."""
+    pick = lambda d, ks: {k: d[k] for k in ks if k in d}
+    out = {k: pick(sh[k], ("k", "ms", "mem", "per_it", "true", "floor",
+                           "res", "setup_s", "levels", "du", "dc", "k1",
+                           "s_it", "dobj", "dobj0", "dx", "dx_max", "cg",
+                           "objs"))
+           for k in ("2d", "3d", "model", "arm", "topo", "topo3d")}
+    if "13b" in sh:
+        out["13b"] = {k: sh["13b"][k] for k in ("2d", "3d", "arm")}
+    out["13c"] = sh.get("13c")
+    out["seconds"] = {k: sh[k] for k in ("s_13a", "s_13b", "s_13c")}
+    return out
+
+
+def run_sharded():
+    """``python3 chip_smoke.py --sharded``: only phase 13 (with the kernel
+    build); its single-device yardsticks are run here (bench 2D and 3D
+    solves, the arm's AMG-PCG)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    import pyfem_gpu_testflight_tpu_torch as pt
+    from pyfem_gpu_testflight_tpu_torch import multigrid
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+    from pyfem_gpu_testflight_tpu_torch.ops.dia import (
+        interleave_to_planar as i2p, planar_to_interleave as p2i,
+    )
+
+    log(card_line())
+    dev = torch.device("cuda", 0)
+    t0 = time.time()
+    _cuda.library()
+    log(f"build: {time.time() - t0:.2f} s")
+    _, _, rho, rhs, step, _ = bench2d(dev, pt, multigrid, i2p, p2i)
+    k2d = step(rho, rhs, rhs)[1]
+    k3d = bench3d_iters(dev, pt, multigrid, i2p)
+    model, arm_sys = arm_system(dev, pt)
+    model.solve(method="amg", rtol=1e-10)
+    single = dict(k2d=k2d, k3d=k3d, k_arm=model.last_solve_stats["iters"])
+    del model
+    log(f"single-device yardsticks: {single}")
+    sh = phase_sharded(dev, pt, single, arm_sys)
+    log(json.dumps({"sharded": sharded_summary(sh)}))
+    log(card_line())
+    if FAILS:
+        print("chip_smoke FAILED:\n  " + "\n  ".join(FAILS), file=sys.stderr)
+        return 1
+    return 0
+
+
+def bench3d_iters(dev, pt, multigrid, i2p):
+    """Bench 3D's single-device PCG iterations (phase 4a's step)."""
+    import torch
+
+    n = N3
+    conn, X, fixed, force, L = problem(n, n, n)
+    model = pt.LinearElasticity("hex8", X, conn, fixed, None, force, p=0.0,
+                                dtype=torch.float32, device=dev)
+    asm = multigrid.GMGAssembler3D(
+        n, n, n, *L, "elasticity", p=0.0, dtype=torch.float32, device=dev,
+        nu_pre=2, nu_post=2, min_n=3, coarse_dense_max=4096,
+        smoother_dtype=torch.bfloat16, omega="cheby")
+    gmg, lv0 = asm.assemble(torch.ones(model.nnodes, dtype=torch.float32,
+                                       device=dev))
+    b = torch.where(lv0.mask, 0.0,
+                    i2p(model.compute_rhs(), 3).reshape(3, n, n, n))
+    return multigrid.pcg_gmg(gmg, lv0, b, rtol=1e-6, maxiter=200,
+                             flexible=True)[1]
+
+
 def phase_direct(dev, pt):
     """Phase 6b: host scipy direct solves against the card's CG on small
     jittered meshes (quad4 257x129 both models; tet10 and brick20 on a
@@ -6026,6 +6744,11 @@ def main():
     # 12. the user-facing surface: post-processing, KS and its adjoint,
     # natural frequencies, the profiler and the examples
     surf = phase_surface(dev, pt, multigrid, i2p, p2i)
+    # 13. the multi-rank solvers: world 1 on NCCL, two gloo ranks on the
+    # card, the dry run
+    sh = phase_sharded(dev, pt, dict(k2d=m2["k"], k3d=m3["k"],
+                                     k_arm=uns["arm"]["solve"]["iters"]),
+                       uns["arm"].pop("system"))
 
     # summary
     src = "pyfem_gpu_testflight_tpu_torch/csrc/"
@@ -6217,8 +6940,12 @@ def main():
             row["max_abs_err"] = max([row["max_abs_err"]] + [
                 topo3d[line]["k4_filter"]["max_abs_err"]
                 for line in ("contract", "scale")])
+        if key in ("K2", "K4", "K9"):
+            row.update(sharded_row(sh, {"K2": "K2", "K4": "pyfem_sweep_3d",
+                                        "K9": "pyfem_stencil_2d"}[key], key))
         kernels.append(row)
     kernels += unstructured_kernel_rows(uns)
+    kernels[-2].update(sharded_row(sh, "pyfem_csr_spmv", "U1"))
     if FAILS:
         print("chip_smoke FAILED:\n  " + "\n  ".join(FAILS), file=sys.stderr)
         return 1
@@ -6256,6 +6983,7 @@ def main():
         f"{se['ev_ms']['nodal_strains']:.3f} ms; KS chain {sk['ms']:.3f} "
         f"ms; LOBPCG meets rtol 1e-6 at {sc['grid']} ({card})")
     log(json.dumps({"surface": surface_summary(surf)}))
+    log(json.dumps({"sharded": sharded_summary(sh)}))
     log(f"2D single-shot {s2:.3f} ms, chained {ch2:.3f} ms/solve; 3D "
         f"single-shot {m3['single_ms']:.3f} ms, chained {m3['ch']:.3f} "
         f"ms/solve; 3D otf single-shot {mo['single_ms']:.3f} ms, chained "
@@ -6275,6 +7003,7 @@ if __name__ == "__main__":
              run_topo3d() if "--topo3d" in sys.argv else
              run_unstructured() if "--unstructured" in sys.argv else
              run_surface() if "--surface" in sys.argv else
+             run_sharded() if "--sharded" in sys.argv else
              run_solution_floor() if "--solution-floor" in sys.argv else
              run_k2_witness() if "--k2-witness" in sys.argv else
              run_assembly_kernels() if "--assembly-kernels" in sys.argv

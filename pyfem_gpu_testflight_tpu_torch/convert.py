@@ -30,7 +30,12 @@ Topology optimization's state is the optimizer's:
 :func:`load_topo_checkpoint` reads a ``DeviceTopo`` checkpoint npz of
 either package (the keys are the same; ``u_prev`` is planar ``(nd, ny,
 nx)`` in 2D and ``(nd, nz, ny, nx)`` in 3D in both) into the port's
-device tensors, so the port can resume a JAX run.
+device tensors, so the port can resume a JAX run.  A JAX
+``ShardedDeviceTopo`` checkpoint holds the same arrays padded along the
+lead (sharded) axis to the JAX mesh's slab count, zero design and
+state on the padding; :func:`crop_topo_state` cuts them to the real
+grid, which both the port's ``DeviceTopo`` and its
+``ShardedDeviceTopo`` (which re-pads to its own ranks) resume from.
 """
 
 from __future__ import annotations
@@ -42,7 +47,7 @@ from .ops.element_kernels import untranspose
 from .ops.fused_assemble import assembly_weights, assembly_weights3d
 
 __all__ = ["assembler_state_from_numpy", "ket_to_ke",
-           "load_topo_checkpoint"]
+           "load_topo_checkpoint", "crop_topo_state"]
 
 
 def _same_kind(fn, a, *args):
@@ -78,6 +83,17 @@ def load_topo_checkpoint(path, dtype, device):
                                  d["hist_con"], d["hist_step"], d["hist_cg"])
     ]
     return state, int(d["k_next"]), history
+
+
+def crop_topo_state(state, n_lead):
+    """(x, xold1, xold2, low, upp, u_prev) with the lead axis cut to the
+    real grid's ``n_lead`` slabs (a JAX ``ShardedDeviceTopo``
+    checkpoint's padding removed; an unpadded state is returned as is).
+    The design arrays lead with that axis, ``u_prev`` (nd, lead, ...)
+    has it second."""
+    return tuple(t.narrow(1 if i == 5 else 0, 0,
+                          min(n_lead, t.shape[1 if i == 5 else 0]))
+                 for i, t in enumerate(state))
 
 
 def assembler_state_from_numpy(asm, Kq, masks, W=None, otf=None, sym=None):

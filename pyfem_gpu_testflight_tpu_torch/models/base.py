@@ -3,14 +3,13 @@
 Port of ``pyfem_gpu_testflight_tpu/models/base.py``: the constructor's
 mesh, element-table and BC state, the lazy host sparsity ``pattern``,
 ``assemble_scipy``, the matrix-free ``matvec`` / ``diagonal``,
-``attach_structured_grid`` in 2D and 3D, ``attach_pmg``, the ``"gmg"``,
-``"pmg"``, ``"amg"``, ``"cg"``, ``"gmres"`` and ``"direct"`` branches of
+``attach_structured_grid`` in 2D and 3D, ``attach_pmg``,
+``attach_sharded_grid``, the ``"gmg"``, ``"sharded_gmg"``, ``"pmg"``,
+``"amg"``, ``"cg"``, ``"gmres"`` and ``"direct"`` branches of
 ``_solve_system``, the design
 sensitivity ``d(phi^T K psi)/drho`` (the generic einsum route with a
 deterministic segment sum, and the scatter-free structured route of an
-attached uniform grid) and the volume functionals.  Every other method or
-branch raises ``NotImplementedError`` naming the ROADMAP.md slice that
-ports it.
+attached uniform grid) and the volume functionals.
 
 Complex-step probes: a complex density (``rho + 1j*h*p``) keeps its
 imaginary part.  It becomes the complex dtype matching ``dtype`` and
@@ -44,12 +43,7 @@ KERNEL_ETYPES = ("quad4", "hex8", "tet10", "brick20")
 
 # solve methods that build their operator from the density themselves,
 # so solve/compliance compute no element matrices for them
-OWN_OPERATOR = ("gmg", "pmg")
-
-# solve method -> the ROADMAP.md slice (queue 1) that ports it
-_METHOD_SLICE = {
-    "sharded_gmg": "slice 8",
-}
+OWN_OPERATOR = ("gmg", "sharded_gmg", "pmg")
 
 
 def _not_ported(what, where):
@@ -343,11 +337,72 @@ class FEModel:
         return torch.full((self.nnodes,), 1.0 / self.nnodes,
                           dtype=self.dtype, device=self.device)
 
-    # -- not ported in this slice -----------------------------------------
-
     def attach_sharded_grid(self, mesh, nnodes_x, nnodes_y, nnodes_z=None,
                             **gmg_options):
-        _not_ported("FEModel.attach_sharded_grid", "slice 8")
+        """Enable the multi-rank sharded GMG solve path (2D quad4 or 3D
+        hex8 structured grids).
+
+        Shards the GMG-PCG solver over ``mesh`` (``parallel.make_mesh``:
+        node planes block-partitioned along the leading axis, halo
+        exchange with the neighbour ranks — see
+        ``parallel.sharded_gmg``); afterwards ``solve(method=
+        "sharded_gmg")`` / ``compliance(solver="sharded_gmg")`` run it on
+        every rank.  Nonzero Dirichlet values are applied through a rhs
+        lift; ``gmg_options`` go to ``ShardedGMG2D`` / ``ShardedGMG3D``
+        (``smoother_dtype``, ``omega``, ``n_sharded``, ...).
+        """
+        from ..parallel.sharded_gmg import ShardedGMG2D, ShardedGMG3D
+
+        nd = self.ndof_per_node
+        X = self.X_host
+        dims = ((nnodes_x, nnodes_y) if nnodes_z is None
+                else (nnodes_x, nnodes_y, nnodes_z))
+        want = "quad4" if nnodes_z is None else "hex8"
+        if self.etype.name != want:
+            raise ValueError(f"{len(dims)}D sharded gmg requires {want} "
+                             f"grids")
+        dims = tuple(int(n) for n in dims)
+        if int(np.prod(dims)) != self.nnodes:
+            raise ValueError(f"{'x'.join(map(str, dims))} grid != "
+                             f"{self.nnodes} nodes")
+        shape = dims[::-1]
+        fine_mask = (self.bc.mask.cpu().numpy()
+                     .reshape(self.nnodes, nd).T.reshape((nd,) + shape))
+        physics = "elasticity" if nd == len(dims) else "poisson"
+        kw = dict(p=self.p, dtype=self.dtype, fine_mask=fine_mask)
+        if physics == "elasticity":
+            kw.update(E=self.E, nu=self.nu)
+        kw.update(gmg_options)
+        lengths = [float(X[:, k].max()) for k in range(len(dims))]
+        cls = ShardedGMG2D if nnodes_z is None else ShardedGMG3D
+        self._sgmg = cls(mesh, *dims, *lengths, physics, **kw)
+        self._sgmg_shape = shape
+        return self
+
+    def _solve_sharded_gmg(self, rho, rhs, rtol=1e-8, maxiter=400):
+        from ..ops.dia import interleave_to_planar, planar_to_interleave
+
+        nd = self.ndof_per_node
+        shape = self._sgmg_shape
+        planes = lambda v: interleave_to_planar(
+            torch.as_tensor(v, device=self.device).to(self.dtype), nd
+        ).reshape((nd,) + shape)
+        vals = (planes(self.bc.values) if bool(self.bc.values.any())
+                else None)
+        x, k, rn, b_out = self._sgmg.solve(
+            self._as_nodal(rho), planes(rhs), rtol=rtol, maxiter=maxiter,
+            vals=vals, return_rhs=True,
+        )
+        mask0 = self._sgmg.asm.static_levels[0].mask
+        _check_converged("sharded-gmg-pcg", rn, rtol * float(
+            torch.linalg.norm(torch.where(mask0, 0.0, b_out))), k)
+        self.last_solve_stats = {
+            "method": "sharded_gmg", "iters": int(k), "resnorm": float(rn),
+            "collectives": self._sgmg.last_stats["collectives_solve"],
+        }
+        to_il = lambda v: planar_to_interleave(v.reshape(-1), nd).to(
+            self.device)
+        return to_il(x), to_il(b_out)
 
     # -- structured GMG and p-multigrid -------------------------------------
 
@@ -446,8 +501,6 @@ class FEModel:
         Returns:
             (u, b): solution and the BC-applied rhs (used by compliance).
         """
-        if method in _METHOD_SLICE:
-            _not_ported(f"method={method!r}", _METHOD_SLICE[method])
         if method != "direct" and any(
                 v is not None and _is_complex(v) for v in (Ke, rho)):
             raise ValueError(
@@ -477,6 +530,15 @@ class FEModel:
                 )
             return self._solve_gmg(rho if rho is not None else 1.0, rhs,
                                    rtol=rtol)
+        if method == "sharded_gmg":
+            if getattr(self, "_sgmg", None) is None:
+                raise RuntimeError(
+                    "call attach_sharded_grid(mesh, nx, ny) before "
+                    "method='sharded_gmg'"
+                )
+            return self._solve_sharded_gmg(
+                rho if rho is not None else 1.0, rhs, rtol=rtol,
+                maxiter=maxiter or 400)
         if method == "amg":
             return self._solve_amg(Ke, rhs, rtol, maxiter)
         if method == "direct":

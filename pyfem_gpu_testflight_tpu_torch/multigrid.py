@@ -834,7 +834,8 @@ def _restrict_nodal(rho_grid):
     return rho_grid[(slice(None, None, 2),) * rho_grid.ndim].contiguous()
 
 
-def _dv_sens_uniform(Kq, N, p, offsets, rho_grid, phi, psi):
+def _dv_sens_uniform(Kq, N, p, offsets, rho_grid, phi, psi,
+                     elem_valid=None):
     """Nodal d(phi^T K(rho) psi)/drho on a uniform grid, scatter-free.
 
     Port of the JAX ``multigrid._dv_sens_uniform``.  With ``Ke = sum_q
@@ -858,6 +859,8 @@ def _dv_sens_uniform(Kq, N, p, offsets, rho_grid, phi, psi):
             ``_HEX8_LOCAL`` of ``ops.stencil``).
         rho_grid: nodal density, (ny, nx) or (nz, ny, nx).
         phi, psi: (nd, *grid) dof component planes.
+        elem_valid: optional element-grid multiplier zeroing phantom
+            elements (the sharded solver's halo-extended blocks).
 
     Returns:
         (*grid,) nodal gradient (flatten for the dof-vector form).
@@ -879,6 +882,8 @@ def _dv_sens_uniform(Kq, N, p, offsets, rho_grid, phi, psi):
         for q in range(nq)
     ])
     w = ramp_deriv(rho_q, p)  # (nq,) + esh
+    if elem_valid is not None:
+        w = w * elem_valid
     # element dof planes, row r = local_node * nd + comp
     P = torch.stack([sl(off, phi[a]) for off in offsets for a in range(nd)])
     Q = torch.stack([sl(off, psi[a]) for off in offsets for a in range(nd)])
@@ -1379,15 +1384,29 @@ def _dot(a, b):
     return torch.dot(a.reshape(-1), b.reshape(-1))
 
 
-def _more(r, tol2):
-    """r.r > tol2, read back to the host (counted in
+def _more(rr, tol2):
+    """rr > tol2, read back to the host (counted in
     ``solvers.readbacks["pcg"]``)."""
     readbacks["pcg"] += 1
-    return bool(_dot(r, r) > tol2)
+    return bool(rr > tol2)
+
+
+def _dots(reduce, *pairs):
+    """The dot products of ``pairs`` as one tensor, summed over ranks by
+    ``reduce`` (one collective) where it is given."""
+    s = torch.stack([_dot(a, b) for a, b in pairs])
+    return s if reduce is None else reduce(s)
+
+
+def _tol2(b, rtol, reduce):
+    """(rtol ||b||)^2, ``b`` summed over ranks by ``reduce``."""
+    nb = (torch.linalg.norm(b) if reduce is None
+          else torch.sqrt(reduce(_dot(b, b))))
+    return (rtol * nb) ** 2
 
 
 def pcg(matvec, precond, b, rtol=1e-6, maxiter=500, x0=None,
-        flexible=False):
+        flexible=False, reduce=None):
     """Preconditioned CG with an arbitrary SPD preconditioner.
 
     flexible=True uses the Polak-Ribiere beta
@@ -1395,39 +1414,21 @@ def pcg(matvec, precond, b, rtol=1e-6, maxiter=500, x0=None,
     that varies between applications — required when the V-cycle smooths
     on bfloat16 coefficients.
 
+    reduce: sums a tensor of local dot products over ranks (e.g.
+    ``parallel.Mesh.all_reduce``) when the vectors are the local blocks of
+    a sharded field and ``matvec`` / ``precond`` act on those blocks; the
+    dots of an iteration go in two calls, and every rank reads the same
+    stop decision.
+
     Returns:
         (x, iterations, ||r||) with the residual norm a 0-d tensor.
     """
-    tol2 = (rtol * torch.linalg.norm(b)) ** 2
-    if x0 is None:
-        # r = b - A*0: skip the setup matvec (a full coefficient read)
-        x = torch.zeros_like(b)
-        r = b
-    else:
-        x = x0
-        r = b - matvec(x0)
-    z = precond(r)
-    pv = z
-    rz = _dot(r, z)
-    k = 0
-    while k < maxiter and _more(r, tol2):  # one host sync
-        Ap = matvec(pv)
-        alpha = rz / _dot(pv, Ap)
-        x = x + alpha * pv
-        r_new = r - alpha * Ap
-        z_new = precond(r_new)
-        if flexible:
-            beta = _dot(r_new - r, z_new) / rz
-        else:
-            beta = _dot(r_new, z_new) / rz
-        rz = _dot(r_new, z_new)
-        pv = z_new + beta * pv
-        r = r_new
-        k += 1
-    return x, k, torch.sqrt(_dot(r, r))
+    return _pcg(lambda r: (precond(r), None), matvec, b, rtol, maxiter, x0,
+                flexible, reduce)
 
 
-def pcg_gmg(gmg, lv0, b, rtol=1e-6, maxiter=500, x0=None, flexible=False):
+def pcg_gmg(gmg, lv0, b, rtol=1e-6, maxiter=500, x0=None, flexible=False,
+            reduce=None):
     """PCG with the V-cycle preconditioner, the matvec riding the V-cycle.
 
     ``gmg.apply_resid`` returns ``A z`` alongside ``z`` (the trailing
@@ -1435,34 +1436,47 @@ def pcg_gmg(gmg, lv0, b, rtol=1e-6, maxiter=500, x0=None, flexible=False):
     recurrence ``A p = A z + beta A p`` — no separate operator matvec
     per iteration.  Falls back to :func:`pcg` with ``lv0.matvec`` when
     ``gmg.supports_apply_resid`` is False (a one-level or a 3D
-    hierarchy).  Same return contract.
+    hierarchy).  ``reduce`` as in :func:`pcg`.  Same return contract.
     """
     if not gmg.supports_apply_resid:
         return pcg(lv0.matvec, gmg.apply, b, rtol=rtol, maxiter=maxiter,
-                   x0=x0, flexible=flexible)
-    tol2 = (rtol * torch.linalg.norm(b)) ** 2
+                   x0=x0, flexible=flexible, reduce=reduce)
+    return _pcg(gmg.apply_resid, lv0.matvec, b, rtol, maxiter, x0,
+                flexible, reduce)
+
+
+def _pcg(precond_az, matvec, b, rtol, maxiter, x0, flexible, reduce):
+    """The PCG iteration of :func:`pcg` and :func:`pcg_gmg`:
+    ``precond_az(r)`` gives (z, A z), or (z, None) when A p is to come
+    from ``matvec``."""
+    tol2 = _tol2(b, rtol, reduce)
     if x0 is None:
+        # r = b - A*0: skip the setup matvec (a full coefficient read)
         x = torch.zeros_like(b)
         r = b
     else:
         x = x0
-        r = b - lv0.matvec(x0)
-    z, Ap = gmg.apply_resid(r)
-    pv = z
-    rz = _dot(r, z)
+        r = b - matvec(x0)
+    z, Az = precond_az(r)
+    pv, Ap = z, Az
+    rz, rr = _dots(reduce, (r, z), (r, r))
     k = 0
-    while k < maxiter and _more(r, tol2):  # one host sync
-        alpha = rz / _dot(pv, Ap)
+    while k < maxiter and _more(rr, tol2):  # one host sync
+        if Az is None:
+            Ap = matvec(pv)
+        alpha = rz / _dots(reduce, (pv, Ap))[0]
         x = x + alpha * pv
         r_new = r - alpha * Ap
-        z_new, Az_new = gmg.apply_resid(r_new)
+        z_new, Az = precond_az(r_new)
+        pairs = [(r_new, z_new), (r_new, r_new)]
         if flexible:
-            beta = _dot(r_new - r, z_new) / rz
-        else:
-            beta = _dot(r_new, z_new) / rz
-        rz = _dot(r_new, z_new)
+            pairs.append((r_new - r, z_new))
+        s = _dots(reduce, *pairs)
+        beta = (s[2] if flexible else s[0]) / rz
+        rz, rr = s[0], s[1]
         pv = z_new + beta * pv
-        Ap = Az_new + beta * Ap
+        if Az is not None:
+            Ap = Az + beta * Ap
         r = r_new
         k += 1
-    return x, k, torch.sqrt(_dot(r, r))
+    return x, k, torch.sqrt(rr)

@@ -157,7 +157,7 @@ def _dual_root(con_value, c0, dtype, device):
 
 def device_update_body(x, xold1, xold2, low, upp, g, dc, ci, lb, ub, k,
                        *, asy_grow=1.2, asy_shrink=0.7, albefa=0.1,
-                       move=0.2):
+                       move=0.2, mesh=None):
     """Single-constraint MMA update (asymptotes + dual bisection) on
     design tensors — the same math as the NumPy path, term for term as
     the JAX package's traced update.
@@ -166,10 +166,19 @@ def device_update_body(x, xold1, xold2, low, upp, g, dc, ci, lb, ub, k,
         x, xold1, xold2, low, upp, g, dc, lb, ub: (n,) tensors.
         ci: 0-d constraint value (gi = ci <= 0 feasible).
         k: iteration index (int or 0-d tensor).
+        mesh: block-sharded design tensors on the ranks of a
+            ``parallel.Mesh`` (the JAX ``psum_axis``): the dual
+            bisection's sums and the step's max are all-reduced, so every
+            rank solves the same global dual.
 
     Returns:
         (x_new, low, upp, lam, step), the last two 0-d tensors.
     """
+    if mesh is None:
+        gsum, gmax = torch.sum, torch.max
+    else:
+        gsum = lambda a: mesh.all_reduce(torch.sum(a))
+        gmax = lambda a: mesh.all_reduce(torch.max(a), op="max")
     low, upp, alpha, beta, p0, q0 = _asymptotes(
         x, xold1, xold2, low, upp, g, lb, ub, k, asy_grow, asy_shrink,
         albefa, move)
@@ -177,19 +186,19 @@ def device_update_body(x, xold1, xold2, low, upp, g, dc, ci, lb, ub, k,
     xmL = x - low
     P1 = Umx**2 * torch.clamp(dc, min=0.0)
     Q1 = xmL**2 * torch.clamp(-dc, min=0.0)
-    ri = ci - torch.sum(P1 / Umx + Q1 / xmL)
+    ri = ci - gsum(P1 / Umx + Q1 / xmL)
 
     def solve_x(lam):
         return _solve_x(lam * P1, lam * Q1, p0, q0, low, upp, alpha, beta)
 
     def con_value(lam):
         xs = solve_x(lam)
-        return ri + torch.sum(P1 / (upp - xs) + Q1 / (xs - low))
+        return ri + gsum(P1 / (upp - xs) + Q1 / (xs - low))
 
     zero = torch.zeros((), dtype=x.dtype, device=x.device)
     lam = _dual_root(con_value, con_value(zero), x.dtype, x.device)
     x_new = solve_x(lam)
-    step = torch.max(torch.abs(x_new - x))
+    step = gmax(torch.abs(x_new - x))
     return x_new, low, upp, lam, step
 
 

@@ -178,6 +178,9 @@ class DeviceTopo:
         are the JAX package's (``convert.load_topo_checkpoint`` reads
         either package's file).
         """
+        state = self._checkpoint_state(state)
+        if state is None:  # a rank that writes no file
+            return
         x, xold1, xold2, low, upp, u_prev = (
             t.detach().cpu().numpy() for t in state)
         hist = self.history
@@ -205,7 +208,6 @@ class DeviceTopo:
         Returns:
             (x, rho): final raw and filtered densities (device tensors).
         """
-        from ..convert import load_topo_checkpoint
         from ..models.base import _check_converged
 
         x, lb_v, ub_v, u_prev = self._init_state()
@@ -215,14 +217,8 @@ class DeviceTopo:
         upp = x + self.asy_init * rng
         k0 = 0
         if resume is not None:
-            shapes = (tuple(x.shape), tuple(u_prev.shape))
             (x, xold1, xold2, low, upp, u_prev), k0, self.history = (
-                load_topo_checkpoint(resume, self.dtype, self.device))
-            if (tuple(x.shape), tuple(u_prev.shape)) != shapes:
-                raise ValueError(
-                    f"checkpoint {resume} holds x {tuple(x.shape)} and "
-                    f"u_prev {tuple(u_prev.shape)}; this problem has "
-                    f"{shapes[0]} and {shapes[1]}")
+                self._load_state(resume, (x, low, upp, u_prev)))
 
         pending = []  # (iter, stats tensor)
 
@@ -273,5 +269,35 @@ class DeviceTopo:
         else:
             self.steady_s_per_iter = self.s_per_iter
         self.state = state
-        x = state[0]
+        x = self._finalize_x(state[0])
         return x, self.filtr.apply(x)
+
+    # -- hooks (opt.topo_sharded.ShardedDeviceTopo overrides them) ------------
+
+    def _load_state(self, resume, init):
+        """The optimizer state of checkpoint ``resume``; ``init`` is this
+        run's initial (x, low, upp, u_prev), whose shapes it must have."""
+        from ..convert import crop_topo_state, load_topo_checkpoint
+
+        x, u_prev = init[0], init[3]
+        shapes = (tuple(x.shape), tuple(u_prev.shape))
+        state, k0, history = load_topo_checkpoint(resume, self.dtype,
+                                                  self.device)
+        if state[0].dim() > 1:
+            # a sharded run's grid-shaped design (a JAX one's padded)
+            state = tuple(t.reshape(-1) if i < 5 else t for i, t in
+                          enumerate(crop_topo_state(state, u_prev.shape[1])))
+        got = (tuple(state[0].shape), tuple(state[5].shape))
+        if got != shapes:
+            raise ValueError(
+                f"checkpoint {resume} holds x {got[0]} and u_prev {got[1]}; "
+                f"this problem has {shapes[0]} and {shapes[1]}")
+        return state, k0, history
+
+    def _checkpoint_state(self, state):
+        """The state as a checkpoint stores it (None: write no file)."""
+        return state
+
+    def _finalize_x(self, x):
+        """The final design in the model's flat nodal layout."""
+        return x

@@ -66,37 +66,53 @@ def _dot(a, b):
 
 
 def cg_loop(matvec, b, inv_diag=None, rtol=1e-8, atol=0.0, maxiter=1000,
-            x0=None):
-    """Jacobi-PCG; returns (x, iters, resnorm) as device tensors."""
-    if inv_diag is None:
-        inv_diag = torch.ones_like(b)
-    normb = torch.linalg.norm(b)
+            x0=None, precond=None, reduce=None):
+    """Jacobi-PCG; returns (x, iters, resnorm) as device tensors.
+
+    precond: a preconditioner in place of ``inv_diag * r``.
+    reduce: sums a tensor of local dot products over ranks (e.g.
+    ``parallel.Mesh.all_reduce``) when ``b`` is a rank's block of a
+    sharded vector and ``matvec`` acts on such blocks; the dots of an
+    iteration go in two calls, and every rank reads the same flag.
+    """
+    if precond is None:
+        d = torch.ones_like(b) if inv_diag is None else inv_diag
+
+        def precond(r):
+            return d * r
+
+    def dots(*pairs):
+        s = torch.stack([_dot(u, v) for u, v in pairs])
+        return s if reduce is None else reduce(s)
+
+    normb = (torch.linalg.norm(b) if reduce is None
+             else torch.sqrt(reduce(_dot(b, b))))
     tol2 = torch.clamp(rtol * normb, min=atol) ** 2
 
     if x0 is None:  # r = b - A 0 = b: no setup matvec
         x, r = torch.zeros_like(b), b
     else:
         x, r = x0, b - matvec(x0)
-    z = inv_diag * r
+    z = precond(r)
     p = z
-    rz = _dot(r, z)
+    rz, rr = dots((r, z), (r, r))
     k = torch.zeros((), dtype=torch.int64, device=b.device)
     done = False
     while not done:
         for _ in range(CHECK_EVERY):
-            active = (_dot(r, r) > tol2) & (k < maxiter)
+            active = (rr > tol2) & (k < maxiter)
             Ap = matvec(p)
-            alpha = rz / _dot(p, Ap)
+            alpha = rz / dots((p, Ap))[0]
             x = torch.where(active, x + alpha * p, x)
             r = torch.where(active, r - alpha * Ap, r)
-            z = inv_diag * r
-            rz_new = _dot(r, z)
+            z = precond(r)
+            rz_new, rr = dots((r, z), (r, r))
             p = torch.where(active, z + (rz_new / rz) * p, p)
             rz = torch.where(active, rz_new, rz)
             k = k + active.long()
         readbacks["cg"] += 1
-        done = not bool((_dot(r, r) > tol2) & (k < maxiter))
-    return x, k, torch.sqrt(_dot(r, r))
+        done = not bool((rr > tol2) & (k < maxiter))
+    return x, k, torch.sqrt(rr)
 
 
 def cg(

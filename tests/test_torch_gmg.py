@@ -132,7 +132,9 @@ def test_unported_branches_raise():
                             device=DEV)
     with pytest.raises(RuntimeError):
         m.solve(method="gmg")  # attach_structured_grid first
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # sharded_gmg is ported (tests/test_torch_sharded_gmg.py): it needs
+    # attach_sharded_grid first, as the JAX package does
+    with pytest.raises(RuntimeError, match="attach_sharded_grid"):
         m.solve(method="sharded_gmg")
     # amg is ported (tests/test_torch_amg.py): AMG-PCG on any mesh
     u_amg, u_d = m.solve(method="amg", rtol=1e-10), m.solve(method="direct")
