@@ -238,6 +238,36 @@ Phases:
    U1 on those solves' halo-extended blocks and K9 on the sharded 2D
    filter's (nd = 1), nonzero inner halos, against their plain
    versions; 13c, ``parallel.dryrun_multichip(2)``.
+14. "dirichlet": GMG solves with nonzero Dirichlet values through
+   ``solve(method="gmg")`` (the rhs lift ``b = rhs - A_raw v`` through
+   the fine level's un-eliminated operator), bench 2D's / 3D's GMG
+   options (Chebyshev-node nu=2, bf16 smoother copy, flexible PCG, rtol
+   1e-6).  14a, 1025x513: ``LinearPoisson`` (g = 1) with the x = 0 edge
+   at T = 0.3 + 0.7 y / Ly on the uniform (K1/K2), ``sym=True``
+   (K1-sym/K2-sym) and ``elem_path="cuda"`` (K7b) routes, and
+   ``LinearElasticity`` (p = 3, rho ~ U[0.3, 1], seed 14) with ux =
+   1e-3 (y / Ly - 0.5), uy = 0 there on the uniform route; 14b, 65^3
+   hex8 (p = 0, rho = 1), both physics with the same values on the x = 0
+   face, on the uniform half and full storage (K3/K5/K4) and
+   ``elem_path="otf"`` (K6) routes.  Each line: the kernels of its route
+   and the lift's product kernel (K9 in 2D, K4 in 3D, K6 on the OTF
+   route) launched, the fixed entries equal to the values, the lifted b
+   within ``REL_TOL`` of max|b| of a float64 plain lift, the float64
+   true residual at most 4x its float32 floor, PCG iterations at most 2
+   above the same model's zero-value solve, the lift's time and
+   launches beside the solve's; 14b also the solution within
+   ``SOL64_TOL`` of the float64-outer solve.  The lift's kernels against
+   their plain versions on the lines' inputs: K9 at nd 1 and 2, float32
+   (K1's all-free planes) and float64 (the plain float64 planes); K4 in
+   matvec mode, float32, full storage, nd 1 and 3; K6 with an all-free
+   mask, nd 1 and 3.  14c, bench 2D with nu_pre = nu_post = 8 (K2 in
+   sweep groups): converged, the float64 true residual against
+   ``f64_operator`` at most 4x its floor.  14d, the in-repo oracles
+   (``tests/oracles``: plane stress 32x32, hex8 elasticity and Poisson
+   8^3, tet10 and brick20 Poisson 7^3) against the float64 einsum route
+   on the card (projection error <= 1e-10), and the ``kernel="cuda"``
+   route (K7a / K8) in float32 by Jacobi-CG, its float64 true residual
+   at most 4x max(rtol, its float32 floor).
 
 ``python3 chip_smoke.py --pass-levels [--root DIR]`` runs only
 ``pass_levels`` on the package under DIR (default: this checkout), so a
@@ -249,6 +279,7 @@ the readings ``SOL64_TOL`` is set from; ``--newton-floor`` only phase
 ``--quadratic`` only phase 9; ``--topo3d`` only phase 10;
 ``--unstructured`` only phase 11; ``--surface`` only phase 12;
 ``--sharded`` only phase 13 (with its single-device yardsticks);
+``--dirichlet`` only phase 14;
 ``--stencil-2d-kernels [--root DIR]`` only K2, K2-sym and K9, on the
 package under DIR: every K2 and K2-sym call form at 1025x513 nd=2 and
 1025^2 nd=1 and every K9 form (nd 1 and 2 in f32 and f64 at 1025x513,
@@ -5468,13 +5499,13 @@ def surface_elasticity(dev, pt, multigrid, i2p, p2i):
         step4, (rho_t, rhs4, rhs4), SURF_NAMES, "surface 12a phase-4 step")
     c4["K2"] = k2_launches(c4)
     log(f"surface 12a phase-4 step: {k4} iterations, launches {c4}")
-    # the model's solve starts from x0 = 0 (its Dirichlet values): one
-    # residual matvec, one K2 launch, more than the step's
+    # the model's solve starts its correction from 0, as the step does:
+    # the same launches
     check(k == k4 and counts["pyfem_assemble_2d"] == c4["pyfem_assemble_2d"]
-          == len(gmg4.levels) and counts["K2"] == c4["K2"] + 1,
+          == len(gmg4.levels) and counts["K2"] == c4["K2"],
           f"surface 12a: iterations ({k} vs {k4}), K1 ({counts['pyfem_assemble_2d']}"
           f" vs {c4['pyfem_assemble_2d']}) and K2 ({counts['K2']} vs "
-          f"{c4['K2']} + 1, the x0 residual) equal phase 4's step")
+          f"{c4['K2']}) equal phase 4's step")
     du = float((u - u4).abs().max() / u4.abs().max())
     check(du == 0.0, f"surface 12a: the solution equals the phase-4 step's "
           f"bit for bit (max rel diff {du:.3e})")
@@ -6481,6 +6512,542 @@ def run_sharded():
     return 0
 
 
+# -- phase 14: GMG solves with nonzero Dirichlet values ----------------------
+
+DIR_SEED = 14
+DIR_ROUTES_2D = ({}, {"sym": True}, {"elem_path": "cuda"})
+DIR_ROUTES_3D = ({}, {"sym": False}, {"elem_path": "otf"})
+# entry points of every kernel a lifted solve may launch, by kernels-line row
+DIR_ENTRY = {
+    "K1": ("pyfem_assemble_2d",), "K1-sym": ("pyfem_assemble_2d_sym",),
+    "K2": K2_ENTRIES, "K2-sym": K2_SYM_ENTRIES,
+    "K3": ("pyfem_assemble_3d",), "K4": ("pyfem_sweep_3d",),
+    "K5": ("pyfem_sweeps_3d",), "K6": ("pyfem_otf_3d",),
+    "K6-tc": ("pyfem_otf_3d_tc",), "K7a": ("pyfem_elasticity_quad4",),
+    "K7b": ("pyfem_poisson_quad4",), "K8": ("pyfem_stiffness_3d",),
+    "K9": ("pyfem_stencil_2d",),
+}
+DIR_NAMES = tuple(sorted({e for v in DIR_ENTRY.values() for e in v}))
+# the kernels each lifted solve must launch, by dimension and route (K7:
+# K7a for elasticity, K7b for Poisson), and its lift's product kernel
+DIR_WANT = {
+    (2, "uniform"): ("K1", "K2", "K9"), (2, "sym"): ("K1-sym", "K2-sym", "K9"),
+    (2, "elem_path=cuda"): ("K7", "K2", "K9"),
+    (3, "uniform"): ("K3", "K4", "K5"), (3, "sym=False"): ("K3", "K4", "K5"),
+    (3, "elem_path=otf"): ("K3", "K6", "K6-tc"),
+}
+DIR_LIFT = {2: "K9", 3: "K4", "otf": "K6"}
+
+
+def dir_route(route):
+    """A route's name in labels: uniform, sym, sym=False, elem_path=..."""
+    if not route:
+        return "uniform"
+    return " ".join("sym" if (k, v) == ("sym", True) else f"{k}={v}"
+                    for k, v in route.items())
+# 14d: the oracle gates' projection tolerance (tests/test_hex8_oracle.py,
+# test_elasticity.py, test_quadratic_oracles.py)
+ORACLE_TOL = 1e-10
+
+
+def dir_counts():
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+
+    return {k: _cuda.launches.get(k, 0) for k in DIR_NAMES}
+
+
+def dir_model(pt, dev, physics, dims):
+    """A 14a/14b model (float32) with its Dirichlet values: Poisson (g = 1,
+    rho = 1) with the x = 0 edge / face held at T = 0.3 + 0.7 y / Ly;
+    elasticity with ux = 1e-3 (y / Ly - 0.5), uy (uz) = 0 there, at p = 3
+    and rho ~ U[0.3, 1] (seed 14) in 2D, bench 3D's p = 0, rho = 1 in 3D.
+    Returns (model, rho, fixed, vals)."""
+    import torch
+
+    dim = len(dims)
+    c = pt.ProblemCreator(*dims, element_type="quad" if dim == 2
+                          else "block")
+    etype = "quad4" if dim == 2 else "hex8"
+    f32 = torch.float32
+    if physics == "poisson":
+        conn, X, fixed = c.create_poisson_problem()
+        Ly = float(X[:, 1].max())
+        vals = 0.3 + 0.7 * X[fixed, 1] / Ly
+        m = pt.LinearPoisson(etype, X, conn, fixed, vals,
+                             gfunc=lambda x: torch.ones_like(x[..., 0]),
+                             dtype=f32, device=dev)
+        rho = np.ones(len(X))
+    else:
+        conn, X, fixed, force = c.create_linear_elasticity_problem()
+        Ly = float(X[:, 1].max())
+        node, comp = fixed // dim, fixed % dim
+        vals = np.where(comp == 0, 1e-3 * (X[node, 1] / Ly - 0.5), 0.0)
+        p = 3.0 if dim == 2 else 0.0
+        m = pt.LinearElasticity(etype, X, conn, fixed, vals, force, p=p,
+                                dtype=f32, device=dev)
+        rho = (np.random.default_rng(DIR_SEED).uniform(0.3, 1.0, len(X))
+               if dim == 2 else np.ones(len(X)))
+    return m, torch.as_tensor(rho, dtype=f32, device=dev), fixed, vals
+
+
+def dir_f64(m, dims, rho):
+    """The float64 yardsticks of a 14a/14b model, by the plain path: the
+    eliminated operator A (and |A|) and the un-eliminated product of the
+    lift, from ``assemble_pack_*_plain`` with the model's mask and with
+    every dof free, applied by ``Stencil{2,3}D.matvec``."""
+    import torch
+    from pyfem_gpu_testflight_tpu_torch import multigrid
+    from pyfem_gpu_testflight_tpu_torch.ops import fused_assemble as fa
+    from pyfem_gpu_testflight_tpu_torch.ops import fused_smooth as fs
+
+    dim, nd = len(dims), m.ndof_per_node
+    physics = "poisson" if nd == 1 else "elasticity"
+    mask = m._gmg_asm.static_levels[0].mask.cpu().numpy()
+    L = [float(m.X_host[:, k].max()) for k in range(dim)]
+    kw = dict(p=m.p, dtype=torch.float64, device=rho.device,
+              fine_mask=mask)
+    if physics == "elasticity":
+        kw.update(E=m.E, nu=m.nu)
+    cls = multigrid.GMGAssembler if dim == 2 else multigrid.GMGAssembler3D
+    a = cls(*dims, *L, physics, **kw)
+    st = a.static_levels[0]
+    plain = (fa.assemble_pack_2d_plain if dim == 2
+             else fa.assemble_pack_3d_plain)
+    full = fs.as_full_planes_2d if dim == 2 else fs.as_full_planes_3d
+    r64 = rho.double().reshape(st.shape)
+    planes = [full(plain(r64, mf, st.W, a.N, nd=nd, p=m.p, sym=False)[0],
+                   nd) for mf in (st.maskf, torch.ones_like(st.maskf))]
+    ce, raw = planes
+    ca = ce.abs()
+    return dict(mv=lambda u: st.op.matvec(ce, u),
+                mvabs=lambda u: st.op.matvec(ca, u),
+                lift=lambda v: st.op.matvec(raw, v), raw=raw, mask=st.mask)
+
+
+def dir_line(dev, pt, multigrid, i2p, p2i, label, physics, dims, route,
+             f64=None):
+    """One 14a/14b line: the lifted solve through ``solve(method="gmg")``
+    with bench 2D's / 3D's options (Chebyshev-node nu=2, bf16 smoother
+    copy, flexible PCG, rtol 1e-6) on ``route``, its launches, the four
+    checks (fixed entries exact, b against the float64 plain lift, the
+    float64 true residual against 4x its float32 floor, iterations within
+    2 of the zero-value solve) and, in 3D, the solution against the
+    float64-outer solve.  ``f64``: the physics' float64 yardsticks when
+    an earlier route built them (same problem and density)."""
+    import torch
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+
+    m, rho, fixed, vals = dir_model(pt, dev, physics, dims)
+    nd, shape = m.ndof_per_node, tuple(dims[::-1])
+    m.attach_structured_grid(*dims, omega="cheby",
+                             smoother_dtype=torch.bfloat16, **route)
+    asm = m._gmg_asm
+    rhs = m.compute_rhs()
+    m.solve(method="gmg", rho=rho, rtol=1e-6)  # warm-up
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    _cuda.reset_launches()
+    e0.record()
+    u = m.solve(method="gmg", rho=rho, rtol=1e-6)
+    e1.record()
+    e1.synchronize()
+    counts = dir_counts()
+    solve_ms = e0.elapsed_time(e1)
+    k = m.last_solve_stats["iters"]
+    u2, b = m._solve_system(None, rhs, "gmg", rtol=1e-6, rho=rho)
+    check(torch.equal(u2, u), f"{label}: the solve is repeatable bit for "
+          f"bit")
+    # the zero-value solve of the same model: the same hierarchy and PCG
+    gmg, lv0 = asm.assemble(rho)
+    b0 = torch.where(lv0.mask, 0.0, i2p(rhs, nd).reshape((nd,) + shape))
+    _x, k0, _ = multigrid.pcg_gmg(gmg, lv0, b0, rtol=1e-6, maxiter=400,
+                                  flexible=True)
+    # the lift alone: its time and launches
+    vals_t = torch.zeros(m.ndof, dtype=torch.float32, device=dev)
+    vals_t[torch.as_tensor(fixed, device=dev)] = torch.as_tensor(
+        vals, dtype=torch.float32, device=dev)
+    vz = i2p(vals_t, nd).reshape((nd,) + shape)
+    run = lambda: asm._dirichlet_lift(rho, vz)
+    lift_ms = cuda_ms(run, 10)
+    _cuda.reset_launches()
+    run()
+    torch.cuda.synchronize()
+    lift_counts = {k_: v for k_, v in dir_counts().items() if v}
+    # checks
+    name = dir_route(route)
+    want = [("K7a" if nd > 1 else "K7b") if k_ == "K7" else k_
+            for k_ in DIR_WANT[len(dims), name]]
+    ran = {k_: sum(counts[e] for e in DIR_ENTRY[k_]) for k_ in want}
+    check(all(ran.values()), f"{label}: {', '.join(want)} launched in the "
+          f"solve ({ran})")
+    lk = DIR_LIFT["otf" if name == "elem_path=otf" else len(dims)]
+    check(all(lift_counts.get(e, 0) >= 1 for e in DIR_ENTRY[lk]),
+          f"{label}: the lift's product runs on {lk} ({lift_counts})")
+    fixed_t = torch.as_tensor(fixed, device=dev)
+    check(torch.equal(u[fixed_t], vals_t[fixed_t]),
+          f"{label}: the fixed entries equal the values exactly")
+    f64 = f64 or dir_f64(m, dims, rho)
+    v64 = vz.double()
+    rhs64 = i2p(rhs.double(), nd).reshape((nd,) + shape)
+    b64 = torch.where(f64["mask"], v64, rhs64 - f64["lift"](v64))
+    bg = i2p(b, nd).reshape((nd,) + shape)
+    db = float((bg.double() - b64).abs().max() / b64.abs().max())
+    check(db <= REL_TOL, f"{label}: lifted b within {REL_TOL:g} of max|b| "
+          f"of the float64 plain lift ({db:.2e})")
+    x = i2p(u, nd).reshape((nd,) + shape)
+    true, floor = residuals(f64["mv"], f64["mvabs"], b64, x)
+    check(true <= FLOOR_FACTOR * floor,
+          f"{label}: float64 true residual {true:.3e} <= {FLOOR_FACTOR:g} x "
+          f"its float32 floor {floor:.3e}")
+    check(k <= k0 + 2, f"{label}: {k} PCG iterations, <= 2 above the "
+          f"zero-value solve's {k0}")
+    out = dict(k=k, k0=k0, solve_ms=solve_ms, lift_ms=lift_ms, db=db,
+               true=true, floor=floor, counts=counts,
+               lift_counts=lift_counts, vz=vz, rho=rho, model=m)
+    if len(dims) == 3:
+        # the float64-outer solve of the lifted system, on the correction
+        # from v (b at free dofs, 0 at fixed ones), as the model solves
+        ya, ka, _ = accuracy_solve(gmg, f64["mv"],
+                                   torch.where(f64["mask"], 0.0, b64))
+        xa = v64 + ya
+        err = float((x.double() - xa).abs().max() / xa.abs().max())
+        check(err <= SOL64_TOL, f"{label}: solution within {SOL64_TOL:g} of "
+              f"the float64-outer solve ({err:.3e}, {ka} outer iterations)")
+        out["err64"] = err
+    log(f"{label}: {k} PCG iterations (zero values: {k0}), solve "
+        f"{solve_ms:.3f} ms, the lift alone {lift_ms:.3f} ms "
+        f"({lift_counts}), launches {counts}; b vs float64 lift {db:.2e}, "
+        f"true residual {true:.3e} (floor {floor:.3e}, ratio "
+        f"{true / floor:.2f})"
+        + (f", solution vs float64-outer {out['err64']:.3e}"
+           if "err64" in out else ""))
+    return out, f64
+
+
+def dir_kernel_form(name, run, plain, bound_args, lib=None):
+    """A lift kernel against its plain version on the line's inputs: the
+    relative error (<= REL_TOL), CUDA-event times of both, the bound and
+    the one-call library time (``lib``, where there is one)."""
+    import torch
+
+    got, ref = run(), plain()
+    torch.cuda.synchronize()
+    ea, er = rel_err(got, ref)
+    check(er <= REL_TOL, f"{name}: within {REL_TOL:g} of plain (rel "
+          f"{er:.2e})")
+    b_ms, b_by = bound(*bound_args)
+    r = dict(max_abs_err=ea, rel=er, ms=cuda_ms(run, 20),
+             plain_ms=cuda_ms(plain, 5), bound_ms=b_ms, bound_by=b_by,
+             library_ms=None if lib is None else lib())
+    log(f"{name}: rel {er:.2e}, kernel {r['ms']:.4f} ms, plain "
+        f"{r['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), library "
+        f"{fms(r['library_ms'])} ms")
+    return r
+
+
+def dir_lift_forms(line, f64, dims):
+    """14a/14b: the lift's kernels against their plain versions on a
+    line's un-eliminated planes and values: K9 (2D, float32 on the K1
+    all-free planes and float64 on the plain float64 ones), K4 (3D,
+    matvec mode, float32, full storage) or K6 (the OTF route, float32
+    body with an all-free mask)."""
+    import torch
+    from pyfem_gpu_testflight_tpu_torch.ops import fused_assemble as fa
+    from pyfem_gpu_testflight_tpu_torch.ops import fused_smooth as fs
+    from pyfem_gpu_testflight_tpu_torch.ops import otf3d
+    from pyfem_gpu_testflight_tpu_torch.ops import stencil_matvec as sm
+
+    m, rho, vz = line["model"], line["rho"], line["vz"]
+    asm, nd = m._gmg_asm, m.ndof_per_node
+    st = asm.static_levels[0]
+    shape = tuple(dims[::-1])
+    n = int(np.prod(shape))
+    free = torch.ones_like(st.maskf)
+    forms = {}
+    if st.otf is not None:
+        w3, wd = st.otf
+        rg = rho.reshape(shape).contiguous()
+        kw = dict(niter=0, want_resid=True, neg_resid=True, p=asm.p)
+        forms[f"K6 nd={nd} f32"] = dir_kernel_form(
+            f"K6 lift nd={nd} {'x'.join(map(str, dims))}",
+            lambda: otf3d.otf_apply_3d(rg, free, w3, wd, None, vz, **kw),
+            lambda: otf3d.otf_apply_3d_plain(rg, free, w3, wd, None, vz,
+                                             **kw),
+            (nbytes(rg, free, w3, wd, vz) + nbytes(vz),
+             2 * (nd * nd * (512 + 27) + 64) * n))
+        return forms
+    if len(dims) == 2:
+        c32 = fa.assemble_pack_2d(rho.reshape(shape).contiguous(), free,
+                                  st.W, asm.N, nd=nd, p=asm.p)[0]
+        for dt, c in ((torch.float32, c32.reshape((nd, nd, 3, 3) + shape)),
+                      (torch.float64, f64["raw"].contiguous())):
+            v = vz.to(dt)
+            flop_s = F32_FLOP_S if dt == torch.float32 else F64_FLOP_S
+            forms[f"K9 nd={nd} {str(dt)[6:]}"] = dir_kernel_form(
+                f"K9 lift nd={nd} {str(dt)[6:]} {NX}x{NY}",
+                lambda c=c, v=v: sm.stencil_matvec_2d(c, v),
+                lambda c=c, v=v: sm.stencil_matvec_2d_plain(c, v),
+                (nbytes(c, v) + nbytes(v), 2 * nd * nd * 9 * n, flop_s),
+                lambda c=c, v=v, dt=dt: library_matvec_ms(c, shape, v, dt))
+        return forms
+    c = fa.assemble_pack_3d(rho.reshape(shape).contiguous(), free, st.W,
+                            asm.N, nd=nd, p=asm.p, sym=False)[0]
+    kw = dict(x=vz, mode="matvec", neg_resid=True)
+    forms[f"K4 nd={nd} f32 full"] = dir_kernel_form(
+        f"K4 lift nd={nd} f32 full storage {'x'.join(map(str, dims))}",
+        lambda: fs.fused_sweep_3d(c, **kw),
+        lambda: fs.fused_sweep_3d_plain(c, **kw),
+        (nbytes(c, vz) + nbytes(vz), 2 * nd * nd * 27 * n),
+        lambda: library_matvec_ms(fs.as_full_planes_3d(c, nd), shape, vz))
+    return forms
+
+
+def dir_nu8(dev, pt, multigrid, i2p, p2i):
+    """14c: bench 2D (p = 0, rho = 1, Chebyshev-node factors, bf16
+    smoother copy, flexible PCG, rtol 1e-6) with nu_pre = nu_post = 8,
+    beyond K2's budget of 4 stencil steps a launch (JAX
+    ``tests/test_multigrid.py:285`` at the bench width): converged below
+    maxiter, K2 launches per smoothing call, and the float64 true
+    residual against ``f64_operator`` (K1's plain version in float64, an
+    operator assembled apart from the float32 kernels) at most 4x its
+    float32 floor."""
+    import torch
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+
+    conn, X, fixed, force, (Lx, Ly) = problem(NX, NY)
+    model = pt.LinearElasticity("quad4", X, conn, fixed, None, force, p=0.0,
+                                dtype=torch.float32, device=dev)
+    asm = multigrid.GMGAssembler(
+        NX, NY, Lx, Ly, "elasticity", p=0.0, dtype=torch.float32,
+        device=dev, nu_pre=8, nu_post=8, smoother_dtype=torch.bfloat16,
+        omega="cheby")
+    rho = torch.ones(model.nnodes, dtype=torch.float32, device=dev)
+    rhs = model.compute_rhs()
+
+    def run():
+        gmg, lv0 = asm.assemble(rho)
+        b = torch.where(lv0.mask, 0.0, i2p(rhs, 2).reshape(2, NY, NX))
+        return multigrid.pcg_gmg(gmg, lv0, b, rtol=1e-6, maxiter=200,
+                                 flexible=True) + (b,)
+
+    run()
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    x, k, rn, b = run()
+    e1.record()
+    e1.synchronize()
+    counts = dir_counts()
+    calls, nk2 = k2_per_call(run)
+    mv64, mvabs, _ = f64_operator(NX, NY, Lx, Ly, rho, 0.0, dev)
+    true, floor = residuals(mv64, mvabs, b, x)
+    log(f"14c nu=8: {k} PCG iterations, ||r||/||b|| "
+        f"{float(rn) / float(torch.linalg.norm(b)):.3e}, "
+        f"{e0.elapsed_time(e1):.3f} ms, {calls} smoothing calls, {nk2} K2 "
+        f"launches, true residual {true:.3e} (floor {floor:.3e}, ratio "
+        f"{true / floor:.2f})")
+    check(k < 200 and float(rn) <= 1e-6 * float(torch.linalg.norm(b)),
+          "14c nu=8: converged below maxiter")
+    check(nk2 > calls, "14c nu=8: K2 takes more than one launch a call "
+          "(sweep groups)")
+    check(true <= FLOOR_FACTOR * floor,
+          f"14c nu=8: float64 true residual <= {FLOOR_FACTOR:g} x its float32 "
+          f"floor")
+    return dict(k=k, true=true, floor=floor, calls=calls, k2=nk2,
+                counts=counts, ms=e0.elapsed_time(e1))
+
+
+def dir_oracles(dev, pt):
+    """14d: the oracle gates on the card, at the JAX tests' sizes: the
+    port's float64 einsum route (CUDA tensors; the host direct solve, and
+    CG at rtol 1e-12 for hex8 elasticity) against ``tests/oracles/`` by
+    the seed-123 projection (<= ``ORACLE_TOL``), then the
+    ``kernel="cuda"`` route (K7a / K8) in float32 by Jacobi-CG at rtol
+    1e-6: its float64 true residual against the float64 einsum
+    operator at most 4 x max(rtol, its float32 floor) (PERF.md section
+    2), its projection error printed."""
+    import warnings
+
+    import torch
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+
+    sys.path.insert(0, "tests")
+    from oracles.hex8_oracle import solve_elasticity_3d, solve_poisson_3d
+    from oracles.plane_stress_oracle import solve_plane_stress
+    from oracles.quadratic_oracle import (
+        solve_poisson_brick20, solve_poisson_tet10,
+    )
+
+    def proj(u, ref):
+        p = np.random.RandomState(123).rand(ref.shape[0])
+        u = u.detach().cpu().double().numpy()
+        return abs((p @ u - p @ ref) / (p @ ref))
+
+    g3 = lambda x: x[..., 0] * x[..., 1] + x[..., 2]
+    gq = lambda x: 1.0 + x[..., 0] + 2.0 * x[..., 1] - 0.5 * x[..., 2]
+    cases = (
+        ("plane stress 32x32", (32, 32), "quad", "quad4", None,
+         lambda c, X, f, F: solve_plane_stress(c, X, f, F)),
+        ("hex8 elasticity 8^3", (8, 8, 8), "block", "hex8", None,
+         lambda c, X, f, F: solve_elasticity_3d(c, X, f, F)),
+        ("hex8 poisson 8^3", (8, 8, 8), "block", "hex8", g3,
+         lambda c, X, f, F: solve_poisson_3d(
+             c, X, f, lambda x: x[0] * x[1] + x[2])),
+        ("tet10 poisson 7^3", (7, 7, 7), "tet", "tet10", gq,
+         lambda c, X, f, F: solve_poisson_tet10(c, X, f, gq)),
+        ("brick20 poisson 7^3", (7, 7, 7), "brick20", "brick20", gq,
+         lambda c, X, f, F: solve_poisson_brick20(c, X, f, gq)),
+    )
+    out = {}
+    for label, dims, make, etype, g, oracle in cases:
+        c = pt.ProblemCreator(*dims, element_type=make)
+        if g is None:
+            conn, X, fixed, force = c.create_linear_elasticity_problem()
+            mk = lambda **kw: pt.LinearElasticity(etype, X, conn, fixed, None,
+                                                  force, device=dev, **kw)
+        else:
+            conn, X, fixed = c.create_poisson_problem()
+            force = None
+            mk = lambda **kw: pt.LinearPoisson(etype, X, conn, fixed,
+                                               gfunc=g, device=dev, **kw)
+        u_ref = oracle(conn, X, fixed, force)
+        m64 = mk()
+        errs = [proj(m64.solve(method="direct"), u_ref)]
+        if label.startswith("hex8 elasticity"):
+            errs.append(proj(m64.solve(method="cg", rtol=1e-12), u_ref))
+        check(max(errs) < ORACLE_TOL, f"14d {label}: float64 einsum route "
+              f"against the oracle ({max(errs):.2e})")
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            m32 = mk(dtype=torch.float32, kernel="cuda")
+        _cuda.reset_launches()
+        u32 = m32.solve(method="cg", rtol=1e-6)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in dir_counts().items() if v}
+        K, b = m64.bc.apply_scipy(m64.assemble_scipy(
+            m64.element_jacobian()), m64.compute_rhs().cpu().numpy())
+        u = u32.double().cpu().numpy()
+        bn = np.linalg.norm(b)
+        true = np.linalg.norm(b - K @ u) / bn
+        floor = 2.0 ** -24 * np.linalg.norm(abs(K) @ np.abs(u)) / bn
+        e32 = proj(u32, u_ref)
+        log(f"14d {label}: float64 einsum {max(errs):.2e} from the oracle; "
+            f"kernel='cuda' float32 CG {m32.last_solve_stats['iters']} "
+            f"iterations, launches {counts}, true residual {true:.3e} "
+            f"(floor {floor:.3e}), {e32:.2e} from the oracle")
+        check(true <= FLOOR_FACTOR * max(1e-6, floor),
+              f"14d {label}: kernel='cuda' float32 true residual <= "
+              f"{FLOOR_FACTOR:g} x max(rtol, floor)")
+        out[label] = dict(err64=max(errs), err32=e32, true=true,
+                          floor=floor, counts=counts)
+    return out
+
+
+def phase_dirichlet(dev, pt, multigrid, i2p, p2i):
+    """Phase 14 (see the module docstring)."""
+    t0 = time.time()
+    res = dict(lines={}, forms={}, launches={})
+    for physics, routes in (("poisson", DIR_ROUTES_2D),
+                            ("elasticity", ({},))):
+        f64 = None
+        for route in routes:
+            label = f"14a {physics} {dir_route(route)}"
+            line, f64 = dir_line(dev, pt, multigrid, i2p, p2i, label,
+                                 physics, (NX, NY), route, f64)
+            if not route:
+                res["forms"].update(dir_lift_forms(line, f64, (NX, NY)))
+            res["launches"][label] = line.pop("counts")
+            res["lines"][label] = {k: v for k, v in line.items()
+                                   if k not in ("vz", "rho", "model")}
+        del f64
+    for physics in ("poisson", "elasticity"):
+        f64 = None
+        for route in DIR_ROUTES_3D:
+            label = f"14b {physics} {dir_route(route)}"
+            line, f64 = dir_line(dev, pt, multigrid, i2p, p2i, label,
+                                 physics, (N3,) * 3, route, f64)
+            if not route or route.get("elem_path") == "otf":
+                res["forms"].update(dir_lift_forms(line, f64, (N3,) * 3))
+            res["launches"][label] = line.pop("counts")
+            res["lines"][label] = {k: v for k, v in line.items()
+                                   if k not in ("vz", "rho", "model")}
+        del f64
+    res["nu8"] = dir_nu8(dev, pt, multigrid, i2p, p2i)
+    res["oracles"] = dir_oracles(dev, pt)
+    res["seconds"] = time.time() - t0
+    log(f"dirichlet: phase 14 took {res['seconds']:.1f} s host clock")
+    return res
+
+
+def dirichlet_row(dr, key):
+    """Phase 14's entries of one kernels-line row: its launches on each
+    lifted solve (``launches_dirichlet``, counted just before the solve,
+    read just after), on 14c's nu = 8 solve and on 14d's kernel='cuda'
+    CG solves, and the lift forms held against plain (K9, K4, K6)."""
+    ents = DIR_ENTRY.get(key, ())
+    out = {"launches_dirichlet": {
+        line: sum(c.get(e, 0) for e in ents)
+        for line, c in dr["launches"].items()}}
+    out["launches_dirichlet"]["14c_nu8"] = sum(
+        dr["nu8"]["counts"].get(e, 0) for e in ents)
+    for label, o in dr["oracles"].items():
+        n = sum(o["counts"].get(e, 0) for e in ents)
+        if n:
+            out["launches_dirichlet"][f"14d {label}"] = n
+    forms = {k: v for k, v in dr["forms"].items() if k.split()[0] == key}
+    if forms:
+        out["dirichlet_lift"] = forms
+    return out
+
+
+def dirichlet_summary(dr):
+    """Phase 14's figures as one JSON-able dict."""
+    keep = ("k", "k0", "solve_ms", "lift_ms", "lift_counts", "db", "true",
+            "floor", "err64")
+    return dict(
+        lines={k: {f: v[f] for f in keep if f in v}
+               for k, v in dr["lines"].items()},
+        nu8={k: dr["nu8"][k] for k in ("k", "true", "floor", "calls", "k2",
+                                       "ms")},
+        oracles={k: {f: v[f] for f in ("err64", "err32", "true", "floor")}
+                 for k, v in dr["oracles"].items()},
+        forms={k: {f: v[f] for f in ("rel", "ms", "plain_ms", "bound_ms",
+                                     "library_ms")}
+               for k, v in dr["forms"].items()},
+        seconds=dr["seconds"])
+
+
+def run_dirichlet():
+    """``python3 chip_smoke.py --dirichlet``: only phase 14 (with the
+    kernel build); prints the card and one JSON line of its readings."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    import pyfem_gpu_testflight_tpu_torch as pt
+    from pyfem_gpu_testflight_tpu_torch import multigrid
+    from pyfem_gpu_testflight_tpu_torch.ops import _cuda
+    from pyfem_gpu_testflight_tpu_torch.ops.dia import (
+        interleave_to_planar as i2p, planar_to_interleave as p2i,
+    )
+
+    log(card_line())
+    t0 = time.time()
+    _cuda.library()
+    log(f"build: {time.time() - t0:.2f} s")
+    dr = phase_dirichlet(torch.device("cuda", 0), pt, multigrid, i2p, p2i)
+    log(json.dumps({"dirichlet": dirichlet_summary(dr)}))
+    log(card_line())
+    if FAILS:
+        print("chip_smoke FAILED:\n  " + "\n  ".join(FAILS), file=sys.stderr)
+        return 1
+    return 0
+
+
 def bench3d_iters(dev, pt, multigrid, i2p):
     """Bench 3D's single-device PCG iterations (phase 4a's step)."""
     import torch
@@ -6749,6 +7316,9 @@ def main():
     sh = phase_sharded(dev, pt, dict(k2d=m2["k"], k3d=m3["k"],
                                      k_arm=uns["arm"]["solve"]["iters"]),
                        uns["arm"].pop("system"))
+    # 14. GMG solves with nonzero Dirichlet values (the rhs lift on K9 /
+    # K4 / K6), nu = 8 at the bench width, the oracle gates on the card
+    dr = phase_dirichlet(dev, pt, multigrid, i2p, p2i)
 
     # summary
     src = "pyfem_gpu_testflight_tpu_torch/csrc/"
@@ -6943,6 +7513,10 @@ def main():
         if key in ("K2", "K4", "K9"):
             row.update(sharded_row(sh, {"K2": "K2", "K4": "pyfem_sweep_3d",
                                         "K9": "pyfem_stencil_2d"}[key], key))
+        row.update(dirichlet_row(dr, key))
+        if "dirichlet_lift" in row:
+            row["max_abs_err"] = max([row["max_abs_err"]] + [
+                v["max_abs_err"] for v in row["dirichlet_lift"].values()])
         kernels.append(row)
     kernels += unstructured_kernel_rows(uns)
     kernels[-2].update(sharded_row(sh, "pyfem_csr_spmv", "U1"))
@@ -6984,6 +7558,7 @@ def main():
         f"ms; LOBPCG meets rtol 1e-6 at {sc['grid']} ({card})")
     log(json.dumps({"surface": surface_summary(surf)}))
     log(json.dumps({"sharded": sharded_summary(sh)}))
+    log(json.dumps({"dirichlet": dirichlet_summary(dr)}))
     log(f"2D single-shot {s2:.3f} ms, chained {ch2:.3f} ms/solve; 3D "
         f"single-shot {m3['single_ms']:.3f} ms, chained {m3['ch']:.3f} "
         f"ms/solve; 3D otf single-shot {mo['single_ms']:.3f} ms, chained "
@@ -7004,6 +7579,7 @@ if __name__ == "__main__":
              run_unstructured() if "--unstructured" in sys.argv else
              run_surface() if "--surface" in sys.argv else
              run_sharded() if "--sharded" in sys.argv else
+             run_dirichlet() if "--dirichlet" in sys.argv else
              run_solution_floor() if "--solution-floor" in sys.argv else
              run_k2_witness() if "--k2-witness" in sys.argv else
              run_assembly_kernels() if "--assembly-kernels" in sys.argv

@@ -6,7 +6,9 @@ mesh, element-table and BC state, the lazy host sparsity ``pattern``,
 ``attach_structured_grid`` in 2D and 3D, ``attach_pmg``,
 ``attach_sharded_grid``, the ``"gmg"``, ``"sharded_gmg"``, ``"pmg"``,
 ``"amg"``, ``"cg"``, ``"gmres"`` and ``"direct"`` branches of
-``_solve_system``, the design
+``_solve_system`` (every one takes nonzero Dirichlet values but
+``"pmg"``, which refuses them as the JAX package does; ``"gmg"`` lifts
+the rhs through the fine level's un-eliminated operator), the design
 sensitivity ``d(phi^T K psi)/drho`` (the generic einsum route with a
 deterministic segment sum, and the scatter-free structured route of an
 attached uniform grid) and the volume functionals.
@@ -44,12 +46,6 @@ KERNEL_ETYPES = ("quad4", "hex8", "tet10", "brick20")
 # solve methods that build their operator from the density themselves,
 # so solve/compliance compute no element matrices for them
 OWN_OPERATOR = ("gmg", "sharded_gmg", "pmg")
-
-
-def _not_ported(what, where):
-    raise NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md queue 1, {where})"
-    )
 
 
 def _check_converged(method, resnorm, tol, iters=None, slack=10.0):
@@ -427,7 +423,9 @@ class FEModel:
 
         Builds a GMG hierarchy (multigrid.GMGAssembler[3D]) using this
         model's physics, dtype, device and Dirichlet mask; afterwards
-        ``solve(method="gmg")`` runs V-cycle-preconditioned CG.
+        ``solve(method="gmg")`` runs V-cycle-preconditioned CG, with
+        nonzero Dirichlet values through a rhs lift
+        (``GMGAssembler._dirichlet_lift``).
         """
         from ..multigrid import GMGAssembler, GMGAssembler3D
 
@@ -464,30 +462,39 @@ class FEModel:
         from .. import multigrid
         from ..ops.dia import interleave_to_planar, planar_to_interleave
 
-        if bool(self.bc.values.any()):
-            # K1 levels are eliminated-only: the rhs lift needs the
-            # un-eliminated operator (the JAX package refuses this on
-            # its fused-kernel levels too)
-            _not_ported("gmg with nonzero Dirichlet values",
-                        "slice 1 item 6")
         shape = self._gmg_shape
         nd = self.ndof_per_node
-        gmg, lv0 = self._gmg_asm.assemble(self._as_nodal(rho))
+        rho = self._as_nodal(rho)
+        gmg, lv0 = self._gmg_asm.assemble(rho)
         rhs_g = interleave_to_planar(
             torch.as_tensor(rhs, dtype=self.dtype, device=self.device), nd
         ).reshape((nd,) + shape)
         vals_g = interleave_to_planar(
             self.bc.values.to(self.dtype), nd
         ).reshape((nd,) + shape)
-        b = torch.where(lv0.mask, vals_g, rhs_g)
         x0 = torch.where(lv0.mask, vals_g, 0.0)
+        if bool(self.bc.values.any()):
+            # nonzero Dirichlet values: the rhs lift through the fine
+            # level's un-eliminated operator (the levels themselves are
+            # eliminated), as the JAX package lifts on its XLA levels
+            rhs_g = rhs_g - self._gmg_asm._dirichlet_lift(rho, x0)
+        b = torch.where(lv0.mask, vals_g, rhs_g)
+        # PCG from x0 (the JAX form) starts from r = b - A x0, which the
+        # eliminated operator makes b at free dofs and 0 at fixed ones;
+        # so the correction y = x - x0 is solved from y = 0 on that
+        # residual, to the same stopping norm rtol ||b||.  (K6, the OTF
+        # route's operator, takes no field that is nonzero at a fixed
+        # dof, and the setup matvec is saved.)
+        r0 = torch.where(lv0.mask, 0.0, b)
+        bn, r0n = float(torch.linalg.norm(b)), float(torch.linalg.norm(r0))
         # a bf16 smoother copy makes the V-cycle vary with its input:
         # flexible PCG, as every caller of pcg_gmg on such a hierarchy
-        x, k, rn = multigrid.pcg_gmg(
-            gmg, lv0, b, rtol=rtol, maxiter=maxiter, x0=x0,
+        y, k, rn = multigrid.pcg_gmg(
+            gmg, lv0, r0, rtol=rtol * bn / r0n if r0n > 0 else rtol,
+            maxiter=maxiter,
             flexible=self._gmg_asm.smoother_dtype is not None)
-        _check_converged("gmg-pcg", rn, rtol * float(torch.linalg.norm(b)),
-                         k)
+        x = x0 + y
+        _check_converged("gmg-pcg", rn, rtol * bn, k)
         self.last_solve_stats = {
             "method": "gmg", "iters": int(k), "resnorm": float(rn),
         }

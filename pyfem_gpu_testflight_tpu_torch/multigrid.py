@@ -29,6 +29,10 @@ Port of the 2D and 3D (uniform and on-the-fly element paths) parts of
   the V-cycle is a symmetric preconditioner for CG; the strided-slice
   and convolution forms of the same pair are exported too and can be
   passed to :class:`GMG` as ``restrict_fn`` / ``prolong_fn``;
+* nonzero Dirichlet values are lifted into the rhs through the fine
+  level's un-eliminated operator (:meth:`GMGAssembler._dirichlet_lift`:
+  the route's own assembly with every dof free, then K9 in 2D, K4 in 3D,
+  or K6 from the density on the OTF route);
 * the coarsest level is solved by an explicit dense inverse;
 * coarse operators are rediscretized on coarse ProblemCreator grids,
   with nodal densities restricted by injection.
@@ -920,6 +924,24 @@ def _left_face_mask(nx, ny, nz, nd):
     return mask
 
 
+def _stencil_product(coeff, u):
+    """A u on stencil planes of any storage the kernels read: kernel K9
+    in 2D (``coeff`` as ``(nd, nd, 3, 3, ny, nx)`` or ``(nd*nd*9, ny,
+    nx)``; float32 and float64), kernel K4 in matvec mode in 3D (the
+    kept planes or all ``nd*nd*27``; float32, its plain version in
+    float64, where K4 has no form).  ``u`` is (nd, *grid); neighbours
+    past the grid read as 0."""
+    from .ops.stencil_matvec import stencil_matvec_2d
+
+    nd, grid = u.shape[0], tuple(u.shape[1:])
+    if len(grid) == 2:
+        return stencil_matvec_2d(coeff.reshape((nd, nd, 3, 3) + grid), u)
+    k4 = (fused_smooth.fused_sweep_3d_plain if u.dtype == torch.float64
+          else fused_smooth.fused_sweep_3d)
+    return k4(coeff.reshape((-1,) + grid), x=u, mode="matvec",
+              neg_resid=True)
+
+
 class StaticLevel(NamedTuple):
     """Per-level setup data of :class:`GMGAssembler` (2D) and
     :class:`GMGAssembler3D` (3D; shapes gain the z axis)."""
@@ -1181,11 +1203,9 @@ class GMGAssembler:
                                                   self.lam)
         return stiffness.poisson_stiffness(Xe, dN, wq, Cq)
 
-    def _elem_level(self, st, rho_grid):
-        """A level from element matrices (elem_path "cuda" in 2D,
-        "einsum" in 2D and 3D): stencil assembly, Dirichlet elimination,
-        inverse diagonal (0 at fixed dofs, K1's / K3's convention), the
-        planes in the assembler's storage and the optional bf16 copy."""
+    def _elem_planes(self, st, rho_grid):
+        """A level's un-eliminated stencil planes from element matrices
+        (elem_path "cuda": kernel K7; "einsum": the einsum path)."""
         from .ops import element_kernels as ek
 
         Xe, conn, XeT = st.elem
@@ -1197,11 +1217,16 @@ class GMGAssembler:
                                                     self.lam)
             else:
                 KeT = ek.poisson_stiffness_quad4(XeT, cqT)
-            coeff = st.op.assemble_transposed(KeT)
-        else:
-            coeff = st.op.assemble(
-                self._elem_matrices(Xe, conn, rho_grid.reshape(-1)))
-        ce = st.op.bc_eliminate(coeff, st.mask)
+            return st.op.assemble_transposed(KeT)
+        return st.op.assemble(
+            self._elem_matrices(Xe, conn, rho_grid.reshape(-1)))
+
+    def _elem_level(self, st, rho_grid):
+        """A level from element matrices (elem_path "cuda" in 2D,
+        "einsum" in 2D and 3D): stencil assembly, Dirichlet elimination,
+        inverse diagonal (0 at fixed dofs, K1's / K3's convention), the
+        planes in the assembler's storage and the optional bf16 copy."""
+        ce = st.op.bc_eliminate(self._elem_planes(st, rho_grid), st.mask)
         diag = st.op.diagonal(ce)
         invd = st.maskf / torch.where(diag == 0, 1.0, diag)
         ce = ce.reshape(-1, *st.shape)
@@ -1227,14 +1252,43 @@ class GMGAssembler:
             coeff_lp=outs[2] if len(outs) > 2 else None,
         )
 
+    def _rho_grid(self, rho):
+        shape = self.static_levels[0].shape
+        return torch.as_tensor(rho, dtype=self.dtype,
+                               device=self.device).reshape(shape).contiguous()
+
+    def _dirichlet_lift(self, rho, v):
+        """A_raw v: the fine level's un-eliminated operator at nodal
+        density ``rho`` applied to ``v`` (nd, *grid), the product of the
+        nonzero-Dirichlet rhs lift ``b = rhs - A_raw v`` (v: the values
+        at fixed dofs, 0 elsewhere; JAX ``models/base.py:366-376``).
+
+        The level is rebuilt with every dof free, by the route's own
+        means: K1 / K3 (all planes, whatever the route's storage) on the
+        uniform route, the element-matrix planes before elimination on
+        the "cuda" / "einsum" routes; the product is
+        :func:`_stencil_product` (K9 in 2D, K4 in 3D).  On the 3D OTF
+        route K6 applies the operator from the density with an all-free
+        mask, and no planes are made."""
+        st = self.static_levels[0]
+        rho_grid = self._rho_grid(rho)
+        free = torch.ones_like(st.maskf)
+        if st.otf is not None:
+            return otf3d.otf_apply_3d(rho_grid, free, *st.otf, None, v,
+                                      niter=0, want_resid=True,
+                                      neg_resid=True, p=self.p)
+        if st.elem is not None:
+            coeff = self._elem_planes(st, rho_grid)
+        else:
+            coeff = self._assemble_fn(rho_grid, free, st.W, self.N,
+                                      nd=self.nd, p=self.p, sym=False)[0]
+        return _stencil_product(coeff, v)
+
     def assemble(self, rho):
         """Fine nodal rho -> (gmg, fine_level), every level through the
         assembly kernel (K1 in 2D, K3 in 3D) or, on a 3D OTF level, as
         the density K6 reads."""
-        shape = self.static_levels[0].shape
-        rho_grid = torch.as_tensor(rho, dtype=self.dtype,
-                                   device=self.device).reshape(shape)
-        rho_grid = rho_grid.contiguous()
+        rho_grid = self._rho_grid(rho)
         levels = []
         for st in self.static_levels:
             levels.append(self._assemble_level(st, rho_grid))

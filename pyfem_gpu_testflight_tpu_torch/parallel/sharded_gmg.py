@@ -75,7 +75,6 @@ from ..multigrid import (
 )
 from ..ops import fused_smooth
 from ..ops.stencil import Stencil2D, Stencil3D
-from ..ops.stencil_matvec import stencil_matvec_2d
 from ..solvers import cg_loop
 
 __all__ = ["ShardedGMG2D", "ShardedGMG3D", "dryrun",
@@ -113,13 +112,7 @@ def halo_stencil_matvec(coeff, u, mesh, nd, dim):
         coeff = _pad_lead(coeff, coeff.ndim - dim, 1, 1)
     elif rows != nl + 2:
         raise ValueError(f"coefficients have {rows} slabs for {nl} rows")
-    ue = mesh.halo(u, 1, 1)
-    if dim == 2:
-        y = stencil_matvec_2d(coeff, ue)
-    else:
-        k4 = (fused_smooth.fused_sweep_3d if u.dtype == torch.float32
-              else fused_smooth.fused_sweep_3d_plain)
-        y = k4(coeff, x=ue, mode="matvec", neg_resid=True)
+    y = multigrid._stencil_product(coeff, mesh.halo(u, 1, 1))
     return y.narrow(1, 1, nl)
 
 

@@ -11,7 +11,9 @@ Gates:
 * at 33x17 ``LinearElasticity.solve(method="gmg")`` gives the same
   compliance p^T u as the JAX package's ``solve(method="direct")``
   (1e-10 relative);
-* branches of the model not ported yet raise (``pmg`` runs).
+* the model's branches raise where the JAX package refuses (no
+  attached grid) and run where it solves: ``pmg``, ``amg`` and gmg
+  with nonzero Dirichlet values.
 
 The JAX side runs its XLA path (``pallas_smooth=False``) under
 ``jax.jit``; the port runs K1/K2's plain versions (CPU tensors).
@@ -167,7 +169,19 @@ def test_unported_branches_raise():
     assert s.dtype == torch.complex128
     s_real = m.k_dv_sens(rho, phi, psi)
     assert (s.real - s_real).abs().max() <= 1e-12 * s_real.abs().max()
-    m2 = pt.LinearElasticity("quad4", X, conn, fixed, np.ones(len(fixed)),
-                             force, device=DEV).attach_structured_grid(9, 5)
-    with pytest.raises(NotImplementedError):
-        m2.solve(method="gmg")  # nonzero Dirichlet values
+    # nonzero Dirichlet values: gmg lifts the rhs (tests/
+    # test_torch_dirichlet_gmg.py holds every route); u and the lifted
+    # b equal the JAX package's gmg solve's, u the direct solve's
+    vals = np.ones(len(fixed))
+    m2 = pt.LinearElasticity("quad4", X, conn, fixed, vals, force,
+                             device=DEV).attach_structured_grid(9, 5)
+    u2, b2 = m2._solve_system(None, m2.compute_rhs(), "gmg", rtol=1e-12)
+    jm2 = fem.LinearElasticity("quad4", X, conn, fixed, vals, force)
+    ju, jb = jm2.attach_structured_grid(9, 5)._solve_gmg(
+        1.0, jm2.compute_rhs(), rtol=1e-12)
+    u2d = m2.solve(method="direct")
+    assert np.abs(b2.numpy() - np.asarray(jb)).max() <= 1e-12 * np.abs(
+        np.asarray(jb)).max()
+    for ref in (np.asarray(ju), u2d.numpy()):
+        np.testing.assert_allclose(u2.numpy(), ref, rtol=1e-7, atol=1e-10)
+    assert (u2[fixed] == torch.as_tensor(vals)).all()

@@ -31,6 +31,9 @@ for all the gates below (JAX tests/test_sharded_gmg.py):
   plain versions here;
 * nonzero Dirichlet values through ``solve(method="sharded_gmg")`` (2D
   Poisson, rhs lift) and the 3D attach, against the JAX direct solves;
+* Chebyshev-node smoothing factors (``omega="cheby"``, 33x17, float64,
+  JAX tests/test_cheby_smooth.py:141): the iterations of the port's
+  single-device ``pcg_gmg`` and its solution within 1e-11;
 * per-rank against global hierarchy assembly (K1 / K3 plain here), 2D
   and 3D, float64: the same iteration count and solutions to roundoff.
 """
@@ -118,6 +121,16 @@ def refs():
     out["3d"] = np.asarray(m3.solve(method="direct", rho=rho3))
     ma, _ = _jax_problem((9, 9, 9), 0.0)
     out["attach3d"] = np.asarray(ma.solve(method="direct"))
+    # the port's single-device Chebyshev-node solve (33x17, p = 0)
+    pc, Xc, _ = torch_dist.elasticity((33, 17), p=0.0)
+    casm = tmg.GMGAssembler(33, 17, *torch_dist.lengths(Xc), "elasticity",
+                            dtype=torch.float64, device="cpu",
+                            omega="cheby")
+    gmg, lv0 = casm.assemble(torch.ones(pc.nnodes, dtype=torch.float64))
+    x, k, _ = tmg.pcg_gmg(gmg, lv0, torch.where(
+        lv0.mask, 0.0, torch_dist.planes(pc, (33, 17))), rtol=1e-8,
+        maxiter=60)
+    out["cheby"] = (x.numpy(), k)
     # the port's single-device 3D solves (float64 and float32)
     pm, X3, _ = torch_dist.elasticity((9, 9, 9))
     b3 = torch_dist.planes(pm, (9, 9, 9))
@@ -202,6 +215,16 @@ def test_nonzero_dirichlet_and_3d_attach(ranks, refs):
     np.testing.assert_allclose(ranks["attach3d"], refs["attach3d"],
                                rtol=1e-6, atol=1e-9)
     assert ranks["attach3d_stats"]["method"] == "sharded_gmg"
+
+
+def test_cheby_sharded_matches_single_device(ranks, refs):
+    """JAX tests/test_cheby_smooth.py:141: under ``omega="cheby"`` the
+    sharded solve takes the single-device solve's iterations, and its
+    solution differs by the order of the reductions only (f64)."""
+    x, k = ranks["cheby"]
+    xr, kr = refs["cheby"]
+    assert k == kr, (k, kr)
+    assert _rel(x.reshape(xr.shape), xr) < 1e-11
 
 
 def test_local_assembly_matches_global_assembly(ranks):

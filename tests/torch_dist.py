@@ -188,6 +188,13 @@ def sharded_gmg_ranks(rank, world):
     x3f, k3f, _ = s3f.solve(rho3.float(), planes(m3, (9, 9, 9)).float(),
                             rtol=1e-6, maxiter=200)
     out["3d_f32"] = (_np(x3f), k3f)
+    # Chebyshev-node smoothing factors (JAX tests/test_cheby_smooth.py:141)
+    mc, Xc, _ = elasticity((33, 17), p=0.0)
+    sc = ShardedGMG2D(mesh, 33, 17, *lengths(Xc), "elasticity", dtype=F64,
+                      omega="cheby")
+    xc, kc, _ = sc.solve(torch.ones(mc.nnodes, dtype=F64),
+                         planes(mc, (33, 17)), rtol=1e-8, maxiter=60)
+    out["cheby"] = (_np(xc), kc)
     # nonzero Dirichlet values (2D Poisson) and the 3D attach
     vals = 0.3 + 0.01 * np.arange(len(fixed))
     mv = pt.LinearPoisson("quad4", X, conn, fixed, vals, device="cpu",
